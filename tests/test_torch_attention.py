@@ -1,0 +1,107 @@
+"""Port attention ops vs the JAX package: the plain versions of the flash and
+fused cross-attention kernels against the Pallas kernels in interpret mode,
+and dot_product_attention with a causal mask. float32; tolerances below."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from adaprompt_tpu.ops import attention as jattn
+from adaprompt_tpu_torch.ops import attention as tattn
+from torch_port_helpers import assert_close, t
+
+FLASH_ATOL = 2e-5    # fp32 online softmax (Pallas) vs a one-pass softmax
+
+
+def _qkv(rng, b, s, h, d):
+    return [rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("d,s", [(40, 256), (80, 128)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_forward_matches_pallas(d, s, with_bias):
+    rng = np.random.default_rng(d + s + with_bias)
+    b, h = 2, 2
+    q, k, v = _qkv(rng, b, s, h, d)
+    bias = None
+    if with_bias:
+        keep = rng.random((b, s)) < 0.7
+        bias = ((keep.astype(np.float32) - 1.0) * -jattn.NEG_BIG).astype(np.float32)
+    scale = d ** -0.5
+    out_j, lse_j = jattn._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         None if bias is None else jnp.asarray(bias),
+                                         scale, interpret=True)
+    out_t, lse_t = tattn.flash_attention_fwd(t(q), t(k), t(v),
+                                             None if bias is None else t(bias), scale)
+    assert out_t.shape == (b, s, h, d) and lse_t.shape == (b * h, s, 1)
+    assert_close(out_t, out_j, atol=FLASH_ATOL)
+    assert_close(lse_t, lse_j, atol=FLASH_ATOL)
+
+
+def test_flash_attention_matches_public_jax_op():
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 1, 256, 2, 40)
+    out_j = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                                  40 ** -0.5, True)
+    assert_close(tattn.flash_attention_fwd(t(q), t(k), t(v), None, 40 ** -0.5)[0], out_j,
+                 atol=FLASH_ATOL)
+
+
+@pytest.mark.parametrize("c,heads,n", [(64, 4, 128), (80, 2, 64)])
+def test_fused_cross_matches_pallas(c, heads, n):
+    rng = np.random.default_rng(c + n)
+    b, s = 2, 77
+    hd = c // heads
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    wq = (rng.uniform(-1, 1, (c, c)) / np.sqrt(c)).astype(np.float32)     # JAX [in, out]
+    wo = (rng.uniform(-1, 1, (c, c)) / np.sqrt(c)).astype(np.float32)
+    bo = rng.uniform(-0.1, 0.1, (c,)).astype(np.float32)
+    k = rng.standard_normal((b, s, heads, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, heads, hd)).astype(np.float32)
+    scale = hd ** -0.5
+    out_j = jattn.fused_cross_attention(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(k),
+                                        jnp.asarray(v), jnp.asarray(wo), jnp.asarray(bo),
+                                        scale, heads, interpret=True)
+    out_t = tattn.fused_cross_attention(t(x), t(wq.T), t(k), t(v), t(wo.T), t(bo),
+                                        scale, heads)
+    assert_close(out_t, out_j, atol=2e-5)   # fp32; different summation order
+
+
+@pytest.mark.parametrize("with_key_bias", [False, True])
+def test_dot_product_attention_causal_matches_jax(with_key_bias):
+    rng = np.random.default_rng(3)
+    b, s, h, d = 2, 77, 4, 16
+    q, k, v = _qkv(rng, b, s, h, d)
+    kb = rng.uniform(-1, 0, (b, s)).astype(np.float32) if with_key_bias else None
+    out_j = jattn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        mask=jattn.causal_mask(s),
+                                        key_bias=None if kb is None else jnp.asarray(kb))
+    out_t = tattn.dot_product_attention(t(q), t(k), t(v), mask=tattn.causal_mask(s),
+                                        key_bias=None if kb is None else t(kb))
+    assert_close(out_t, out_j, atol=1e-5)
+    np.testing.assert_array_equal(tattn.causal_mask(5).numpy(), np.asarray(jattn.causal_mask(5)))
+
+
+@pytest.mark.parametrize("sq,sk,masked,flash", [(512, 256, False, True),
+                                                 (511, 256, False, False),
+                                                 (512, 255, False, False),
+                                                 (512, 512, True, False)])
+def test_dispatch_rule_matches_jax(monkeypatch, sq, sk, masked, flash):
+    """The flash wrapper is taken exactly where the JAX rule takes its
+    kernel (Sq >= 512, Sk >= 256, no full mask), and both agree."""
+    rng = np.random.default_rng(sq + sk)
+    q = rng.standard_normal((1, sq, 1, 8)).astype(np.float32)
+    k, v = (rng.standard_normal((1, sk, 1, 8)).astype(np.float32) for _ in range(2))
+    kb = np.where(rng.random((1, sk)) < 0.5, 0.0, tattn.NEG_BIG).astype(np.float32)
+    mask = np.zeros((1, 1, sq, sk), np.float32) if masked else None
+    calls = []
+    real = tattn.flash_attention_fwd
+    monkeypatch.setattr(tattn, "flash_attention_fwd",
+                        lambda *a: calls.append(1) or real(*a))
+    out_j = jattn._attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 None if mask is None else jnp.asarray(mask),
+                                 jnp.asarray(kb), 8 ** -0.5)
+    out_t = tattn.dot_product_attention(t(q), t(k), t(v), key_bias=t(kb),
+                                        mask=None if mask is None else t(mask))
+    assert bool(calls) == flash
+    assert_close(out_t, out_j, atol=1e-5)
