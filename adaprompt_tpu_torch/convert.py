@@ -13,13 +13,14 @@ import numpy as np
 import torch
 
 
-def _flatten(tree, prefix=""):
+def flatten(tree, prefix=""):
+    """(dotted path, numpy array) for every leaf of a nested dict/list tree."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}{k}.")
+            yield from flatten(v, f"{prefix}{k}.")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}.")
+            yield from flatten(v, f"{prefix}{i}.")
     else:
         yield prefix[:-1], np.asarray(tree)
 
@@ -29,7 +30,7 @@ def from_jax_params(np_tree) -> dict[str, torch.Tensor]:
     dict for the port's module of the same model (load with
     `module.load_state_dict(..., strict=True)`)."""
     state = {}
-    for path, arr in _flatten(np_tree):
+    for path, arr in flatten(np_tree):
         head, _, leaf = path.rpartition(".")
         if leaf == "kernel" and arr.ndim == 2:
             arr = arr.T

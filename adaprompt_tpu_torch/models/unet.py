@@ -1,6 +1,9 @@
-"""SD-1.5 UNet for inference, NHWC, with per-layer cross-attention contexts.
+"""SD-1.5 UNet, NHWC, with per-layer cross-attention contexts.
 
-Port of `adaprompt_tpu/models/unet.py` (forward for sampling). Structure:
+Port of `adaprompt_tpu/models/unet.py`: the forward of sampling and of
+training, where the weights are frozen and gradients flow to the context
+(and, through `img_mask`, the self-attention key bias masks dropped pixels).
+Structure:
 model_channels 320, channel_mult (1,2,4,4), 2 ResBlocks a level, spatial
 transformers at downsample factors {1,2,4} and in the middle block, 8 heads,
 context_dim 768. 25 addressable layers (input 0-11, middle 12, output
@@ -17,6 +20,14 @@ Kernel dispatch is the JAX package's:
     `precompute_cross_kv` and there are >= 512 query tokens;
   * the feed-forward takes the fused GEGLU kernel when `fused_eligible`.
 
+Gradient rematerialization (`use_checkpoint`, on by default as in the JAX
+package) checkpoints each block with `torch.utils.checkpoint` whenever
+autograd records: the backward recomputes the whole block's forward. The
+JAX package's default policy (`dots_saveable`) keeps the matmul outputs
+instead; both give the same numbers. Full-block recompute is the simpler of
+the two in PyTorch (no per-op save policy over the kernels' ctypes calls)
+and holds the least memory; it costs one more forward of each block.
+
 Not in this slice (they raise NotImplementedError): activation capture,
 conv-attention, DeepCache (`cache_depth`), ToMe, int8 and the fused
 GroupNorm-SiLU-conv.
@@ -29,6 +40,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
@@ -49,6 +61,7 @@ class UNetConfig:
     attention_ds: tuple = (1, 2, 4)  # downsample factors with cross-attention
     num_heads: int = 8
     context_dim: int = 768
+    use_checkpoint: bool = True
     # options of the JAX package that this slice does not port yet
     fused_conv: bool = False
     quant: str | None = None
@@ -339,23 +352,35 @@ class UNet(nn.Module):
                 h = bp["upsample"](h)
             return h
 
+        n_inp = len(self.input_blocks)
+
+        def run_middle(mb, h, layer_idx):
+            cv, ck = ctx_for(layer_idx)
+            kv = cross_kv.get(layer_idx) if cross_kv is not None else None
+            h = _resblock(mb["res1"], h, emb)
+            h = _spatial_transformer(mb["attn"], h, cv, ck, cfg.num_heads, img_mask=img_mask,
+                                     kv=kv)
+            return _resblock(mb["res2"], h, emb)
+
+        remat = cfg.use_checkpoint and torch.is_grad_enabled()
+
+        def call(fn, bp, h, layer_idx):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(fn, bp, h, layer_idx,
+                                                         use_reentrant=False)
+            return fn(bp, h, layer_idx)
+
         hs = []
         h = x
         for i, bp in enumerate(self.input_blocks):
-            h = run_block(bp, h, i)
+            h = call(run_block, bp, h, i)
             hs.append(h)
 
-        n_inp = len(self.input_blocks)
-        mb = self.middle_block
-        cv, ck = ctx_for(n_inp)
-        kv = cross_kv.get(n_inp) if cross_kv is not None else None
-        h = _resblock(mb["res1"], h, emb)
-        h = _spatial_transformer(mb["attn"], h, cv, ck, cfg.num_heads, img_mask=img_mask, kv=kv)
-        h = _resblock(mb["res2"], h, emb)
+        h = call(run_middle, self.middle_block, h, n_inp)
 
         for i, bp in enumerate(self.output_blocks):
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = run_block(bp, h, n_inp + 1 + i)
+            h = call(run_block, bp, h, n_inp + 1 + i)
 
         h = group_norm(h, self.out["norm"].weight, self.out["norm"].bias, eps=1e-5,
                        activation="silu")

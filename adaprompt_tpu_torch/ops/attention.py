@@ -3,20 +3,25 @@
 Port of `adaprompt_tpu/ops/attention.py`. `dot_product_attention` is the
 shared attention primitive; q/k/v are [B, S, H, D] as in the JAX package.
 
-Two kernels live here, each beside its plain PyTorch version and with a
+Three kernels live here, each beside its plain PyTorch version and with a
 launch count on its wrapper:
   * `flash_attention_fwd` — flash attention forward with an optional
     additive per-key bias, returning the output and the per-row logsumexp
     (CUDA: csrc/flash_attention.cu; replaces `_fwd_kernel`);
+  * `flash_attention_bwd` — its recomputation backward from that logsumexp
+    (CUDA: csrc/flash_attention_bwd.cu; replaces `_dq_kernel` and
+    `_dkv_kernel`);
   * `fused_cross_attention` — q-projection, attention over a small
-    precomputed K/V and out-projection in one kernel (CUDA:
+    precomputed K/V and out-projection in one kernel, forward only (CUDA:
     csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`).
-A wrapper takes its plain version for CPU tensors only. For CUDA tensors it
-launches the kernel or raises; the kernels take bfloat16.
+`flash_attention` ties the first two together as an autograd Function, as
+the JAX package's `custom_vjp` does. A wrapper takes its plain version for
+CPU tensors only. For CUDA tensors it launches the kernel or raises; the
+kernels take bfloat16.
 
 Masking: `mask` is an additive mask broadcastable to [B, H, Sq, Sk] (plain
 path only); `key_bias` is an additive [B, Sk] bias (NEG_BIG on dropped keys),
-which both paths take.
+which both paths take and which gets no gradient.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ def dot_product_attention(q, k, v, mask=None, key_bias=None, scale=None,
         if mask is not None:
             raise ValueError("use_flash=True cannot honor a full additive "
                              "mask; pass key_bias instead")
-        return flash_attention_fwd(q, k, v, key_bias, scale)[0]
+        return flash_attention(q, k, v, key_bias, scale)
     return attention_reference(q, k, v, key_bias, scale, mask)[0]
 
 
@@ -117,7 +122,95 @@ flash_attention_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel 2: fused cross-attention over a precomputed small K/V
+# Kernel 2: flash attention backward, and the autograd Function over both
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale):
+    """Plain version of the backward kernel: the same formulas in fp32 from
+    the same saved tensors (p recomputed from lse).
+    Returns (dq, dk, dv), each in q's dtype."""
+    b, sq, h, _ = q.shape
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    delta = (gf * of).sum(-1).permute(0, 2, 1)[..., None]          # [B, H, Sq, 1]
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, key_bias, out, lse, dout, scale):
+    """Flash attention backward: q/k/v/out/dout [B, S, H, D], lse [B*H, Sq, 1]
+    float32 from `flash_attention_fwd`. Returns (dq, dk, dv); the key bias
+    gets no gradient. delta = rowsum(dout * out) is a small torch reduction,
+    as the JAX package leaves it to XLA."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if (k.shape != (b, sk, h, d) or v.shape != k.shape or out.shape != q.shape
+            or dout.shape != q.shape or lse.shape != (b * h, sq, 1)):
+        raise ValueError(f"flash backward kernel: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} out{tuple(out.shape)} dout{tuple(dout.shape)} "
+                         f"lse{tuple(lse.shape)}")
+    if d % 8 or d > 128:
+        raise ValueError(f"flash backward kernel: head dim {d} must be a multiple of 8, <= 128")
+    q, k, v, dout = cuda_build.kernel_operands("flash backward kernel", q, k, v, dout)
+    bias = None
+    if key_bias is not None:
+        bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
+        if bias.shape != (b, sk):
+            raise ValueError(f"flash backward kernel: key_bias {tuple(bias.shape)} != {(b, sk)}")
+    lse = lse.to(torch.float32).contiguous()
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()   # [B, H, Sq]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = cuda_build.function("flash_attention_bwd", "flash_attention_bwd",
+                             [_P] * 10 + [_I] * 5 + [_F, _P])
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        bias.data_ptr() if bias is not None else None,
+                        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
+                        float(scale), torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward runs `flash_attention_fwd` and saves out and lse; backward
+    runs `flash_attention_bwd` (the JAX package's custom_vjp pair)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, scale):
+        out, lse = flash_attention_fwd(q, k, v, key_bias, scale)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_bias, out, lse,
+                                         dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, key_bias, scale):
+    """Flash attention with an optional [B, Sk] key bias, differentiable in
+    q, k and v. Returns [B, Sq, H, D]."""
+    return _FlashAttention.apply(q, k, v, key_bias, scale)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: fused cross-attention over a precomputed small K/V
 # ---------------------------------------------------------------------------
 
 def fused_cross_attention_reference(x, wq, k, v, wo, bo, scale, num_heads):
@@ -139,6 +232,9 @@ def fused_cross_attention(x, wq, k, v, wo, bo, scale, num_heads):
     output after the out-projection (add the residual outside)."""
     if x.device.type == "cpu":
         return fused_cross_attention_reference(x, wq, k, v, wo, bo, scale, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wq, k, v, wo, bo)):
+        raise RuntimeError("fused cross kernel: forward only (as the JAX package's); "
+                           "training never hoists the cross-attention K/V")
     b, n, c = x.shape
     s = k.shape[1]
     hd = c // num_heads

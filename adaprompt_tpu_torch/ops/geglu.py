@@ -1,10 +1,12 @@
 """Fused GEGLU feed-forward: proj -> split -> a * gelu(gate) -> out.
 
-Port of `adaprompt_tpu/ops/geglu.py`. `geglu` is the kernel wrapper (CUDA:
-csrc/geglu.cu; replaces `_geglu_kernel`), with a launch count; it takes its
-plain version, `geglu_reference`, for CPU tensors only, and for CUDA tensors
-launches the kernel (bfloat16) or raises. Forward only: the recompute
-backward of the JAX package comes with the training slice.
+Port of `adaprompt_tpu/ops/geglu.py`. `geglu_fwd` is the kernel wrapper
+(CUDA: csrc/geglu.cu; replaces `_geglu_kernel`), with a launch count; it
+takes its plain version, `geglu_reference`, for CPU tensors only, and for
+CUDA tensors launches the kernel (bfloat16) or raises. `geglu` is the
+differentiable op: an autograd Function whose forward is `geglu_fwd` and
+whose backward recomputes through `geglu_reference` under autograd, as the
+JAX package's `_geglu_bwd` does (its backward is XLA, not a kernel).
 
 Weights are in PyTorch's layout: w1 [2F, C], w2 [C, F].
 """
@@ -40,8 +42,8 @@ def fused_eligible(x, w1) -> bool:
     return weights_bytes <= 10_000_000 and m % 8 == 0 and f2 % 256 == 0
 
 
-def geglu(x, w1, b1, w2, b2):
-    """Fused GEGLU: x [..., C]; w1 [2F, C]; b1 [2F]; w2 [C, F]; b2 [C]."""
+def geglu_fwd(x, w1, b1, w2, b2):
+    """Fused GEGLU forward: x [..., C]; w1 [2F, C]; b1 [2F]; w2 [C, F]; b2 [C]."""
     if x.device.type == "cpu":
         return geglu_reference(x, w1, b1, w2, b2)
     shape = x.shape
@@ -65,8 +67,31 @@ def geglu(x, w1, b1, w2, b2):
                         b2.data_ptr(), out.data_ptr(), m, c, f,
                         torch.cuda.current_stream(x.device).cuda_stream),
                      "geglu_fwd")
-    geglu.launches += 1
+    geglu_fwd.launches += 1
     return out.reshape(shape)
 
 
-geglu.launches = 0
+geglu_fwd.launches = 0
+
+
+class _Geglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return geglu_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = geglu_reference(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def geglu(x, w1, b1, w2, b2):
+    """Fused GEGLU, differentiable in every input: x [..., C]; w1 [2F, C];
+    b1 [2F]; w2 [C, F]; b2 [C]."""
+    return _Geglu.apply(x, w1, b1, w2, b2)

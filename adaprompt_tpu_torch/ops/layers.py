@@ -199,3 +199,15 @@ def reset_parameters(module: nn.Module, gen: torch.Generator) -> nn.Module:
             if hasattr(m, "reset"):
                 m.reset(gen)
     return module
+
+
+def randomize_zero_init(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Give the zero-initialized layers (LDM's zero_module: the UNet's
+    ResBlock second convs, proj_out and out.conv) random weights too, so
+    that with random weights every layer's output reaches the model's output."""
+    with torch.no_grad():
+        for m in module.modules():
+            if getattr(m, "zero_init", False):
+                m.zero_init = False
+                m.reset(gen)
+    return module

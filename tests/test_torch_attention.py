@@ -1,9 +1,12 @@
-"""Port attention ops vs the JAX package: the plain versions of the flash and
-fused cross-attention kernels against the Pallas kernels in interpret mode,
-and dot_product_attention with a causal mask. float32; tolerances below."""
+"""Port attention ops vs the JAX package: the plain versions of the flash
+forward, flash backward and fused cross-attention kernels against the
+Pallas kernels in interpret mode, autograd through the port's
+flash_attention against jax.grad, and dot_product_attention with a causal
+mask. float32; tolerances below."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from adaprompt_tpu.ops import attention as jattn
@@ -45,6 +48,53 @@ def test_flash_attention_matches_public_jax_op():
                                   40 ** -0.5, True)
     assert_close(tattn.flash_attention_fwd(t(q), t(k), t(v), None, 40 ** -0.5)[0], out_j,
                  atol=FLASH_ATOL)
+
+
+def _bias(rng, b, s):
+    keep = rng.random((b, s)) < 0.7
+    return ((keep.astype(np.float32) - 1.0) * -jattn.NEG_BIG).astype(np.float32)
+
+
+@pytest.mark.parametrize("d,s", [(40, 256), (80, 128)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_backward_matches_pallas(d, s, with_bias):
+    """flash_attention_bwd's plain version against _flash_bwd_impl in
+    interpret mode, from the same saved out and lse."""
+    rng = np.random.default_rng(d + s + 2 * with_bias)
+    b, h = 2, 2
+    q, k, v = _qkv(rng, b, s, h, d)
+    g = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    bias = _bias(rng, b, s) if with_bias else None
+    scale = d ** -0.5
+    jb = None if bias is None else jnp.asarray(bias)
+    out, lse = jattn._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb, scale,
+                                     interpret=True)
+    grads_j = jattn._flash_bwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb, out, lse,
+                                    jnp.asarray(g), scale, interpret=True)
+    grads_t = tattn.flash_attention_bwd(t(q), t(k), t(v), None if bias is None else t(bias),
+                                        t(out), t(lse), t(g), scale)
+    for a, ref in zip(grads_t, grads_j[:3]):
+        assert a.shape == (b, s, h, d)
+        assert_close(a, ref, atol=FLASH_ATOL)      # fp32; blockwise vs one-pass sums
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_attention_autograd_matches_jax_grad(with_bias):
+    """The port's autograd Function (forward + backward wrappers) against
+    jax.grad through the JAX package's custom_vjp (Pallas, interpret mode)."""
+    rng = np.random.default_rng(11 + with_bias)
+    b, s, h, d = 1, 256, 2, 40
+    q, k, v = _qkv(rng, b, s, h, d)
+    w = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    bias = _bias(rng, b, s) if with_bias else None
+    jb = None if bias is None else jnp.asarray(bias)
+    loss = lambda q_, k_, v_: jnp.sum(jattn.flash_attention(q_, k_, v_, jb, d ** -0.5, True) * w)
+    grads_j = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (t(a).requires_grad_(True) for a in (q, k, v))
+    out = tattn.flash_attention(qt, kt, vt, None if bias is None else t(bias), d ** -0.5)
+    (out * t(w)).sum().backward()
+    for a, ref in zip((qt.grad, kt.grad, vt.grad), grads_j):
+        assert_close(a, ref, atol=FLASH_ATOL)
 
 
 @pytest.mark.parametrize("c,heads,n", [(64, 4, 128), (80, 2, 64)])
@@ -95,8 +145,8 @@ def test_dispatch_rule_matches_jax(monkeypatch, sq, sk, masked, flash):
     kb = np.where(rng.random((1, sk)) < 0.5, 0.0, tattn.NEG_BIG).astype(np.float32)
     mask = np.zeros((1, 1, sq, sk), np.float32) if masked else None
     calls = []
-    real = tattn.flash_attention_fwd
-    monkeypatch.setattr(tattn, "flash_attention_fwd",
+    real = tattn.flash_attention
+    monkeypatch.setattr(tattn, "flash_attention",
                         lambda *a: calls.append(1) or real(*a))
     out_j = jattn._attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                  None if mask is None else jnp.asarray(mask),

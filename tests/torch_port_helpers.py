@@ -7,9 +7,17 @@ import jax
 import numpy as np
 import torch
 
+from adaprompt_tpu.adaface import subj_basis_generator as jsbg
 from adaprompt_tpu.models import clip_text as jclip, unet as junet, vae as jvae
+from adaprompt_tpu.train import steps as jsteps
 from adaprompt_tpu_torch import convert
+from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
+from adaprompt_tpu_torch.adaface.checkpoint import module_tree
 from adaprompt_tpu_torch.models import clip_text as tclip, unet as tunet, vae as tvae
+from adaprompt_tpu_torch.ops.layers import reset_parameters
+from adaprompt_tpu_torch.train import steps as tsteps
+from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer as TorchTokenizer
+from adaface_fixtures import build_word_vocab
 
 JAX_UNET = junet.UNetConfig(model_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=2,
                             attention_ds=(1, 2, 4), num_heads=4, context_dim=64,
@@ -58,6 +66,12 @@ def tiny_models(seed=0):
     return (ju, jv, jt), (tu, tv, tt)
 
 
+def named(tree):
+    """A JAX tree's leaves as numpy arrays under the port's parameter names."""
+    return {k: v.numpy() for k, v in convert.from_jax_params(
+        jax.tree.map(np.asarray, tree)).items()}
+
+
 def t(a):
     """numpy / JAX array -> float32 CPU tensor."""
     return torch.from_numpy(np.array(a, np.float32))
@@ -66,3 +80,48 @@ def t(a):
 def assert_close(actual, expected, atol, rtol=0.0):
     a = actual.detach().cpu().numpy() if isinstance(actual, torch.Tensor) else np.asarray(actual)
     np.testing.assert_allclose(a, np.asarray(expected), atol=atol, rtol=rtol)
+
+
+# -- Stage-1 training ----------------------------------------------------------
+
+HIDDEN = 576       # the 512-d face vector is zero-padded into the text width
+VOCAB = 1024       # the word vocabulary of adaface_fixtures has ~600 tokens
+
+
+def _train_cfgs(eos):
+    jt = jclip.CLIPTextConfig(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=2 * HIDDEN,
+                              num_layers=2, num_heads=8, eos_token_id=eos)
+    tt = tclip.CLIPTextConfig(vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=2 * HIDDEN,
+                              num_layers=2, num_heads=8, eos_token_id=eos)
+    unet = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, attention_ds=(1, 2),
+                num_heads=4, context_dim=HIDDEN)
+    return jt, tt, junet.UNetConfig(**unet, use_checkpoint=False), tunet.UNetConfig(**unet)
+
+
+def train_env(d):
+    """Tiny Stage-1 models in both packages, holding the same weights:
+    the frozen UNets and text encoders, the SubjBasisGenerator tree, and
+    one word vocabulary (written into directory `d`) for both tokenizers."""
+    jtok = build_word_vocab(d)
+    ttok = TorchTokenizer.from_files(str(d / "vocab.json"), str(d / "merges.txt"))
+    jt, tt, ju, tu = _train_cfgs(jtok.eos_id)
+    # random weights made by the port (jax.random would compile an init per
+    # leaf shape), in the JAX layout, with every zero leaf re-randomized
+    gen = torch.Generator().manual_seed(0)
+    tree = lambda module, seed: jax.tree.map(jax.numpy.asarray, randomized(
+        module_tree(reset_parameters(module, gen)), seed))
+    jscfg = jsbg.SubjBasisConfig(output_dim=HIDDEN, text_cfg=jt)
+    tscfg = tsbg.SubjBasisConfig(output_dim=HIDDEN, text_cfg=tt)
+    jp = {"unet": tree(tunet.UNet(tu), 1), "text": tree(tclip.CLIPTextModel(tt), 2),
+          "arc2face_text": tree(tclip.CLIPTextModel(tt), 3),
+          "teacher_unet": tree(tunet.UNet(tu), 4)}
+    jsp = tree(tsbg.SubjBasisGenerator(tscfg), 5)
+    jfrozen = jsteps.FrozenSD(unet=jp["unet"], text=jp["text"], arc2face_text=jp["arc2face_text"],
+                              teacher_unet=jp["teacher_unet"], unet_cfg=ju, text_cfg=jt,
+                              arc2face_text_cfg=jt)
+    tfrozen = tsteps.FrozenSD(port_module(tunet.UNet(tu), jp["unet"]),
+                              port_module(tclip.CLIPTextModel(tt), jp["text"]),
+                              port_module(tclip.CLIPTextModel(tt), jp["arc2face_text"]),
+                              port_module(tunet.UNet(tu), jp["teacher_unet"]))
+    return dict(jtok=jtok, ttok=ttok, jfrozen=jfrozen, tfrozen=tfrozen, jscfg=jscfg,
+                tscfg=tscfg, jsp=jsp, ju=ju, jt=jt)
