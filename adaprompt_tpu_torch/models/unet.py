@@ -17,8 +17,24 @@ Kernel dispatch is the JAX package's:
   * self-attention goes through `dot_product_attention` (the flash kernel
     at >= 512 query and >= 256 key tokens);
   * cross-attention takes the fused kernel when its K/V were hoisted by
-    `precompute_cross_kv` and there are >= 512 query tokens;
-  * the feed-forward takes the fused GEGLU kernel when `fused_eligible`.
+    `precompute_cross_kv` and there are >= 512 query tokens (under
+    `quant="int8"` its w8a8 variant);
+  * the feed-forward takes the fused GEGLU kernel when `fused_eligible`;
+    under `quant="int8"` the w8a8 kernel when `fused_int8_eligible` (C=320
+    and C=640), and otherwise (C=1280) the unfused bf16 linears.
+Every other projection stays in the compute dtype under `quant="int8"`,
+as the JAX package's `_qlinear` keeps it. The int8 weights come from
+`quantize_int8`, made once per sampler loop and passed as `int8_weights`.
+
+The serving accelerations of the JAX package (all sampler-only):
+  * ToMe (`tome_ratio`, ops/tome.py) merges tokens in the transformer
+    blocks of >= `tome_min_tokens` tokens, for self-attention and the
+    feed-forward by default, never for cross-attention; it is off for the
+    whole forward under `img_mask`;
+  * DeepCache (`cache_depth`, `cache`): a full pass also returns the hidden
+    state entering output block n_out - depth (before its skip concat); a
+    shallow pass given that cache runs only input blocks [0:depth] and
+    output blocks [n_out-depth:].
 
 Gradient rematerialization (`use_checkpoint`, on by default as in the JAX
 package) checkpoints each block with `torch.utils.checkpoint` whenever
@@ -28,9 +44,8 @@ instead; both give the same numbers. Full-block recompute is the simpler of
 the two in PyTorch (no per-op save policy over the kernels' ctypes calls)
 and holds the least memory; it costs one more forward of each block.
 
-Not in this slice (they raise NotImplementedError): activation capture,
-conv-attention, DeepCache (`cache_depth`), ToMe, int8 and the fused
-GroupNorm-SiLU-conv.
+Not ported yet (they raise NotImplementedError): activation capture,
+conv-attention and the fused GroupNorm-SiLU-conv.
 """
 
 from __future__ import annotations
@@ -44,9 +59,12 @@ import torch.utils.checkpoint
 from torch import nn
 
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
-from adaprompt_tpu_torch.ops.attention import NEG_BIG, dot_product_attention, fused_cross_attention
-from adaprompt_tpu_torch.ops.geglu import fused_eligible, geglu
+from adaprompt_tpu_torch.ops import tome
+from adaprompt_tpu_torch.ops.attention import (NEG_BIG, dot_product_attention,
+                                               fused_cross_attention, fused_cross_attention_int8)
+from adaprompt_tpu_torch.ops.geglu import fused_eligible, fused_int8_eligible, geglu, geglu_int8
 from adaprompt_tpu_torch.ops.layers import Conv2d, Linear, Norm, gelu, group_norm, layer_norm, silu
+from adaprompt_tpu_torch.ops.quant import quantize_weight
 
 _FUSED_CROSS_MIN_Q = 512
 
@@ -62,10 +80,17 @@ class UNetConfig:
     num_heads: int = 8
     context_dim: int = 768
     use_checkpoint: bool = True
-    # options of the JAX package that this slice does not port yet
-    fused_conv: bool = False
+    # "int8": the w8a8 fused cross-attention and GEGLU kernels (forward only)
     quant: str | None = None
+    # ToMe in the transformer blocks with >= tome_min_tokens tokens: merge
+    # `tome_ratio` of the tokens for self-attention / cross-attention / FF
     tome_ratio: float = 0.0
+    tome_min_tokens: int = 4096
+    tome_attn: bool = True
+    tome_cross: bool = False
+    tome_mlp: bool = False
+    # an option of the JAX package that the port does not have yet
+    fused_conv: bool = False
 
     @property
     def time_embed_dim(self):
@@ -188,14 +213,19 @@ def _resblock(p, x, emb):
     return x + h
 
 
-def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None):
+def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None, qw=None):
     """LDM CrossAttention with separate V/K contexts (self-attention when
     ctx_v is None). self_mask [B, N] (1 = keep) masks self-attention keys;
-    kv: K/V [B, S, H, hd] hoisted by precompute_cross_kv."""
+    kv: K/V [B, S, H, hd] hoisted by precompute_cross_kv; qw: the int8
+    ((wq_q, wq_s), (wo_q, wo_s)) of the quant="int8" path."""
     b, n, c = x.shape
     hd = c // num_heads
     scale = hd ** -0.5
     if kv is not None and n >= _FUSED_CROSS_MIN_Q:
+        if qw is not None:
+            (wq_q, wq_s), (wo_q, wo_s) = qw
+            return fused_cross_attention_int8(x, wq_q, wq_s, kv[0], kv[1], wo_q, wo_s,
+                                              p["to_out"].bias, scale, num_heads)
         return fused_cross_attention(x, p["to_q"].weight, kv[0], kv[1],
                                      p["to_out"].weight, p["to_out"].bias, scale, num_heads)
     if ctx_v is None:
@@ -213,15 +243,24 @@ def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None):
     return p["to_out"](out.reshape(b, n, c))
 
 
-def _geglu_ff(p, x):
+def _geglu_ff(p, x, qw=None):
+    """GEGLU feed-forward; qw: the int8 ((w1_q, w1_s), (w2_q, w2_s)) of the
+    quant="int8" path, where only `fused_int8_eligible` layers go int8."""
     w1, b1 = p["proj"].weight, p["proj"].bias
-    if fused_eligible(x, w1):
+    if qw is not None:
+        if fused_int8_eligible(x, w1):
+            (w1_q, w1_s), (w2_q, w2_s) = qw
+            return geglu_int8(x, w1_q, w1_s, b1, w2_q, w2_s, p["out"].bias)
+    elif fused_eligible(x, w1):
         return geglu(x, w1, b1, p["out"].weight, p["out"].bias)
     a, gate = p["proj"](x).chunk(2, dim=-1)
     return p["out"](a * gelu(gate))
 
 
-def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None):
+def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None, qw=None,
+                         tome_cfg=None):
+    """qw: this block's int8 weights {"cross", "ff"} (quant="int8");
+    tome_cfg: the UNetConfig whose ToMe options apply, when ToMe is on."""
     b, h, w, c = x.shape
     y = group_norm(x, p["norm"].weight, p["norm"].bias, eps=1e-6)
     y = p["proj_in"](y).reshape(b, h * w, c)
@@ -229,11 +268,21 @@ def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None):
     self_mask = None
     if img_mask is not None:
         self_mask = _resize_mask_nearest(img_mask, (h, w)).reshape(b, h * w)
+    ident = (lambda t: t, lambda t: t)
+    (m_a, u_a), (m_c, u_c), (m_f, u_f) = ident, ident, ident
+    if tome_cfg is not None and h * w >= tome_cfg.tome_min_tokens > 0:
+        merge, unmerge, _ = tome.build_merge(y, h, w, tome_cfg.tome_ratio)
+        pick = lambda on: (merge, unmerge) if on else ident
+        (m_a, u_a), (m_c, u_c), (m_f, u_f) = (pick(tome_cfg.tome_attn),
+                                              pick(tome_cfg.tome_cross),
+                                              pick(tome_cfg.tome_mlp))
+    qw = qw or {}
     ln = lambda t, norm: layer_norm(t, bp[norm].weight, bp[norm].bias)
-    y = y + _cross_attention(bp["attn1"], ln(y, "norm1"), None, None, num_heads,
-                             self_mask=self_mask)
-    y = y + _cross_attention(bp["attn2"], ln(y, "norm2"), ctx_v, ctx_k, num_heads, kv=kv)
-    y = y + _geglu_ff(bp["ff"], ln(y, "norm3"))
+    y = y + u_a(_cross_attention(bp["attn1"], m_a(ln(y, "norm1")), None, None, num_heads,
+                                 self_mask=self_mask))
+    y = y + u_c(_cross_attention(bp["attn2"], m_c(ln(y, "norm2")), ctx_v, ctx_k, num_heads,
+                                 kv=kv, qw=qw.get("cross")))
+    y = y + u_f(_geglu_ff(bp["ff"], m_f(ln(y, "norm3")), qw=qw.get("ff")))
     y = p["proj_out"](y.reshape(b, h, w, c))
     return x + y
 
@@ -242,6 +291,13 @@ def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None):
 # Model
 # ---------------------------------------------------------------------------
 
+def _check_options(cfg: UNetConfig):
+    if cfg.fused_conv:
+        raise NotImplementedError("fused_conv is not ported yet")
+    if cfg.quant not in (None, "int8"):
+        raise ValueError(f"unknown quant {cfg.quant!r}")
+
+
 class UNet(nn.Module):
     """Weights mirror the JAX pytree: time_embed{fc1, fc2}, input_blocks[i],
     middle_block{res1, attn, res2}, output_blocks[i], out{norm, conv}."""
@@ -249,8 +305,7 @@ class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig = SD15_UNET_CONFIG, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.fused_conv or cfg.quant is not None or cfg.tome_ratio > 0:
-            raise NotImplementedError("fused_conv, quant and ToMe are not ported yet")
+        _check_options(cfg)
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         inp, mid, outp = build_plan(cfg)
@@ -280,13 +335,25 @@ class UNet(nn.Module):
                                   "conv": Conv2d(cfg.model_channels, cfg.out_channels, 3,
                                                  zero_init=True, **kw)})
 
-    def _attn2(self, layer_idx):
+    def _block(self, layer_idx):
+        """The transformer block (attn1, attn2, ff, norms) of a layer."""
         n_inp = len(self.input_blocks)
         if layer_idx < n_inp:
-            return self.input_blocks[layer_idx]["attn"]["block"]["attn2"]
+            return self.input_blocks[layer_idx]["attn"]["block"]
         if layer_idx == n_inp:
-            return self.middle_block["attn"]["block"]["attn2"]
-        return self.output_blocks[layer_idx - n_inp - 1]["attn"]["block"]["attn2"]
+            return self.middle_block["attn"]["block"]
+        return self.output_blocks[layer_idx - n_inp - 1]["attn"]["block"]
+
+    def quantize_int8(self) -> dict:
+        """The int8 weights of the quant="int8" path, made once per sampler
+        loop: {layer_idx: {"cross": ((wq_q, wq_s), (wo_q, wo_s)),
+        "ff": ((w1_q, w1_s), (w2_q, w2_s))}} (quant.quantize_weight). The
+        C=1280 feed-forward weights are quantized too, though
+        `fused_int8_eligible` never admits them."""
+        q = lambda lin: quantize_weight(lin.weight)
+        return {layer_idx: {"cross": (q(bp["attn2"]["to_q"]), q(bp["attn2"]["to_out"])),
+                            "ff": (q(bp["ff"]["proj"]), q(bp["ff"]["out"]))}
+                for layer_idx, bp in ((li, self._block(li)) for li in self.l2ca)}
 
     def precompute_cross_kv(self, context: torch.Tensor,
                             context_k: torch.Tensor | None = None) -> dict:
@@ -299,7 +366,7 @@ class UNet(nn.Module):
         nh = self.cfg.num_heads
         out = {}
         for layer_idx, ca in self.l2ca.items():
-            p = self._attn2(layer_idx)
+            p = self._block(layer_idx)["attn2"]
             i = min(ca, L - 1)
             cv, ck = context[i], context_k[i]
             b = cv.shape[0]
@@ -314,27 +381,43 @@ class UNet(nn.Module):
                 cross_kv: dict | None = None,
                 capture_ca: bool = False,
                 conv_attn: dict | None = None,
-                cache_depth: int = 0) -> torch.Tensor:
+                cache_depth: int = 0,
+                cache: torch.Tensor | None = None,
+                int8_weights: dict | None = None,
+                cfg: UNetConfig | None = None):
         """Predict epsilon. x [B, H, W, 4] NHWC; timesteps [B]; context
         [L, B, S, D] or [B, S, D]; img_mask [B, H0, W0, 1] restricts
-        self-attention keys. Returns eps [B, H, W, 4]."""
-        if capture_ca or conv_attn is not None or cache_depth:
-            raise NotImplementedError("capture_ca, conv_attn and cache_depth are not ported yet")
-        cfg = self.cfg
+        self-attention keys (and turns ToMe off). `cfg` overrides the
+        model's options (quant, ToMe) for this call; under quant="int8",
+        `int8_weights` from `quantize_int8` (made here when not given).
+
+        Returns eps [B, H, W, 4]; with cache_depth > 0, (eps, deep_cache):
+        the cache a full pass (cache=None) leaves for the shallow passes,
+        or the `cache` a shallow pass was given."""
+        if capture_ca or conv_attn is not None:
+            raise NotImplementedError("capture_ca and conv_attn are not ported yet")
+        cfg = self.cfg if cfg is None else cfg
+        _check_options(cfg)
         context = context if context.ndim == 4 else context[None]
         context_k = context if context_k is None else (
             context_k if context_k.ndim == 4 else context_k[None])
         L = context.shape[0]
+        if cfg.quant == "int8" and int8_weights is None:
+            int8_weights = self.quantize_int8()
+        int8_weights = int8_weights or {}
+        # ToMe is sampler-only: a masked (training) forward turns it off throughout
+        tome_cfg = cfg if cfg.tome_ratio > 0 and img_mask is None else None
 
         t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
         emb = self.time_embed["fc2"](silu(self.time_embed["fc1"](t_emb)))
 
-        def ctx_for(layer_idx):
-            ca = self.l2ca.get(layer_idx)
-            if ca is None:
-                return None, None
+        def transformer(p, h, layer_idx):
+            ca = self.l2ca[layer_idx]
             i = min(ca, L - 1)
-            return context[i], context_k[i]
+            kv = cross_kv.get(layer_idx) if cross_kv is not None else None
+            return _spatial_transformer(p, h, context[i], context_k[i], cfg.num_heads,
+                                        img_mask=img_mask, kv=kv,
+                                        qw=int8_weights.get(layer_idx), tome_cfg=tome_cfg)
 
         def run_block(bp, h, layer_idx):
             if "conv" in bp:
@@ -343,23 +426,15 @@ class UNet(nn.Module):
                 return bp["downsample"](h, stride=2, padding=1)
             h = _resblock(bp["res"], h, emb)
             if "attn" in bp:
-                cv, ck = ctx_for(layer_idx)
-                kv = cross_kv.get(layer_idx) if cross_kv is not None else None
-                h = _spatial_transformer(bp["attn"], h, cv, ck, cfg.num_heads,
-                                         img_mask=img_mask, kv=kv)
+                h = transformer(bp["attn"], h, layer_idx)
             if "upsample" in bp:
                 h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
                 h = bp["upsample"](h)
             return h
 
-        n_inp = len(self.input_blocks)
-
         def run_middle(mb, h, layer_idx):
-            cv, ck = ctx_for(layer_idx)
-            kv = cross_kv.get(layer_idx) if cross_kv is not None else None
             h = _resblock(mb["res1"], h, emb)
-            h = _spatial_transformer(mb["attn"], h, cv, ck, cfg.num_heads, img_mask=img_mask,
-                                     kv=kv)
+            h = transformer(mb["attn"], h, layer_idx)
             return _resblock(mb["res2"], h, emb)
 
         remat = cfg.use_checkpoint and torch.is_grad_enabled()
@@ -370,18 +445,27 @@ class UNet(nn.Module):
                                                          use_reentrant=False)
             return fn(bp, h, layer_idx)
 
+        n_inp, n_out = len(self.input_blocks), len(self.output_blocks)
+        shallow = cache is not None and cache_depth > 0
         hs = []
         h = x
-        for i, bp in enumerate(self.input_blocks):
+        for i, bp in enumerate(self.input_blocks[:cache_depth] if shallow else self.input_blocks):
             h = call(run_block, bp, h, i)
             hs.append(h)
 
-        h = call(run_middle, self.middle_block, h, n_inp)
+        if shallow:
+            h = cache.to(x.dtype)
+        else:
+            h = call(run_middle, self.middle_block, h, n_inp)
 
-        for i, bp in enumerate(self.output_blocks):
+        deep_cache = cache
+        for i in range(n_out - cache_depth if shallow else 0, n_out):
+            if cache_depth > 0 and not shallow and i == n_out - cache_depth:
+                deep_cache = h
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = call(run_block, bp, h, n_inp + 1 + i)
+            h = call(run_block, self.output_blocks[i], h, n_inp + 1 + i)
 
         h = group_norm(h, self.out["norm"].weight, self.out["norm"].bias, eps=1e-5,
                        activation="silu")
-        return self.out["conv"](h)
+        eps = self.out["conv"](h)
+        return (eps, deep_cache) if cache_depth > 0 else eps

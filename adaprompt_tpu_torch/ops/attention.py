@@ -3,7 +3,7 @@
 Port of `adaprompt_tpu/ops/attention.py`. `dot_product_attention` is the
 shared attention primitive; q/k/v are [B, S, H, D] as in the JAX package.
 
-Three kernels live here, each beside its plain PyTorch version and with a
+Four kernels live here, each beside its plain PyTorch version and with a
 launch count on its wrapper:
   * `flash_attention_fwd` — flash attention forward with an optional
     additive per-key bias, returning the output and the per-row logsumexp
@@ -13,11 +13,14 @@ launch count on its wrapper:
     `_dkv_kernel`);
   * `fused_cross_attention` — q-projection, attention over a small
     precomputed K/V and out-projection in one kernel, forward only (CUDA:
-    csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`).
+    csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`);
+  * `fused_cross_attention_int8` — its w8a8 variant for the `quant="int8"`
+    serving path, with int8 q- and out-projections, forward only (CUDA:
+    csrc/fused_cross_attention_int8.cu; replaces `_fused_cross_i8_kernel`).
 `flash_attention` ties the first two together as an autograd Function, as
 the JAX package's `custom_vjp` does. A wrapper takes its plain version for
 CPU tensors only. For CUDA tensors it launches the kernel or raises; the
-kernels take bfloat16.
+kernels take bfloat16 activations (and the int8 kernel int8 weights).
 
 Masking: `mask` is an additive mask broadcastable to [B, H, Sq, Sk] (plain
 path only); `key_bias` is an additive [B, Sk] bias (NEG_BIG on dropped keys),
@@ -32,6 +35,7 @@ import math
 import torch
 
 from adaprompt_tpu_torch.ops import cuda_build
+from adaprompt_tpu_torch.ops.quant import int8_matmul, quantize_acts
 
 _FLASH_MIN_Q = 512
 _FLASH_MIN_K = 256
@@ -259,3 +263,70 @@ def fused_cross_attention(x, wq, k, v, wo, bo, scale, num_heads):
 
 
 fused_cross_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: w8a8 fused cross-attention (the quant="int8" serving path)
+# ---------------------------------------------------------------------------
+
+def fused_cross_attention_int8_reference(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale, num_heads):
+    """Plain version of the w8a8 kernel, rounding where the TPU kernel does:
+    x quantized per row; q = int(x_q . Wq_q^T) * xs * sq cast to x's dtype;
+    per head softmax(q_h . k_h^T * scale) in fp32, probabilities cast to x's
+    dtype, o_h = p . v_h in fp32; the head concat o stays fp32 and is
+    quantized per row across all heads; out = int(o_q . Wo_q^T) * os * so +
+    bo, cast to x's dtype. The integer products are exact
+    (`quant.int8_matmul`)."""
+    b, n, c = x.shape
+    hd = c // num_heads
+    x_q, xs = quantize_acts(x)
+    q = (int8_matmul(x_q, wq_q) * xs * wq_s).to(x.dtype).reshape(b, n, num_heads, hd)
+    s = torch.einsum("bnhd,bshd->bhns", q.float(), k.float()) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(x.dtype)
+    o = torch.einsum("bhns,bshd->bnhd", p.float(), v.float()).reshape(b, n, c)
+    o_q, os_ = quantize_acts(o)
+    return (int8_matmul(o_q, wo_q) * os_ * wo_s + bo.float()).to(x.dtype)
+
+
+def fused_cross_attention_int8(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale, num_heads):
+    """x [B, N, C] (pre-normed); (wq_q, wq_s) and (wo_q, wo_s) the int8
+    [C, C] ([out, in]) weights and float32 [C] scales of
+    `quant.quantize_weight`; k/v [B, S, H, hd] (from precompute_cross_kv);
+    bo [C]. Returns [B, N, C]: the attention output after the
+    out-projection (add the residual outside). Forward only."""
+    if x.device.type == "cpu":
+        return fused_cross_attention_int8_reference(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale,
+                                                    num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wq_s, k, v, wo_s, bo)):
+        raise RuntimeError("int8 fused cross kernel: forward only (as the JAX package's); "
+                           "training never hoists the cross-attention K/V")
+    b, n, c = x.shape
+    s = k.shape[1]
+    hd = c // num_heads
+    if (c % num_heads or wq_q.shape != (c, c) or wo_q.shape != (c, c)
+            or wq_s.shape != (c,) or wo_s.shape != (c,)
+            or k.shape != (b, s, num_heads, hd) or v.shape != k.shape):
+        raise ValueError(f"int8 fused cross kernel: shapes x{tuple(x.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} wq{tuple(wq_q.shape)} with {num_heads} heads")
+    if c % 32 or c > 1280 or hd % 8:
+        raise ValueError(f"int8 fused cross kernel: C={c} must be a multiple of 32, <= 1280, "
+                         f"with a head dim ({hd}) a multiple of 8")
+    x, k, v = cuda_build.kernel_operands("int8 fused cross kernel", x, k, v)
+    wq_q, wo_q = cuda_build.kernel_operands("int8 fused cross kernel", wq_q, wo_q,
+                                            dtype=torch.int8)
+    wq_s, wo_s, bo32 = (t.to(device=x.device, dtype=torch.float32).contiguous()
+                        for t in (wq_s, wo_s, bo))
+    out = torch.empty_like(x)
+    fn = cuda_build.function("fused_cross_attention_int8", "fused_cross_attention_int8_fwd",
+                             [_P] * 9 + [_I] * 5 + [_F, _P])
+    cuda_build.check(fn(x.data_ptr(), wq_q.data_ptr(), wq_s.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), bo32.data_ptr(),
+                        out.data_ptr(), b, n, c, num_heads, s, float(scale),
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "fused_cross_attention_int8_fwd")
+    fused_cross_attention_int8.launches += 1
+    return out
+
+
+fused_cross_attention_int8.launches = 0

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "fused_cross_attention", "geglu")
+SOURCES = ("flash_attention", "flash_attention_bwd", "fused_cross_attention", "geglu",
+           "fused_cross_attention_int8", "geglu_int8")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,13 +101,14 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def kernel_operands(what, *tensors):
-    """The tensors as contiguous bfloat16 CUDA operands of a kernel; raises
-    on another dtype or device, or data not 32-byte aligned (WMMA loads)."""
+def kernel_operands(what, *tensors, dtype=torch.bfloat16):
+    """The tensors as contiguous CUDA operands of a kernel, of `dtype`
+    (bfloat16 unless the int8 weights are asked for); raises on another
+    dtype or device, or data not 32-byte aligned (WMMA loads)."""
     out = []
     for t in tensors:
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: takes bfloat16 CUDA tensors, got "
+        if t.device.type != "cuda" or t.dtype != dtype:
+            raise TypeError(f"{what}: takes {dtype} CUDA tensors, got "
                             f"{t.dtype} on {t.device}")
         t = t.contiguous()
         if t.data_ptr() % 32:

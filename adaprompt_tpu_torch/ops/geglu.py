@@ -1,12 +1,16 @@
 """Fused GEGLU feed-forward: proj -> split -> a * gelu(gate) -> out.
 
-Port of `adaprompt_tpu/ops/geglu.py`. `geglu_fwd` is the kernel wrapper
-(CUDA: csrc/geglu.cu; replaces `_geglu_kernel`), with a launch count; it
-takes its plain version, `geglu_reference`, for CPU tensors only, and for
-CUDA tensors launches the kernel (bfloat16) or raises. `geglu` is the
-differentiable op: an autograd Function whose forward is `geglu_fwd` and
-whose backward recomputes through `geglu_reference` under autograd, as the
-JAX package's `_geglu_bwd` does (its backward is XLA, not a kernel).
+Port of `adaprompt_tpu/ops/geglu.py`. Two kernel wrappers, each with a
+launch count, each taking its plain version for CPU tensors only and for
+CUDA tensors launching its kernel or raising:
+  * `geglu_fwd` (CUDA: csrc/geglu.cu; replaces `_geglu_kernel`), bfloat16,
+    plain version `geglu_reference`. `geglu` is the differentiable op: an
+    autograd Function whose forward is `geglu_fwd` and whose backward
+    recomputes through `geglu_reference` under autograd, as the JAX
+    package's `_geglu_bwd` does (its backward is XLA, not a kernel);
+  * `geglu_int8` (CUDA: csrc/geglu_int8.cu; replaces `_geglu_i8_kernel`),
+    the w8a8 variant of the `quant="int8"` serving path, forward only,
+    plain version `geglu_int8_reference`.
 
 Weights are in PyTorch's layout: w1 [2F, C], w2 [C, F].
 """
@@ -19,6 +23,7 @@ import torch
 
 from adaprompt_tpu_torch.ops import cuda_build
 from adaprompt_tpu_torch.ops.layers import gelu
+from adaprompt_tpu_torch.ops.quant import int8_matmul, quantize_acts
 
 
 def geglu_reference(x, w1, b1, w2, b2):
@@ -95,3 +100,69 @@ def geglu(x, w1, b1, w2, b2):
     """Fused GEGLU, differentiable in every input: x [..., C]; w1 [2F, C];
     b1 [2F]; w2 [C, F]; b2 [C]."""
     return _Geglu.apply(x, w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# w8a8 fused GEGLU (forward only; the quant="int8" serving path)
+# ---------------------------------------------------------------------------
+
+def fused_int8_eligible(x, w1) -> bool:
+    """The JAX package's rule for its int8 kernel, kept exactly: int8
+    weights (1 byte each) within 8 MB, rows a multiple of 8, 2F a multiple
+    of 256. That admits the SD-1.5 C=320 and C=640 layers and not C=1280."""
+    f2, c = w1.shape
+    m = x.numel() // x.shape[-1]
+    weights_bytes = c * f2 + (f2 // 2) * c
+    return weights_bytes <= 8_000_000 and m % 8 == 0 and f2 % 256 == 0
+
+
+def geglu_int8_reference(x, w1_q, w1_s, b1, w2_q, w2_s, b2):
+    """Plain version of the w8a8 kernel, rounding where the TPU kernel does:
+    x quantized per row; h = int(x_q . W1_q^T) * xs * s1 + b1 in fp32;
+    g = a * gelu_erf(gate) in fp32, quantized per row from its fp32 value;
+    out = int(g_q . W2_q^T) * gs * s2 + b2, cast to x's dtype. The integer
+    products are exact (`quant.int8_matmul`)."""
+    x_q, xs = quantize_acts(x)
+    h = int8_matmul(x_q, w1_q) * xs * w1_s + b1.float()
+    a, gate = h.chunk(2, dim=-1)
+    g_q, gs = quantize_acts(a * gelu(gate))
+    out = int8_matmul(g_q, w2_q) * gs * w2_s + b2.float()
+    return out.to(x.dtype)
+
+
+def geglu_int8(x, w1_q, w1_s, b1, w2_q, w2_s, b2):
+    """w8a8 fused GEGLU forward: x [..., C]; (w1_q int8 [2F, C], w1_s f32
+    [2F]) and (w2_q int8 [C, F], w2_s f32 [C]) from `quant.quantize_weight`;
+    b1 [2F]; b2 [C]. Forward only (rounding has no gradient)."""
+    if x.device.type == "cpu":
+        return geglu_int8_reference(x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1_s, b1, w2_s, b2)):
+        raise RuntimeError("int8 geglu kernel: forward only (as the JAX package's)")
+    shape = x.shape
+    c = shape[-1]
+    f2 = w1_q.shape[0]
+    f = f2 // 2
+    if (w1_q.shape != (f2, c) or w2_q.shape != (c, f) or w1_s.shape != (f2,)
+            or w2_s.shape != (c,) or f2 % 2):
+        raise ValueError(f"int8 geglu kernel: shapes x{tuple(shape)} w1{tuple(w1_q.shape)} "
+                         f"w2{tuple(w2_q.shape)}")
+    if c % 32 or f % 32 or c > 640 or f > 2560:
+        raise ValueError(f"int8 geglu kernel: needs C and F multiples of 32, C <= 640 and "
+                         f"F <= 2560 (C={c}, F={f})")
+    m = x.numel() // c
+    (x2,) = cuda_build.kernel_operands("int8 geglu kernel", x.reshape(m, c))
+    w1_q, w2_q = cuda_build.kernel_operands("int8 geglu kernel", w1_q, w2_q, dtype=torch.int8)
+    w1_s, b1, w2_s, b2 = (t.to(device=x.device, dtype=torch.float32).contiguous()
+                          for t in (w1_s, b1, w2_s, b2))
+    out = torch.empty_like(x2)
+    fn = cuda_build.function("geglu_int8", "geglu_int8_fwd",
+                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    cuda_build.check(fn(x2.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
+                        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), m, c, f,
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "geglu_int8_fwd")
+    geglu_int8.launches += 1
+    return out.reshape(shape)
+
+
+geglu_int8.launches = 0

@@ -1,8 +1,9 @@
-"""Where the time of a txt2img generate, or of Stage-1 training steps,
-goes on the card.
+"""Where the time of a txt2img generate, of Stage-1 training steps, or of
+a generate through the int8 serving stack goes on the card.
 
     python -m adaprompt_tpu_torch.profile_step [--steps 5] [--trace out.json]
     python -m adaprompt_tpu_torch.profile_step --train [--trace out.json]
+    python -m adaprompt_tpu_torch.profile_step --serve [int8|bf16] [--trace out.json]
 
 Default: runs the full-width SD-1.5 pipeline (random weights from seed 0,
 bf16, 2 prompts, 512x512) once to warm up, then once more with `steps` DDIM
@@ -10,6 +11,10 @@ steps under torch.profiler. --train: builds the full-width Stage-1 trainer
 (random weights, bs 4, 512x512, Prodigy with gradient accumulation 2),
 takes training steps 0 and 1 (ND 1 and 5 from seed 0) to warm up, then
 profiles steps 2 and 3 (ND 1 both; step 3 applies the accumulated update).
+--serve: the full-width pipeline with quant="int8" (or, with `--serve
+bf16`, without it; random weights from seed 0, bf16, 2 prompts, 512x512),
+one 4-step warm-up, then one generate with sampler="dpmpp", 20 steps and
+FastConfig() (ToMe 0.5, DeepCache 3/3, CFG tail 0.3) under the profiler.
 Prints the device time by kernel class (the port's CUDA kernels,
 convolutions, matrix products, the rest), the top kernels by device time,
 and the device's busy share of the wall time. Needs a CUDA card.
@@ -27,7 +32,9 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "flash_bwd_dq_kernel": "flash_attention_bwd",
                "flash_bwd_dkv_kernel": "flash_attention_bwd",
                "fused_cross_kernel": "fused_cross_attention",
-               "geglu_kernel": "geglu_fwd"}
+               "geglu_kernel": "geglu_fwd",
+               "fused_cross_int8_kernel": "fused_cross_attention_int8",
+               "geglu_int8_kernel": "geglu_int8"}
 
 
 def kernel_class(name: str) -> str:
@@ -48,8 +55,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
-    ap.add_argument("--train", action="store_true",
-                    help="profile two Stage-1 training steps instead of a generate")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile two Stage-1 training steps instead of a generate")
+    mode.add_argument("--serve", nargs="?", const="int8", choices=("int8", "bf16"),
+                      help="profile one serving-stack generate (dpmpp-20, FastConfig()), "
+                           "with the int8 kernels (default) or in bf16")
     args = ap.parse_args()
 
     import torch
@@ -68,6 +79,15 @@ def main():
         for i in (0, 1):                                           # build + warm up
             tr.train_step(i)
         what = "2 Stage-1 training steps (ND 1, bs 4)"
+    elif args.serve:
+        from adaprompt_tpu_torch.pipeline import FastConfig, StableDiffusionPipeline
+        pipe = StableDiffusionPipeline.random_init(
+            0, device="cuda", dtype=torch.bfloat16,
+            quant="int8" if args.serve == "int8" else None)
+        kw = dict(sampler="dpmpp", fast=FastConfig())
+        pipe.generate(PROMPTS, num_steps=4, seed=1, **kw)         # build + warm up
+        work = lambda: pipe.generate(PROMPTS, num_steps=20, seed=0, **kw)
+        what = f"{args.serve} serving-stack generate (dpmpp-20, FastConfig())"
     else:
         from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
         pipe = StableDiffusionPipeline.random_init(0, device="cuda", dtype=torch.bfloat16)

@@ -78,10 +78,17 @@ def make_ddim_timesteps(num_ddim_steps: int, num_ddpm_timesteps: int = 1000) -> 
     return (np.arange(0, num_ddim_steps) * c + 1).astype(np.int64)
 
 
-def make_ddim_params(sched: DiffusionSchedule, num_ddim_steps: int):
-    """(timesteps, alphas, alphas_prev) of the eta = 0 DDIM sampler,
-    ascending in time; alphas in float32."""
-    ts = make_ddim_timesteps(num_ddim_steps, sched.num_timesteps)
+def make_ddim_params(sched: DiffusionSchedule, num_ddim_steps: int, eta: float = 0.0,
+                     timesteps: np.ndarray | None = None):
+    """(timesteps, alphas, alphas_prev, sigmas) of the DDIM sampler,
+    ascending in time, in float32. `timesteps`: an explicit ascending ddpm
+    grid in place of the uniform one (custom spacings; tests compare
+    samplers over the same endpoints with it)."""
+    ts = (np.asarray(timesteps, np.int64) if timesteps is not None
+          else make_ddim_timesteps(num_ddim_steps, sched.num_timesteps))
     acp = sched.alphas_cumprod
+    alphas = acp[ts]
     alphas_prev = np.concatenate([[acp[0]], acp[ts[:-1]]])
-    return ts, acp[ts].astype(np.float32), alphas_prev.astype(np.float32)
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return (ts, alphas.astype(np.float32), alphas_prev.astype(np.float32),
+            sigmas.astype(np.float32))

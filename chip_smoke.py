@@ -1,31 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one NVIDIA H100: SD-1.5 txt2img
-and Stage-1 Arc2Face-distillation training.
+"""Drive the PyTorch port's three paths on one NVIDIA H100: SD-1.5 txt2img,
+Stage-1 Arc2Face-distillation training, and the composed serving stack
+(DPM-Solver++ 20 steps with ToMe, DeepCache and the CFG tail, quant="int8").
 
     python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero without the final line):
-  1. build the four CUDA kernels of the paths (one nvcc per source, in
+  1. build the six CUDA kernels of the paths (one nvcc per source, in
      parallel) from adaprompt_tpu_torch/csrc/;
   2. hold each kernel against its plain PyTorch version on the card, in
      bf16, at the paths' shapes, and time kernel, plain version and (flash
      attention forward and backward) F.scaled_dot_product_attention as the
      yardstick;
-  3. run one full-width UNet forward on the card in bf16 and the same
-     weights on the CPU in fp32, and bound the relative error;
+  3. run one full-width UNet forward on the card in bf16, and one with
+     quant="int8", and the same weights on the CPU in fp32 (the int8 one
+     through the int8 kernels' plain versions), and bound the relative
+     errors; log the int8 forward's distance from the bf16 one;
   4. run one full-width UNet forward and backward with a masked image (the
      training path: flash backward, GEGLU backward, block recompute) on the
      card in bf16 and on the CPU in fp32, and bound the relative error of
      the gradient with respect to the context;
   5. generate 2 prompts at 512x512 with DDIM-50 through
      StableDiffusionPipeline.generate with random weights from a seed, and
-     check that every forward kernel was launched 10 times per UNet
-     evaluation and the backward kernel never;
+     check that each bf16 forward kernel (B1-B3) was launched 10 times per
+     UNet evaluation, and the backward and int8 kernels never;
   6. take 4 Stage-1 training steps (bs 4, 512x512, ND 1 and 5 from seed 0)
      through AdaPromptTrainer.train_step at full width with random
      weights, and check the losses, the gradient norms, that the
      SubjBasisGenerator moved, and every kernel's launch count;
-  7. print the kernels' JSON line, the card's name and power limit, and
+  7. serve 2 prompts at 512x512 through StableDiffusionPipeline.generate
+     with sampler="dpmpp", 20 steps and FastConfig(), with quant="int8"
+     and in bf16 (the same random weights), timed in turns, and check the
+     images and every kernel's exact launch count;
+  8. print the kernels' JSON line, the card's name and power limit, and
      the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -40,6 +47,7 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12     # dense, data sheet (SXM, 700 W)
+H100_INT8_OPS = 1979e12      # dense int8 tensor-core rate, same data sheet
 H100_BYTES_PER_S = 3.35e12
 H100_EXP_PER_S = 16 * 132 * 1.83e9   # exponentials: 16/clk/SM, 132 SMs, at the clock the peaks assume
 
@@ -57,6 +65,7 @@ UNET_GRAD_TOL = 5e-2
 FLASH_BWD_PER_PASS = 9
 FLASH_BWD_TOL = 1e-2    # max|kernel - plain| / max|plain| per gradient (measured <= 5.1e-3)
 TRAIN_STEPS = 4         # seed 0 draws ND = 1, 5, 1, 1
+SERVE_STEPS = 20        # dpmpp-20 under FastConfig() (cache 3/3, CFG tail 0.3, ToMe 0.5)
 
 
 def log(msg):
@@ -97,8 +106,8 @@ def phase_build():
 # Phase 2: each kernel against its plain version at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def _bound(flops, nbytes, exps=0):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def _bound(flops, nbytes, exps=0, int8_ops=0):
+    t_ops = (flops / H100_BF16_FLOPS + int8_ops / H100_INT8_OPS) * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops, "bytes_ms": t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -232,26 +241,96 @@ def _case_geglu(gen, n, c):
     return f"geglu C={c} M={m}", err, mag, 1e-2, ok, res, ""
 
 
+def _int8_weights(gen, n, k):
+    import torch
+    from adaprompt_tpu_torch.ops.quant import quantize_weight
+    w = (torch.rand(n, k, device="cuda", generator=gen) * 2 - 1) / math.sqrt(k)
+    return quantize_weight(w.to(torch.bfloat16))
+
+
+def _case_cross_int8(gen, n, c, b):
+    import torch
+    from adaprompt_tpu_torch.ops import attention as A
+    h, s = 8, 77
+    bf = torch.bfloat16
+    x = torch.randn(b, n, c, device="cuda", generator=gen).to(bf)
+    k = torch.randn(b, s, h, c // h, device="cuda", generator=gen).to(bf)
+    v = torch.randn(b, s, h, c // h, device="cuda", generator=gen).to(bf)
+    bo = (torch.rand(c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)
+    args = (x, *_int8_weights(gen, c, c), k, v, *_int8_weights(gen, c, c), bo,
+            (c // h) ** -0.5, h)
+    out = A.fused_cross_attention_int8(*args)
+    ref = A.fused_cross_attention_int8_reference(*args)
+    err, mag, ok = _compare(out, ref, 2e-2)
+    res = {"kernel_ms": time_ms(lambda: A.fused_cross_attention_int8(*args), 10),
+           "plain_ms": time_ms(lambda: A.fused_cross_attention_int8_reference(*args), 3),
+           "library_ms": None}
+    # int8: the two C x C projections; bf16: the attention over S keys.
+    # Bytes: x in and out (bf16), the int8 weights, their f32 scales and bo, k and v
+    nbytes = 2 * b * n * c * 2 + 2 * c * c + 3 * c * 4 + 2 * b * s * c * 2
+    res.update(_bound(b * n * 4 * s * c, nbytes, exps=b * h * n * s,
+                      int8_ops=b * n * 4 * c * c))
+    return f"fused_cross_attention_int8 C={c} N={n} B={b}", err, mag, 2e-2, ok, res, ""
+
+
+def _case_geglu_int8(gen, m, c):
+    import torch
+    from adaprompt_tpu_torch.ops import geglu as G
+    f = 4 * c
+    u = lambda *shape, fan: ((torch.rand(*shape, device="cuda", generator=gen) * 2 - 1)
+                             / math.sqrt(fan))
+    x = torch.randn(m, c, device="cuda", generator=gen).to(torch.bfloat16)
+    args = (x, *_int8_weights(gen, 2 * f, c), u(2 * f, fan=c), *_int8_weights(gen, c, f),
+            u(c, fan=f))
+    out = G.geglu_int8(*args)
+    ref = G.geglu_int8_reference(*args)
+    err, mag, ok = _compare(out, ref, 2e-2)
+    res = {"kernel_ms": time_ms(lambda: G.geglu_int8(*args), 10),
+           "plain_ms": time_ms(lambda: G.geglu_int8_reference(*args), 3),
+           "library_ms": None}
+    # 24*M*C^2 int8 operations; x in and out (bf16), the int8 weights (3*C*F
+    # bytes), their f32 scales and the biases
+    nbytes = 2 * m * c * 2 + 3 * c * f + 2 * (2 * f + c) * 4
+    res.update(_bound(0, nbytes, exps=m * f, int8_ops=6 * m * c * f))
+    return f"geglu_int8 C={c} M={m}", err, mag, 2e-2, ok, res, ""
+
+
 def phase_kernels():
     """Returns {wrapper name: [per-shape results]} for the kernels line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
-    # backward without bias is on no path and is checked all the same
+    # backward without bias is on no path and is checked all the same. The
+    # serving stack merges the 64x64 level's 4096 tokens to 2048 (ToMe 0.5)
+    # for self-attention and the feed-forward, never for cross-attention,
+    # and runs batch 4 in the CFG steps and batch 2 in the cond-only tail.
     gen_, train, both = ("generate",), ("train",), ("generate", "train")
+    serve, s8 = ("serve_int8", "serve_bf16"), ("serve_int8",)
     cases = [("flash_attention_fwd", gen_, lambda: _case_flash(gen, 4096, 40, False)),
              ("flash_attention_fwd", train, lambda: _case_flash(gen, 4096, 40, True)),
-             ("flash_attention_fwd", gen_, lambda: _case_flash(gen, 1024, 80, False)),
+             ("flash_attention_fwd", gen_ + serve, lambda: _case_flash(gen, 1024, 80, False)),
              ("flash_attention_fwd", train, lambda: _case_flash(gen, 1024, 80, True)),
+             ("flash_attention_fwd", serve, lambda: _case_flash(gen, 2048, 40, False)),
              ("flash_attention_bwd", (), lambda: _case_flash_bwd(gen, 4096, 40, False)),
              ("flash_attention_bwd", train, lambda: _case_flash_bwd(gen, 4096, 40, True)),
              ("flash_attention_bwd", (), lambda: _case_flash_bwd(gen, 1024, 80, False)),
              ("flash_attention_bwd", train, lambda: _case_flash_bwd(gen, 1024, 80, True)),
-             ("fused_cross_attention", gen_, lambda: _case_cross(gen, 4096, 320)),
-             ("fused_cross_attention", gen_, lambda: _case_cross(gen, 1024, 640)),
+             ("fused_cross_attention", gen_ + ("serve_bf16",),
+              lambda: _case_cross(gen, 4096, 320)),
+             ("fused_cross_attention", gen_ + ("serve_bf16",),
+              lambda: _case_cross(gen, 1024, 640)),
              ("geglu_fwd", both, lambda: _case_geglu(gen, 4096, 320)),
-             ("geglu_fwd", both, lambda: _case_geglu(gen, 1024, 640))]
+             ("geglu_fwd", both + ("serve_bf16",), lambda: _case_geglu(gen, 1024, 640)),
+             ("geglu_fwd", ("serve_bf16",), lambda: _case_geglu(gen, 2048, 320)),
+             ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 4096, 320, 4)),
+             ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 1024, 640, 4)),
+             ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 4096, 320, 2)),
+             ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 1024, 640, 2)),
+             ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 4 * 2048, 320)),
+             ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 2 * 2048, 320)),
+             ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 4 * 1024, 640)),
+             ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 2 * 1024, 640))]
     results, failed = {}, []
     for name, paths, case in cases:
         label, err, mag, tol, ok, res, detail = case()
@@ -272,33 +351,56 @@ def phase_kernels():
 
 def phase_unet_check():
     """One full-width UNet forward (64x64 latents, 2 rows) on the card in
-    bf16 against the same weights on the CPU in fp32."""
+    bf16, and one with quant="int8" (B5 and B6), each against the same
+    weights on the CPU in fp32 (the int8 one through the kernels' plain
+    versions)."""
+    import dataclasses
     import torch
     from adaprompt_tpu_torch.models.unet import UNet
+    from adaprompt_tpu_torch.ops import kernel_wrappers
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
     gen = torch.Generator(device="cuda").manual_seed(1)
     unet = reset_parameters(UNet(device="cuda", dtype=torch.bfloat16), gen)
     randomize_zero_init(unet, gen)
+    int8 = dataclasses.replace(unet.cfg, quant="int8")
     x = torch.randn(2, 64, 64, 4, device="cuda", generator=gen).to(torch.bfloat16)
     ctx = torch.randn(1, 2, 77, 768, device="cuda", generator=gen).to(torch.bfloat16)
     ts = torch.tensor([981, 501], device="cuda")
+    wrappers = kernel_wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
     t0 = time.perf_counter()
     with torch.inference_mode():
-        eps = unet(x, ts, ctx, cross_kv=unet.precompute_cross_kv(ctx)).float().cpu()
+        kv = unet.precompute_cross_kv(ctx)
+        eps = unet(x, ts, ctx, cross_kv=kv).float().cpu()
+        eps8 = unet(x, ts, ctx, cross_kv=kv, cfg=int8).float().cpu()
     card_s = time.perf_counter() - t0
+    counts = {n: w.launches - before[n] for n, w in wrappers.items()}
     cpu = UNet(device="cpu", dtype=torch.float32)
     cpu.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
     del unet
     t0 = time.perf_counter()
     with torch.inference_mode():
         ctx32 = ctx.float().cpu()
-        ref = cpu(x.float().cpu(), ts.cpu(), ctx32, cross_kv=cpu.precompute_cross_kv(ctx32))
+        kv32 = cpu.precompute_cross_kv(ctx32)
+        ref = cpu(x.float().cpu(), ts.cpu(), ctx32, cross_kv=kv32)
+        ref8 = cpu(x.float().cpu(), ts.cpu(), ctx32, cross_kv=kv32, cfg=int8)
     cpu_s = time.perf_counter() - t0
-    rel = ((eps - ref).norm() / ref.norm()).item()
-    log(f"phase 3 unet: bf16 card vs fp32 CPU relative L2 error {rel:.4e} (bound {UNET_TOL:g}); "
-        f"|eps| max {ref.abs().max().item():.3e}; card {card_s:.2f} s (first call), CPU {cpu_s:.1f} s")
-    if not (math.isfinite(rel) and rel <= UNET_TOL and ref.abs().max().item() > 0):
-        raise AssertionError(f"UNet on the card disagrees with the CPU: relative error {rel}")
+    rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()
+    rel, rel8 = rel_l2(eps, ref), rel_l2(eps8, ref8)
+    log(f"phase 3 unet: bf16 card vs fp32 CPU relative L2 error {rel:.4e}; int8 card vs int8 "
+        f"fp32 CPU {rel8:.4e} (bound {UNET_TOL:g} each); int8 vs bf16 on the card "
+        f"{rel_l2(eps8, eps):.4e}, int8 vs fp32 on the CPU {rel_l2(ref8, ref):.4e}; "
+        f"|eps| max {ref.abs().max().item():.3e}; card {card_s:.2f} s (first calls), "
+        f"CPU {cpu_s:.1f} s; launches {counts}")
+    for name, r in (("bf16", rel), ("int8", rel8)):
+        if not (math.isfinite(r) and r <= UNET_TOL and ref.abs().max().item() > 0):
+            raise AssertionError(f"{name} UNet on the card disagrees with the CPU: {r}")
+    # 10 transformer blocks at 64x64 and 32x32 each launch B1, B2 or B5, B3 or B6
+    want = {n: 0 for n in counts}
+    want.update(flash_attention_fwd=20, fused_cross_attention=10, geglu_fwd=10,
+                fused_cross_attention_int8=10, geglu_int8=10)
+    if counts != want:
+        raise AssertionError(f"UNet launches {counts}, expected {want}")
 
 
 def phase_unet_grad():
@@ -347,7 +449,8 @@ def phase_unet_grad():
         raise AssertionError(f"UNet gradient on the card disagrees with the CPU: {rel}")
     # forward, its recompute under block checkpointing, and one backward
     want = {"flash_attention_fwd": 20, "flash_attention_bwd": FLASH_BWD_PER_PASS,
-            "fused_cross_attention": 0, "geglu_fwd": 20}
+            "fused_cross_attention": 0, "geglu_fwd": 20, "fused_cross_attention_int8": 0,
+            "geglu_int8": 0}
     if counts != want:
         raise AssertionError(f"UNet gradient launches {counts}, expected {want}")
 
@@ -381,8 +484,9 @@ def phase_generate():
         f"image std {imgs.std():.2f}; launches {launches}")
     if imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8 or not imgs.std() > 0:
         raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
-    want = {n: 10 * steps for n in launches}
-    want["flash_attention_bwd"] = 0            # sampling takes no gradient
+    want = {n: 0 for n in launches}            # sampling takes no gradient; no int8
+    want.update(flash_attention_fwd=10 * steps, fused_cross_attention=10 * steps,
+                geglu_fwd=10 * steps)
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     del pipe
@@ -448,28 +552,97 @@ def phase_train():
     # student passes: forward + its recompute; teacher passes: forward only
     fwd = 10 * (sum(teachers) + 2 * sum(students))
     want = {"flash_attention_fwd": fwd, "flash_attention_bwd": FLASH_BWD_PER_PASS * sum(students),
-            "fused_cross_attention": 0, "geglu_fwd": fwd}
+            "fused_cross_attention": 0, "geglu_fwd": fwd, "fused_cross_attention_int8": 0,
+            "geglu_int8": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     return launches
 
 
+def serve_launches(fast, steps):
+    """Each kernel's launches in one served generate: a full UNet pass
+    launches it in the 10 transformer blocks at 64x64 and 32x32, a shallow
+    pass (DeepCache depth 3) in the 5 at 64x64; the CFG steps and the tail
+    each open with a full pass, then one every cache_interval steps."""
+    n_cfg = round(steps * (1 - fast.cfg_tail_frac))
+    full = sum(-(-n // fast.cache_interval) for n in (n_cfg, steps - n_cfg))
+    return 10 * full + 5 * (steps - full)
+
+
+def phase_serve():
+    """The composed serving stack through the public entry point: dpmpp-20
+    with FastConfig() at 512x512, with quant="int8" and in bf16 on the same
+    random weights, timed in turns (int8, bf16, bf16, int8); returns each
+    preset's launch counts (every counted run is checked)."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.ops import kernel_wrappers
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init
+    from adaprompt_tpu_torch.pipeline import FastConfig, StableDiffusionPipeline
+    fast = FastConfig()
+    pipe8 = StableDiffusionPipeline.random_init(0, device="cuda", dtype=torch.bfloat16,
+                                                quant="int8")
+    randomize_zero_init(pipe8.unet, torch.Generator(device="cuda").manual_seed(2))
+    pipe16 = StableDiffusionPipeline(pipe8.unet, pipe8.vae, pipe8.text, pipe8.tokenizer)
+    per_kernel = serve_launches(fast, SERVE_STEPS)
+    wrappers = kernel_wrappers()
+    kw = dict(num_steps=SERVE_STEPS, height=512, width=512, sampler="dpmpp", fast=fast)
+    presets = {"serve_int8": (pipe8, ("flash_attention_fwd", "fused_cross_attention_int8",
+                                      "geglu_int8")),
+               "serve_bf16": (pipe16, ("flash_attention_fwd", "fused_cross_attention",
+                                       "geglu_fwd"))}
+    for pipe, _ in presets.values():
+        pipe.generate(PROMPTS, **dict(kw, num_steps=4), seed=1)            # warm-up
+    launches, rates = {}, {p: [] for p in presets}
+    for path in ("serve_int8", "serve_bf16", "serve_bf16", "serve_int8"):   # in turns
+        pipe, kernels = presets[path]
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        imgs = pipe.generate(PROMPTS, **kw, seed=0)
+        seconds = time.perf_counter() - t0
+        launches[path] = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rates[path].append(len(PROMPTS) / seconds)
+        log(f"phase 7 {path}: {len(PROMPTS)} prompts 512x512 dpmpp-{SERVE_STEPS} FastConfig() "
+            f"bf16 in {seconds:.3f} s -> {rates[path][-1]:.4f} img/s; peak memory "
+            f"{peak:.2f} GiB; image std {imgs.std():.2f}; launches {launches[path]}")
+        if (imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8
+                or not imgs.std() > 0):
+            raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
+        want = {n: (per_kernel if n in kernels else 0) for n in wrappers}
+        if launches[path] != want:
+            raise AssertionError(f"{path} launches {launches[path]}, expected {want}")
+    z8, z16 = (torch.from_numpy(presets[p][0].generate(PROMPTS, **kw, seed=0, return_latents=True))
+               for p in presets)
+    log(f"phase 7 img/s in turns: int8 {rates['serve_int8']}, bf16 {rates['serve_bf16']}; "
+        f"int8 vs bf16 latents, same seed: relative L2 {((z8 - z16).norm() / z16.norm()).item():.4e}")
+    return launches
+
+
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
-                            "adaprompt_tpu/ops/attention.py:176", ("generate", "train")),
+                            "adaprompt_tpu/ops/attention.py:176",
+                            ("generate", "train", "serve_int8", "serve_bf16")),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314", ("train",)),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
-                              "adaprompt_tpu/ops/attention.py:610", ("generate",)),
+                              "adaprompt_tpu/ops/attention.py:610", ("generate", "serve_bf16")),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
-                  ("generate", "train")),
+                  ("generate", "train", "serve_bf16")),
+    "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
+                                   "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
+    "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",
+                   ("serve_int8",)),
 }
 
 
 def kernels_line(results, launches_by_path):
-    """Per kernel, the mean over the shapes its paths run (each runs 5 times
-    per UNet evaluation) of the times and bounds measured in phase 2, and
-    its launches on each path's counted run."""
+    """Per kernel, the mean over the shapes its paths run of the times and
+    bounds measured in phase 2, and its launches on each path's counted
+    run."""
     out = []
     for name, (source, replaces, paths) in KERNELS.items():
         by_path = {p: launches_by_path[p][name] for p in launches_by_path}
@@ -522,6 +695,7 @@ def main() -> int:
     phase_unet_check()
     phase_unet_grad()
     launches = {"generate": phase_generate(), "train": phase_train()}
+    launches.update(phase_serve())
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(results, launches)))
     print(card_line())

@@ -149,7 +149,11 @@ def test_unet_unported_options_raise(models):
     with pytest.raises(NotImplementedError):
         tu(x, torch.zeros(1), torch.zeros(1, 77, 64), capture_ca=True)
     with pytest.raises(NotImplementedError):
-        tu(x, torch.zeros(1), torch.zeros(1, 77, 64), cache_depth=2)
+        tu(x, torch.zeros(1), torch.zeros(1, 77, 64),
+           conv_attn={"subj_pos": torch.zeros(1, 1, dtype=torch.long), "kernel_size": 3})
+    from adaprompt_tpu_torch.models.unet import UNet, UNetConfig
+    with pytest.raises(NotImplementedError):
+        UNet(UNetConfig(fused_conv=True))
 
 
 def test_timestep_embedding():

@@ -1,6 +1,7 @@
 """The port's txt2img slice as a whole vs the JAX pipeline, on shared weights
-(tiny configs, 64x64, 3 DDIM steps, float32, CPU): the prompt encoding, then
-both `_generate` functions from the same x_T."""
+(tiny configs, 64x64, float32, CPU): the prompt encoding, then both
+`_generate` functions from the same x_T (DDIM and DPM-Solver++), and both
+`_generate_fast` functions under DDIM."""
 
 import numpy as np
 import pytest
@@ -73,10 +74,35 @@ def test_generate_options(pipes):
     z = tp.generate(["x"], num_steps=2, height=64, width=64, return_latents=True,
                     negative_prompt="blurry", guidance_scale=3.0)
     assert z.shape == (1, 8, 8, 4) and z.dtype == np.float32 and np.isfinite(z).all()
-    with pytest.raises(NotImplementedError):
-        tp.generate(["x"], num_steps=2, sampler="dpmpp")
-    with pytest.raises(ValueError):
+    z = tp.generate(["x"], num_steps=4, height=64, width=64, return_latents=True,
+                    sampler="dpmpp", fast=tpipe.FastConfig())
+    assert z.shape == (1, 8, 8, 4) and np.isfinite(z).all()
+    with pytest.raises(ValueError, match="unknown sampler"):
         tp.generate(["x"], num_steps=2, sampler="euler")
+
+
+def test_generate_dpmpp_and_fast_ddim_match_jax(pipes):
+    """`sampler="dpmpp"` without `fast` (`_generate`), and `fast` (DeepCache
+    3/3, CFG tail 0.3; no ToMe, which needs a 4096-token level) under DDIM,
+    against the JAX pipeline's jitted functions."""
+    jp, tp = pipes
+    ju, jv, tu, tv = jp.params.unet, jp.params.vae, tp.unet, tp.vae
+    rng = np.random.default_rng(3)
+    cond, uncond = ((rng.standard_normal((1, 1, 77, 64)) * 0.5).astype(np.float32)
+                    for _ in range(2))
+    x_T = rng.standard_normal((1, 8, 8, 4)).astype(np.float32)
+    args_j = (jnp.asarray(cond), jnp.asarray(uncond), jnp.asarray(x_T), 6, (4.0, 1.0), True)
+    args_t = (t(cond), t(uncond), t(x_T), 6, (4.0, 1.0), True)
+    z_j = jpipe._generate_jit(ju, jv, *args_j, JAX_UNET, None, jpipe.SD15_SCHEDULE, jnp.float32,
+                              "dpmpp")
+    z_t = tpipe._generate(tu, tv, *args_t, tpipe.SD15_SCHEDULE, torch.float32, "dpmpp")
+    assert_close(z_t, z_j, atol=1e-4, rtol=1e-5)
+    fast = jpipe.FastConfig(tome_ratio=0.0)
+    z_j = jpipe._generate_fast_jit(ju, jv, *args_j, fast, JAX_UNET, None, jpipe.SD15_SCHEDULE,
+                                   jnp.float32, "ddim")
+    z_t = tpipe._generate_fast(tu, tv, *args_t, tpipe.FastConfig(tome_ratio=0.0), TORCH_UNET,
+                               tpipe.SD15_SCHEDULE, torch.float32, "ddim")
+    assert_close(z_t, z_j, atol=1e-4, rtol=1e-5)
 
 
 def test_encode_decode_shapes(pipes):

@@ -14,6 +14,7 @@ import torch
 import adaprompt_tpu_torch
 from adaprompt_tpu_torch import pipeline as tpipe
 from adaprompt_tpu_torch.ops import attention as tattn, geglu as tgeglu, kernel_wrappers
+from adaprompt_tpu_torch.ops.quant import quantize_weight
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,18 +50,31 @@ def test_random_init_defaults_to_cuda_and_raises_without_it():
     assert tpipe.resolve_device("cpu").type == "cpu"
 
 
+def _int8_cross_args(x, wq, k, v, wo, bo):
+    """The fused cross-attention's arguments with int8 weights and scales."""
+    return (x, *quantize_weight(wq), k, v, *quantize_weight(wo), bo)
+
+
+def _int8_geglu_args(x, w1, b1, w2, b2):
+    return (x, *quantize_weight(w1), b1, *quantize_weight(w2), b2)
+
+
 def _small_inputs(device, dtype):
     g = torch.Generator(device=device).manual_seed(0)
     rn = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)
     flash = (rn(2, 512, 2, 40), rn(2, 512, 2, 40), rn(2, 512, 2, 40))
+    cross = (rn(2, 512, 64), rn(64, 64) / 8, rn(2, 77, 2, 32), rn(2, 77, 2, 32),
+             rn(64, 64) / 8, rn(64).float() / 8)
+    ff = (rn(96, 64), rn(512, 64) / 8, rn(512).float() / 8, rn(64, 256) / 16,
+          rn(64).float() / 8)
     return {
         "flash": flash,
         # q, k, v, key_bias, out, lse, dout
         "flash_bwd": flash + (None, rn(2, 512, 2, 40), rn(4, 512, 1).float(), rn(2, 512, 2, 40)),
-        "cross": (rn(2, 512, 64), rn(64, 64) / 8, rn(2, 77, 2, 32), rn(2, 77, 2, 32),
-                  rn(64, 64) / 8, rn(64).float() / 8),
-        "geglu": (rn(96, 64), rn(512, 64) / 8, rn(512).float() / 8, rn(64, 256) / 16,
-                  rn(64).float() / 8),
+        "cross": cross,
+        "geglu": ff,
+        "cross_int8": _int8_cross_args(*cross),
+        "geglu_int8": _int8_geglu_args(*ff),
     }
 
 
@@ -73,6 +87,8 @@ def test_wrappers_take_plain_version_only_on_cpu():
     tattn.flash_attention_bwd(*x["flash_bwd"], 40 ** -0.5)
     tattn.fused_cross_attention(*x["cross"], 32 ** -0.5, 2)
     tgeglu.geglu(*x["geglu"])
+    tattn.fused_cross_attention_int8(*x["cross_int8"], 32 ** -0.5, 2)
+    tgeglu.geglu_int8(*x["geglu_int8"])
     assert {n: w.launches for n, w in kernel_wrappers().items()} == before
     meta = {k: [None if a is None else a.to("meta") for a in v] for k, v in x.items()}
     with pytest.raises(TypeError, match="CUDA"):
@@ -83,6 +99,10 @@ def test_wrappers_take_plain_version_only_on_cpu():
         tattn.fused_cross_attention(*meta["cross"], 32 ** -0.5, 2)
     with pytest.raises(TypeError, match="CUDA"):
         tgeglu.geglu(*meta["geglu"])
+    with pytest.raises(TypeError, match="CUDA"):
+        tattn.fused_cross_attention_int8(*meta["cross_int8"], 32 ** -0.5, 2)
+    with pytest.raises(TypeError, match="CUDA"):
+        tgeglu.geglu_int8(*meta["geglu_int8"])
 
 
 def test_fused_cross_attention_refuses_gradients_off_the_cpu():
@@ -96,12 +116,30 @@ def test_fused_cross_attention_refuses_gradients_off_the_cpu():
         tattn.fused_cross_attention(*x, 32 ** -0.5, 2)
 
 
+@pytest.mark.parametrize("name", ["cross_int8", "geglu_int8"])
+def test_int8_kernels_refuse_gradients_off_the_cpu(name):
+    """The w8a8 kernels are forward only (rounding has no gradient): off the
+    CPU a wrapper raises on an input that needs a gradient."""
+    fn = {"cross_int8": lambda *a: tattn.fused_cross_attention_int8(*a, 32 ** -0.5, 2),
+          "geglu_int8": tgeglu.geglu_int8}[name]
+    x = [a.to("meta") for a in _small_inputs("cpu", torch.float32)[name]]
+    x[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fn(*x)
+    with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
+        fn(*x)
+
+
 def test_kernel_sources_and_wrappers_exist():
     from adaprompt_tpu_torch.ops import cuda_build
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").is_file()
     assert set(kernel_wrappers()) == {"flash_attention_fwd", "flash_attention_bwd",
-                                      "fused_cross_attention", "geglu_fwd"}
+                                      "fused_cross_attention", "geglu_fwd",
+                                      "fused_cross_attention_int8", "geglu_int8"}
+    assert set(cuda_build.SOURCES) == {"flash_attention", "flash_attention_bwd",
+                                       "fused_cross_attention", "geglu",
+                                       "fused_cross_attention_int8", "geglu_int8"}
     assert adaprompt_tpu_torch.__version__
 
 
@@ -123,6 +161,11 @@ def test_kernels_match_plain_versions_on_the_card():
     _assert_near(tattn.fused_cross_attention(*x["cross"], 32 ** -0.5, 2),
                  tattn.fused_cross_attention_reference(*x["cross"], 32 ** -0.5, 2), 2e-2)
     _assert_near(tgeglu.geglu(*x["geglu"]), tgeglu.geglu_reference(*x["geglu"]), 1e-2)
+    _assert_near(tattn.fused_cross_attention_int8(*x["cross_int8"], 32 ** -0.5, 2),
+                 tattn.fused_cross_attention_int8_reference(*x["cross_int8"], 32 ** -0.5, 2),
+                 2e-2)
+    _assert_near(tgeglu.geglu_int8(*x["geglu_int8"]),
+                 tgeglu.geglu_int8_reference(*x["geglu_int8"]), 2e-2)
     out, lse = tattn.flash_attention_fwd(*x["flash"], None, 40 ** -0.5)
     args = x["flash"] + (None, out, lse, x["flash_bwd"][-1], 40 ** -0.5)
     for got, ref in zip(tattn.flash_attention_bwd(*args),
@@ -227,3 +270,60 @@ def test_autograd_through_the_kernels_on_the_card():
             grads.append([a.grad for a in args])
         for got, ref in zip(*grads):
             _assert_near(got, ref, 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,h", [(2, 100, 64, 2), (1, 512, 320, 8), (3, 33, 640, 8),
+                                     (1, 70, 1280, 8)])
+def test_int8_fused_cross_kernel_ragged_shapes(b, n, c, h):
+    """Ragged row tiles, padded head dims and keys; bf16 against the plain
+    version (x and o quantized per row, int8 projections)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(n + c)
+    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    args = _int8_cross_args(rn(b, n, c).bfloat16(), rn(c, c) / c ** 0.5,
+                            rn(b, 77, h, c // h).bfloat16(), rn(b, 77, h, c // h).bfloat16(),
+                            rn(c, c) / c ** 0.5, rn(c) / 8)
+    before = tattn.fused_cross_attention_int8.launches
+    _assert_near(tattn.fused_cross_attention_int8(*args, (c // h) ** -0.5, h),
+                 tattn.fused_cross_attention_int8_reference(*args, (c // h) ** -0.5, h), 2e-2)
+    assert tattn.fused_cross_attention_int8.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(50, 320), (33, 640), (96, 32), (8, 64), (4096, 640)])
+def test_int8_geglu_kernel_ragged_shapes(m, c):
+    """Ragged row tiles at both shared-memory tilings (32 rows up to C=320,
+    16 rows at C=640); bf16 against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(m + c)
+    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    f = 4 * c
+    args = _int8_geglu_args(rn(m, c).bfloat16(), rn(2 * f, c) / c ** 0.5, rn(2 * f) / 8,
+                            rn(c, f) / f ** 0.5, rn(c) / 8)
+    before = tgeglu.geglu_int8.launches
+    _assert_near(tgeglu.geglu_int8(*args), tgeglu.geglu_int8_reference(*args), 2e-2)
+    assert tgeglu.geglu_int8.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_int8_quantization_matches_between_cpu_and_card():
+    """The plain versions' scales are true divisions on the card too (as the
+    kernels' __fdiv_rn and the CPU's), so int8 values and scales agree
+    exactly across devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from adaprompt_tpu_torch.ops.quant import quantize_acts
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(512, 640, generator=g) * 3
+    x[:, 0] = 127.0                                   # scale 1.0: .5 levels round to even
+    x[:, 1:64] = torch.randint(-126, 126, (512, 63), generator=g) + 0.5
+    for w in (x, x.T.contiguous()):
+        q_cpu, s_cpu = quantize_weight(w)
+        q_gpu, s_gpu = quantize_weight(w.cuda())
+        assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+    q_cpu, s_cpu = quantize_acts(x)
+    q_gpu, s_gpu = quantize_acts(x.cuda())
+    assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)

@@ -20,11 +20,12 @@ def test_schedule_matches():
 
 @pytest.mark.parametrize("steps", [1, 3, 50])
 def test_ddim_params_and_guidance_match(steps):
-    ts_t, a_t, ap_t = tsched.make_ddim_params(tsched.SD15_SCHEDULE, steps)
+    ts_t, a_t, ap_t, sig_t = tsched.make_ddim_params(tsched.SD15_SCHEDULE, steps)
     ts_j, a_j, ap_j, sig_j = jsched.make_ddim_params(jsched.SD15_SCHEDULE, steps)
     np.testing.assert_array_equal(ts_t, ts_j)
     np.testing.assert_array_equal(a_t, a_j)
     np.testing.assert_array_equal(ap_t, ap_j)
+    np.testing.assert_array_equal(sig_t, sig_j)
     assert not sig_j.any()                       # eta = 0: no noise on either side
     for g in [(4.0, 1.0), 7.5, 1.5]:
         np.testing.assert_array_equal(tddim.guidance_schedule(steps, g),

@@ -15,6 +15,8 @@ from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
 from adaprompt_tpu_torch.adaface.checkpoint import module_tree
 from adaprompt_tpu_torch.models import clip_text as tclip, unet as tunet, vae as tvae
 from adaprompt_tpu_torch.ops.layers import reset_parameters
+from adaprompt_tpu_torch.ops.tome import _partition as tome_partition
+from adaprompt_tpu_torch.ops.tome import quantize_merge_count as tome_merge_count
 from adaprompt_tpu_torch.train import steps as tsteps
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer as TorchTokenizer
 from adaface_fixtures import build_word_vocab
@@ -75,6 +77,25 @@ def named(tree):
 def t(a):
     """numpy / JAX array -> float32 CPU tensor."""
     return torch.from_numpy(np.array(a, np.float32))
+
+
+def merge_gaps(x, h, w, ratio, align=256):
+    """The margins of ToMe's decisions on metric x [B, N, C] (float64):
+    (the least gap between the best and the second-best destination score
+    of any merged source, the gap in the sorted best scores at the merge
+    boundary r). Where both exceed the two packages' fp32 rounding of the
+    scores, both make the same merges."""
+    src, dst = tome_partition(h, w, 2, 2)
+    r = tome_merge_count(h * w, ratio, len(src), align)
+    m = x.double()
+    m = m / (m.norm(dim=-1, keepdim=True) + 1e-6)
+    scores = torch.einsum("bsc,bdc->bsd", m[:, src], m[:, dst])
+    top2 = scores.topk(2, dim=-1).values
+    best = top2[..., 0].sort(dim=-1, descending=True)
+    merged = best.indices[:, :r]
+    top2_gap = torch.gather(top2[..., 0] - top2[..., 1], 1, merged).min().item()
+    boundary = (best.values[:, r - 1] - best.values[:, r]).min().item()
+    return top2_gap, boundary
 
 
 def assert_close(actual, expected, atol, rtol=0.0):
