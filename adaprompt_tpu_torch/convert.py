@@ -4,7 +4,9 @@ The port's modules name their parameters after the JAX pytree paths, so the
 conversion is mechanical: a leaf at path `a.b.0.c.kernel` becomes
 `a.b.0.c.weight`; a 2-D kernel [in, out] becomes a linear weight [out, in]
 (transposed); a 4-D kernel HWIO becomes a conv weight OIHW; `scale`
-(norms) becomes `weight`; every other leaf keeps its name and values.
+(norms) becomes `weight`; a BatchNorm's `mean` and `var` (the ArcFace
+trunk) become `running_mean` and `running_var`; every other leaf (PReLU's
+`alpha` among them) keeps its name and values.
 """
 
 from __future__ import annotations
@@ -40,5 +42,7 @@ def from_jax_params(np_tree) -> dict[str, torch.Tensor]:
             raise ValueError(f"{path}: kernel of rank {arr.ndim}")
         if leaf in ("kernel", "scale"):
             leaf = "weight"
+        elif leaf in ("mean", "var"):
+            leaf = "running_" + leaf
         state[f"{head}.{leaf}" if head else leaf] = torch.from_numpy(np.array(arr))
     return state

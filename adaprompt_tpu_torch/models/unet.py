@@ -22,9 +22,15 @@ Kernel dispatch is the JAX package's:
   * the feed-forward takes the fused GEGLU kernel when `fused_eligible`;
     under `quant="int8"` the w8a8 kernel when `fused_int8_eligible` (C=320
     and C=640), and otherwise (C=1280) the unfused bf16 linears.
+  * under `fused_conv`, a ResBlock's GroupNorm-SiLU-conv3x3 takes the fused
+    kernel where `conv_halo.fused_conv_eligible` (bf16 and one of three
+    (H, C, O) shapes: 9 of a full-width pass's 44 ResBlock convs at 64x64
+    latents); every other conv stays GroupNorm + cuDNN. Forward only.
 Every other projection stays in the compute dtype under `quant="int8"`,
 as the JAX package's `_qlinear` keeps it. The int8 weights come from
-`quantize_int8`, made once per sampler loop and passed as `int8_weights`.
+`quantize_int8`, and the fused convs' repacked weights from
+`pack_fused_conv_weights`, each made once per sampler loop and passed as
+`int8_weights` / `fused_conv_weights`.
 
 The serving accelerations of the JAX package (all sampler-only):
   * ToMe (`tome_ratio`, ops/tome.py) merges tokens in the transformer
@@ -44,8 +50,8 @@ instead; both give the same numbers. Full-block recompute is the simpler of
 the two in PyTorch (no per-op save policy over the kernels' ctypes calls)
 and holds the least memory; it costs one more forward of each block.
 
-Not ported yet (they raise NotImplementedError): activation capture,
-conv-attention and the fused GroupNorm-SiLU-conv.
+Not ported yet (they raise NotImplementedError): activation capture and
+conv-attention.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
-from adaprompt_tpu_torch.ops import tome
+from adaprompt_tpu_torch.ops import conv_halo, tome
 from adaprompt_tpu_torch.ops.attention import (NEG_BIG, dot_product_attention,
                                                fused_cross_attention, fused_cross_attention_int8)
 from adaprompt_tpu_torch.ops.geglu import fused_eligible, fused_int8_eligible, geglu, geglu_int8
@@ -89,7 +95,8 @@ class UNetConfig:
     tome_attn: bool = True
     tome_cross: bool = False
     tome_mlp: bool = False
-    # an option of the JAX package that the port does not have yet
+    # the fused GroupNorm-SiLU-conv3x3 kernel in the ResBlocks, for the
+    # shapes of conv_halo._FUSED_TABLE (bf16 only, forward only)
     fused_conv: bool = False
 
     @property
@@ -143,6 +150,26 @@ def build_plan(cfg: UNetConfig):
             if entry["up"]:
                 ds //= 2
     return inp, mid, outp
+
+
+def resblock_conv_shapes(cfg: UNetConfig, latent_size: int) -> list:
+    """(H, C, O) of every ResBlock 3x3 conv of one full pass over square
+    latents of `latent_size`, in execution order (conv_in then conv_out of
+    each ResBlock: 44 at SD-1.5's plan). Under `fused_conv` the bf16 ones
+    found in conv_halo._FUSED_TABLE take the fused kernel."""
+    inp, mid, outp = build_plan(cfg)
+    h, shapes = latent_size, []
+    for e in inp:
+        if e["kind"] == "res":
+            shapes += [(h, e["cin"], e["cout"]), (h, e["cout"], e["cout"])]
+        elif e["kind"] == "down":
+            h //= 2
+    shapes += [(h, mid["ch"], mid["ch"])] * 4
+    for e in outp:
+        shapes += [(h, e["cin"], e["cout"]), (h, e["cout"], e["cout"])]
+        if e["up"]:
+            h *= 2
+    return shapes
 
 
 def layer_ca_map(inp_plan, out_plan) -> dict:
@@ -200,14 +227,21 @@ def _st(c, cfg, kw):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _resblock(p, x, emb):
-    # GroupNorm32 -> SiLU -> conv; + time; GroupNorm32 -> SiLU -> conv (eps 1e-5)
-    h = group_norm(x, p["norm_in"].weight, p["norm_in"].bias, eps=1e-5, activation="silu")
-    h = p["conv_in"](h)
+def _resblock(p, x, emb, fused_weights=None):
+    """GroupNorm32 -> SiLU -> conv; + time; GroupNorm32 -> SiLU -> conv (eps
+    1e-5). fused_weights: {conv module: packed weight} under fused_conv
+    (`UNet.pack_fused_conv_weights`), else None."""
+    def gn_silu_conv(v, norm, conv):
+        # per-conv dispatch: the fused kernel for the shapes of conv_halo._FUSED_TABLE
+        if fused_weights is not None and conv_halo.fused_conv_eligible(v, conv.weight.shape[0]):
+            return conv_halo.gn_silu_conv3x3_halo(v, norm.weight, norm.bias, conv.weight,
+                                                  conv.bias, packed=fused_weights.get(conv))
+        return conv(group_norm(v, norm.weight, norm.bias, eps=1e-5, activation="silu"))
+
+    h = gn_silu_conv(x, p["norm_in"], p["conv_in"])
     e = p["emb"](silu(emb))
     h = h + e[:, None, None, :].to(h.dtype)
-    h = group_norm(h, p["norm_out"].weight, p["norm_out"].bias, eps=1e-5, activation="silu")
-    h = p["conv_out"](h)
+    h = gn_silu_conv(h, p["norm_out"], p["conv_out"])
     if "skip" in p:
         x = p["skip"](x)
     return x + h
@@ -292,8 +326,6 @@ def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None, 
 # ---------------------------------------------------------------------------
 
 def _check_options(cfg: UNetConfig):
-    if cfg.fused_conv:
-        raise NotImplementedError("fused_conv is not ported yet")
     if cfg.quant not in (None, "int8"):
         raise ValueError(f"unknown quant {cfg.quant!r}")
 
@@ -355,6 +387,23 @@ class UNet(nn.Module):
                             "ff": (q(bp["ff"]["proj"]), q(bp["ff"]["out"]))}
                 for layer_idx, bp in ((li, self._block(li)) for li in self.l2ca)}
 
+    def _resblocks(self):
+        for bp in [*self.input_blocks, *self.output_blocks]:
+            if "res" in bp:
+                yield bp["res"]
+        yield self.middle_block["res1"]
+        yield self.middle_block["res2"]
+
+    def pack_fused_conv_weights(self) -> dict:
+        """The repacked weights of the fused_conv path, made once per sampler
+        loop: {conv module: [9, C, O] weight (conv_halo.pack_conv_weight)}
+        for every ResBlock 3x3 conv whose (C, O) is in conv_halo._FUSED_TABLE
+        at some H."""
+        pairs = {(c, o) for _, c, o in conv_halo._FUSED_TABLE}
+        return {conv: conv_halo.pack_conv_weight(conv.weight)
+                for rp in self._resblocks() for conv in (rp["conv_in"], rp["conv_out"])
+                if (conv.weight.shape[1], conv.weight.shape[0]) in pairs}
+
     def precompute_cross_kv(self, context: torch.Tensor,
                             context_k: torch.Tensor | None = None) -> dict:
         """Hoist every cross-attention layer's K/V projection out of a
@@ -384,12 +433,15 @@ class UNet(nn.Module):
                 cache_depth: int = 0,
                 cache: torch.Tensor | None = None,
                 int8_weights: dict | None = None,
+                fused_conv_weights: dict | None = None,
                 cfg: UNetConfig | None = None):
         """Predict epsilon. x [B, H, W, 4] NHWC; timesteps [B]; context
         [L, B, S, D] or [B, S, D]; img_mask [B, H0, W0, 1] restricts
         self-attention keys (and turns ToMe off). `cfg` overrides the
-        model's options (quant, ToMe) for this call; under quant="int8",
-        `int8_weights` from `quantize_int8` (made here when not given).
+        model's options (quant, ToMe, fused_conv) for this call; under
+        quant="int8", `int8_weights` from `quantize_int8`, and under
+        fused_conv, `fused_conv_weights` from `pack_fused_conv_weights`
+        (each made here when not given).
 
         Returns eps [B, H, W, 4]; with cache_depth > 0, (eps, deep_cache):
         the cache a full pass (cache=None) leaves for the shallow passes,
@@ -405,6 +457,15 @@ class UNet(nn.Module):
         if cfg.quant == "int8" and int8_weights is None:
             int8_weights = self.quantize_int8()
         int8_weights = int8_weights or {}
+        remat = cfg.use_checkpoint and torch.is_grad_enabled()
+        if cfg.fused_conv:
+            if remat and x.device.type != "cpu":
+                raise RuntimeError("fused_conv is forward only (its kernel has no backward): "
+                                   "call the UNet under torch.no_grad()")
+            if fused_conv_weights is None:
+                fused_conv_weights = self.pack_fused_conv_weights()
+        else:
+            fused_conv_weights = None
         # ToMe is sampler-only: a masked (training) forward turns it off throughout
         tome_cfg = cfg if cfg.tome_ratio > 0 and img_mask is None else None
 
@@ -424,7 +485,7 @@ class UNet(nn.Module):
                 return bp["conv"](h)
             if "downsample" in bp:
                 return bp["downsample"](h, stride=2, padding=1)
-            h = _resblock(bp["res"], h, emb)
+            h = _resblock(bp["res"], h, emb, fused_conv_weights)
             if "attn" in bp:
                 h = transformer(bp["attn"], h, layer_idx)
             if "upsample" in bp:
@@ -433,11 +494,9 @@ class UNet(nn.Module):
             return h
 
         def run_middle(mb, h, layer_idx):
-            h = _resblock(mb["res1"], h, emb)
+            h = _resblock(mb["res1"], h, emb, fused_conv_weights)
             h = transformer(mb["attn"], h, layer_idx)
-            return _resblock(mb["res2"], h, emb)
-
-        remat = cfg.use_checkpoint and torch.is_grad_enabled()
+            return _resblock(mb["res2"], h, emb, fused_conv_weights)
 
         def call(fn, bp, h, layer_idx):
             if remat:

@@ -196,17 +196,19 @@ def _decode(vae: VAE, z, return_latents, dt):
 def _generate(unet: UNet, vae: VAE, cond, uncond, x_T, num_steps, guidance,
               return_latents, sched, dt, sampler="ddim", unet_cfg: UNetConfig | None = None):
     """The main path after text encoding: hoist the cross-attention K/V
-    (and, under quant="int8", the int8 weights) out of the loop, run the
+    (and, under quant="int8", the int8 weights; under fused_conv, the
+    fused convs' repacked weights) out of the loop, run the
     sampler over the (cond, uncond) batch, decode to uint8.
     cond/uncond [L, B, 77, D]; x_T [B, h, w, 4] float32."""
     cfg = unet.cfg if unet_cfg is None else unet_cfg
     ctx = torch.cat([cond, uncond], dim=1).to(dt)              # [L, 2B, 77, D]
     cross_kv = unet.precompute_cross_kv(ctx)
     int8_weights = unet.quantize_int8() if cfg.quant == "int8" else None
+    conv_weights = unet.pack_fused_conv_weights() if cfg.fused_conv else None
 
     def model_fn(x, t):
         return unet(x.to(dt), t, ctx, cross_kv=cross_kv, int8_weights=int8_weights,
-                    cfg=cfg).float()
+                    fused_conv_weights=conv_weights, cfg=cfg).float()
 
     sample = dpm.dpmpp_sample if sampler == "dpmpp" else ddim.ddim_sample
     z = sample(model_fn, x_T, num_steps=num_steps, guidance_scale=guidance, sched=sched)
@@ -224,6 +226,7 @@ def _generate_fast(unet: UNet, vae: VAE, cond, uncond, x_T, num_steps, guidance,
     ctx = torch.cat([cond, uncond], dim=1).to(dt)              # [L, 2B, 77, D]
     cross_kv = unet.precompute_cross_kv(ctx)
     int8_weights = unet.quantize_int8() if cfg.quant == "int8" else None
+    conv_weights = unet.pack_fused_conv_weights() if cfg.fused_conv else None
     depth = fast.cache_depth if fast.cache_interval > 1 else 1
     cond_only = (ctx[:, :cond.shape[1]],
                  {li: (k[:cond.shape[1]], v[:cond.shape[1]]) for li, (k, v) in cross_kv.items()})
@@ -231,7 +234,7 @@ def _generate_fast(unet: UNet, vae: VAE, cond, uncond, x_T, num_steps, guidance,
     def run(x, t, cache):
         c, kv = (ctx, cross_kv) if x.shape[0] == ctx.shape[1] else cond_only
         eps, cache = unet(x.to(dt), t, c, cross_kv=kv, cache_depth=depth, cache=cache,
-                          int8_weights=int8_weights, cfg=cfg)
+                          int8_weights=int8_weights, fused_conv_weights=conv_weights, cfg=cfg)
         return eps.float(), cache
 
     sample = dpm.dpmpp_sample_fast if sampler == "dpmpp" else ddim.ddim_sample_fast

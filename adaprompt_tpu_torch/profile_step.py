@@ -1,9 +1,11 @@
-"""Where the time of a txt2img generate, of Stage-1 training steps, or of
-a generate through the int8 serving stack goes on the card.
+"""Where the time of a txt2img generate, of Stage-1 training steps, of a
+generate through the int8 serving stack, or of a personalized generate goes
+on the card.
 
     python -m adaprompt_tpu_torch.profile_step [--steps 5] [--trace out.json]
     python -m adaprompt_tpu_torch.profile_step --train [--trace out.json]
     python -m adaprompt_tpu_torch.profile_step --serve [int8|bf16] [--trace out.json]
+    python -m adaprompt_tpu_torch.profile_step --personalize [on|off] [--steps 5]
 
 Default: runs the full-width SD-1.5 pipeline (random weights from seed 0,
 bf16, 2 prompts, 512x512) once to warm up, then once more with `steps` DDIM
@@ -15,6 +17,12 @@ profiles steps 2 and 3 (ND 1 both; step 3 applies the accumulated update).
 bf16`, without it; random weights from seed 0, bf16, 2 prompts, 512x512),
 one 4-step warm-up, then one generate with sampler="dpmpp", 20 steps and
 FastConfig() (ToMe 0.5, DeepCache 3/3, CFG tail 0.3) under the profiler.
+--personalize: the full-width AdaFacePipeline (random weights from seed 0,
+IResNet-100 ArcFace, bf16 UNet) with UNetConfig.fused_conv on (default) or
+off; one warm-up, then three seeded 512x512 photos ->
+generate_adaface_embeddings -> 2 images with `steps` DDIM steps under the
+profiler. The count of device kernels is printed too: the difference
+between `off` and `on` is what the fused GroupNorm-SiLU-conv removed.
 Prints the device time by kernel class (the port's CUDA kernels,
 convolutions, matrix products, the rest), the top kernels by device time,
 and the device's busy share of the wall time. Needs a CUDA card.
@@ -34,7 +42,10 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "fused_cross_kernel": "fused_cross_attention",
                "geglu_kernel": "geglu_fwd",
                "fused_cross_int8_kernel": "fused_cross_attention_int8",
-               "geglu_int8_kernel": "geglu_int8"}
+               "geglu_int8_kernel": "geglu_int8",
+               "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",
+               "conv3x3_halo_kernel": "conv3x3_halo",
+               "conv3x3_im2col_kernel": "conv3x3_im2col"}
 
 
 def kernel_class(name: str) -> str:
@@ -61,6 +72,9 @@ def main():
     mode.add_argument("--serve", nargs="?", const="int8", choices=("int8", "bf16"),
                       help="profile one serving-stack generate (dpmpp-20, FastConfig()), "
                            "with the int8 kernels (default) or in bf16")
+    mode.add_argument("--personalize", nargs="?", const="on", choices=("on", "off"),
+                      help="profile one personalization and generate through AdaFacePipeline, "
+                           "with UNetConfig.fused_conv on (default) or off")
     args = ap.parse_args()
 
     import torch
@@ -88,6 +102,23 @@ def main():
         pipe.generate(PROMPTS, num_steps=4, seed=1, **kw)         # build + warm up
         work = lambda: pipe.generate(PROMPTS, num_steps=20, seed=0, **kw)
         what = f"{args.serve} serving-stack generate (dpmpp-20, FastConfig())"
+    elif args.personalize:
+        import numpy as np
+        from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+        from adaprompt_tpu_torch.models.unet import UNetConfig
+        ada = AdaFacePipeline.random_init(
+            0, unet_cfg=UNetConfig(fused_conv=args.personalize == "on"))
+        rng = np.random.default_rng(0)
+        photos = [rng.integers(0, 256, (512, 512, 3)).astype(np.uint8) for _ in range(3)]
+
+        def work():
+            ada.generate_adaface_embeddings(images_np=photos, seed=0)
+            ada("portrait of a z person", out_image_count=2, num_steps=args.steps, seed=0)
+
+        ada.generate_adaface_embeddings(images_np=photos, seed=1)     # build + warm up
+        ada("portrait of a z person", out_image_count=2, num_steps=2, seed=1)
+        what = (f"personalization (3 photos) and generate of 2 images with {args.steps} DDIM "
+                f"steps, fused_conv {args.personalize}")
     else:
         from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
         pipe = StableDiffusionPipeline.random_init(0, device="cuda", dtype=torch.bfloat16)
@@ -103,7 +134,7 @@ def main():
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    by_class, kernels = {}, []
+    by_class, kernels, n_launches = {}, [], 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -115,17 +146,19 @@ def main():
         cls = kernel_class(ev.key)
         by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, ev.count, ev.key[:90]))
+        n_launches += ev.count
     busy_ms = sum(by_class.values())
     print(f"card: {torch.cuda.get_device_name(0)}; {what}: "
           f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% of wall; idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+          f"({100 * busy_ms / wall_ms:.1f}% of wall; idle {100 - 100 * busy_ms / wall_ms:.1f}%); "
+          f"{n_launches} device kernels and copies")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:32s} {ms:10.3f} ms  {100 * ms / busy_ms:5.1f}%")
     print("top kernels by device time (ms, launches, name):")
     for ms, n, name in sorted(kernels, reverse=True)[:20]:
         print(f"  {ms:10.3f} {n:6d}  {name}")
     print(json.dumps({"work": what, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                      "by_class_ms": by_class}))
+                      "device_launches": n_launches, "by_class_ms": by_class}))
 
 
 if __name__ == "__main__":

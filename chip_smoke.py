@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths on one NVIDIA H100: SD-1.5 txt2img,
-Stage-1 Arc2Face-distillation training, and the composed serving stack
-(DPM-Solver++ 20 steps with ToMe, DeepCache and the CFG tail, quant="int8").
+"""Drive the PyTorch port's four paths on one NVIDIA H100: SD-1.5 txt2img,
+Stage-1 Arc2Face-distillation training, the composed serving stack
+(DPM-Solver++ 20 steps with ToMe, DeepCache and the CFG tail, quant="int8"),
+and the product path (AdaFacePipeline: photos -> ArcFace -> 16 subject
+tokens -> personalized DDIM-50, with UNetConfig.fused_conv).
 
     python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero without the final line):
-  1. build the six CUDA kernels of the paths (one nvcc per source, in
+  1. build the nine CUDA kernels (seven sources, one nvcc each, in
      parallel) from adaprompt_tpu_torch/csrc/;
   2. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the paths' shapes, and time kernel, plain version and (flash
-     attention forward and backward) F.scaled_dot_product_attention as the
-     yardstick;
-  3. run one full-width UNet forward on the card in bf16, and one with
-     quant="int8", and the same weights on the CPU in fp32 (the int8 one
-     through the int8 kernels' plain versions), and bound the relative
-     errors; log the int8 forward's distance from the bf16 one;
+     bf16, at the paths' shapes (the two plain 3x3 conv kernels, which no
+     path runs, at the JAX tests' shapes and a ragged one), and time
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call as the yardstick (F.scaled_dot_product_attention
+     for flash attention forward and backward, F.conv2d for the two plain
+     convs); beside the fused GroupNorm-SiLU-conv, which no single call
+     computes, the port's own unfused pair (group_norm + conv2d);
+  3. run one full-width UNet forward on the card in bf16, one with
+     quant="int8" and one with fused_conv, and the same weights on the CPU
+     in fp32 (the int8 one through the int8 kernels' plain versions), and
+     bound the relative errors; log the int8 forward's distance from the
+     bf16 one;
   4. run one full-width UNet forward and backward with a masked image (the
      training path: flash backward, GEGLU backward, block recompute) on the
      card in bf16 and on the CPU in fp32, and bound the relative error of
@@ -32,7 +39,14 @@ Phases, in order (any failure exits non-zero without the final line):
      with sampler="dpmpp", 20 steps and FastConfig(), with quant="int8"
      and in bf16 (the same random weights), timed in turns, and check the
      images and every kernel's exact launch count;
-  8. print the kernels' JSON line, the card's name and power limit, and
+  8. personalize: AdaFacePipeline at full width (random weights, IResNet-100
+     behind a centre-crop embedder, UNetConfig(fused_conv=True)), three
+     seeded 512x512 photos -> generate_adaface_embeddings -> __call__ for 2
+     images (DDIM-50, UNet batch 4); check the subject vectors, the token
+     table, the rewritten prompt, the images and every kernel's exact
+     launch count; time the personalization latency (photos -> cond/uncond)
+     and img/s with fused_conv on and off in turns (on, off, off, on);
+  9. print the kernels' JSON line, the card's name and power limit, and
      the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -66,6 +80,10 @@ FLASH_BWD_PER_PASS = 9
 FLASH_BWD_TOL = 1e-2    # max|kernel - plain| / max|plain| per gradient (measured <= 5.1e-3)
 TRAIN_STEPS = 4         # seed 0 draws ND = 1, 5, 1, 1
 SERVE_STEPS = 20        # dpmpp-20 under FastConfig() (cache 3/3, CFG tail 0.3, ToMe 0.5)
+CONV_TOL = 2e-2         # the three 3x3 conv kernels: max|kernel - plain| / max|plain|
+PERSONAL_PROMPT = "portrait of a z person"
+PERSONAL_IMAGES = 2     # UNet batch 4 with CFG, as the txt2img phase
+PERSONAL_SUBJECTS = 5   # timed personalizations (3 photos each) after one warm-up
 
 
 def log(msg):
@@ -193,10 +211,10 @@ def _case_flash_bwd(gen, s, d, with_bias):
             res, detail)
 
 
-def _case_cross(gen, n, c):
+def _case_cross(gen, n, c, b=UNET_BATCH):
     import torch
     from adaprompt_tpu_torch.ops import attention as A
-    b, h, s = UNET_BATCH, 8, 77
+    h, s = 8, 77
     bf = torch.bfloat16
     x = torch.randn(b, n, c, device="cuda", generator=gen).to(bf)
     w = lambda: ((torch.rand(c, c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)).to(bf)
@@ -215,7 +233,7 @@ def _case_cross(gen, n, c):
     flops = b * n * (4 * c * c + 4 * s * c)
     nbytes = 2 * b * n * c * 2 + 2 * c * c * 2 + 2 * b * s * c * 2 + c * 4
     res.update(_bound(flops, nbytes, exps=b * h * n * s))
-    return f"fused_cross_attention C={c} N={n}", err, mag, 2e-2, ok, res, ""
+    return f"fused_cross_attention C={c} N={n} B={b}", err, mag, 2e-2, ok, res, ""
 
 
 def _case_geglu(gen, n, c):
@@ -295,6 +313,80 @@ def _case_geglu_int8(gen, m, c):
     return f"geglu_int8 C={c} M={m}", err, mag, 2e-2, ok, res, ""
 
 
+def _conv_inputs(gen, b, h, w, c, o, gn_shift=0.0):
+    import torch
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    x = (rn(b, h, w, c) * 1.5 + 0.5).to(torch.bfloat16)
+    weight = ((torch.rand(o, c, 3, 3, device="cuda", generator=gen) * 2 - 1)
+              / math.sqrt(9 * c)).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bias = (torch.rand(o, device="cuda", generator=gen) * 2 - 1) / math.sqrt(9 * c)
+    return x, weight, bias, 1 + 0.1 * rn(c), 0.1 * rn(c) + gn_shift
+
+
+def _conv_bound(b, h, w, c, o, extra_bytes=0):
+    # 9 taps of a [B*H*W, C] x [C, O] product; x read and out written once
+    # (bf16), the weight (bf16) and the f32 bias read once
+    return _bound(2 * b * h * w * 9 * c * o,
+                  2 * b * h * w * (c + o) + 2 * 9 * c * o + 4 * o + extra_bytes)
+
+
+def _case_conv(gen, fn_name, b, h, w, c, o):
+    """conv3x3_halo or conv3x3_im2col against its plain version; library:
+    F.conv2d (cuDNN) on the same bf16 NHWC tensors."""
+    import torch
+    from adaprompt_tpu_torch.ops import conv_halo as CH
+    from adaprompt_tpu_torch.ops.layers import conv2d
+    x, weight, bias, _, _ = _conv_inputs(gen, b, h, w, c, o)
+    fn, ref = getattr(CH, fn_name), getattr(CH, fn_name + "_reference")
+    packed = CH.pack_conv_weight(weight)
+    err, mag, ok = _compare(fn(x, weight, bias, packed=packed), ref(x, weight, bias), CONV_TOL)
+    bias16 = bias.to(torch.bfloat16)
+    res = {"kernel_ms": time_ms(lambda: fn(x, weight, bias, packed=packed), 10),
+           "plain_ms": time_ms(lambda: ref(x, weight, bias), 3),
+           "library_ms": time_ms(lambda: conv2d(x, weight, bias16), 10)}
+    res.update(_conv_bound(b, h, w, c, o))
+    return f"{fn_name} H={h} W={w} C={c} O={o} B={b}", err, mag, CONV_TOL, ok, res, ""
+
+
+def _case_gn_conv(gen, b, h, c, o, gn_shift):
+    """The fused GroupNorm-SiLU-conv against its plain version. No single
+    PyTorch call computes it (library_ms None); `unfused_ms` is the port's
+    own unfused pair, layers.group_norm(..., "silu") + conv2d, the time the
+    kernel has to beat, and `affine_ms` the statistics pass that the
+    wrapper runs before the kernel (counted in kernel_ms). With gn_shift > 0
+    the case also shows that an unmasked border would miss the bound."""
+    import torch
+    import torch.nn.functional as F
+    from adaprompt_tpu_torch.ops import conv_halo as CH
+    from adaprompt_tpu_torch.ops.layers import conv2d, group_norm
+    x, weight, bias, gs, gb = _conv_inputs(gen, b, h, h, c, o, gn_shift)
+    packed = CH.pack_conv_weight(weight)
+    fused = lambda: CH.gn_silu_conv3x3_halo(x, gs, gb, weight, bias, packed=packed)
+    ref = CH.gn_silu_conv3x3_halo_reference(x, gs, gb, weight, bias)
+    err, mag, ok = _compare(fused(), ref, CONV_TOL)
+    detail = ""
+    if gn_shift:
+        # what a kernel that padded x before the affine would return: silu(b) on the border
+        ab = CH.gn_affine(x, gs, gb)
+        seg = F.pad(x.float(), (0, 0, 1, 1, 1, 1)) * ab[:, 0, None, None, :] + ab[:, 1, None, None, :]
+        act = (seg * torch.sigmoid(seg)).to(x.dtype).float().permute(0, 3, 1, 2)
+        wrong = F.conv2d(act, weight.float(), bias).permute(0, 2, 3, 1)
+        miss = (wrong - ref.float()).abs().max().item()
+        detail = f"unmasked border would err {miss / mag:.3e}*max"
+        ok = ok and miss > 2 * CONV_TOL * mag
+    gs16, gb16, bias16 = (t.to(torch.bfloat16) for t in (gs, gb, bias))
+    unfused = lambda: conv2d(group_norm(x, gs16, gb16, eps=1e-5, activation="silu"), weight, bias16)
+    res = {"kernel_ms": time_ms(fused, 10),
+           "plain_ms": time_ms(lambda: CH.gn_silu_conv3x3_halo_reference(x, gs, gb, weight, bias), 3),
+           "library_ms": None,
+           "unfused_ms": time_ms(unfused, 10),
+           "affine_ms": time_ms(lambda: CH.gn_affine(x, gs, gb), 10)}
+    res.update(_conv_bound(b, h, h, c, o, extra_bytes=8 * c))
+    detail += f" unfused_ms={res['unfused_ms']:.4f} affine_ms={res['affine_ms']:.4f}"
+    return (f"gn_silu_conv3x3_halo H={h} C={c} O={o} B={b} gn_shift={gn_shift:g}", err, mag,
+            CONV_TOL, ok, res, detail)
+
+
 def phase_kernels():
     """Returns {wrapper name: [per-shape results]} for the kernels line."""
     import torch
@@ -305,8 +397,13 @@ def phase_kernels():
     # serving stack merges the 64x64 level's 4096 tokens to 2048 (ToMe 0.5)
     # for self-attention and the feed-forward, never for cross-attention,
     # and runs batch 4 in the CFG steps and batch 2 in the cond-only tail.
-    gen_, train, both = ("generate",), ("train",), ("generate", "train")
+    gen_, train = ("generate",), ("train",)
     serve, s8 = ("serve_int8", "serve_bf16"), ("serve_int8",)
+    # the product path is the txt2img UNet (batch 4) plus the fused convs,
+    # whose three shapes are the keys of conv_halo._FUSED_TABLE
+    pers = ("personalize",)
+    gen_ = gen_ + pers
+    both = gen_ + train
     cases = [("flash_attention_fwd", gen_, lambda: _case_flash(gen, 4096, 40, False)),
              ("flash_attention_fwd", train, lambda: _case_flash(gen, 4096, 40, True)),
              ("flash_attention_fwd", gen_ + serve, lambda: _case_flash(gen, 1024, 80, False)),
@@ -320,6 +417,8 @@ def phase_kernels():
               lambda: _case_cross(gen, 4096, 320)),
              ("fused_cross_attention", gen_ + ("serve_bf16",),
               lambda: _case_cross(gen, 1024, 640)),
+             ("fused_cross_attention", ("serve_bf16",), lambda: _case_cross(gen, 4096, 320, 2)),
+             ("fused_cross_attention", ("serve_bf16",), lambda: _case_cross(gen, 1024, 640, 2)),
              ("geglu_fwd", both, lambda: _case_geglu(gen, 4096, 320)),
              ("geglu_fwd", both + ("serve_bf16",), lambda: _case_geglu(gen, 1024, 640)),
              ("geglu_fwd", ("serve_bf16",), lambda: _case_geglu(gen, 2048, 320)),
@@ -330,7 +429,23 @@ def phase_kernels():
              ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 4 * 2048, 320)),
              ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 2 * 2048, 320)),
              ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 4 * 1024, 640)),
-             ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 2 * 1024, 640))]
+             ("geglu_int8", s8, lambda: _case_geglu_int8(gen, 2 * 1024, 640)),
+             ("gn_silu_conv3x3_halo", pers, lambda: _case_gn_conv(gen, 4, 64, 320, 320, 0.0)),
+             ("gn_silu_conv3x3_halo", pers, lambda: _case_gn_conv(gen, 4, 64, 320, 320, 3.0)),
+             ("gn_silu_conv3x3_halo", pers, lambda: _case_gn_conv(gen, 4, 32, 320, 640, 0.0)),
+             ("gn_silu_conv3x3_halo", pers, lambda: _case_gn_conv(gen, 4, 32, 960, 640, 0.0))]
+    # the other ResBlock conv shapes of the SD-1.5 UNet, which the eligibility
+    # table leaves to GroupNorm + cuDNN: timed to show where fusing would pay
+    for h, c, o in ((32, 640, 640), (16, 640, 1280), (16, 1280, 1280), (8, 1280, 1280),
+                    (8, 2560, 1280), (16, 2560, 1280), (16, 1920, 1280), (32, 1920, 640),
+                    (32, 1280, 640), (64, 960, 320), (64, 640, 320)):
+        cases.append(("gn_silu_conv3x3_halo", (),
+                      lambda s=(h, c, o): _case_gn_conv(gen, 4, *s, 0.0)))
+    # the two plain convs run on no path (wired nowhere, as in the JAX package)
+    for fn_name in ("conv3x3_halo", "conv3x3_im2col"):
+        for shape in ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),
+                      (3, 23, 37, 200, 72)):
+            cases.append((fn_name, (), lambda f=fn_name, s=shape: _case_conv(gen, f, *s)))
     results, failed = {}, []
     for name, paths, case in cases:
         label, err, mag, tol, ok, res, detail = case()
@@ -349,11 +464,25 @@ def phase_kernels():
     return results
 
 
+def fused_convs_per_pass() -> int:
+    """The ResBlock convs of one full-width UNet pass over 64x64 latents that
+    take the fused kernel under fused_conv, from the UNet's plan: 9 of 44
+    (7 at (64, 320, 320), 1 at (32, 320, 640), 1 at (32, 960, 640))."""
+    from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, resblock_conv_shapes
+    from adaprompt_tpu_torch.ops.conv_halo import _FUSED_TABLE
+    shapes = resblock_conv_shapes(SD15_UNET_CONFIG, 64)
+    n = sum(shape in _FUSED_TABLE for shape in shapes)
+    if (len(shapes), n) != (44, 9):
+        raise AssertionError(f"{n} of {len(shapes)} ResBlock convs are eligible, expected 9 of 44")
+    return n
+
+
 def phase_unet_check():
     """One full-width UNet forward (64x64 latents, 2 rows) on the card in
-    bf16, and one with quant="int8" (B5 and B6), each against the same
-    weights on the CPU in fp32 (the int8 one through the kernels' plain
-    versions)."""
+    bf16, one with quant="int8" (B5 and B6) and one with fused_conv (B7),
+    each against the same weights on the CPU in fp32 (the int8 one through
+    the kernels' plain versions; in fp32 no conv is eligible for fusion, so
+    the fused_conv forward is held to the plain fp32 one)."""
     import dataclasses
     import torch
     from adaprompt_tpu_torch.models.unet import UNet
@@ -363,6 +492,7 @@ def phase_unet_check():
     unet = reset_parameters(UNet(device="cuda", dtype=torch.bfloat16), gen)
     randomize_zero_init(unet, gen)
     int8 = dataclasses.replace(unet.cfg, quant="int8")
+    fused = dataclasses.replace(unet.cfg, fused_conv=True)
     x = torch.randn(2, 64, 64, 4, device="cuda", generator=gen).to(torch.bfloat16)
     ctx = torch.randn(1, 2, 77, 768, device="cuda", generator=gen).to(torch.bfloat16)
     ts = torch.tensor([981, 501], device="cuda")
@@ -373,6 +503,7 @@ def phase_unet_check():
         kv = unet.precompute_cross_kv(ctx)
         eps = unet(x, ts, ctx, cross_kv=kv).float().cpu()
         eps8 = unet(x, ts, ctx, cross_kv=kv, cfg=int8).float().cpu()
+        eps_fused = unet(x, ts, ctx, cross_kv=kv, cfg=fused).float().cpu()
     card_s = time.perf_counter() - t0
     counts = {n: w.launches - before[n] for n, w in wrappers.items()}
     cpu = UNet(device="cpu", dtype=torch.float32)
@@ -386,19 +517,22 @@ def phase_unet_check():
         ref8 = cpu(x.float().cpu(), ts.cpu(), ctx32, cross_kv=kv32, cfg=int8)
     cpu_s = time.perf_counter() - t0
     rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()
-    rel, rel8 = rel_l2(eps, ref), rel_l2(eps8, ref8)
+    rel, rel8, rel_fused = rel_l2(eps, ref), rel_l2(eps8, ref8), rel_l2(eps_fused, ref)
     log(f"phase 3 unet: bf16 card vs fp32 CPU relative L2 error {rel:.4e}; int8 card vs int8 "
-        f"fp32 CPU {rel8:.4e} (bound {UNET_TOL:g} each); int8 vs bf16 on the card "
-        f"{rel_l2(eps8, eps):.4e}, int8 vs fp32 on the CPU {rel_l2(ref8, ref):.4e}; "
+        f"fp32 CPU {rel8:.4e}; fused_conv card vs fp32 CPU {rel_fused:.4e} (bound {UNET_TOL:g} "
+        f"each); int8 vs bf16 on the card {rel_l2(eps8, eps):.4e}, fused_conv vs bf16 on the "
+        f"card {rel_l2(eps_fused, eps):.4e}, int8 vs fp32 on the CPU {rel_l2(ref8, ref):.4e}; "
         f"|eps| max {ref.abs().max().item():.3e}; card {card_s:.2f} s (first calls), "
         f"CPU {cpu_s:.1f} s; launches {counts}")
-    for name, r in (("bf16", rel), ("int8", rel8)):
+    for name, r in (("bf16", rel), ("int8", rel8), ("fused_conv", rel_fused)):
         if not (math.isfinite(r) and r <= UNET_TOL and ref.abs().max().item() > 0):
             raise AssertionError(f"{name} UNet on the card disagrees with the CPU: {r}")
-    # 10 transformer blocks at 64x64 and 32x32 each launch B1, B2 or B5, B3 or B6
+    # 10 transformer blocks at 64x64 and 32x32 each launch B1, B2 or B5, B3 or
+    # B6, in each of the three forwards; the fused_conv one launches B7 besides
     want = {n: 0 for n in counts}
-    want.update(flash_attention_fwd=20, fused_cross_attention=10, geglu_fwd=10,
-                fused_cross_attention_int8=10, geglu_int8=10)
+    want.update(flash_attention_fwd=30, fused_cross_attention=20, geglu_fwd=20,
+                fused_cross_attention_int8=10, geglu_int8=10,
+                gn_silu_conv3x3_halo=fused_convs_per_pass())
     if counts != want:
         raise AssertionError(f"UNet launches {counts}, expected {want}")
 
@@ -448,9 +582,8 @@ def phase_unet_grad():
     if not (math.isfinite(rel) and rel <= UNET_GRAD_TOL and ref.abs().max().item() > 0):
         raise AssertionError(f"UNet gradient on the card disagrees with the CPU: {rel}")
     # forward, its recompute under block checkpointing, and one backward
-    want = {"flash_attention_fwd": 20, "flash_attention_bwd": FLASH_BWD_PER_PASS,
-            "fused_cross_attention": 0, "geglu_fwd": 20, "fused_cross_attention_int8": 0,
-            "geglu_int8": 0}
+    want = {n: 0 for n in counts}
+    want.update(flash_attention_fwd=20, flash_attention_bwd=FLASH_BWD_PER_PASS, geglu_fwd=20)
     if counts != want:
         raise AssertionError(f"UNet gradient launches {counts}, expected {want}")
 
@@ -484,7 +617,7 @@ def phase_generate():
         f"image std {imgs.std():.2f}; launches {launches}")
     if imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8 or not imgs.std() > 0:
         raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
-    want = {n: 0 for n in launches}            # sampling takes no gradient; no int8
+    want = {n: 0 for n in launches}            # no gradient, no int8, no fused_conv
     want.update(flash_attention_fwd=10 * steps, fused_cross_attention=10 * steps,
                 geglu_fwd=10 * steps)
     if launches != want:
@@ -551,9 +684,9 @@ def phase_train():
         raise AssertionError(f"SubjBasisGenerator parameters did not move: {moved}")
     # student passes: forward + its recompute; teacher passes: forward only
     fwd = 10 * (sum(teachers) + 2 * sum(students))
-    want = {"flash_attention_fwd": fwd, "flash_attention_bwd": FLASH_BWD_PER_PASS * sum(students),
-            "fused_cross_attention": 0, "geglu_fwd": fwd, "fused_cross_attention_int8": 0,
-            "geglu_int8": 0}
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=fwd, flash_attention_bwd=FLASH_BWD_PER_PASS * sum(students),
+                geglu_fwd=fwd)
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     return launches
@@ -622,25 +755,133 @@ def phase_serve():
     return launches
 
 
+def phase_personalize():
+    """The product path through its entry points: AdaFacePipeline at full
+    width with random weights (the SD pipeline with fused_conv, a separate
+    Arc2Face CLIP-L, the SubjBasisGenerator, IResNet-100 behind the
+    centre-crop embedder), three seeded 512x512 photos ->
+    generate_adaface_embeddings -> __call__ (DDIM-50, 2 images, UNet batch
+    4). fused_conv on and off share every weight and are timed in turns (on,
+    off, off, on); returns the launch counts of the first run of each."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.models.unet import UNetConfig
+    from adaprompt_tpu_torch.ops import kernel_wrappers
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init
+    from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
+    steps = 50
+    t0 = time.perf_counter()
+    ada = AdaFacePipeline.random_init(0, unet_cfg=UNetConfig(fused_conv=True))
+    pipe = ada.pipe
+    randomize_zero_init(pipe.unet, torch.Generator(device="cuda").manual_seed(2))
+    plain_pipe = StableDiffusionPipeline(pipe.unet, pipe.vae, pipe.text, pipe.tokenizer)
+    plain_pipe.unet_cfg = dataclasses.replace(pipe.unet_cfg, fused_conv=False)
+    ada_off = AdaFacePipeline(plain_pipe, ada.subj_basis, ada.subj_basis_cfg, ada.arc2face_text,
+                              ada.arc2face_text_cfg, face_embedder=ada.face_embedder)
+    torch.cuda.synchronize()
+    n_arc = sum(p.numel() for p in ada.face_embedder.arcface.parameters()) / 1e6
+    log(f"phase 8 random_init: {time.perf_counter() - t0:.1f} s (ArcFace IResNet-100 {n_arc:.1f} M "
+        f"parameters); fused_conv {pipe.unet_cfg.fused_conv} / {plain_pipe.unet_cfg.fused_conv}")
+    rng = np.random.default_rng(0)
+    subjects = [[rng.integers(0, 256, (512, 512, 3)).astype(np.uint8) for _ in range(3)]
+                for _ in range(PERSONAL_SUBJECTS + 1)]
+    for a in (ada, ada_off):                                   # build + warm up
+        a.generate_adaface_embeddings(images_np=subjects[-1], seed=1)
+        a(PERSONAL_PROMPT, out_image_count=PERSONAL_IMAGES, num_steps=2, seed=1)
+
+    # personalization latency: photos in -> cond/uncond ready to generate
+    lat = []
+    for s, photos in enumerate(subjects[:PERSONAL_SUBJECTS]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ada.generate_adaface_embeddings(images_np=photos, seed=s)
+        cond, uncond = ada.encode_prompt(PERSONAL_PROMPT)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    log(f"phase 8 personalization latency (3 photos 512x512 -> ArcFace -> Arc2Face -> "
+        f"SubjBasisGenerator -> token table -> cond/uncond), {PERSONAL_SUBJECTS} subjects: "
+        f"p50 {float(np.percentile(lat, 50)):.3f} ms, min {min(lat):.3f}, max {max(lat):.3f}")
+
+    wrappers = kernel_wrappers()
+    per_pass = fused_convs_per_pass()
+    launches, rates, images = {}, {"personalize": [], "personalize_unfused": []}, {}
+    for path in ("personalize", "personalize_unfused", "personalize_unfused", "personalize"):
+        a = ada if path == "personalize" else ada_off
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        embs = a.generate_adaface_embeddings(images_np=subjects[0], seed=0)
+        imgs = a(PERSONAL_PROMPT, out_image_count=PERSONAL_IMAGES, num_steps=steps, seed=0)
+        seconds = time.perf_counter() - t1
+        counts = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rates[path].append(PERSONAL_IMAGES / seconds)
+        log(f"phase 8 {path}: 3 photos -> {PERSONAL_IMAGES} images 512x512 DDIM-{steps} bf16 in "
+            f"{seconds:.3f} s -> {rates[path][-1]:.4f} img/s; peak memory {peak:.2f} GiB; "
+            f"image std {imgs.std():.2f}; launches {counts}")
+        rows = pipe.text.token_embedding[ada.placeholder_token_ids]
+        if not (tuple(embs.shape) == (16, 768) and bool(torch.isfinite(embs).all())
+                and torch.equal(rows, embs.to(rows.dtype)) and float(embs.std()) > 0):
+            raise AssertionError(f"bad subject vectors {tuple(embs.shape)}, or not in the table")
+        if (imgs.shape != (PERSONAL_IMAGES, 512, 512, 3) or imgs.dtype != np.uint8
+                or not imgs.std() > 0):
+            raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
+        want = {n: 0 for n in counts}
+        want.update(flash_attention_fwd=10 * steps, fused_cross_attention=10 * steps,
+                    geglu_fwd=10 * steps,
+                    gn_silu_conv3x3_halo=per_pass * steps if path == "personalize" else 0)
+        if counts != want:
+            raise AssertionError(f"{path} launches {counts}, expected {want}")
+        launches.setdefault(path, counts)
+        images.setdefault(path, imgs)
+    prompt = ada.update_prompt(PERSONAL_PROMPT)
+    if prompt != "portrait of a " + " ".join(f"z_{i}" for i in range(16)) + " person":
+        raise AssertionError(f"prompt rewritten to {prompt!r}")
+    ids = [int(i) for i in pipe.tokenize([prompt])[0]]
+    first = ids.index(ada.placeholder_token_ids[0])
+    if ids[first:first + 16] != ada.placeholder_token_ids:
+        raise AssertionError(f"the rewritten prompt tokenizes to {ids[:32]}")
+    diff = np.abs(images["personalize"].astype(np.int32)
+                  - images["personalize_unfused"].astype(np.int32))
+    log(f"phase 8 img/s in turns: fused_conv on {rates['personalize']}, off "
+        f"{rates['personalize_unfused']}; fused vs unfused images, same seed: mean |diff| "
+        f"{diff.mean():.3f} levels, max {diff.max()}")
+    return launches
+
+
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
-                            ("generate", "train", "serve_int8", "serve_bf16")),
+                            ("generate", "train", "serve_int8", "serve_bf16", "personalize",
+                             "personalize_unfused")),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314", ("train",)),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
-                              "adaprompt_tpu/ops/attention.py:610", ("generate", "serve_bf16")),
+                              "adaprompt_tpu/ops/attention.py:610",
+                              ("generate", "serve_bf16", "personalize", "personalize_unfused")),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
-                  ("generate", "train", "serve_bf16")),
+                  ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",
                    ("serve_int8",)),
+    "gn_silu_conv3x3_halo": ("adaprompt_tpu_torch/csrc/conv_halo.cu",
+                             "adaprompt_tpu/ops/conv_halo.py:208", ("personalize",)),
+    # wired into no model, as in the JAX package: launched by phase 2 only
+    "conv3x3_halo": ("adaprompt_tpu_torch/csrc/conv_halo.cu",
+                     "adaprompt_tpu/ops/conv_halo.py:57", ()),
+    "conv3x3_im2col": ("adaprompt_tpu_torch/csrc/conv_halo.cu",
+                       "adaprompt_tpu/ops/conv_halo.py:107", ()),
 }
 
 
 def kernels_line(results, launches_by_path):
-    """Per kernel, the mean over the shapes its paths run of the times and
+    """Per kernel, the mean over the shapes its paths run (for the two conv
+    kernels that no path runs: over their phase-2 shapes) of the times and
     bounds measured in phase 2, and its launches on each path's counted
     run."""
     out = []
@@ -649,7 +890,7 @@ def kernels_line(results, launches_by_path):
         missing = [p for p in paths if by_path[p] == 0]
         if missing:
             raise AssertionError(f"{name} was never launched on the {missing} path")
-        rs = [r for r in results[name] if r["paths"]]
+        rs = [r for r in results[name] if r["paths"]] or results[name]
         mean = lambda key: sum(r[key] for r in rs) / len(rs)
         t_ops = sum(r["ops_ms"] for r in rs)
         t_bytes = sum(r["bytes_ms"] for r in rs)
@@ -663,6 +904,8 @@ def kernels_line(results, launches_by_path):
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
+        if "unfused_ms" in rs[0]:
+            out[-1].update(unfused_ms=mean("unfused_ms"), affine_ms=mean("affine_ms"))
     return {"kernels": out}
 
 
@@ -696,6 +939,7 @@ def main() -> int:
     phase_unet_grad()
     launches = {"generate": phase_generate(), "train": phase_train()}
     launches.update(phase_serve())
+    launches.update(phase_personalize())
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(results, launches)))
     print(card_line())

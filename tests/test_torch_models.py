@@ -151,9 +151,60 @@ def test_unet_unported_options_raise(models):
     with pytest.raises(NotImplementedError):
         tu(x, torch.zeros(1), torch.zeros(1, 77, 64),
            conv_attn={"subj_pos": torch.zeros(1, 1, dtype=torch.long), "kernel_size": 3})
-    from adaprompt_tpu_torch.models.unet import UNet, UNetConfig
-    with pytest.raises(NotImplementedError):
-        UNet(UNetConfig(fused_conv=True))
+
+
+def test_unet_fused_conv(models, monkeypatch):
+    """UNetConfig(fused_conv=True) in bf16 on the CPU, the eligibility table
+    patched to the tiny UNet's counterparts of the three SD-1.5 shapes: the
+    fused GroupNorm-SiLU-conv (here its plain version) takes exactly the
+    eligible ResBlock convs, with the weights packed once per pass, and the
+    output stays within 2e-2 relative L2 of the unfused bf16 forward (which
+    normalizes in bf16 where the fused form normalizes in float32). In
+    float32 nothing is eligible, as in the JAX package."""
+    import dataclasses
+    from adaprompt_tpu_torch.models import unet as tunet
+    from adaprompt_tpu_torch.ops import conv_halo as tch
+    _, (tu, _, _) = models
+    shapes = tunet.resblock_conv_shapes(tu.cfg, 32)
+    assert len(shapes) == 44
+    sd_shapes = tunet.resblock_conv_shapes(tunet.SD15_UNET_CONFIG, 64)
+    assert sum(s in tch._FUSED_TABLE for s in sd_shapes) == 9       # 7 + 1 + 1
+    table = {(32, 32, 32), (16, 32, 64), (16, 96, 64)}                # SD's keys at 1/10 width
+    monkeypatch.setattr(tch, "_FUSED_TABLE", table)
+    want = sum(s in table for s in shapes)
+    assert want == 9
+    calls, packs = [], []
+    plain, pack = tch.gn_silu_conv3x3_halo_reference, tch.pack_conv_weight
+    monkeypatch.setattr(tch, "gn_silu_conv3x3_halo_reference",
+                        lambda x, *a, **k: calls.append(tuple(x.shape[1:])) or plain(x, *a, **k))
+    monkeypatch.setattr(tch, "pack_conv_weight", lambda w: packs.append(1) or pack(w))
+    rng = np.random.default_rng(11)
+    x, ts, ctx = _unet_inputs(rng, L=1)
+    bf = torch.bfloat16
+    model = tunet.UNet(tu.cfg).to(bf)
+    model.load_state_dict({k: v.to(bf) for k, v in tu.state_dict().items()})
+    fused = dataclasses.replace(tu.cfg, fused_conv=True)
+    args = (t(x).to(bf), torch.from_numpy(ts), t(ctx).to(bf))
+    with torch.no_grad():
+        eps = model(*args).float()
+        assert not calls and not packs
+        eps_fused = model(*args, cfg=fused).float()
+        assert len(calls) == want and len(packs) == want
+        assert sorted(c[0] for c in calls) == [16, 16] + [32] * 7
+        hoisted = model.pack_fused_conv_weights()
+        assert len(hoisted) == want
+        eps_hoisted = model(*args, cfg=fused, fused_conv_weights=hoisted).float()
+        assert len(calls) == 2 * want and len(packs) == 2 * want    # none packed in the pass
+        ref = tu(t(x), torch.from_numpy(ts), t(ctx))
+        assert torch.equal(tu(t(x), torch.from_numpy(ts), t(ctx), cfg=fused), ref)
+        assert len(calls) == 2 * want                                # float32: none eligible
+    assert torch.equal(eps_hoisted, eps_fused)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    assert rel(eps_fused, eps) <= 2e-2 and eps.abs().max() > 1e-2
+    assert rel(eps_fused, ref) <= 5e-2
+    # the option constructs a model, and recompute under autograd stays a CPU matter
+    assert tunet.UNet(tunet.UNetConfig(model_channels=32, num_heads=4, context_dim=64,
+                                       fused_conv=True)).cfg.fused_conv
 
 
 def test_timestep_embedding():

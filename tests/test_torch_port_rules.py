@@ -13,7 +13,8 @@ import torch
 
 import adaprompt_tpu_torch
 from adaprompt_tpu_torch import pipeline as tpipe
-from adaprompt_tpu_torch.ops import attention as tattn, geglu as tgeglu, kernel_wrappers
+from adaprompt_tpu_torch.ops import attention as tattn, conv_halo as tch, geglu as tgeglu
+from adaprompt_tpu_torch.ops import kernel_wrappers
 from adaprompt_tpu_torch.ops.quant import quantize_weight
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,7 +37,7 @@ def test_port_imports_no_jax_nor_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 14          # every module of the package was imported
+    assert int(n) >= 40          # every module of the package was imported
     assert bad == "[]", bad
 
 
@@ -67,7 +68,10 @@ def _small_inputs(device, dtype):
              rn(64, 64) / 8, rn(64).float() / 8)
     ff = (rn(96, 64), rn(512, 64) / 8, rn(512).float() / 8, rn(64, 256) / 16,
           rn(64).float() / 8)
+    conv = (rn(2, 8, 8, 32), rn(16, 32, 3, 3) / 16, rn(16).float() / 8)
     return {
+        "conv": conv,
+        "gn_conv": (conv[0], rn(32).float(), rn(32).float()) + conv[1:],
         "flash": flash,
         # q, k, v, key_bias, out, lse, dout
         "flash_bwd": flash + (None, rn(2, 512, 2, 40), rn(4, 512, 1).float(), rn(2, 512, 2, 40)),
@@ -89,6 +93,9 @@ def test_wrappers_take_plain_version_only_on_cpu():
     tgeglu.geglu(*x["geglu"])
     tattn.fused_cross_attention_int8(*x["cross_int8"], 32 ** -0.5, 2)
     tgeglu.geglu_int8(*x["geglu_int8"])
+    tch.gn_silu_conv3x3_halo(*x["gn_conv"])
+    tch.conv3x3_halo(*x["conv"])
+    tch.conv3x3_im2col(*x["conv"])
     assert {n: w.launches for n, w in kernel_wrappers().items()} == before
     meta = {k: [None if a is None else a.to("meta") for a in v] for k, v in x.items()}
     with pytest.raises(TypeError, match="CUDA"):
@@ -103,6 +110,12 @@ def test_wrappers_take_plain_version_only_on_cpu():
         tattn.fused_cross_attention_int8(*meta["cross_int8"], 32 ** -0.5, 2)
     with pytest.raises(TypeError, match="CUDA"):
         tgeglu.geglu_int8(*meta["geglu_int8"])
+    with pytest.raises(TypeError, match="CUDA"):
+        tch.gn_silu_conv3x3_halo(*meta["gn_conv"])
+    with pytest.raises(TypeError, match="CUDA"):
+        tch.conv3x3_halo(*meta["conv"])
+    with pytest.raises(TypeError, match="CUDA"):
+        tch.conv3x3_im2col(*meta["conv"])
 
 
 def test_fused_cross_attention_refuses_gradients_off_the_cpu():
@@ -130,16 +143,40 @@ def test_int8_kernels_refuse_gradients_off_the_cpu(name):
         fn(*x)
 
 
+@pytest.mark.parametrize("name", ["gn_silu_conv3x3_halo", "conv3x3_halo", "conv3x3_im2col"])
+def test_conv_kernels_refuse_gradients_off_the_cpu(name):
+    """The three conv kernels are forward only (the JAX functions have no
+    custom_vjp): off the CPU a wrapper raises on an input that needs a
+    gradient, whichever input it is; on the CPU the plain version
+    differentiates."""
+    fn = getattr(tch, name)
+    key = "gn_conv" if name == "gn_silu_conv3x3_halo" else "conv"
+    for i in range(len(_small_inputs("cpu", torch.float32)[key])):
+        x = [a.to("meta") for a in _small_inputs("cpu", torch.float32)[key]]
+        x[i].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward only"):
+            fn(*x)
+        with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
+            fn(*x)
+    x = [a.requires_grad_(True) for a in _small_inputs("cpu", torch.float32)[key]]
+    fn(*x).sum().backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in x)
+
+
 def test_kernel_sources_and_wrappers_exist():
     from adaprompt_tpu_torch.ops import cuda_build
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").is_file()
     assert set(kernel_wrappers()) == {"flash_attention_fwd", "flash_attention_bwd",
                                       "fused_cross_attention", "geglu_fwd",
-                                      "fused_cross_attention_int8", "geglu_int8"}
+                                      "fused_cross_attention_int8", "geglu_int8",
+                                      "gn_silu_conv3x3_halo", "conv3x3_halo", "conv3x3_im2col"}
     assert set(cuda_build.SOURCES) == {"flash_attention", "flash_attention_bwd",
                                        "fused_cross_attention", "geglu",
-                                       "fused_cross_attention_int8", "geglu_int8"}
+                                       "fused_cross_attention_int8", "geglu_int8", "conv_halo"}
+    src = (cuda_build.CSRC / "conv_halo.cu").read_text()
+    for fn in ("gn_silu_conv3x3_halo_fwd", "conv3x3_halo_fwd", "conv3x3_im2col_fwd"):
+        assert f'extern "C" int {fn}(' in src
     assert adaprompt_tpu_torch.__version__
 
 
@@ -171,6 +208,12 @@ def test_kernels_match_plain_versions_on_the_card():
     for got, ref in zip(tattn.flash_attention_bwd(*args),
                         tattn.flash_attention_bwd_reference(*args)):
         _assert_near(got, ref, 1e-2)
+    conv = [a.contiguous() for a in x["conv"]]
+    gn_conv = [a.contiguous() for a in x["gn_conv"]]
+    _assert_near(tch.conv3x3_halo(*conv), tch.conv3x3_halo_reference(*conv), 2e-2)
+    _assert_near(tch.conv3x3_im2col(*conv), tch.conv3x3_im2col_reference(*conv), 2e-2)
+    _assert_near(tch.gn_silu_conv3x3_halo(*gn_conv),
+                 tch.gn_silu_conv3x3_halo_reference(*gn_conv), 2e-2)
     after = {n: w.launches for n, w in kernel_wrappers().items()}
     assert after == {n: before[n] + (2 if n == "flash_attention_fwd" else 1) for n in after}
 
@@ -327,3 +370,50 @@ def test_int8_quantization_matches_between_cpu_and_card():
     q_cpu, s_cpu = quantize_acts(x)
     q_gpu, s_gpu = quantize_acts(x.cuda())
     assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+
+
+# -- the three 3x3 conv kernels on the card --------------------------------------
+
+def _card_case(seed, b, h, w, c, o, gn_shift):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    x = (rn(b, h, w, c) * 1.5 + 0.5).bfloat16()
+    wt = (rn(o, c, 3, 3) / math.sqrt(9 * c)).bfloat16()
+    return x, wt, rn(o) * 0.1, 1 + 0.1 * rn(c), 0.1 * rn(c) + gn_shift
+
+
+RAGGED = [(2, 8, 8, 32, 32), (1, 13, 21, 40, 20), (3, 7, 33, 96, 72), (1, 9, 17, 36, 10),
+          (2, 12, 12, 64, 48), (1, 16, 16, 1280, 64), (1, 5, 40, 8, 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["conv3x3_halo", "conv3x3_im2col"])
+@pytest.mark.parametrize("b,h,w,c,o", RAGGED)
+def test_conv_kernels_ragged_shapes(fn, b, h, w, c, o):
+    """Ragged row, column, channel-chunk and output-channel tiles, channel
+    counts that rule out 16-byte loads; bf16 against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    x, wt, bias, _, _ = _card_case(h + w + c + o, b, h, w, c, o, 0.0)
+    wrapper = getattr(tch, fn)
+    before = wrapper.launches
+    out = wrapper(x, wt, bias)
+    assert wrapper.launches == before + 1
+    _assert_near(out, getattr(tch, fn + "_reference")(x, wt, bias), 2e-2)
+    _assert_near(wrapper(x, wt, bias, packed=tch.pack_conv_weight(wt)), out, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn_shift", [0.0, 3.0])
+@pytest.mark.parametrize("b,h,w,c,o", [(2, 8, 8, 32, 32), (3, 7, 33, 96, 72), (2, 12, 12, 64, 48),
+                                       (1, 21, 13, 160, 40), (1, 16, 16, 1280, 64)])
+def test_gn_silu_conv_kernel_ragged_shapes(b, h, w, c, o, gn_shift):
+    """The fused kernel on ragged tiles; gn_shift=3 makes an unmasked border
+    (silu(b) instead of 0 outside the image) miss the bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    x, wt, bias, gs, gb = _card_case(h + w + c + o + 1, b, h, w, c, o, gn_shift)
+    before = tch.gn_silu_conv3x3_halo.launches
+    out = tch.gn_silu_conv3x3_halo(x, gs, gb, wt, bias)
+    assert tch.gn_silu_conv3x3_halo.launches == before + 1
+    _assert_near(out, tch.gn_silu_conv3x3_halo_reference(x, gs, gb, wt, bias), 2e-2)

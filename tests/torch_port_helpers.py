@@ -8,11 +8,13 @@ import numpy as np
 import torch
 
 from adaprompt_tpu.adaface import subj_basis_generator as jsbg
+from adaprompt_tpu.models import arcface as jarcface
 from adaprompt_tpu.models import clip_text as jclip, unet as junet, vae as jvae
 from adaprompt_tpu.train import steps as jsteps
 from adaprompt_tpu_torch import convert
 from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
 from adaprompt_tpu_torch.adaface.checkpoint import module_tree
+from adaprompt_tpu_torch.models import arcface as tarcface
 from adaprompt_tpu_torch.models import clip_text as tclip, unet as tunet, vae as tvae
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.ops.tome import _partition as tome_partition
@@ -146,3 +148,68 @@ def train_env(d):
                               port_module(tunet.UNet(tu), jp["teacher_unet"]))
     return dict(jtok=jtok, ttok=ttok, jfrozen=jfrozen, tfrozen=tfrozen, jscfg=jscfg,
                 tscfg=tscfg, jsp=jsp, ju=ju, jt=jt)
+
+
+# -- ArcFace ---------------------------------------------------------------------
+
+def arcface_pair(seed, **cfg):
+    """(JAX ArcFace params, JAX config, the port's ArcFace module on the
+    CPU) holding the same weights: the JAX init with every BatchNorm's
+    affine and running statistics and every PReLU slope perturbed, so that
+    none of them is an identity."""
+    jcfg = jarcface.IResNetConfig(**cfg)
+    rng = np.random.default_rng(seed)
+
+    def perturb(tree):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, (dict, list)):
+                    out[k] = perturb(v)
+                else:
+                    a = np.asarray(v, np.float32)
+                    if a.ndim == 1:
+                        a = a + 0.2 * rng.standard_normal(a.shape).astype(np.float32)
+                        a = np.abs(a) + 0.3 if k == "var" else a
+                    out[k] = a
+            return out
+        return [perturb(v) for v in tree]
+
+    jp = perturb(jarcface.init_params(jax.random.PRNGKey(seed), jcfg))
+    model = port_module(tarcface.ArcFace(tarcface.IResNetConfig(**cfg), device="cpu"), jp)
+    return jax.tree.map(jax.numpy.asarray, jp), jcfg, model
+
+
+# -- the product path ------------------------------------------------------------------
+
+ARCFACE_TINY = dict(layers=(1, 1, 1, 1), planes=(8, 8, 16, 16), num_features=512, input_size=32)
+
+
+def wrapper_env(d):
+    """Both packages' AdaFacePipeline over the tiny Stage-1 models of
+    `train_env` (same weights, one word vocabulary, float32, CPU), a tiny
+    VAE and a shared tiny ArcFace trunk behind centre-crop embedders."""
+    from adaprompt_tpu import pipeline as jpipe
+    from adaprompt_tpu.adaface import wrapper as jwrap
+    from adaprompt_tpu.eval import face_eval as jfe
+    from adaprompt_tpu_torch import pipeline as tpipe
+    from adaprompt_tpu_torch.adaface import wrapper as twrap
+    from adaprompt_tpu_torch.eval import face_eval as tfe
+    env = train_env(d)
+    jv = randomized(jvae.init_params(jax.random.PRNGKey(7), JAX_VAE), 8)
+    tv = port_module(tvae.VAE(TORCH_VAE, device="cpu"), jv)
+    jf, tf = env["jfrozen"], env["tfrozen"]
+    jp = jpipe.StableDiffusionPipeline(
+        jpipe.SDParams(unet=jf.unet, vae=jax.tree.map(jax.numpy.asarray, jv), text=dict(jf.text)),
+        tokenizer=env["jtok"], unet_cfg=env["ju"], vae_cfg=JAX_VAE, text_cfg=env["jt"],
+        compute_dtype=jax.numpy.float32)
+    tp = tpipe.StableDiffusionPipeline(tf.unet, tv, tf.text, env["ttok"])
+    ja, jacfg, ta = arcface_pair(9, **ARCFACE_TINY)
+    crop = lambda im: jfe.center_crop_detector(im, ARCFACE_TINY["input_size"])
+    jada = jwrap.AdaFacePipeline(jp, env["jsp"], env["jscfg"], jf.arc2face_text, env["jt"],
+                                 face_embedder=jfe.FaceSimilarityEvaluator(ja, jacfg,
+                                                                           detector=crop))
+    sbg = port_module(tsbg.SubjBasisGenerator(env["tscfg"]), jax.tree.map(np.asarray, env["jsp"]))
+    tada = twrap.AdaFacePipeline(tp, sbg, env["tscfg"], tf.arc2face_text, tf.arc2face_text.cfg,
+                                 face_embedder=tfe.FaceSimilarityEvaluator(ta))
+    return dict(env, jada=jada, tada=tada)
