@@ -21,6 +21,14 @@
 // pad columns are zero-filled there, never in device memory. This is a
 // first, simple kernel: wgmma/TMA and register-resident accumulators are
 // later work.
+//
+// The exp2 form (EXP2 = true; the JAX package's _EXP2 switch on _fwd_kernel):
+// scale*log2(e) is folded into the q tile as it is staged, rounded to bf16
+// there as the TPU kernel rounds its q tile, so a score leaves the tensor
+// cores already in the log2 domain and needs an add of the folded bias
+// where the natural form spends a multiply-add. Both forms end in
+// ex2.approx (exp2f) and both write the natural-log lse. The rounding of the
+// folded q makes the two forms differ in the last bf16 digits of the scores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,13 +57,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// eight bf16 values times f, each rounded to bf16 again
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 v, float f) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(p[i]);
+    p[i] = __floats2bfloat162_rn(x.x * f, x.y * f);
+  }
+  return v;
+}
+
 template <int DP>
 constexpr size_t smem_bytes() {
   return (size_t)(BQ * DP + 2 * BK * DP + BQ * BK) * sizeof(__nv_bfloat16) +
          (size_t)(BQ * BK + BQ * DP + 3 * BQ) * sizeof(float);
 }
 
-template <int DP>
+template <int DP, bool EXP2>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -94,6 +113,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = i / chunks, c = (i % chunks) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(qb + (long)(q0 + r) * rs + c);
+    if (EXP2) val = scale_bf16x8(val, scale_log2);             // q-hat: scores come out in log2
     *reinterpret_cast<uint4*>(Qs + r * DP + c) = val;
   }
 
@@ -141,8 +161,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const float bias1 = (biasb && ok1) ? biasb[k0 + c1] * LOG2E : 0.f;
     for (int rr = 0; rr < 16; ++rr) {
       const int r = row0 + rr;
-      const float s0 = ok0 ? Ss[r * BK + c0] * scale_log2 + bias0 : -INFINITY;
-      const float s1 = ok1 ? Ss[r * BK + c1] * scale_log2 + bias1 : -INFINITY;
+      const float x0 = Ss[r * BK + c0], x1 = Ss[r * BK + c1];
+      const float s0 = ok0 ? (EXP2 ? x0 + bias0 : x0 * scale_log2 + bias0) : -INFINITY;
+      const float s1 = ok1 ? (EXP2 ? x1 + bias1 : x1 * scale_log2 + bias1) : -INFINITY;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
@@ -192,16 +213,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP>
+template <int DP, bool EXP2>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    void* out, void* lse, int B, int Sq, int Sk, int H, int D,
                    float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP, EXP2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DP><<<grid, NTHREADS, smem, stream>>>(
+  flash_fwd_kernel<DP, EXP2><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, Sq, Sk, D,
@@ -211,21 +232,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted.
+// Returns a cudaError_t code: 0 when the launch was accepted. exp2 != 0
+// selects the exp2 form.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, void* lse,
                                    int B, int Sq, int Sk, int H, int D,
-                                   float scale, void* stream) {
+                                   float scale, int exp2, void* stream) {
   if (D % 8 != 0 || D <= 0 || D > 128 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_FWD_CASE(DP)                                                                   \
+  case DP:                                                                                   \
+    return (int)(exp2 ? launch<DP, true>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s) \
+                      : launch<DP, false>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s));
   switch ((D + 15) / 16 * 16) {
-    case 16: return (int)launch<16>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    case 32: return (int)launch<32>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    case 48: return (int)launch<48>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    case 64: return (int)launch<64>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    case 80: return (int)launch<80>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    case 96: return (int)launch<96>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    case 112: return (int)launch<112>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
-    default: return (int)launch<128>(q, k, v, bias, out, lse, B, Sq, Sk, H, D, scale, s);
+    FLASH_FWD_CASE(16)
+    FLASH_FWD_CASE(32)
+    FLASH_FWD_CASE(48)
+    FLASH_FWD_CASE(64)
+    FLASH_FWD_CASE(80)
+    FLASH_FWD_CASE(96)
+    FLASH_FWD_CASE(112)
+    FLASH_FWD_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_FWD_CASE
 }

@@ -28,6 +28,13 @@
 // through shared memory for the elementwise step. D is padded to a
 // multiple of 16 (40 -> 48) in shared memory only: the pad columns are
 // zero-filled there, never in device memory. wgmma/TMA are later work.
+//
+// The exp2 form (EXP2 = true; the JAX package's _EXP2 switch on both
+// kernels): scale*log2(e) is folded into the q tile as it is staged (rounded
+// to bf16, as the TPU kernels round it) and log2(e) into the staged bias and
+// lse, so p = exp2(s + bias - lse) needs no multiply per score. dQ = dS.k
+// keeps its factor of scale; dK = dS^T.q-hat already carries scale*log2(e)
+// and is divided by log2(e) at the end. lse arrives in natural log either way.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -52,14 +59,23 @@ using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // Copy rows [r0, r0+64) of one head (row stride rs elements) into a
 // [64][DP] shared tile; rows past `n` and columns past D stay zero.
-template <int DP>
+// With SCALED, every value is multiplied by `mul` and rounded to bf16 again.
+template <int DP, bool SCALED = false>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int n, long rs,
-                                          int D, int tid) {
+                                          int D, int tid, float mul = 1.f) {
   const int chunks = D / 8;                       // 16-byte chunks per row
   for (int i = tid; i < 64 * chunks; i += NTHREADS) {
     const int r = i / chunks, c = (i % chunks) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * rs + c);
+    if (SCALED) {
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = __bfloat1622float2(p[j]);
+        p[j] = __floats2bfloat162_rn(x.x * mul, x.y * mul);
+      }
+    }
     *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
   }
 }
@@ -127,7 +143,7 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // dQ: one block per (b*h, 64-row q tile); streams every key tile.
-template <int DP>
+template <int DP, bool EXP2>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -155,11 +171,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = tid; i < 4 * 64 * DP; i += NTHREADS) Qs[i] = __float2bfloat16(0.f);
   for (int i = tid; i < BQ; i += NTHREADS) {
     const bool ok = q0 + i < Sq;
-    lse_s[i] = ok ? lse[(long)bh * Sq + q0 + i] : INFINITY;   // exp(s - inf) = 0
+    // rows past Sq: exp(s - inf) = 0
+    lse_s[i] = ok ? lse[(long)bh * Sq + q0 + i] * (EXP2 ? LOG2E : 1.f) : INFINITY;
     dl_s[i] = ok ? delta[(long)bh * Sq + q0 + i] : 0.f;
   }
   __syncthreads();
-  load_tile<DP>(Qs, q + qoff, q0, Sq, rs, D, tid);
+  load_tile<DP, EXP2>(Qs, q + qoff, q0, Sq, rs, D, tid, scale * LOG2E);
   load_tile<DP>(dOs, dout + qoff, q0, Sq, rs, D, tid);
 
   const int row0 = warp * 16;
@@ -172,7 +189,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<DP>(Ks, k + koff, k0, Sk, rs, D, tid);
     load_tile<DP>(Vs, v + koff, k0, Sk, rs, D, tid);
     for (int i = tid; i < BK; i += NTHREADS)
-      bias_s[i] = (bias && k0 + i < Sk) ? bias[(long)b * Sk + k0 + i] : 0.f;
+      bias_s[i] = (bias && k0 + i < Sk) ? bias[(long)b * Sk + k0 + i] * (EXP2 ? LOG2E : 1.f) : 0.f;
     __syncthreads();
 
     rows_dot_tile<DP>(Ss + row0 * BK, Qs + row0 * DP, Ks);    // S  = Q K^T
@@ -184,7 +201,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int half = 0; half < 2; ++half) {
         const int c = lane + 32 * half;
         float p = 0.f;
-        if (k0 + c < Sk) p = exp2f((Ss[r * BK + c] * scale + bias_s[c] - lse_s[r]) * LOG2E);
+        if (k0 + c < Sk)
+          p = EXP2 ? exp2f(Ss[r * BK + c] + bias_s[c] - lse_s[r])
+                   : exp2f((Ss[r * BK + c] * scale + bias_s[c] - lse_s[r]) * LOG2E);
         dSs[r * BK + c] = __float2bfloat16(p * (dPs[r * BK + c] - dl_s[r]));
       }
     }
@@ -196,7 +215,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dK, dV: one block per (b*h, 64-key tile); streams every q tile.
-template <int DP>
+template <int DP, bool EXP2>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -224,7 +243,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int i = tid; i < 4 * 64 * DP; i += NTHREADS) Ks[i] = __float2bfloat16(0.f);
   for (int i = tid; i < BK; i += NTHREADS)
-    bias_s[i] = (bias && k0 + i < Sk) ? bias[(long)b * Sk + k0 + i] : 0.f;
+    bias_s[i] = (bias && k0 + i < Sk) ? bias[(long)b * Sk + k0 + i] * (EXP2 ? LOG2E : 1.f) : 0.f;
   __syncthreads();
   load_tile<DP>(Ks, k + koff, k0, Sk, rs, D, tid);
   load_tile<DP>(Vs, v + koff, k0, Sk, rs, D, tid);
@@ -239,11 +258,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int q0 = 0; q0 < Sq; q0 += BQ) {
     __syncthreads();                              // previous Q/dO tile consumed
-    load_tile<DP>(Qs, q + qoff, q0, Sq, rs, D, tid);
+    load_tile<DP, EXP2>(Qs, q + qoff, q0, Sq, rs, D, tid, scale * LOG2E);
     load_tile<DP>(dOs, dout + qoff, q0, Sq, rs, D, tid);
     for (int i = tid; i < BQ; i += NTHREADS) {
       const bool ok = q0 + i < Sq;
-      lse_s[i] = ok ? lse[(long)bh * Sq + q0 + i] : INFINITY;
+      lse_s[i] = ok ? lse[(long)bh * Sq + q0 + i] * (EXP2 ? LOG2E : 1.f) : INFINITY;
       dl_s[i] = ok ? delta[(long)bh * Sq + q0 + i] : 0.f;
     }
     __syncthreads();
@@ -256,7 +275,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int c = lane + 32 * half;
-        const float p = exp2f((Ss[r * BQ + c] * scale + bias_s[r] - lse_s[c]) * LOG2E);
+        const float p = EXP2 ? exp2f(Ss[r * BQ + c] + bias_s[r] - lse_s[c])
+                             : exp2f((Ss[r * BQ + c] * scale + bias_s[r] - lse_s[c]) * LOG2E);
         Ps[r * BQ + c] = __float2bfloat16(p);
         dSs[r * BQ + c] = __float2bfloat16(p * (dPs[r * BQ + c] - dl_s[c]));
       }
@@ -266,20 +286,22 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     accumulate<DP>(acc_dk, dSs + row0 * BQ, Qs);              // dK += dS^T Q
   }
   __syncthreads();
-  store_rows<DP>(dk + koff, acc_dk, Ss + row0 * DP, k0 + row0, Sk, rs, D, scale, lane);
+  // under EXP2 the q-hat rows already carried scale*log2(e)
+  store_rows<DP>(dk + koff, acc_dk, Ss + row0 * DP, k0 + row0, Sk, rs, D,
+                 EXP2 ? 1.f / LOG2E : scale, lane);
   __syncwarp();
   store_rows<DP>(dv + koff, acc_dv, Ss + row0 * DP, k0 + row0, Sk, rs, D, 1.f, lane);
 }
 
-template <int DP>
+template <int DP, bool EXP2>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const void* dout, const void* lse, const void* delta, void* dq, void* dk,
                    void* dv, int B, int Sq, int Sk, int H, int D, float scale, cudaStream_t stream) {
   const size_t s_dq = dq_smem_bytes<DP>(), s_dkv = dkv_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP, EXP2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP, EXP2>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_dkv);
   if (err != cudaSuccess) return err;
   const bf16* qp = static_cast<const bf16*>(q);
@@ -289,11 +311,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   const float* bp = static_cast<const float*>(bias);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
-  flash_bwd_dq_kernel<DP><<<dim3((Sq + BQ - 1) / BQ, B * H), NTHREADS, s_dq, stream>>>(
+  flash_bwd_dq_kernel<DP, EXP2><<<dim3((Sq + BQ - 1) / BQ, B * H), NTHREADS, s_dq, stream>>>(
       qp, kp, vp, bp, dop, lp, dlp, static_cast<bf16*>(dq), H, Sq, Sk, D, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DP><<<dim3((Sk + BK - 1) / BK, B * H), NTHREADS, s_dkv, stream>>>(
+  flash_bwd_dkv_kernel<DP, EXP2><<<dim3((Sk + BK - 1) / BK, B * H), NTHREADS, s_dkv, stream>>>(
       qp, kp, vp, bp, dop, lp, dlp, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       H, Sq, Sk, D, scale);
   return cudaGetLastError();
@@ -301,16 +323,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when both launches were accepted.
+// Returns a cudaError_t code: 0 when both launches were accepted. exp2 != 0
+// selects the exp2 form.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* bias, const void* dout, const void* lse,
                                    const void* delta, void* dq, void* dk, void* dv,
                                    int B, int Sq, int Sk, int H, int D, float scale,
-                                   void* stream) {
+                                   int exp2, void* stream) {
   if (D % 8 != 0 || D <= 0 || D > 128 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_BWD_CASE(DP) \
-  case DP: return (int)launch<DP>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, D, scale, s);
+#define FLASH_BWD_CASE(DP)                                                                     \
+  case DP:                                                                                     \
+    return (int)(exp2 ? launch<DP, true>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, Sq,   \
+                                         Sk, H, D, scale, s)                                   \
+                      : launch<DP, false>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, Sq,  \
+                                          Sk, H, D, scale, s));
   switch ((D + 15) / 16 * 16) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
@@ -319,7 +346,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     FLASH_BWD_CASE(80)
     FLASH_BWD_CASE(96)
     FLASH_BWD_CASE(112)
-    default: return (int)launch<128>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, D, scale, s);
+    FLASH_BWD_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD_CASE
 }

@@ -15,7 +15,9 @@ context_dim 768. 25 addressable layers (input 0-11, middle 12, output
 
 Kernel dispatch is the JAX package's:
   * self-attention goes through `dot_product_attention` (the flash kernel
-    at >= 512 query and >= 256 key tokens);
+    at >= 512 query and >= 256 key tokens, in the form that
+    `UNetConfig.flash_variant` picks: the one-chain natural-log kernels by
+    default, else the two-chain or no-max forward and/or the exp2 forms);
   * cross-attention takes the fused kernel when its K/V were hoisted by
     `precompute_cross_kv` and there are >= 512 query tokens (under
     `quant="int8"` its w8a8 variant);
@@ -66,7 +68,7 @@ from torch import nn
 
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
 from adaprompt_tpu_torch.ops import conv_halo, tome
-from adaprompt_tpu_torch.ops.attention import (NEG_BIG, dot_product_attention,
+from adaprompt_tpu_torch.ops.attention import (NEG_BIG, FlashVariant, dot_product_attention,
                                                fused_cross_attention, fused_cross_attention_int8)
 from adaprompt_tpu_torch.ops.geglu import fused_eligible, fused_int8_eligible, geglu, geglu_int8
 from adaprompt_tpu_torch.ops.layers import Conv2d, Linear, Norm, gelu, group_norm, layer_norm, silu
@@ -98,6 +100,9 @@ class UNetConfig:
     # the fused GroupNorm-SiLU-conv3x3 kernel in the ResBlocks, for the
     # shapes of conv_halo._FUSED_TABLE (bf16 only, forward only)
     fused_conv: bool = False
+    # the form of the flash kernels that self-attention takes (the JAX
+    # package's ADAPROMPT_FLASH_EXP2 / _ILV / _NOMAX switches)
+    flash_variant: FlashVariant = FlashVariant()
 
     @property
     def time_embed_dim(self):
@@ -247,11 +252,14 @@ def _resblock(p, x, emb, fused_weights=None):
     return x + h
 
 
-def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None, qw=None):
+def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None, qw=None,
+                     flash_variant=FlashVariant()):
     """LDM CrossAttention with separate V/K contexts (self-attention when
     ctx_v is None). self_mask [B, N] (1 = keep) masks self-attention keys;
     kv: K/V [B, S, H, hd] hoisted by precompute_cross_kv; qw: the int8
-    ((wq_q, wq_s), (wo_q, wo_s)) of the quant="int8" path."""
+    ((wq_q, wq_s), (wo_q, wo_s)) of the quant="int8" path; flash_variant:
+    the form of the flash kernels where the dispatch rule takes them (the
+    77-key cross-attention never does)."""
     b, n, c = x.shape
     hd = c // num_heads
     scale = hd ** -0.5
@@ -273,7 +281,7 @@ def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None, qw=
     key_bias = None
     if self_mask is not None:
         key_bias = (self_mask.float() - 1.0) * (-NEG_BIG)   # keep -> 0, drop -> -1e9
-    out = dot_product_attention(q, k, v, key_bias=key_bias, scale=scale)
+    out = dot_product_attention(q, k, v, key_bias=key_bias, scale=scale, variant=flash_variant)
     return p["to_out"](out.reshape(b, n, c))
 
 
@@ -292,9 +300,10 @@ def _geglu_ff(p, x, qw=None):
 
 
 def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None, qw=None,
-                         tome_cfg=None):
+                         tome_cfg=None, flash_variant=FlashVariant()):
     """qw: this block's int8 weights {"cross", "ff"} (quant="int8");
-    tome_cfg: the UNetConfig whose ToMe options apply, when ToMe is on."""
+    tome_cfg: the UNetConfig whose ToMe options apply, when ToMe is on;
+    flash_variant: the flash kernels' form in self-attention."""
     b, h, w, c = x.shape
     y = group_norm(x, p["norm"].weight, p["norm"].bias, eps=1e-6)
     y = p["proj_in"](y).reshape(b, h * w, c)
@@ -313,7 +322,7 @@ def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None, 
     qw = qw or {}
     ln = lambda t, norm: layer_norm(t, bp[norm].weight, bp[norm].bias)
     y = y + u_a(_cross_attention(bp["attn1"], m_a(ln(y, "norm1")), None, None, num_heads,
-                                 self_mask=self_mask))
+                                 self_mask=self_mask, flash_variant=flash_variant))
     y = y + u_c(_cross_attention(bp["attn2"], m_c(ln(y, "norm2")), ctx_v, ctx_k, num_heads,
                                  kv=kv, qw=qw.get("cross")))
     y = y + u_f(_geglu_ff(bp["ff"], m_f(ln(y, "norm3")), qw=qw.get("ff")))
@@ -438,7 +447,7 @@ class UNet(nn.Module):
         """Predict epsilon. x [B, H, W, 4] NHWC; timesteps [B]; context
         [L, B, S, D] or [B, S, D]; img_mask [B, H0, W0, 1] restricts
         self-attention keys (and turns ToMe off). `cfg` overrides the
-        model's options (quant, ToMe, fused_conv) for this call; under
+        model's options (quant, ToMe, fused_conv, flash_variant) for this call; under
         quant="int8", `int8_weights` from `quantize_int8`, and under
         fused_conv, `fused_conv_weights` from `pack_fused_conv_weights`
         (each made here when not given).
@@ -478,7 +487,8 @@ class UNet(nn.Module):
             kv = cross_kv.get(layer_idx) if cross_kv is not None else None
             return _spatial_transformer(p, h, context[i], context_k[i], cfg.num_heads,
                                         img_mask=img_mask, kv=kv,
-                                        qw=int8_weights.get(layer_idx), tome_cfg=tome_cfg)
+                                        qw=int8_weights.get(layer_idx), tome_cfg=tome_cfg,
+                                        flash_variant=cfg.flash_variant)
 
         def run_block(bp, h, layer_idx):
             if "conv" in bp:

@@ -3,12 +3,18 @@
 Port of `adaprompt_tpu/ops/attention.py`. `dot_product_attention` is the
 shared attention primitive; q/k/v are [B, S, H, D] as in the JAX package.
 
-Four kernels live here, each beside its plain PyTorch version and with a
+Eight kernels live here, each beside its plain PyTorch version and with a
 launch count on its wrapper:
   * `flash_attention_fwd` — flash attention forward with an optional
     additive per-key bias, returning the output and the per-row logsumexp
     (CUDA: csrc/flash_attention.cu; replaces `_fwd_kernel`);
-  * `flash_attention_bwd` — its recomputation backward from that logsumexp
+  * `flash_attention_fwd_ilv` — the same function as two online-softmax
+    chains over alternating key tiles (CUDA: csrc/flash_attention_ilv.cu;
+    replaces `_fwd_kernel_ilv`);
+  * `flash_attention_fwd_nomax` — the same function with the row max
+    replaced by a cap computed outside the kernel (CUDA:
+    csrc/flash_attention_nomax.cu; replaces `_fwd_kernel_nomax`);
+  * `flash_attention_bwd` — the recomputation backward from the logsumexp
     (CUDA: csrc/flash_attention_bwd.cu; replaces `_dq_kernel` and
     `_dkv_kernel`);
   * `fused_cross_attention` — q-projection, attention over a small
@@ -16,11 +22,23 @@ launch count on its wrapper:
     csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`);
   * `fused_cross_attention_int8` — its w8a8 variant for the `quant="int8"`
     serving path, with int8 q- and out-projections, forward only (CUDA:
-    csrc/fused_cross_attention_int8.cu; replaces `_fused_cross_i8_kernel`).
-`flash_attention` ties the first two together as an autograd Function, as
-the JAX package's `custom_vjp` does. A wrapper takes its plain version for
-CPU tensors only. For CUDA tensors it launches the kernel or raises; the
-kernels take bfloat16 activations (and the int8 kernel int8 weights).
+    csrc/fused_cross_attention_int8.cu; replaces `_fused_cross_i8_kernel`);
+  * `flash_attention_int8` — flash attention with per-token int8 Q and K,
+    forward only, wired into no model as in the JAX package (CUDA:
+    csrc/flash_attention_int8.cu; replaces `_fwd_kernel_i8`);
+  * `fused_self_attention` — q-projection, attention over all N keys of a
+    packed K|V and out-projection in one kernel, forward only, wired into no
+    model as in the JAX package (CUDA: csrc/fused_self_attention.cu; replaces
+    `_fused_self_kernel`).
+`flash_attention` ties a forward kernel and the backward together as an
+autograd Function, as the JAX package's `custom_vjp` does. `FlashVariant`
+picks the forward kernel and the exp2 form of forward and backward; it takes
+the place of the JAX package's `_EXP2`, `_ILV` and `_NOMAX` module switches
+(the port reads no environment variable). Each of the four flash wrappers
+counts its exp2-form launches in `exp2_launches` besides `launches`. A
+wrapper takes its plain version for CPU tensors only. For CUDA tensors it
+launches the kernel or raises; the kernels take bfloat16 activations (and
+the int8 kernels int8 operands).
 
 Masking: `mask` is an additive mask broadcastable to [B, H, Sq, Sk] (plain
 path only); `key_bias` is an additive [B, Sk] bias (NEG_BIG on dropped keys),
@@ -30,6 +48,7 @@ which both paths take and which gets no gradient.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -40,10 +59,29 @@ from adaprompt_tpu_torch.ops.quant import int8_matmul, quantize_acts
 _FLASH_MIN_Q = 512
 _FLASH_MIN_K = 256
 NEG_BIG = -1e9      # masked-key bias; finite so exp arithmetic stays NaN-free
+LOG2E = 1.4426950408889634
+ILV_BLOCK_K = 64    # the two-chain kernel's key tile: chains take alternate tiles of this size
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashVariant:
+    """Which form of the flash kernels self-attention takes (all off: the
+    one-chain natural-log kernels). `nomax` wins over `ilv`, as in the JAX
+    package; `exp2` combines with each forward kernel and with the backward.
+    The saved lse is the natural-log one under every variant, so any forward
+    pairs with any backward."""
+    exp2: bool = False
+    ilv: bool = False
+    nomax: bool = False
+
+    @property
+    def forward(self) -> str:
+        """The forward kernel taken: "nomax", "ilv" or "base"."""
+        return "nomax" if self.nomax else "ilv" if self.ilv else "base"
 
 
 def causal_mask(seq_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -53,10 +91,11 @@ def causal_mask(seq_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def dot_product_attention(q, k, v, mask=None, key_bias=None, scale=None,
-                          use_flash: bool | None = None) -> torch.Tensor:
+                          use_flash: bool | None = None,
+                          variant: FlashVariant = FlashVariant()) -> torch.Tensor:
     """Multi-head attention: q [B, Sq, H, D], k [B, Sk, H, D], v [B, Sk, H, Dv]
     -> [B, Sq, H, Dv]. Dispatch as the JAX package: the flash kernel when
-    Sq >= 512, Sk >= 256 and there is no full mask."""
+    Sq >= 512, Sk >= 256 and there is no full mask; `variant` picks its form."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if use_flash is None:
@@ -66,7 +105,7 @@ def dot_product_attention(q, k, v, mask=None, key_bias=None, scale=None,
         if mask is not None:
             raise ValueError("use_flash=True cannot honor a full additive "
                              "mask; pass key_bias instead")
-        return flash_attention(q, k, v, key_bias, scale)
+        return flash_attention(q, k, v, key_bias, scale, variant)
     return attention_reference(q, k, v, key_bias, scale, mask)[0]
 
 
@@ -74,10 +113,53 @@ def dot_product_attention(q, k, v, mask=None, key_bias=None, scale=None,
 # Kernel 1: flash attention forward
 # ---------------------------------------------------------------------------
 
-def attention_reference(q, k, v, key_bias, scale, mask=None):
+def _flash_scores(q, k, key_bias, scale, exp2=False, round_q=False):
+    """fp32 scores [B, H, Sq, Sk] as the flash kernels form them, and q-hat.
+    Plainly: q.k^T * scale + key_bias, the scale applied to the fp32 product.
+    Under `exp2` the scores are in the log2 domain: q-hat = q * scale*log2(e)
+    rounded to q's dtype before the product, bias * log2(e). Under `round_q`
+    (the no-max kernel, whose cap needs q-hat) q-hat = q * scale rounded."""
+    fold = LOG2E if exp2 else 1.0
+    if exp2 or round_q:
+        q_hat = (q.float() * (scale * fold)).to(q.dtype)
+        s = torch.einsum("bqhd,bkhd->bhqk", q_hat.float(), k.float())
+    else:
+        q_hat = q
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if key_bias is not None:
+        s = s + (key_bias.float() * fold)[:, None, None, :]
+    return s, q_hat
+
+
+def _softmax_chain(s, v, exp2):
+    """One online-softmax chain over all the keys of s [B, H, Sq, Sk'] as the
+    kernels end it: (m, l, acc) with p = exp(s - m) summed in fp32 and
+    rounded to v's dtype for p.v, acc [B, H, Sq, D] in fp32."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m) if exp2 else torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    return m, l, acc
+
+
+def _finish(q, m, l, acc, exp2):
+    """(out [B, Sq, H, D] in q's dtype, natural-log lse [B*H, Sq, 1])."""
+    b, h, sq, _ = acc.shape
+    lse = (m / LOG2E if exp2 else m) + torch.log(l)
+    return (acc / l).permute(0, 2, 1, 3).to(q.dtype), lse.reshape(b * h, sq, 1)
+
+
+def attention_reference(q, k, v, key_bias, scale, mask=None, exp2=False):
     """Plain attention, and the plain version of the flash kernel: fp32
-    logits and softmax, probabilities cast to v's dtype.
-    Returns (out [B,Sq,H,Dv], lse [B*H,Sq,1] float32)."""
+    logits and softmax, probabilities cast to v's dtype. With `exp2` it
+    repeats the exp2 form's arithmetic instead (`_flash_scores`, exp2, the
+    sum divided out after p.v).
+    Returns (out [B,Sq,H,Dv], lse [B*H,Sq,1] float32, natural log)."""
+    if exp2:
+        if mask is not None:
+            raise ValueError("the exp2 form takes a key_bias, not a full mask")
+        s, _ = _flash_scores(q, k, key_bias, scale, exp2=True)
+        return _finish(q, *_softmax_chain(s, v, True), True)
     b, sq, h, _ = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
@@ -90,71 +172,200 @@ def attention_reference(q, k, v, key_bias, scale, mask=None):
     return out, lse.reshape(b * h, sq, 1)
 
 
-def flash_attention_fwd(q, k, v, key_bias, scale):
-    """Flash attention forward with an optional [B, Sk] key bias.
-
-    Returns (out [B, Sq, H, D] in q's dtype, lse [B*H, Sq, 1] float32)."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_bias, scale)
+def _flash_operands(what, q, k, v, key_bias):
+    """Validated bf16 CUDA operands of a flash kernel and its dimensions."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, h, d) or v.shape != (b, sk, h, d):
-        raise ValueError(f"flash kernel: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} (needs Dv == D)")
     if d % 8 or d > 128:
-        raise ValueError(f"flash kernel: head dim {d} must be a multiple of 8, <= 128")
-    q, k, v = cuda_build.kernel_operands("flash kernel", q, k, v)
+        raise ValueError(f"{what}: head dim {d} must be a multiple of 8, <= 128")
+    q, k, v = cuda_build.kernel_operands(what, q, k, v)
     bias = None
     if key_bias is not None:
         bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
         if bias.shape != (b, sk):
-            raise ValueError(f"flash kernel: key_bias {tuple(bias.shape)} != {(b, sk)}")
+            raise ValueError(f"{what}: key_bias {tuple(bias.shape)} != {(b, sk)}")
+    return q, k, v, bias, (b, sq, sk, h, d)
+
+
+def _count(wrapper, exp2):
+    wrapper.launches += 1
+    wrapper.exp2_launches += bool(exp2)
+
+
+def _launch_flash_fwd(wrapper, what, lib, q, k, v, key_bias, scale, exp2):
+    """Launch the forward kernel `wrapper.__name__` of csrc/`lib`.cu (the
+    one-chain and two-chain kernels share their C interface) and count it."""
+    q, k, v, bias, (b, sq, sk, h, d) = _flash_operands(what, q, k, v, key_bias)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq, 1), device=q.device, dtype=torch.float32)
-    fn = cuda_build.function("flash_attention", "flash_attention_fwd",
-                             [_P] * 6 + [_I] * 5 + [_F, _P])
+    fn = cuda_build.function(lib, wrapper.__name__, [_P] * 6 + [_I] * 5 + [_F, _I, _P])
     cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         bias.data_ptr() if bias is not None else None,
-                        out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
-                        float(scale), torch.cuda.current_stream(q.device).cuda_stream),
-                     "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+                        out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, float(scale),
+                        int(exp2), torch.cuda.current_stream(q.device).cuda_stream),
+                     wrapper.__name__)
+    _count(wrapper, exp2)
     return out, lse
 
 
+def flash_attention_fwd(q, k, v, key_bias, scale, variant: FlashVariant = FlashVariant()):
+    """Flash attention forward with an optional [B, Sk] key bias, through the
+    forward kernel that `variant` picks (the one-chain kernel here, else
+    `flash_attention_fwd_nomax` or `flash_attention_fwd_ilv`).
+
+    Returns (out [B, Sq, H, D] in q's dtype, lse [B*H, Sq, 1] float32)."""
+    if variant.nomax:
+        return flash_attention_fwd_nomax(q, k, v, key_bias, scale, variant.exp2)
+    if variant.ilv:
+        return flash_attention_fwd_ilv(q, k, v, key_bias, scale, variant.exp2)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, key_bias, scale, exp2=variant.exp2)
+    return _launch_flash_fwd(flash_attention_fwd, "flash kernel", "flash_attention",
+                             q, k, v, key_bias, scale, variant.exp2)
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd.exp2_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1b: the two-chain flash forward
+# ---------------------------------------------------------------------------
+
+def attention_reference_ilv(q, k, v, key_bias, scale, exp2=False, block_k=ILV_BLOCK_K):
+    """Plain version of the two-chain kernel: one online-softmax chain over
+    the even key blocks (of `block_k` keys), one over the odd ones, merged on
+    their joint max. Any number of blocks: with one block the second chain is
+    empty (m = -inf, l = 0, acc = 0) and merges with weight 0.
+    Returns (out, lse) as `attention_reference`."""
+    s, _ = _flash_scores(q, k, key_bias, scale, exp2=exp2)
+    odd = (torch.arange(s.shape[-1], device=s.device) // block_k) % 2 == 1
+    m_a, l_a, acc_a = _softmax_chain(s[..., ~odd], v[:, ~odd], exp2)
+    if bool(odd.any()):
+        m_b, l_b, acc_b = _softmax_chain(s[..., odd], v[:, odd], exp2)
+    else:
+        m_b, l_b, acc_b = (torch.full_like(m_a, -math.inf), torch.zeros_like(l_a),
+                           torch.zeros_like(acc_a))
+    expf = torch.exp2 if exp2 else torch.exp
+    m = torch.maximum(m_a, m_b)
+    w_a, w_b = expf(m_a - m), expf(m_b - m)
+    return _finish(q, m, l_a * w_a + l_b * w_b, acc_a * w_a + acc_b * w_b, exp2)
+
+
+def flash_attention_fwd_ilv(q, k, v, key_bias, scale, exp2=False):
+    """The two-chain flash forward (same contract as `flash_attention_fwd`):
+    right for every Sk, odd tile counts included."""
+    if q.device.type == "cpu":
+        return attention_reference_ilv(q, k, v, key_bias, scale, exp2)
+    return _launch_flash_fwd(flash_attention_fwd_ilv, "two-chain flash kernel",
+                             "flash_attention_ilv", q, k, v, key_bias, scale, exp2)
+
+
+flash_attention_fwd_ilv.launches = 0
+flash_attention_fwd_ilv.exp2_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1c: the no-max flash forward
+# ---------------------------------------------------------------------------
+
+def nomax_cap(q_hat, k):
+    """The row cap of the no-max kernel, [B, H, Sq, 1] float32: by
+    Cauchy-Schwarz every score q-hat_i . k_k is at most |q-hat_i| max_k |k_k|;
+    +1 absorbs the roundings (it shrinks every p alike, which the normalized
+    output does not see). Made outside the kernel, as the JAX package leaves
+    it to XLA."""
+    qn = torch.linalg.vector_norm(q_hat.float(), dim=-1).permute(0, 2, 1)[..., None]
+    kn = torch.linalg.vector_norm(k.float(), dim=-1).amax(dim=1)[:, :, None, None]
+    return qn * kn + 1.0
+
+
+def attention_reference_nomax(q, k, v, key_bias, scale, exp2=False):
+    """Plain version of the no-max kernel: p = exp(q-hat.k^T + bias - cap)
+    with no row max, l = sum p clamped at 1e-30 (a row that underflows
+    everywhere gives zeros, not 0/0), lse = cap + log l.
+    Returns (out, lse) as `attention_reference`."""
+    s, q_hat = _flash_scores(q, k, key_bias, scale, exp2=exp2, round_q=True)
+    cap = nomax_cap(q_hat, k)
+    p = torch.exp2(s - cap) if exp2 else torch.exp(s - cap)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    return _finish(q, cap, l, acc, exp2)
+
+
+def flash_attention_fwd_nomax(q, k, v, key_bias, scale, exp2=False):
+    """The no-max flash forward (same contract as `flash_attention_fwd`).
+    q-hat and the cap are made here in PyTorch; the kernel does the rest."""
+    if q.device.type == "cpu":
+        return attention_reference_nomax(q, k, v, key_bias, scale, exp2)
+    q, k, v, bias, (b, sq, sk, h, d) = _flash_operands("no-max flash kernel", q, k, v, key_bias)
+    q_hat = (q.float() * (scale * (LOG2E if exp2 else 1.0))).to(q.dtype)
+    cap = nomax_cap(q_hat, k).contiguous()                       # [B, H, Sq, 1]
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, sq, 1), device=q.device, dtype=torch.float32)
+    fn = cuda_build.function("flash_attention_nomax", "flash_attention_fwd_nomax",
+                             [_P] * 7 + [_I] * 5 + [_I, _P])
+    cuda_build.check(fn(q_hat.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        bias.data_ptr() if bias is not None else None, cap.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
+                        int(exp2), torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_attention_fwd_nomax")
+    _count(flash_attention_fwd_nomax, exp2)
+    return out, lse
+
+
+flash_attention_fwd_nomax.launches = 0
+flash_attention_fwd_nomax.exp2_launches = 0
+
+
+def flash_attention_fwd_reference(q, k, v, key_bias, scale, variant: FlashVariant = FlashVariant()):
+    """The plain version of the forward kernel that `variant` picks, on
+    whatever device the tensors lie (what `flash_attention_fwd` runs for CPU
+    tensors)."""
+    ref = {"base": attention_reference, "ilv": attention_reference_ilv,
+           "nomax": attention_reference_nomax}[variant.forward]
+    return ref(q, k, v, key_bias, scale, exp2=variant.exp2)
 
 
 # ---------------------------------------------------------------------------
 # Kernel 2: flash attention backward, and the autograd Function over both
 # ---------------------------------------------------------------------------
 
-def flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale):
+def flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale, exp2=False):
     """Plain version of the backward kernel: the same formulas in fp32 from
-    the same saved tensors (p recomputed from lse).
+    the same saved tensors (p recomputed from lse). With `exp2`, the exp2
+    form's fold: scores from the rounded q-hat in the log2 domain, bias and
+    lse times log2(e), p = exp2(s - lse), and dk = dS^T.q-hat / log2(e)
+    (q-hat carries scale*log2(e)).
     Returns (dq, dk, dv), each in q's dtype."""
     b, sq, h, _ = q.shape
-    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if key_bias is not None:
-        s = s + key_bias.float()[:, None, None, :]
-    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    kf, vf, of, gf = (x.float() for x in (k, v, out, dout))
+    s, q_hat = _flash_scores(q, k, key_bias, scale, exp2=exp2)
+    lse = lse.reshape(b, h, sq, 1)
+    p = torch.exp2(s - lse * LOG2E) if exp2 else torch.exp(s - lse)
     delta = (gf * of).sum(-1).permute(0, 2, 1)[..., None]          # [B, H, Sq, 1]
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     ds = p * (dp - delta)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q_hat.float()) * (1.0 / LOG2E if exp2 else scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q, k, v, key_bias, out, lse, dout, scale):
+def flash_attention_bwd(q, k, v, key_bias, out, lse, dout, scale,
+                        variant: FlashVariant = FlashVariant()):
     """Flash attention backward: q/k/v/out/dout [B, S, H, D], lse [B*H, Sq, 1]
-    float32 from `flash_attention_fwd`. Returns (dq, dk, dv); the key bias
-    gets no gradient. delta = rowsum(dout * out) is a small torch reduction,
-    as the JAX package leaves it to XLA."""
+    float32 (natural log) from any flash forward. Returns (dq, dk, dv); the
+    key bias gets no gradient. delta = rowsum(dout * out) is a small torch
+    reduction, as the JAX package leaves it to XLA. Of `variant` only `exp2`
+    matters here (the kernels' exp2 form): there is one backward for every
+    forward kernel."""
+    exp2 = variant.exp2
     if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale)
+        return flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale, exp2)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if (k.shape != (b, sk, h, d) or v.shape != k.shape or out.shape != q.shape
@@ -174,43 +385,48 @@ def flash_attention_bwd(q, k, v, key_bias, out, lse, dout, scale):
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()   # [B, H, Sq]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = cuda_build.function("flash_attention_bwd", "flash_attention_bwd",
-                             [_P] * 10 + [_I] * 5 + [_F, _P])
+                             [_P] * 10 + [_I] * 5 + [_F, _I, _P])
     cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         bias.data_ptr() if bias is not None else None,
                         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
-                        float(scale), torch.cuda.current_stream(q.device).cuda_stream),
+                        float(scale), int(exp2),
+                        torch.cuda.current_stream(q.device).cuda_stream),
                      "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, exp2)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.exp2_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward runs `flash_attention_fwd` and saves out and lse; backward
-    runs `flash_attention_bwd` (the JAX package's custom_vjp pair)."""
+    """Forward runs `flash_attention_fwd` (the kernel `variant` picks) and
+    saves out and the natural-log lse; backward runs `flash_attention_bwd`,
+    in its exp2 form under `variant.exp2` (the JAX package's custom_vjp
+    pair)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, scale):
-        out, lse = flash_attention_fwd(q, k, v, key_bias, scale)
+    def forward(ctx, q, k, v, key_bias, scale, variant):
+        out, lse = flash_attention_fwd(q, k, v, key_bias, scale, variant)
         ctx.save_for_backward(q, k, v, key_bias, out, lse)
         ctx.scale = scale
+        ctx.variant = variant
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_bias, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, key_bias, out, lse,
-                                         dout.contiguous(), ctx.scale)
-        return dq, dk, dv, None, None
+                                         dout.contiguous(), ctx.scale, ctx.variant)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, key_bias, scale):
+def flash_attention(q, k, v, key_bias, scale, variant: FlashVariant = FlashVariant()):
     """Flash attention with an optional [B, Sk] key bias, differentiable in
-    q, k and v. Returns [B, Sq, H, D]."""
-    return _FlashAttention.apply(q, k, v, key_bias, scale)
+    q, k and v, in the form `variant` picks. Returns [B, Sq, H, D]."""
+    return _FlashAttention.apply(q, k, v, key_bias, scale, variant)
 
 
 # ---------------------------------------------------------------------------
@@ -330,3 +546,153 @@ def fused_cross_attention_int8(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale, num_h
 
 
 fused_cross_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: int8-QK flash attention (forward only; wired into no model)
+# ---------------------------------------------------------------------------
+
+def int8_qk_operands(q, k, v):
+    """The int8 kernel's operands from q/k/v [B, S, H, D], made in PyTorch as
+    the JAX package leaves them to XLA: K mean-centred over the keys per
+    (batch, head) (softmax cannot see a per-query constant), Q and K
+    quantized per token (`quantize_acts`, the JAX package's `_quant_rows`),
+    heads folded into the batch, K transposed.
+    Returns (q_q [BH,Sq,D] int8, q_s [BH,Sq,1] f32, k_qT [BH,D,Sk] int8,
+    k_s [BH,1,Sk] f32, v [BH,Sk,D])."""
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(x.shape[0] * x.shape[2], x.shape[1], x.shape[3])
+    k = k - k.mean(dim=1, keepdim=True)
+    q_q, q_s = quantize_acts(fold(q))
+    k_q, k_s = quantize_acts(fold(k))
+    return (q_q.contiguous(), q_s.contiguous(), k_q.transpose(1, 2).contiguous(),
+            k_s.transpose(1, 2).contiguous(), fold(v).contiguous())
+
+
+def flash_attention_int8_reference(q, k, v, key_bias=None, scale=None):
+    """Plain version of the int8-QK kernel from the same operands
+    (`int8_qk_operands`): the exact integer q_q.k_q^T times (q_s*scale), then
+    times k_s, plus the bias; fp32 softmax with p rounded to v's dtype for
+    p.v and the sum divided out after. Returns [B, Sq, H, D] in q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    b, sq, h, d = q.shape
+    q_q, q_s, k_qt, k_s, vf = int8_qk_operands(q, k, v)
+    # the integer sums stay below 127^2 * 128 < 2^24, so the fp32 product is exact
+    s = (q_q.float() @ k_qt.float()) * (q_s * scale) * k_s                # [BH, Sq, Sk]
+    if key_bias is not None:
+        s = (s.reshape(b, h, sq, -1) + key_bias.float()[:, None, None, :]).reshape(b * h, sq, -1)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = (p.to(vf.dtype).float() @ vf.float()) / p.sum(dim=-1, keepdim=True)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_attention_int8(q, k, v, key_bias=None, scale=None):
+    """Forward-only flash attention with int8 q.k^T: q/k/v [B, S, H, D],
+    optional [B, Sk] key bias; returns [B, Sq, H, D]. No lse, no gradient."""
+    if q.device.type == "cpu":
+        return flash_attention_int8_reference(q, k, v, key_bias, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("int8 flash kernel: forward only (as the JAX package's): "
+                           "rounding has no gradient")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, h, d) or v.shape != (b, sk, h, d):
+        raise ValueError(f"int8 flash kernel: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} (needs Dv == D)")
+    if d % 8 or d > 128:
+        raise ValueError(f"int8 flash kernel: head dim {d} must be a multiple of 8, <= 128")
+    q, k, v = cuda_build.kernel_operands("int8 flash kernel", q, k, v)
+    q_q, q_s, k_qt, k_s, vf = int8_qk_operands(q, k, v)
+    bias = None
+    if key_bias is not None:
+        bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
+        if bias.shape != (b, sk):
+            raise ValueError(f"int8 flash kernel: key_bias {tuple(bias.shape)} != {(b, sk)}")
+    out = torch.empty((b * h, sq, d), device=q.device, dtype=q.dtype)
+    fn = cuda_build.function("flash_attention_int8", "flash_attention_int8_fwd",
+                             [_P] * 7 + [_I] * 5 + [_F, _P])
+    cuda_build.check(fn(q_q.data_ptr(), q_s.data_ptr(), k_qt.data_ptr(), k_s.data_ptr(),
+                        vf.data_ptr(), bias.data_ptr() if bias is not None else None,
+                        out.data_ptr(), b, sq, sk, h, d, float(scale),
+                        torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_attention_int8_fwd")
+    flash_attention_int8.launches += 1
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+flash_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: fused self-attention (forward only; wired into no model)
+# ---------------------------------------------------------------------------
+
+def packed_kv(x, wk, wv):
+    """x . [Wk | Wv]^T rounded to x's dtype: K in columns [0, C), V in
+    [C, 2C) of [B, N, 2C]. One plain product outside the kernel, as in the
+    JAX package."""
+    return x @ torch.cat([wk, wv], dim=0).t()
+
+
+def fused_self_attention_reference(x, wq, wk, wv, wo, bo, scale, num_heads, key_bias=None):
+    """Plain version of the fused self-attention kernel, rounding where it
+    does: q and K|V to x's dtype, per head p = exp(s - max) rounded to x's
+    dtype for p.v with the sum divided out after (the TPU kernel divides p
+    first: the same function up to rounding), the head concat to x's dtype."""
+    b, n, c = x.shape
+    hd = c // num_heads
+    q = (x.float() @ wq.float().t()).to(x.dtype).reshape(b, n, num_heads, hd)
+    kv = packed_kv(x, wk, wv)
+    k, v = (t.reshape(b, n, num_heads, hd) for t in (kv[..., :c], kv[..., c:]))
+    s = torch.einsum("bnhd,bshd->bhns", q.float(), k.float()) * scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhns,bshd->bhnd", p.to(x.dtype).float(), v.float()) / p.sum(-1, keepdim=True)
+    o = o.permute(0, 2, 1, 3).reshape(b, n, c).to(x.dtype)
+    return (o.float() @ wo.float().t() + bo.float()).to(x.dtype)
+
+
+def fused_self_attention(x, wq, wk, wv, wo, bo, scale, num_heads, key_bias=None):
+    """x [B, N, C] (pre-normed); wq, wk, wv, wo [C, C] ([out, in]); bo [C];
+    optional [B, N] key bias. Returns [B, N, C]: self-attention over all N
+    tokens after the out-projection (add the residual outside). Forward only."""
+    if x.device.type == "cpu":
+        return fused_self_attention_reference(x, wq, wk, wv, wo, bo, scale, num_heads, key_bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wq, wk, wv, wo, bo)):
+        raise RuntimeError("fused self-attention kernel: forward only (as the JAX package's)")
+    b, n, c = x.shape
+    if c % num_heads or any(w.shape != (c, c) for w in (wq, wk, wv, wo)) or bo.shape != (c,):
+        raise ValueError(f"fused self-attention kernel: shapes x{tuple(x.shape)} "
+                         f"wq{tuple(wq.shape)} wk{tuple(wk.shape)} wv{tuple(wv.shape)} "
+                         f"wo{tuple(wo.shape)} with {num_heads} heads")
+    hd = c // num_heads
+    if c % 16 or hd % 8 or c > 1280:
+        raise ValueError(f"fused self-attention kernel: C={c} must be a multiple of 16, <= 1280, "
+                         f"with a head dim ({hd}) a multiple of 8")
+    x, wq, wk, wv, wo = cuda_build.kernel_operands("fused self-attention kernel",
+                                                   x, wq, wk, wv, wo)
+    kv = packed_kv(x, wk, wv).contiguous()
+    bo32 = bo.to(device=x.device, dtype=torch.float32).contiguous()
+    bias = None
+    if key_bias is not None:
+        bias = key_bias.to(device=x.device, dtype=torch.float32).contiguous()
+        if bias.shape != (b, n):
+            raise ValueError(f"fused self-attention kernel: key_bias {tuple(bias.shape)} "
+                             f"!= {(b, n)}")
+    out = torch.empty_like(x)
+    fn = cuda_build.function("fused_self_attention", "fused_self_attention_fwd",
+                             [_P] * 7 + [_I] * 4 + [_F, _P])
+    cuda_build.check(fn(x.data_ptr(), wq.data_ptr(), kv.data_ptr(), wo.data_ptr(),
+                        bo32.data_ptr(), bias.data_ptr() if bias is not None else None,
+                        out.data_ptr(), b, n, c, num_heads, float(scale),
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "fused_self_attention_fwd")
+    fused_self_attention.launches += 1
+    return out
+
+
+fused_self_attention.launches = 0

@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "fused_cross_attention", "geglu",
-           "fused_cross_attention_int8", "geglu_int8", "conv_halo")
+           "fused_cross_attention_int8", "geglu_int8", "conv_halo", "flash_attention_ilv",
+           "flash_attention_nomax", "flash_attention_int8", "fused_self_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,8 +12,9 @@ The int8 weights are made once per `generate` (`UNet.quantize_int8`), as the
 JAX package's scan hoists the quantization out of its loop; the activations
 are quantized per row inside the kernels (csrc/fused_cross_attention_int8.cu,
 csrc/geglu_int8.cu) and inside their plain versions. `int8_linear` and
-`int8_matmul_2operand` are wired nowhere in the JAX package and are not
-ported.
+`int8_matmul_2operand` are the JAX package's plain w8a8 building blocks,
+plain PyTorch here too; no model calls them, as in the JAX package (its UNet
+keeps the projections in the compute dtype).
 """
 
 from __future__ import annotations
@@ -59,3 +60,30 @@ def int8_matmul(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     exact on the CPU and on the card alike; the cast to float32 then rounds
     as `jnp.dot(..., preferred_element_type=int32).astype(float32)` does."""
     return (a_q.double() @ w_q.double().t()).float()
+
+
+def int8_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+                out_dtype=None) -> torch.Tensor:
+    """y = x . w^T (+ b) as int8 x int8 -> int32, dequantized.
+
+    x: [..., M, K]; w: [N, K] ([out, in]), quantized here per output channel;
+    x per row. Returns [..., M, N] in `out_dtype` (default: x's dtype)."""
+    w_q, w_scale = quantize_weight(w)
+    x_q, x_scale = quantize_acts(x)
+    y = int8_matmul(x_q, w_q) * x_scale * w_scale
+    if b is not None:
+        y = y + b.float()
+    return y.to(out_dtype or x.dtype)
+
+
+def int8_matmul_2operand(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Batched a . b with both operands quantized on the fly: a [..., M, K]
+    per row, b [..., K, N] per column (over K), sharing the leading batch
+    dims (the attention p.v product: per channel of the output).
+    Returns [..., M, N] in `out_dtype` (default: a's dtype)."""
+    a_q, a_scale = quantize_acts(a)
+    b32 = b.float()
+    b_scale = _scale(b32.abs().amax(dim=-2, keepdim=True), 1e-8)
+    b_q = torch.round(b32 / b_scale).clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
+    y = (a_q.double() @ b_q.double()).float() * a_scale * b_scale
+    return y.to(out_dtype or a.dtype)

@@ -2,8 +2,8 @@
 generate through the int8 serving stack, or of a personalized generate goes
 on the card.
 
-    python -m adaprompt_tpu_torch.profile_step [--steps 5] [--trace out.json]
-    python -m adaprompt_tpu_torch.profile_step --train [--trace out.json]
+    python -m adaprompt_tpu_torch.profile_step [--steps 5] [--flash exp2|ilv|nomax ...]
+    python -m adaprompt_tpu_torch.profile_step --train [--flash exp2|ilv|nomax ...]
     python -m adaprompt_tpu_torch.profile_step --serve [int8|bf16] [--trace out.json]
     python -m adaprompt_tpu_torch.profile_step --personalize [on|off] [--steps 5]
 
@@ -13,6 +13,10 @@ steps under torch.profiler. --train: builds the full-width Stage-1 trainer
 (random weights, bs 4, 512x512, Prodigy with gradient accumulation 2),
 takes training steps 0 and 1 (ND 1 and 5 from seed 0) to warm up, then
 profiles steps 2 and 3 (ND 1 both; step 3 applies the accumulated update).
+--flash (these two modes): the UNet's self-attention takes that form of the
+flash kernels, `UNetConfig(flash_variant=FlashVariant(...))`; several names
+combine (`--flash ilv exp2`), and the device time by class then shows the
+chosen forward kernel under its own name.
 --serve: the full-width pipeline with quant="int8" (or, with `--serve
 bf16`, without it; random weights from seed 0, bf16, 2 prompts, 512x512),
 one 4-step warm-up, then one generate with sampler="dpmpp", 20 steps and
@@ -45,7 +49,11 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "geglu_int8_kernel": "geglu_int8",
                "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",
                "conv3x3_halo_kernel": "conv3x3_halo",
-               "conv3x3_im2col_kernel": "conv3x3_im2col"}
+               "conv3x3_im2col_kernel": "conv3x3_im2col",
+               "flash_fwd_ilv_kernel": "flash_attention_fwd_ilv",
+               "flash_fwd_nomax_kernel": "flash_attention_fwd_nomax",
+               "flash_fwd_int8_kernel": "flash_attention_int8",
+               "fused_self_kernel": "fused_self_attention"}
 
 
 def kernel_class(name: str) -> str:
@@ -66,6 +74,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--flash", nargs="+", default=[], choices=("exp2", "ilv", "nomax"),
+                    help="the flash kernels' form in the UNet's self-attention "
+                         "(the default generate and --train)")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
                       help="profile two Stage-1 training steps instead of a generate")
@@ -82,17 +93,24 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
+    if args.flash and (args.serve or args.personalize):
+        raise SystemExit("profile_step: --flash goes with the default generate or --train")
+    from adaprompt_tpu_torch.models.unet import UNetConfig
+    from adaprompt_tpu_torch.ops.attention import FlashVariant
+    flash_cfg = UNetConfig(flash_variant=FlashVariant(**{name: True for name in args.flash}))
+    flash = f", flash {'+'.join(args.flash)}" if args.flash else ""
     if args.train:
         import tempfile
         from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                        synthetic_raw_batches)
         tmp = tempfile.TemporaryDirectory()
         tr = AdaPromptTrainer.random_init(0, synthetic_raw_batches(0),
-                                          TrainerConfig(seed=0, out_dir=tmp.name), device="cuda")
+                                          TrainerConfig(seed=0, out_dir=tmp.name), device="cuda",
+                                          unet_cfg=flash_cfg)
         work = lambda: [tr.train_step(i) for i in (2, 3)]
         for i in (0, 1):                                           # build + warm up
             tr.train_step(i)
-        what = "2 Stage-1 training steps (ND 1, bs 4)"
+        what = f"2 Stage-1 training steps (ND 1, bs 4){flash}"
     elif args.serve:
         from adaprompt_tpu_torch.pipeline import FastConfig, StableDiffusionPipeline
         pipe = StableDiffusionPipeline.random_init(
@@ -105,7 +123,6 @@ def main():
     elif args.personalize:
         import numpy as np
         from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
-        from adaprompt_tpu_torch.models.unet import UNetConfig
         ada = AdaFacePipeline.random_init(
             0, unet_cfg=UNetConfig(fused_conv=args.personalize == "on"))
         rng = np.random.default_rng(0)
@@ -121,10 +138,11 @@ def main():
                 f"steps, fused_conv {args.personalize}")
     else:
         from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
-        pipe = StableDiffusionPipeline.random_init(0, device="cuda", dtype=torch.bfloat16)
+        pipe = StableDiffusionPipeline.random_init(0, device="cuda", dtype=torch.bfloat16,
+                                                   unet_cfg=flash_cfg)
         pipe.generate(PROMPTS, num_steps=2, seed=1)                # build + warm up
         work = lambda: pipe.generate(PROMPTS, num_steps=args.steps, seed=0)
-        what = f"generate with {args.steps} DDIM steps"
+        what = f"generate with {args.steps} DDIM steps{flash}"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

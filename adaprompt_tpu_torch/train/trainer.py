@@ -36,7 +36,7 @@ from adaprompt_tpu_torch.adaface import checkpoint as ckpt_mod
 from adaprompt_tpu_torch.adaface import conditioner as cond_mod
 from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
 from adaprompt_tpu_torch.models.clip_text import CLIPTextModel
-from adaprompt_tpu_torch.models.unet import UNet
+from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, UNet
 from adaprompt_tpu_torch.models.vae import SD_SCALE_FACTOR, VAE, _resize_mask_nearest
 from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
 from adaprompt_tpu_torch.train import steps as steps_mod
@@ -114,10 +114,11 @@ class AdaPromptTrainer:
 
     @classmethod
     def random_init(cls, seed: int, batch_iterator, cfg: TrainerConfig, *, device=None,
-                    tokenizer=None) -> "AdaPromptTrainer":
+                    tokenizer=None, unet_cfg=None) -> "AdaPromptTrainer":
         """A full-width Stage-1 trainer with random weights from `seed`, made
         on the device (no checkpoint assets): student and a separate teacher
-        SD-1.5 UNet and the VAE in the compute dtype, every zero-init layer
+        SD-1.5 UNet (both with `unet_cfg`, e.g. a `flash_variant`; default
+        SD-1.5's) and the VAE in the compute dtype, every zero-init layer
         randomized; the SD and Arc2Face CLIP-L encoders and the
         SubjBasisGenerator in float32; synthetic face ids."""
         from adaprompt_tpu_torch.pipeline import resolve_device
@@ -125,8 +126,9 @@ class AdaPromptTrainer:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        unet, teacher = (randomize_zero_init(reset_parameters(UNet(device=device, dtype=dt), gen),
-                                             gen) for _ in range(2))
+        unet, teacher = (randomize_zero_init(reset_parameters(
+            UNet(unet_cfg or SD15_UNET_CONFIG, device=device, dtype=dt), gen), gen)
+            for _ in range(2))
         text, a2f_text = (reset_parameters(CLIPTextModel(device=device), gen) for _ in range(2))
         vae = reset_parameters(VAE(device=device, dtype=dt), gen)
         sbg = reset_parameters(SubjBasisGenerator(SUBJ_CONFIG, device=device), gen)

@@ -3,30 +3,37 @@
 Stage-1 Arc2Face-distillation training, the composed serving stack
 (DPM-Solver++ 20 steps with ToMe, DeepCache and the CFG tail, quant="int8"),
 and the product path (AdaFacePipeline: photos -> ArcFace -> 16 subject
-tokens -> personalized DDIM-50, with UNetConfig.fused_conv).
+tokens -> personalized DDIM-50, with UNetConfig.fused_conv); the first two
+also under each UNetConfig.flash_variant (two-chain, no-max, exp2).
 
     python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero without the final line):
-  1. build the nine CUDA kernels (seven sources, one nvcc each, in
-     parallel) from adaprompt_tpu_torch/csrc/;
+  1. build the thirteen CUDA kernels (eleven sources, one nvcc each, in
+     parallel) from adaprompt_tpu_torch/csrc/, and log what the exp2 forms
+     of the flash kernels changed in the SASS;
   2. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the paths' shapes (the two plain 3x3 conv kernels, which no
-     path runs, at the JAX tests' shapes and a ragged one), and time
+     bf16, at the paths' shapes (the kernels that no path runs, the two
+     plain 3x3 convs, the int8-QK flash attention and the fused
+     self-attention, at the UNet's shapes or the JAX tests' and ragged ones;
+     the flash variants and exp2 forms each against its own plain version,
+     plus ragged cases and the no-max kernel's underflow guard), and time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
      convs); beside the fused GroupNorm-SiLU-conv, which no single call
      computes, the port's own unfused pair (group_norm + conv2d);
   3. run one full-width UNet forward on the card in bf16, one with
-     quant="int8" and one with fused_conv, and the same weights on the CPU
+     quant="int8", one with fused_conv and one under each flash variant
+     (ilv, nomax, exp2), and the same weights on the CPU
      in fp32 (the int8 one through the int8 kernels' plain versions), and
      bound the relative errors; log the int8 forward's distance from the
      bf16 one;
   4. run one full-width UNet forward and backward with a masked image (the
      training path: flash backward, GEGLU backward, block recompute) on the
-     card in bf16 and on the CPU in fp32, and bound the relative error of
-     the gradient with respect to the context;
+     card in bf16, by default and under FlashVariant(exp2=True), and on the
+     CPU in fp32, and bound the relative error of the gradient with respect
+     to the context;
   5. generate 2 prompts at 512x512 with DDIM-50 through
      StableDiffusionPipeline.generate with random weights from a seed, and
      check that each bf16 forward kernel (B1-B3) was launched 10 times per
@@ -46,14 +53,22 @@ Phases, in order (any failure exits non-zero without the final line):
      table, the rewritten prompt, the images and every kernel's exact
      launch count; time the personalization latency (photos -> cond/uncond)
      and img/s with fused_conv on and off in turns (on, off, off, on);
-  9. print the kernels' JSON line, the card's name and power limit, and
-     the final {"ok": true, "device": ...} line.
+  9. the flash variants on the two paths that take them, each run with the
+     objects of the phase it follows: right after phase 5, DDIM-50
+     generates of the 2 prompts in turns (default, ilv, nomax, exp2, then
+     again) with exactly 500 launches of the selected forward kernel and 0
+     of the others; right after phase 6, training steps at ND 1 in turns
+     (default, exp2, exp2, default; two steps each) with the exp2 forward
+     and backward launched as often as the default's;
+ 10. print the kernels' JSON line (thirteen rows), the card's name and
+     power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -90,6 +105,36 @@ def log(msg):
     print(msg, flush=True)
 
 
+FLASH_WRAPPERS = ("flash_attention_fwd", "flash_attention_fwd_ilv", "flash_attention_fwd_nomax",
+                  "flash_attention_bwd")     # these also count their exp2-form launches
+
+
+def zero_counts():
+    from adaprompt_tpu_torch.ops import kernel_wrappers
+    for name, w in kernel_wrappers().items():
+        w.launches = 0
+        if name in FLASH_WRAPPERS:
+            w.exp2_launches = 0
+
+
+def read_counts() -> dict:
+    """{wrapper: launches} and, for the flash wrappers, {wrapper + ":exp2":
+    how many of those were in the exp2 form}."""
+    from adaprompt_tpu_torch.ops import kernel_wrappers
+    counts = {n: w.launches for n, w in kernel_wrappers().items()}
+    counts.update({n + ":exp2": kernel_wrappers()[n].exp2_launches for n in FLASH_WRAPPERS})
+    return counts
+
+
+def nz(counts: dict) -> dict:
+    """The nonzero counts, for the log."""
+    return {n: c for n, c in counts.items() if c}
+
+
+def counts_since(before: dict) -> dict:
+    return {n: c - before[n] for n, c in read_counts().items()}
+
+
 def time_ms(fn, iters, warmup=2):
     import torch
     for _ in range(warmup):
@@ -118,6 +163,44 @@ def phase_build():
                  if "registers" in ln or "spill" in ln]
         log(f"build {name}: {r['seconds']:.1f} s; " + " | ".join(usage))
     log(f"phase 1 build: {total:.1f} s for {len(report)} sources")
+    sass_exp2_forms()
+
+
+SASS_OPS = ("MUFU.EX2", "FMUL", "FFMA", "FADD", "FMNMX", "SHFL")
+
+
+def sass_exp2_forms():
+    """Log, for the D=40 instantiation (DP=48) of each flash kernel, how often
+    the opcodes of the softmax arithmetic occur in the SASS of its
+    natural-log and of its exp2 form (`cuobjdump -sass`; static counts over
+    the whole kernel): whether folding log2(e) into q drops a multiply."""
+    import re
+    import shutil
+    from pathlib import Path
+    from adaprompt_tpu_torch.ops import cuda_build
+    tool = shutil.which("cuobjdump") or str(Path(cuda_build.nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        log("phase 1 sass: cuobjdump not found, exp2 forms not disassembled")
+        return
+    for lib in ("flash_attention", "flash_attention_ilv", "flash_attention_nomax",
+                "flash_attention_bwd"):
+        res = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib))],
+                             capture_output=True, text=True, timeout=300, check=True)
+        counts, fn = {}, None
+        for line in res.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            elif fn:
+                for op in SASS_OPS:
+                    counts[fn][op] += bool(re.search(rf"\b{re.escape(op)}\b", line))
+        for fn, c in sorted(counts.items()):
+            if "ILi48E" in fn:          # the mangled template arguments: <48, false|true>
+                form = "exp2" if "ILi48ELb1E" in fn else "natural"
+                kernel = re.search(r"flash_\w+?_kernel", fn)
+                log(f"phase 1 sass {kernel.group(0) if kernel else fn}<48> {form}: "
+                    + " ".join(f"{op}={n}" for op, n in c.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +222,18 @@ def _compare(out, ref, rel_tol):
     return err, scale, ok
 
 
-def _case_flash(gen, s, d, with_bias):
+def _variant_tag(variant):
+    return "+".join(n for n in ("ilv", "nomax", "exp2") if getattr(variant, n)) or "default"
+
+
+def _case_flash(gen, s, d, with_bias, variant=None, b=UNET_BATCH, h=8, timed=True):
+    """A flash forward kernel (the one `variant` picks, in its exp2 form
+    under variant.exp2) against its own plain version; its distance from the
+    default kernel's output is logged, unbounded."""
     import torch
     import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
-    b, h = UNET_BATCH, 8
+    variant = variant or A.FlashVariant()
     mk = lambda: torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
     q, k, v = mk(), mk(), mk()
     bias = None
@@ -151,31 +241,55 @@ def _case_flash(gen, s, d, with_bias):
         keep = torch.rand(b, s, device="cuda", generator=gen) < 0.7
         bias = (keep.float() - 1.0) * (-A.NEG_BIG)
     scale = d ** -0.5
-    out, lse = A.flash_attention_fwd(q, k, v, bias, scale)
-    ref, lse_ref = A.attention_reference(q, k, v, bias, scale)
+    fwd = lambda: A.flash_attention_fwd(q, k, v, bias, scale, variant)
+    plain = lambda: A.flash_attention_fwd_reference(q, k, v, bias, scale, variant)
+    out, lse = fwd()
+    ref, lse_ref = plain()
     err, mag, ok = _compare(out, ref, 2e-2)
     lse_err = (lse - lse_ref).abs().max().item()
     ok = ok and lse_err <= 1e-2
+    detail = f"lse_err={lse_err:.2e} (tol 1e-2)"
+    if variant != A.FlashVariant():
+        base = A.flash_attention_fwd(q, k, v, bias, scale)[0]
+        detail += f" vs default kernel {(out.float() - base.float()).abs().max().item():.2e}"
+    del out, lse, ref, lse_ref
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
-    res = {
-        "kernel_ms": time_ms(lambda: A.flash_attention_fwd(q, k, v, bias, scale), 10),
-        "plain_ms": time_ms(lambda: A.attention_reference(q, k, v, bias, scale), 3),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale), 10),
-    }
+    res = {"kernel_ms": time_ms(fwd, 10) if timed else float("nan"),
+           "plain_ms": time_ms(plain, 3) if timed else float("nan"),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, scale=scale), 10) if timed else float("nan")}
     flops = 4 * b * h * s * s * d
     nbytes = 4 * b * s * h * d * 2 + b * h * s * 4 + (b * s * 4 if with_bias else 0)
     res.update(_bound(flops, nbytes, exps=b * h * s * s))
-    detail = f"lse_err={lse_err:.2e} (tol 1e-2)"
-    return f"flash_attention_fwd D={d} S={s} bias={with_bias}", err, mag, 2e-2, ok, res, detail
+    return (f"flash_attention_fwd[{_variant_tag(variant)}] D={d} S={s} B={b} H={h} "
+            f"bias={with_bias}", err, mag, 2e-2, ok, res, detail)
 
 
-def _case_flash_bwd(gen, s, d, with_bias):
+def _case_nomax_underflow():
+    """Every score of a row far below its cap: the no-max kernel must return
+    finite zeros (l clamped at 1e-30), not 0/0, and so must its plain version."""
+    import torch
+    from adaprompt_tpu_torch.ops import attention as A
+    b, s, h, d = 1, 512, 1, 40
+    q = torch.full((b, s, h, d), 60.0, device="cuda", dtype=torch.bfloat16)
+    k, v = -q, torch.ones_like(q)
+    for exp2 in (False, True):
+        out, lse = A.flash_attention_fwd_nomax(q, k, v, None, d ** -0.5, exp2)
+        ref, lse_ref = A.attention_reference_nomax(q, k, v, None, d ** -0.5, exp2)
+        worst = max(out.float().abs().max().item(), ref.float().abs().max().item())
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, lse, ref, lse_ref))
+        log(f"kernel flash_attention_fwd[nomax{'+exp2' if exp2 else ''}] underflow rows: "
+            f"max|out|={worst:.1e} finite={finite} "
+            f"lse kernel/plain {lse.max().item():.1f}/{lse_ref.max().item():.1f}")
+        if not (finite and worst == 0.0):
+            raise AssertionError("the no-max kernel's underflow guard failed")
+
+
+def _case_flash_bwd(gen, s, d, with_bias, exp2=False, b=UNET_BATCH, h=8, timed=True):
     import torch
     import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
-    b, h = UNET_BATCH, 8
     mk = lambda: torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
     q, k, v, dout = mk(), mk(), mk(), mk()
     bias = None
@@ -183,10 +297,11 @@ def _case_flash_bwd(gen, s, d, with_bias):
         keep = torch.rand(b, s, device="cuda", generator=gen) < 0.7
         bias = (keep.float() - 1.0) * (-A.NEG_BIG)
     scale = d ** -0.5
-    out, lse = A.flash_attention_fwd(q, k, v, bias, scale)
+    out, lse = A.flash_attention_fwd(q, k, v, bias, scale, A.FlashVariant(exp2=exp2))
     args = (q, k, v, bias, out, lse, dout, scale)
-    got = A.flash_attention_bwd(*args)
-    ref = A.flash_attention_bwd_reference(*args)
+    variant = A.FlashVariant(exp2=exp2)
+    got = A.flash_attention_bwd(*args, variant)
+    ref = A.flash_attention_bwd_reference(*args, exp2)
     cmp = [_compare(x, y, FLASH_BWD_TOL) for x, y in zip(got, ref)]
     err = max(c[0] for c in cmp)
     mag = max(c[1] for c in cmp)
@@ -196,10 +311,14 @@ def _case_flash_bwd(gen, s, d, with_bias):
     mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
     gt = dout.transpose(1, 2)
-    sdpa_fwd_ms = time_ms(sdpa, 10)
-    sdpa_both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt), 10)
-    res = {"kernel_ms": time_ms(lambda: A.flash_attention_bwd(*args), 10),
-           "plain_ms": time_ms(lambda: A.flash_attention_bwd_reference(*args), 2),
+    nan = float("nan")
+    sdpa_fwd_ms = time_ms(sdpa, 10) if timed else nan
+    sdpa_both_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt), 10)
+                    if timed else nan)
+    res = {"kernel_ms": (time_ms(lambda: A.flash_attention_bwd(*args, variant), 10)
+                         if timed else nan),
+           "plain_ms": (time_ms(lambda: A.flash_attention_bwd_reference(*args, exp2), 2)
+                        if timed else nan),
            "library_ms": sdpa_both_ms - sdpa_fwd_ms}
     # 5 S^2 D products of 2 flops; each input (q, k, v, out, dout, lse, bias)
     # read once and dq, dk, dv written once; one exponential per score
@@ -207,7 +326,95 @@ def _case_flash_bwd(gen, s, d, with_bias):
     nbytes = 8 * b * s * h * d * 2 + b * h * s * 4 + (b * s * 4 if with_bias else 0)
     res.update(_bound(flops, nbytes, exps=b * h * s * s))
     detail = " ".join(f"{n}={c[0] / c[1]:.2e}" for n, c in zip(("dq", "dk", "dv"), cmp))
-    return (f"flash_attention_bwd D={d} S={s} bias={with_bias}", err, mag, FLASH_BWD_TOL, ok,
+    return (f"flash_attention_bwd[{'exp2' if exp2 else 'default'}] D={d} S={s} B={b} H={h} "
+            f"bias={with_bias}", err, mag, FLASH_BWD_TOL, ok, res, detail)
+
+
+def _case_flash_int8(gen, s, d, with_bias, b=UNET_BATCH, h=8, sk=None, timed=True):
+    """The int8-QK flash kernel against its plain version. Both make their
+    int8 operands with the same PyTorch code on the same tensors on the card
+    (`int8_qk_operands`: deterministic), so they are fed equal operands. Its
+    distance from exact bf16 attention is logged, unbounded."""
+    import torch
+    import torch.nn.functional as F
+    from adaprompt_tpu_torch.ops import attention as A
+    sk = sk or s
+    mk = lambda n: torch.randn(b, n, h, d, device="cuda", generator=gen)
+    q, k, v = mk(s).to(torch.bfloat16), (mk(sk) + 0.7).to(torch.bfloat16), mk(sk).to(torch.bfloat16)
+    bias = None
+    if with_bias:
+        keep = torch.rand(b, sk, device="cuda", generator=gen) < 0.7
+        bias = (keep.float() - 1.0) * (-A.NEG_BIG)
+    scale = d ** -0.5
+    out = A.flash_attention_int8(q, k, v, bias, scale)
+    ref = A.flash_attention_int8_reference(q, k, v, bias, scale)
+    err, mag, ok = _compare(out, ref, 2e-2)
+    exact = A.attention_reference(q, k, v, bias, scale)[0]
+    detail = f"vs exact bf16 attention {(out.float() - exact.float()).abs().max().item():.2e}"
+    del ref, exact
+    nan = float("nan")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+    res = {"kernel_ms": time_ms(lambda: A.flash_attention_int8(q, k, v, bias, scale), 10)
+           if timed else nan,
+           "operands_ms": time_ms(lambda: A.int8_qk_operands(q, k, v), 10) if timed else nan,
+           "plain_ms": time_ms(lambda: A.flash_attention_int8_reference(q, k, v, bias, scale), 3)
+           if timed else nan,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, scale=scale), 10) if timed else nan}
+    # q.k^T as int8 operations, p.v as bf16 flops; the function's inputs
+    # (q, k, v bf16, the bias) read once and the output written once
+    nbytes = 2 * b * (s + sk) * h * d * 2 + (b * sk * 4 if with_bias else 0)
+    res.update(_bound(2 * b * h * s * sk * d, nbytes, exps=b * h * s * sk,
+                      int8_ops=2 * b * h * s * sk * d))
+    detail += f" operands_ms={res['operands_ms']:.4f} (in kernel_ms)"
+    return (f"flash_attention_int8 D={d} Sq={s} Sk={sk} B={b} H={h} bias={with_bias}", err, mag,
+            2e-2, ok, res, detail)
+
+
+def _case_self(gen, n, c, with_bias, b=UNET_BATCH, timed=True):
+    """The fused self-attention kernel against its plain version. No single
+    PyTorch call computes it (library_ms None); `unfused_ms` is the chain the
+    port's UNet runs instead (three linears, the flash kernel, the
+    out-projection), logged beside it."""
+    import torch
+    from adaprompt_tpu_torch.ops import attention as A
+    h = 8
+    bf = torch.bfloat16
+    x = torch.randn(b, n, c, device="cuda", generator=gen).to(bf)
+    w = lambda: ((torch.rand(c, c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)).to(bf)
+    wq, wk, wv, wo = w(), w(), w(), w()
+    bo = (torch.rand(c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)
+    bias = None
+    if with_bias:
+        keep = torch.rand(b, n, device="cuda", generator=gen) < 0.7
+        bias = (keep.float() - 1.0) * (-A.NEG_BIG)
+    scale = (c // h) ** -0.5
+    args = (x, wq, wk, wv, wo, bo, scale, h, bias)
+    out = A.fused_self_attention(*args)
+    ref = A.fused_self_attention_reference(*args)
+    err, mag, ok = _compare(out, ref, 2e-2)
+    del ref
+
+    def unfused():
+        q, k, v = ((x @ m.t()).reshape(b, n, h, c // h) for m in (wq, wk, wv))
+        o = A.flash_attention_fwd(q, k, v, bias, scale)[0]
+        return o.reshape(b, n, c) @ wo.t() + bo.to(bf)
+
+    nan = float("nan")
+    res = {"kernel_ms": time_ms(lambda: A.fused_self_attention(*args), 5) if timed else nan,
+           "kv_ms": time_ms(lambda: A.packed_kv(x, wk, wv), 10) if timed else nan,
+           "plain_ms": time_ms(lambda: A.fused_self_attention_reference(*args), 2)
+           if timed else nan,
+           "library_ms": None,
+           "unfused_ms": time_ms(unfused, 5) if timed else nan}
+    # the flash kernel's work plus the four C x C projections; x in and out
+    # once, the four weights, bo and the bias
+    flops = 4 * b * n * n * c + 8 * b * n * c * c
+    nbytes = 2 * b * n * c * 2 + 4 * c * c * 2 + c * 4 + (b * n * 4 if with_bias else 0)
+    res.update(_bound(flops, nbytes, exps=b * h * n * n))
+    detail = f"kv_ms={res['kv_ms']:.4f} (in kernel_ms) unfused_ms={res['unfused_ms']:.4f}"
+    return (f"fused_self_attention C={c} N={n} B={b} bias={with_bias}", err, mag, 2e-2, ok,
             res, detail)
 
 
@@ -404,6 +611,7 @@ def phase_kernels():
     pers = ("personalize",)
     gen_ = gen_ + pers
     both = gen_ + train
+    from adaprompt_tpu_torch.ops.attention import FlashVariant as V
     cases = [("flash_attention_fwd", gen_, lambda: _case_flash(gen, 4096, 40, False)),
              ("flash_attention_fwd", train, lambda: _case_flash(gen, 4096, 40, True)),
              ("flash_attention_fwd", gen_ + serve, lambda: _case_flash(gen, 1024, 80, False)),
@@ -446,9 +654,63 @@ def phase_kernels():
         for shape in ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),
                       (3, 23, 37, 200, 72)):
             cases.append((fn_name, (), lambda f=fn_name, s=shape: _case_conv(gen, f, *s)))
+    # the flash variants at the UNet's three self-attention shapes, with and
+    # without key bias: the two-chain and no-max forwards and the exp2 forms
+    # (rows "<wrapper>:exp2"); generate runs the unbiased D=40 S=4096 and D=80
+    # S=1024, training the biased ones; S=2048 is the serving stack's shape
+    for fwd, name in ((V(ilv=True), "flash_attention_fwd_ilv"),
+                      (V(nomax=True), "flash_attention_fwd_nomax")):
+        for s_, d_ in ((4096, 40), (2048, 40), (1024, 80)):
+            for biased in (False, True):
+                on_path = ("generate_" + fwd.forward,) if s_ != 2048 and not biased else ()
+                cases.append((name, on_path,
+                              lambda a=(s_, d_, biased), f=fwd: _case_flash(gen, *a, f)))
+        cases.append((name + ":exp2", (), lambda f=fwd: _case_flash(
+            gen, 4096, 40, False, dataclasses.replace(f, exp2=True))))
+        cases.append((name + ":exp2", (), lambda f=fwd: _case_flash(
+            gen, 1024, 80, True, dataclasses.replace(f, exp2=True))))
+    for s_, d_ in ((4096, 40), (2048, 40), (1024, 80)):
+        for biased in (False, True):
+            on_path = () if s_ == 2048 else ("train_exp2",) if biased else ("generate_exp2",)
+            cases.append(("flash_attention_fwd:exp2", on_path,
+                          lambda a=(s_, d_, biased): _case_flash(gen, *a, V(exp2=True))))
+    for s_, d_ in ((4096, 40), (1024, 80)):
+        cases.append(("flash_attention_bwd:exp2", ("train_exp2",),
+                      lambda a=(s_, d_): _case_flash_bwd(gen, *a, True, exp2=True)))
+    # ragged cases: 9 key tiles (an odd count) and a last tile of 40 keys for
+    # the two-chain kernel, one tile only, ragged q and key tiles for the others
+    for fwd, name in ((V(ilv=True), "flash_attention_fwd_ilv"),
+                      (V(ilv=True, exp2=True), "flash_attention_fwd_ilv:exp2"),
+                      (V(nomax=True), "flash_attention_fwd_nomax"),
+                      (V(exp2=True), "flash_attention_fwd:exp2")):
+        cases.append((name, (), lambda f=fwd: _case_flash(gen, 552, 40, True, f, b=2, h=3,
+                                                          timed=False)))
+    cases.append(("flash_attention_fwd_ilv", (), lambda: _case_flash(
+        gen, 50, 16, False, V(ilv=True), b=2, h=2, timed=False)))
+    cases.append(("flash_attention_bwd:exp2", (), lambda: _case_flash_bwd(
+        gen, 300, 64, True, exp2=True, b=1, h=3, timed=False)))
+    # the two attention kernels that no path runs (wired nowhere, as in the
+    # JAX package), at the UNet's self-attention shapes and ragged ones
+    for s_, d_ in ((4096, 40), (2048, 40), (1024, 80)):
+        for biased in (False, True):
+            cases.append(("flash_attention_int8", (),
+                          lambda a=(s_, d_, biased): _case_flash_int8(gen, *a)))
+    cases.append(("flash_attention_int8", (), lambda: _case_flash_int8(
+        gen, 300, 64, True, b=1, h=3, sk=203, timed=False)))
+    cases.append(("flash_attention_int8", (), lambda: _case_flash_int8(
+        gen, 100, 128, False, b=2, h=2, sk=1000, timed=False)))
+    for n_, c_ in ((4096, 320), (1024, 640)):
+        for biased in (False, True):
+            cases.append(("fused_self_attention", (),
+                          lambda a=(n_, c_, biased): _case_self(gen, *a)))
+    cases.append(("fused_self_attention", (), lambda: _case_self(gen, 1000, 320, True, b=1,
+                                                                 timed=False)))
+    cases.append(("fused_self_attention", (), lambda: _case_self(gen, 77, 1280, False, b=2,
+                                                                 timed=False)))
     results, failed = {}, []
     for name, paths, case in cases:
         label, err, mag, tol, ok, res, detail = case()
+        res["timed"] = not math.isnan(res["kernel_ms"])
         res["max_abs_err"] = err
         res["paths"] = paths
         log(f"kernel {label}: max_abs_err={err:.3e} max|plain|={mag:.3e} "
@@ -461,6 +723,7 @@ def phase_kernels():
         results.setdefault(name, []).append(res)
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    _case_nomax_underflow()
     return results
 
 
@@ -479,33 +742,37 @@ def fused_convs_per_pass() -> int:
 
 def phase_unet_check():
     """One full-width UNet forward (64x64 latents, 2 rows) on the card in
-    bf16, one with quant="int8" (B5 and B6) and one with fused_conv (B7),
-    each against the same weights on the CPU in fp32 (the int8 one through
-    the kernels' plain versions; in fp32 no conv is eligible for fusion, so
-    the fused_conv forward is held to the plain fp32 one)."""
-    import dataclasses
+    bf16, one with quant="int8" (B5 and B6), one with fused_conv (B7) and
+    one under each flash variant (ilv: B12, nomax: B13, exp2: B1's exp2
+    form), each against the same weights on the CPU in fp32 (the int8 one
+    through the kernels' plain versions; in fp32 no conv is eligible for
+    fusion and the flash variants differ from the default by roundings only,
+    so those forwards are held to the plain fp32 one)."""
     import torch
     from adaprompt_tpu_torch.models.unet import UNet
-    from adaprompt_tpu_torch.ops import kernel_wrappers
+    from adaprompt_tpu_torch.ops.attention import FlashVariant
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
     gen = torch.Generator(device="cuda").manual_seed(1)
     unet = reset_parameters(UNet(device="cuda", dtype=torch.bfloat16), gen)
     randomize_zero_init(unet, gen)
     int8 = dataclasses.replace(unet.cfg, quant="int8")
     fused = dataclasses.replace(unet.cfg, fused_conv=True)
+    variants = {name: dataclasses.replace(unet.cfg, flash_variant=FlashVariant(**{name: True}))
+                for name in ("ilv", "nomax", "exp2")}
     x = torch.randn(2, 64, 64, 4, device="cuda", generator=gen).to(torch.bfloat16)
     ctx = torch.randn(1, 2, 77, 768, device="cuda", generator=gen).to(torch.bfloat16)
     ts = torch.tensor([981, 501], device="cuda")
-    wrappers = kernel_wrappers()
-    before = {n: w.launches for n, w in wrappers.items()}
+    before = read_counts()
     t0 = time.perf_counter()
     with torch.inference_mode():
         kv = unet.precompute_cross_kv(ctx)
         eps = unet(x, ts, ctx, cross_kv=kv).float().cpu()
         eps8 = unet(x, ts, ctx, cross_kv=kv, cfg=int8).float().cpu()
         eps_fused = unet(x, ts, ctx, cross_kv=kv, cfg=fused).float().cpu()
+        eps_var = {name: unet(x, ts, ctx, cross_kv=kv, cfg=c).float().cpu()
+                   for name, c in variants.items()}
     card_s = time.perf_counter() - t0
-    counts = {n: w.launches - before[n] for n, w in wrappers.items()}
+    counts = counts_since(before)
     cpu = UNet(device="cpu", dtype=torch.float32)
     cpu.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
     del unet
@@ -523,16 +790,24 @@ def phase_unet_check():
         f"each); int8 vs bf16 on the card {rel_l2(eps8, eps):.4e}, fused_conv vs bf16 on the "
         f"card {rel_l2(eps_fused, eps):.4e}, int8 vs fp32 on the CPU {rel_l2(ref8, ref):.4e}; "
         f"|eps| max {ref.abs().max().item():.3e}; card {card_s:.2f} s (first calls), "
-        f"CPU {cpu_s:.1f} s; launches {counts}")
-    for name, r in (("bf16", rel), ("int8", rel8), ("fused_conv", rel_fused)):
+        f"CPU {cpu_s:.1f} s; launches {nz(counts)}")
+    rel_var = {name: rel_l2(e, ref) for name, e in eps_var.items()}
+    log("phase 3 unet, flash variants on the card vs fp32 CPU (bound "
+        f"{UNET_TOL:g}): " + ", ".join(f"{n} {r:.4e}" for n, r in rel_var.items())
+        + "; vs the default bf16 forward on the card: "
+        + ", ".join(f"{n} {rel_l2(e, eps):.4e}" for n, e in eps_var.items()))
+    for name, r in (("bf16", rel), ("int8", rel8), ("fused_conv", rel_fused), *rel_var.items()):
         if not (math.isfinite(r) and r <= UNET_TOL and ref.abs().max().item() > 0):
             raise AssertionError(f"{name} UNet on the card disagrees with the CPU: {r}")
-    # 10 transformer blocks at 64x64 and 32x32 each launch B1, B2 or B5, B3 or
-    # B6, in each of the three forwards; the fused_conv one launches B7 besides
+    # 10 transformer blocks at 64x64 and 32x32 each launch a flash forward, B2
+    # or B5, B3 or B6, in each of the six forwards; the fused_conv one launches
+    # B7 besides; each flash variant's forward takes its own kernel
     want = {n: 0 for n in counts}
-    want.update(flash_attention_fwd=30, fused_cross_attention=20, geglu_fwd=20,
+    want.update(flash_attention_fwd=40, fused_cross_attention=50, geglu_fwd=50,
                 fused_cross_attention_int8=10, geglu_int8=10,
-                gn_silu_conv3x3_halo=fused_convs_per_pass())
+                gn_silu_conv3x3_halo=fused_convs_per_pass(),
+                flash_attention_fwd_ilv=10, flash_attention_fwd_nomax=10)
+    want["flash_attention_fwd:exp2"] = 10
     if counts != want:
         raise AssertionError(f"UNet launches {counts}, expected {want}")
 
@@ -540,11 +815,13 @@ def phase_unet_check():
 def phase_unet_grad():
     """One full-width UNet forward and backward (64x64 latents, 1 row, an
     img_mask dropping ~30% of the pixels, loss = sum(eps * g) for a fixed g)
-    on the card in bf16 against the same weights on the CPU in fp32: the
-    gradient with respect to the context."""
+    on the card in bf16, with the default flash kernels and under
+    FlashVariant(exp2=True) (the exp2 forms of forward and backward), against
+    the same weights on the CPU in fp32: the gradient with respect to the
+    context."""
     import torch
     from adaprompt_tpu_torch.models.unet import UNet
-    from adaprompt_tpu_torch.ops import kernel_wrappers
+    from adaprompt_tpu_torch.ops.attention import FlashVariant
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
     gen = torch.Generator(device="cuda").manual_seed(3)
     unet = reset_parameters(UNet(device="cuda", dtype=torch.bfloat16), gen)
@@ -556,18 +833,19 @@ def phase_unet_grad():
     g = torch.randn(1, 64, 64, 4, device="cuda", generator=gen)
     ts = torch.tensor([601], device="cuda")
 
-    def context_grad(model, dev, dt):
+    def context_grad(model, dev, dt, cfg=None):
         c = ctx.to(dev, torch.float32).requires_grad_(True)
-        eps = model(x.to(dev, dt), ts.to(dev), c.to(dt)[None], img_mask=mask.to(dev))
+        eps = model(x.to(dev, dt), ts.to(dev), c.to(dt)[None], img_mask=mask.to(dev), cfg=cfg)
         (eps.float() * g.to(dev)).sum().backward()
         return c.grad.float().cpu()
 
-    wrappers = kernel_wrappers()
-    before = {n: w.launches for n, w in wrappers.items()}
+    before = read_counts()
     t0 = time.perf_counter()
     card = context_grad(unet, "cuda", bf)
     card_s = time.perf_counter() - t0
-    counts = {n: w.launches - before[n] for n, w in wrappers.items()}
+    card_exp2 = context_grad(unet, "cuda", bf, dataclasses.replace(
+        unet.cfg, flash_variant=FlashVariant(exp2=True)))
+    counts = counts_since(before)
     cpu = UNet(device="cpu", dtype=torch.float32)
     cpu.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
     del unet
@@ -576,24 +854,31 @@ def phase_unet_grad():
     ref = context_grad(cpu, "cpu", torch.float32)
     cpu_s = time.perf_counter() - t0
     rel = ((card - ref).norm() / ref.norm()).item()
+    rel_exp2 = ((card_exp2 - ref).norm() / ref.norm()).item()
     log(f"phase 4 unet grad: d(loss)/d(context) bf16 card vs fp32 CPU relative L2 error "
-        f"{rel:.4e} (bound {UNET_GRAD_TOL:g}); |grad| max {ref.abs().max().item():.3e}; "
-        f"card {card_s:.2f} s (first call), CPU {cpu_s:.1f} s; launches {counts}")
-    if not (math.isfinite(rel) and rel <= UNET_GRAD_TOL and ref.abs().max().item() > 0):
-        raise AssertionError(f"UNet gradient on the card disagrees with the CPU: {rel}")
-    # forward, its recompute under block checkpointing, and one backward
+        f"{rel:.4e}, under exp2 {rel_exp2:.4e} (bound {UNET_GRAD_TOL:g}); exp2 vs default on "
+        f"the card {((card_exp2 - card).norm() / card.norm()).item():.4e}; "
+        f"|grad| max {ref.abs().max().item():.3e}; "
+        f"card {card_s:.2f} s (first call), CPU {cpu_s:.1f} s; launches {nz(counts)}")
+    for r in (rel, rel_exp2):
+        if not (math.isfinite(r) and r <= UNET_GRAD_TOL and ref.abs().max().item() > 0):
+            raise AssertionError(f"UNet gradient on the card disagrees with the CPU: {r}")
+    # per gradient: forward, its recompute under block checkpointing, and one
+    # backward; the second gradient takes the exp2 forms throughout
     want = {n: 0 for n in counts}
-    want.update(flash_attention_fwd=20, flash_attention_bwd=FLASH_BWD_PER_PASS, geglu_fwd=20)
+    want.update(flash_attention_fwd=40, flash_attention_bwd=2 * FLASH_BWD_PER_PASS, geglu_fwd=40)
+    want["flash_attention_fwd:exp2"] = 20
+    want["flash_attention_bwd:exp2"] = FLASH_BWD_PER_PASS
     if counts != want:
         raise AssertionError(f"UNet gradient launches {counts}, expected {want}")
 
 
 def phase_generate():
-    """The txt2img path through the public entry point; returns the launch
-    counts of the counted DDIM-50 run."""
+    """The txt2img path through the public entry point, then (phase 9) the
+    same pipeline under each flash variant; returns {path: launch counts} of
+    the counted DDIM-50 runs."""
     import numpy as np
     import torch
-    from adaprompt_tpu_torch.ops import kernel_wrappers
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init
     from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
     steps = 50
@@ -603,18 +888,16 @@ def phase_generate():
     torch.cuda.synchronize()
     log(f"phase 5 random_init: {time.perf_counter() - t0:.1f} s")
     pipe.generate(PROMPTS, num_steps=2, height=512, width=512, seed=1)   # warm-up
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     imgs = pipe.generate(PROMPTS, num_steps=steps, height=512, width=512, seed=0)
     seconds = time.perf_counter() - t0
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"phase 5 generate: {len(PROMPTS)} prompts 512x512 DDIM-{steps} bf16 in {seconds:.3f} s "
         f"-> {len(PROMPTS) / seconds:.4f} img/s; peak memory {peak:.2f} GiB; "
-        f"image std {imgs.std():.2f}; launches {launches}")
+        f"image std {imgs.std():.2f}; launches {nz(launches)}")
     if imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8 or not imgs.std() > 0:
         raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
     want = {n: 0 for n in launches}            # no gradient, no int8, no fused_conv
@@ -622,9 +905,67 @@ def phase_generate():
                 geglu_fwd=10 * steps)
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
+    by_path = {"generate": launches}
+    by_path.update(phase_generate_variants(pipe, imgs))
     del pipe
     torch.cuda.empty_cache()
-    return launches
+    return by_path
+
+
+VARIANT_TURNS = ("default", "ilv", "nomax", "exp2")
+
+
+def phase_generate_variants(pipe, default_imgs):
+    """Phase 9, txt2img: DDIM-50 generates of the 2 prompts through the same
+    pipeline with UNetConfig.flash_variant set in turns (default, ilv, nomax,
+    exp2, then the same again); img/s and peak memory of each, exact launch
+    counts (500 of the selected forward kernel, 0 of the other two; under
+    exp2 all 500 in the exp2 form), and the images' distance from the
+    default's (same seed; logged, unbounded). Returns {path: counts} of each
+    variant's first turn."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.ops.attention import FlashVariant
+    steps = 50
+    base_cfg = pipe.unet_cfg
+    cfgs = {name: dataclasses.replace(base_cfg, flash_variant=FlashVariant(
+        **({} if name == "default" else {name: True}))) for name in VARIANT_TURNS}
+    for name in VARIANT_TURNS[1:]:                                        # warm-up
+        pipe.unet_cfg = cfgs[name]
+        pipe.generate(PROMPTS, num_steps=2, height=512, width=512, seed=1)
+    by_path, rates = {}, {name: [] for name in VARIANT_TURNS}
+    for name in VARIANT_TURNS * 2:
+        pipe.unet_cfg = cfgs[name]
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        imgs = pipe.generate(PROMPTS, num_steps=steps, height=512, width=512, seed=0)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rates[name].append(len(PROMPTS) / seconds)
+        diff = np.abs(imgs.astype(np.int32) - default_imgs.astype(np.int32))
+        log(f"phase 9 generate[{name}]: {len(PROMPTS)} prompts 512x512 DDIM-{steps} bf16 in "
+            f"{seconds:.3f} s -> {rates[name][-1]:.4f} img/s; peak memory {peak:.2f} GiB; image "
+            f"std {imgs.std():.2f}; vs the default's images mean |diff| {diff.mean():.3f} levels, "
+            f"max {diff.max()}; launches {nz(counts)}")
+        if (imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8
+                or not imgs.std() > 0):
+            raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
+        fwd = {"default": "flash_attention_fwd", "exp2": "flash_attention_fwd",
+               "ilv": "flash_attention_fwd_ilv", "nomax": "flash_attention_fwd_nomax"}[name]
+        want = {n: 0 for n in counts}
+        want.update({fwd: 10 * steps, "fused_cross_attention": 10 * steps,
+                     "geglu_fwd": 10 * steps})
+        if name == "exp2":
+            want[fwd + ":exp2"] = 10 * steps
+        if counts != want:
+            raise AssertionError(f"generate[{name}] launches {counts}, expected {want}")
+        by_path.setdefault("generate_" + name, counts)
+    pipe.unet_cfg = base_cfg
+    log("phase 9 img/s in turns: " + ", ".join(f"{n} {r}" for n, r in rates.items()))
+    return by_path
 
 
 def phase_train():
@@ -633,7 +974,6 @@ def phase_train():
     separate teacher UNet); returns the launch counts of the counted steps."""
     import tempfile
     import torch
-    from adaprompt_tpu_torch.ops import kernel_wrappers
     from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                    synthetic_raw_batches)
     t0 = time.perf_counter()
@@ -647,9 +987,7 @@ def phase_train():
     watched = {n: p.detach().clone() for n, p in sbg.named_parameters()
                if n in ("hidden_state_layer_weights", "prompt2token_proj.layers.11.mlp.fc2.weight",
                         "prompt2token_proj.token_embedding")}
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     rows, times = [], []
     for i in range(TRAIN_STEPS):
@@ -661,10 +999,8 @@ def phase_train():
         if i == cfg.grad_accum - 1:       # the first accumulated update
             moved = {n: not torch.equal(p, dict(sbg.named_parameters())[n])
                      for n, p in watched.items()}
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    tr._flush_metrics()
-    tmp.cleanup()
     for r, s in zip(rows, times):
         log(f"phase 6 step {r['step']}: ND={r['num_denoising_steps']} bs={r['distill_bs']} "
             f"loss={r['loss_arc2face_distill']:.6f} grad_norm={r['grad_norm']:.6e} {s:.3f} s")
@@ -672,7 +1008,7 @@ def phase_train():
     teachers = [r["num_denoising_steps"] for r in rows]
     log(f"phase 6 train: {TRAIN_STEPS} steps bs 4 512x512 bf16 in {sum(times):.3f} s "
         f"(step times {[round(s, 3) for s in times]}); peak memory {peak:.2f} GiB; "
-        f"SBG moved after the first update: {moved}; launches {launches}")
+        f"SBG moved after the first update: {moved}; launches {nz(launches)}")
     nds = set(teachers)
     if not (1 in nds and max(nds) > 1):
         raise AssertionError(f"the steps drew ND {teachers}; need ND=1 and ND>1")
@@ -689,7 +1025,62 @@ def phase_train():
                 geglu_fwd=fwd)
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
-    return launches
+    by_path = {"train": launches}
+    by_path.update(phase_train_variants(tr, TRAIN_STEPS))
+    tr._flush_metrics()
+    tmp.cleanup()
+    return by_path
+
+
+def phase_train_variants(tr, first_step):
+    """Phase 9, training: the same trainer with ND fixed at 1, two steps (one
+    accumulating, one applying the update) with the default flash kernels and
+    two under FlashVariant(exp2=True), in turns (default, exp2, exp2,
+    default): s/step of each, finite losses, and launch counts: under exp2
+    the forward and the backward launch as often as by default, every launch
+    in the exp2 form. Returns {path: counts} of each first turn."""
+    import torch
+    from adaprompt_tpu_torch.ops.attention import FlashVariant
+    tr.cfg = dataclasses.replace(tr.cfg, max_num_denoising_steps=1)       # ND = 1 in every step
+    unets = (tr.frozen.unet, tr.frozen.teacher_unet)
+    base_cfg = unets[0].cfg
+    cfgs = {"default": base_cfg,
+            "exp2": dataclasses.replace(base_cfg, flash_variant=FlashVariant(exp2=True))}
+    by_path, times, step = {}, {"default": [], "exp2": []}, first_step
+    for name in ("default", "exp2", "exp2", "default"):
+        for u in unets:
+            u.cfg = cfgs[name]
+        zero_counts()
+        pair = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = tr.train_step(step)
+            torch.cuda.synchronize()
+            pair.append(time.perf_counter() - t1)
+            step += 1
+            loss, norm = float(m["loss_arc2face_distill"]), float(m["grad_norm"])
+            if not (m["num_denoising_steps"] == 1 and math.isfinite(loss)
+                    and math.isfinite(norm) and norm > 0):
+                raise AssertionError(f"bad training metrics under {name}: {m}")
+        counts = read_counts()
+        times[name].append(pair)
+        log(f"phase 9 train[{name}]: 2 steps ND=1 bs 4 in {[round(s, 3) for s in pair]} s; "
+            f"loss {loss:.6f} grad_norm {norm:.6e}; launches {nz(counts)}")
+        # per step: a teacher pass, a student pass and its recompute; one backward
+        want = {n: 0 for n in counts}
+        want.update(flash_attention_fwd=2 * 30, flash_attention_bwd=2 * FLASH_BWD_PER_PASS,
+                    geglu_fwd=2 * 30)
+        if name == "exp2":
+            want["flash_attention_fwd:exp2"] = want["flash_attention_fwd"]
+            want["flash_attention_bwd:exp2"] = want["flash_attention_bwd"]
+        if counts != want:
+            raise AssertionError(f"train[{name}] launches {counts}, expected {want}")
+        by_path.setdefault("train_" + name, counts)
+    for u in unets:
+        u.cfg = base_cfg
+    log(f"phase 9 s/step in turns: default {times['default']}, exp2 {times['exp2']}")
+    return by_path
 
 
 def serve_launches(fast, steps):
@@ -709,7 +1100,6 @@ def phase_serve():
     preset's launch counts (every counted run is checked)."""
     import numpy as np
     import torch
-    from adaprompt_tpu_torch.ops import kernel_wrappers
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init
     from adaprompt_tpu_torch.pipeline import FastConfig, StableDiffusionPipeline
     fast = FastConfig()
@@ -718,7 +1108,6 @@ def phase_serve():
     randomize_zero_init(pipe8.unet, torch.Generator(device="cuda").manual_seed(2))
     pipe16 = StableDiffusionPipeline(pipe8.unet, pipe8.vae, pipe8.text, pipe8.tokenizer)
     per_kernel = serve_launches(fast, SERVE_STEPS)
-    wrappers = kernel_wrappers()
     kw = dict(num_steps=SERVE_STEPS, height=512, width=512, sampler="dpmpp", fast=fast)
     presets = {"serve_int8": (pipe8, ("flash_attention_fwd", "fused_cross_attention_int8",
                                       "geglu_int8")),
@@ -729,23 +1118,22 @@ def phase_serve():
     launches, rates = {}, {p: [] for p in presets}
     for path in ("serve_int8", "serve_bf16", "serve_bf16", "serve_int8"):   # in turns
         pipe, kernels = presets[path]
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         imgs = pipe.generate(PROMPTS, **kw, seed=0)
         seconds = time.perf_counter() - t0
-        launches[path] = {n: w.launches for n, w in wrappers.items()}
+        launches[path] = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rates[path].append(len(PROMPTS) / seconds)
         log(f"phase 7 {path}: {len(PROMPTS)} prompts 512x512 dpmpp-{SERVE_STEPS} FastConfig() "
             f"bf16 in {seconds:.3f} s -> {rates[path][-1]:.4f} img/s; peak memory "
-            f"{peak:.2f} GiB; image std {imgs.std():.2f}; launches {launches[path]}")
+            f"{peak:.2f} GiB; image std {imgs.std():.2f}; launches {nz(launches[path])}")
         if (imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8
                 or not imgs.std() > 0):
             raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
-        want = {n: (per_kernel if n in kernels else 0) for n in wrappers}
+        want = {n: (per_kernel if n in kernels else 0) for n in launches[path]}
         if launches[path] != want:
             raise AssertionError(f"{path} launches {launches[path]}, expected {want}")
     z8, z16 = (torch.from_numpy(presets[p][0].generate(PROMPTS, **kw, seed=0, return_latents=True))
@@ -763,12 +1151,10 @@ def phase_personalize():
     generate_adaface_embeddings -> __call__ (DDIM-50, 2 images, UNet batch
     4). fused_conv on and off share every weight and are timed in turns (on,
     off, off, on); returns the launch counts of the first run of each."""
-    import dataclasses
     import numpy as np
     import torch
     from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
     from adaprompt_tpu_torch.models.unet import UNetConfig
-    from adaprompt_tpu_torch.ops import kernel_wrappers
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init
     from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
     steps = 50
@@ -804,25 +1190,23 @@ def phase_personalize():
         f"SubjBasisGenerator -> token table -> cond/uncond), {PERSONAL_SUBJECTS} subjects: "
         f"p50 {float(np.percentile(lat, 50)):.3f} ms, min {min(lat):.3f}, max {max(lat):.3f}")
 
-    wrappers = kernel_wrappers()
     per_pass = fused_convs_per_pass()
     launches, rates, images = {}, {"personalize": [], "personalize_unfused": []}, {}
     for path in ("personalize", "personalize_unfused", "personalize_unfused", "personalize"):
         a = ada if path == "personalize" else ada_off
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         embs = a.generate_adaface_embeddings(images_np=subjects[0], seed=0)
         imgs = a(PERSONAL_PROMPT, out_image_count=PERSONAL_IMAGES, num_steps=steps, seed=0)
         seconds = time.perf_counter() - t1
-        counts = {n: w.launches for n, w in wrappers.items()}
+        counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rates[path].append(PERSONAL_IMAGES / seconds)
         log(f"phase 8 {path}: 3 photos -> {PERSONAL_IMAGES} images 512x512 DDIM-{steps} bf16 in "
             f"{seconds:.3f} s -> {rates[path][-1]:.4f} img/s; peak memory {peak:.2f} GiB; "
-            f"image std {imgs.std():.2f}; launches {counts}")
+            f"image std {imgs.std():.2f}; launches {nz(counts)}")
         rows = pipe.text.token_embedding[ada.placeholder_token_ids]
         if not (tuple(embs.shape) == (16, 768) and bool(torch.isfinite(embs).all())
                 and torch.equal(rows, embs.to(rows.dtype)) and float(embs.std()) > 0):
@@ -853,18 +1237,23 @@ def phase_personalize():
     return launches
 
 
+_GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
+_TRAIN_TURNS = ("train_default", "train_exp2")
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
-                             "personalize_unfused")),
+                             "personalize_unfused", "generate_default", "generate_exp2")
+                            + _TRAIN_TURNS),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "adaprompt_tpu/ops/attention.py:314", ("train",)),
+                            "adaprompt_tpu/ops/attention.py:314", ("train",) + _TRAIN_TURNS),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
-                              ("generate", "serve_bf16", "personalize", "personalize_unfused")),
+                              ("generate", "serve_bf16", "personalize", "personalize_unfused")
+                              + _GEN_TURNS),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
-                  ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")),
+                  ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
+                  + _GEN_TURNS + _TRAIN_TURNS),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",
@@ -876,36 +1265,64 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launc
                      "adaprompt_tpu/ops/conv_halo.py:57", ()),
     "conv3x3_im2col": ("adaprompt_tpu_torch/csrc/conv_halo.cu",
                        "adaprompt_tpu/ops/conv_halo.py:107", ()),
+    "flash_attention_int8": ("adaprompt_tpu_torch/csrc/flash_attention_int8.cu",
+                             "adaprompt_tpu/ops/attention.py:818", ()),
+    "fused_self_attention": ("adaprompt_tpu_torch/csrc/fused_self_attention.cu",
+                             "adaprompt_tpu/ops/attention.py:732", ()),
+    # on the txt2img path under UNetConfig.flash_variant
+    "flash_attention_fwd_ilv": ("adaprompt_tpu_torch/csrc/flash_attention_ilv.cu",
+                                "adaprompt_tpu/ops/attention.py:226", ("generate_ilv",)),
+    "flash_attention_fwd_nomax": ("adaprompt_tpu_torch/csrc/flash_attention_nomax.cu",
+                                  "adaprompt_tpu/ops/attention.py:277", ("generate_nomax",)),
 }
+# the exp2 forms (FlashVariant.exp2) of the four flash kernels, and the paths
+# that must have launched them: rows "exp2_*" of their kernels' entries
+EXP2_PATHS = {"flash_attention_fwd": ("generate_exp2", "train_exp2"),
+              "flash_attention_bwd": ("train_exp2",),
+              "flash_attention_fwd_ilv": (), "flash_attention_fwd_nomax": ()}
 
 
 def kernels_line(results, launches_by_path):
-    """Per kernel, the mean over the shapes its paths run (for the two conv
-    kernels that no path runs: over their phase-2 shapes) of the times and
-    bounds measured in phase 2, and its launches on each path's counted
-    run."""
+    """Per kernel, the mean over the timed shapes its paths run (for the
+    kernels that no path runs: over their timed phase-2 shapes) of the times
+    and bounds measured in phase 2, and its launches on each path's counted
+    run; for the four flash kernels also their exp2 form's time over its
+    timed shapes and its launches."""
     out = []
     for name, (source, replaces, paths) in KERNELS.items():
         by_path = {p: launches_by_path[p][name] for p in launches_by_path}
         missing = [p for p in paths if by_path[p] == 0]
         if missing:
             raise AssertionError(f"{name} was never launched on the {missing} path")
-        rs = [r for r in results[name] if r["paths"]] or results[name]
-        mean = lambda key: sum(r[key] for r in rs) / len(rs)
+        timed = [r for r in results[name] if r["timed"]]
+        rs = [r for r in timed if r["paths"]] or timed
+        mean = lambda key, rows=None: sum(r[key] for r in rows or rs) / len(rows or rs)
         t_ops = sum(r["ops_ms"] for r in rs)
         t_bytes = sum(r["bytes_ms"] for r in rs)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for r in results[name]),
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
-        if "unfused_ms" in rs[0]:
-            out[-1].update(unfused_ms=mean("unfused_ms"), affine_ms=mean("affine_ms"))
+        for extra in ("unfused_ms", "affine_ms", "operands_ms", "kv_ms"):
+            if extra in rs[0]:
+                out[-1][extra] = mean(extra)
+        if name in EXP2_PATHS:
+            exp2_by_path = {p: launches_by_path[p][name + ":exp2"] for p in launches_by_path}
+            missing = [p for p in EXP2_PATHS[name] if exp2_by_path[p] == 0]
+            if missing:
+                raise AssertionError(f"{name}'s exp2 form was never launched on {missing}")
+            rows = [r for r in results[name + ":exp2"] if r["timed"]]
+            rows = [r for r in rows if r["paths"]] or rows
+            out[-1].update(exp2_ms=mean("kernel_ms", rows), exp2_plain_ms=mean("plain_ms", rows),
+                           exp2_launches=sum(exp2_by_path.values()),
+                           exp2_max_abs_err=max(r["max_abs_err"]
+                                                for r in results[name + ":exp2"]))
     return {"kernels": out}
 
 
@@ -937,7 +1354,8 @@ def main() -> int:
     results = phase_kernels()
     phase_unet_check()
     phase_unet_grad()
-    launches = {"generate": phase_generate(), "train": phase_train()}
+    launches = phase_generate()
+    launches.update(phase_train())
     launches.update(phase_serve())
     launches.update(phase_personalize())
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -18,6 +18,9 @@ from adaprompt_tpu_torch.ops import kernel_wrappers
 from adaprompt_tpu_torch.ops.quant import quantize_weight
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLASH_VARIANTS = [tattn.FlashVariant(exp2=True), tattn.FlashVariant(ilv=True),
+                  tattn.FlashVariant(nomax=True), tattn.FlashVariant(ilv=True, exp2=True),
+                  tattn.FlashVariant(nomax=True, exp2=True)]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -51,6 +54,54 @@ def test_random_init_defaults_to_cuda_and_raises_without_it():
     assert tpipe.resolve_device("cpu").type == "cpu"
 
 
+def _profile_step_main():
+    from adaprompt_tpu_torch import profile_step
+    for argv in (["profile_step"], ["profile_step", "--train", "--flash", "exp2"]):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sys, "argv", argv)
+            with pytest.raises(SystemExit, match="needs a CUDA card"):
+                profile_step.main()
+    raise RuntimeError("CUDA is not available (profile_step exits without a card)")
+
+
+def _entry_points():
+    from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.models.arcface import ArcFace
+    from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
+                                                   synthetic_raw_batches)
+    return {"AdaFacePipeline": lambda: AdaFacePipeline.random_init(0),
+            "AdaPromptTrainer": lambda: AdaPromptTrainer.random_init(
+                0, synthetic_raw_batches(0), TrainerConfig(seed=0)),
+            "ArcFace": lambda: ArcFace.random_init(0),
+            "profile_step": _profile_step_main}
+
+
+@pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
+                                  "profile_step"])
+def test_entry_points_default_to_cuda_and_raise_without_it(name):
+    """Every entry point of the port, called without a device, asks for CUDA
+    and raises where there is none: none falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_port_calls_no_library_attention_nor_compile():
+    """No module of the port calls a library's fused attention or
+    torch.compile: its kernels are the hand-written ones under csrc/."""
+    pkg = os.path.join(ROOT, "adaprompt_tpu_torch")
+    hits = []
+    for folder, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith((".py", ".cu")):
+                text = open(os.path.join(folder, f)).read()
+                hits += [(f, word) for word in ("scaled_dot_product_attention", "torch.compile",
+                                                "cublas", "cudnn.h", "cutlass/gemm/device")
+                         if word in text]
+    assert not hits, hits
+
+
 def _int8_cross_args(x, wq, k, v, wo, bo):
     """The fused cross-attention's arguments with int8 weights and scales."""
     return (x, *quantize_weight(wq), k, v, *quantize_weight(wo), bo)
@@ -70,6 +121,8 @@ def _small_inputs(device, dtype):
           rn(64).float() / 8)
     conv = (rn(2, 8, 8, 32), rn(16, 32, 3, 3) / 16, rn(16).float() / 8)
     return {
+        # x, wq, wk, wv, wo, bo
+        "self": (cross[0], cross[1], rn(64, 64) / 8, rn(64, 64) / 8, cross[4], cross[5]),
         "conv": conv,
         "gn_conv": (conv[0], rn(32).float(), rn(32).float()) + conv[1:],
         "flash": flash,
@@ -96,7 +149,14 @@ def test_wrappers_take_plain_version_only_on_cpu():
     tch.gn_silu_conv3x3_halo(*x["gn_conv"])
     tch.conv3x3_halo(*x["conv"])
     tch.conv3x3_im2col(*x["conv"])
+    for variant in FLASH_VARIANTS:
+        tattn.flash_attention_fwd(*x["flash"], None, 40 ** -0.5, variant)
+        tattn.flash_attention(*x["flash"], None, 40 ** -0.5, variant)
+    tattn.flash_attention_bwd(*x["flash_bwd"], 40 ** -0.5, tattn.FlashVariant(exp2=True))
+    tattn.flash_attention_int8(*x["flash"])
+    tattn.fused_self_attention(*x["self"], 32 ** -0.5, 2)
     assert {n: w.launches for n, w in kernel_wrappers().items()} == before
+    assert not any(getattr(w, "exp2_launches", 0) for w in kernel_wrappers().values())
     meta = {k: [None if a is None else a.to("meta") for a in v] for k, v in x.items()}
     with pytest.raises(TypeError, match="CUDA"):
         tattn.flash_attention_fwd(*meta["flash"], None, 40 ** -0.5)
@@ -116,6 +176,17 @@ def test_wrappers_take_plain_version_only_on_cpu():
         tch.conv3x3_halo(*meta["conv"])
     with pytest.raises(TypeError, match="CUDA"):
         tch.conv3x3_im2col(*meta["conv"])
+    for variant in FLASH_VARIANTS:
+        with pytest.raises(TypeError, match="CUDA"):
+            tattn.flash_attention_fwd(*meta["flash"], None, 40 ** -0.5, variant)
+        with pytest.raises(TypeError, match="CUDA"):
+            tattn.flash_attention(*meta["flash"], None, 40 ** -0.5, variant)
+    with pytest.raises(TypeError, match="CUDA"):
+        tattn.flash_attention_bwd(*meta["flash_bwd"], 40 ** -0.5, tattn.FlashVariant(exp2=True))
+    with pytest.raises(TypeError, match="CUDA"):
+        tattn.flash_attention_int8(*meta["flash"])
+    with pytest.raises(TypeError, match="CUDA"):
+        tattn.fused_self_attention(*meta["self"], 32 ** -0.5, 2)
 
 
 def test_fused_cross_attention_refuses_gradients_off_the_cpu():
@@ -141,6 +212,26 @@ def test_int8_kernels_refuse_gradients_off_the_cpu(name):
         fn(*x)
     with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
         fn(*x)
+
+
+@pytest.mark.parametrize("name", ["flash_int8", "self"])
+def test_unwired_attention_kernels_refuse_gradients_off_the_cpu(name):
+    """The int8-QK flash and the fused self-attention kernels are forward
+    only (the JAX functions have no custom_vjp): off the CPU a wrapper raises
+    on an input that needs a gradient; on the CPU the plain version
+    differentiates."""
+    fn = {"flash_int8": tattn.flash_attention_int8,
+          "self": lambda *a: tattn.fused_self_attention(*a, 32 ** -0.5, 2)}[name]
+    key = "flash" if name == "flash_int8" else "self"
+    x = [a.to("meta") for a in _small_inputs("cpu", torch.float32)[key]]
+    x[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fn(*x)
+    with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
+        fn(*x)
+    x = [a.requires_grad_(True) for a in _small_inputs("cpu", torch.float32)[key]]
+    fn(*x).sum().backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in x[1:])
 
 
 @pytest.mark.parametrize("name", ["gn_silu_conv3x3_halo", "conv3x3_halo", "conv3x3_im2col"])
@@ -170,10 +261,21 @@ def test_kernel_sources_and_wrappers_exist():
     assert set(kernel_wrappers()) == {"flash_attention_fwd", "flash_attention_bwd",
                                       "fused_cross_attention", "geglu_fwd",
                                       "fused_cross_attention_int8", "geglu_int8",
-                                      "gn_silu_conv3x3_halo", "conv3x3_halo", "conv3x3_im2col"}
+                                      "gn_silu_conv3x3_halo", "conv3x3_halo", "conv3x3_im2col",
+                                      "flash_attention_int8", "fused_self_attention",
+                                      "flash_attention_fwd_ilv", "flash_attention_fwd_nomax"}
     assert set(cuda_build.SOURCES) == {"flash_attention", "flash_attention_bwd",
                                        "fused_cross_attention", "geglu",
-                                       "fused_cross_attention_int8", "geglu_int8", "conv_halo"}
+                                       "fused_cross_attention_int8", "geglu_int8", "conv_halo",
+                                       "flash_attention_ilv", "flash_attention_nomax",
+                                       "flash_attention_int8", "fused_self_attention"}
+    for lib, fn in (("flash_attention", "flash_attention_fwd"),
+                    ("flash_attention_bwd", "flash_attention_bwd"),
+                    ("flash_attention_ilv", "flash_attention_fwd_ilv"),
+                    ("flash_attention_nomax", "flash_attention_fwd_nomax"),
+                    ("flash_attention_int8", "flash_attention_int8_fwd"),
+                    ("fused_self_attention", "fused_self_attention_fwd")):
+        assert f'extern "C" int {fn}(' in (cuda_build.CSRC / f"{lib}.cu").read_text()
     src = (cuda_build.CSRC / "conv_halo.cu").read_text()
     for fn in ("gn_silu_conv3x3_halo_fwd", "conv3x3_halo_fwd", "conv3x3_im2col_fwd"):
         assert f'extern "C" int {fn}(' in src
@@ -214,6 +316,14 @@ def test_kernels_match_plain_versions_on_the_card():
     _assert_near(tch.conv3x3_im2col(*conv), tch.conv3x3_im2col_reference(*conv), 2e-2)
     _assert_near(tch.gn_silu_conv3x3_halo(*gn_conv),
                  tch.gn_silu_conv3x3_halo_reference(*gn_conv), 2e-2)
+    for variant in (tattn.FlashVariant(ilv=True), tattn.FlashVariant(nomax=True)):
+        _assert_near(tattn.flash_attention_fwd(*x["flash"], None, 40 ** -0.5, variant)[0],
+                     tattn.flash_attention_fwd_reference(*x["flash"], None, 40 ** -0.5,
+                                                         variant)[0], 2e-2)
+    _assert_near(tattn.flash_attention_int8(*x["flash"]),
+                 tattn.flash_attention_int8_reference(*x["flash"]), 2e-2)
+    _assert_near(tattn.fused_self_attention(*x["self"], 32 ** -0.5, 2),
+                 tattn.fused_self_attention_reference(*x["self"], 32 ** -0.5, 2), 2e-2)
     after = {n: w.launches for n, w in kernel_wrappers().items()}
     assert after == {n: before[n] + (2 if n == "flash_attention_fwd" else 1) for n in after}
 
@@ -417,3 +527,142 @@ def test_gn_silu_conv_kernel_ragged_shapes(b, h, w, c, o, gn_shift):
     out = tch.gn_silu_conv3x3_halo(x, gs, gb, wt, bias)
     assert tch.gn_silu_conv3x3_halo.launches == before + 1
     _assert_near(out, tch.gn_silu_conv3x3_halo_reference(x, gs, gb, wt, bias), 2e-2)
+
+
+# -- the flash variants and the two unwired attention kernels on the card ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", FLASH_VARIANTS, ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 200, 3, 64, True),
+                                                (2, 100, 77, 2, 80, True),
+                                                (1, 129, 1000, 1, 128, False),
+                                                (2, 64, 64, 4, 8, False),
+                                                (2, 128, 576, 2, 40, True)])
+def test_flash_variant_kernels_ragged_shapes(variant, b, sq, sk, h, d, biased):
+    """Each forward kernel and exp2 form against its own plain version:
+    ragged q and key tiles, padded head dims, key bias; key tile counts 4, 2,
+    16, 1 and 9 (an odd count for the two-chain kernel); out, lse and the
+    launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(sq + sk)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=g).bfloat16() for _ in range(2))
+    bias = None
+    if biased:
+        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
+                           tattn.NEG_BIG)
+    wrapper = {"base": tattn.flash_attention_fwd, "ilv": tattn.flash_attention_fwd_ilv,
+               "nomax": tattn.flash_attention_fwd_nomax}[variant.forward]
+    before = (wrapper.launches, wrapper.exp2_launches)
+    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, variant)
+    assert (wrapper.launches, wrapper.exp2_launches) == (before[0] + 1, before[1] + variant.exp2)
+    ref, lse_ref = tattn.flash_attention_fwd_reference(q, k, v, bias, d ** -0.5, variant)
+    _assert_near(out, ref, 2e-2)
+    assert (lse - lse_ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_nomax_kernel_underflow_gives_finite_zeros():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    q = torch.full((1, 512, 1, 40), 60.0, device="cuda", dtype=torch.bfloat16)
+    for exp2 in (False, True):
+        out, lse = tattn.flash_attention_fwd_nomax(q, -q, torch.ones_like(q), None, 40 ** -0.5,
+                                                   exp2)
+        assert bool(torch.isfinite(lse).all()) and float(out.float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 200, 3, 64, True),
+                                                (2, 512, 512, 8, 40, True),
+                                                (1, 129, 1000, 1, 128, False)])
+def test_flash_backward_exp2_kernel_ragged_shapes(b, sq, sk, h, d, biased):
+    """The backward's exp2 form from an exp2 forward's out and lse, against
+    its plain version; and any forward pairs with any backward: the natural
+    backward from the same lse agrees with the exp2 one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    rn = lambda s: torch.randn(*s, device="cuda", generator=g).bfloat16()
+    q, k, v, dout = rn((b, sq, h, d)), rn((b, sk, h, d)), rn((b, sk, h, d)), rn((b, sq, h, d))
+    bias = None
+    if biased:
+        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
+                           tattn.NEG_BIG)
+    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, tattn.FlashVariant(exp2=True))
+    args = (q, k, v, bias, out, lse, dout, d ** -0.5)
+    before = tattn.flash_attention_bwd.exp2_launches
+    got = tattn.flash_attention_bwd(*args, tattn.FlashVariant(exp2=True))
+    assert tattn.flash_attention_bwd.exp2_launches == before + 1
+    for a, ref, nat in zip(got, tattn.flash_attention_bwd_reference(*args, exp2=True),
+                           tattn.flash_attention_bwd(*args)):
+        _assert_near(a, ref, 1e-2)
+        _assert_near(a, nat, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 203, 3, 64, True),
+                                                (2, 100, 1000, 2, 128, False),
+                                                (2, 512, 512, 8, 40, True),
+                                                (1, 1024, 1024, 8, 80, False),
+                                                (2, 64, 64, 2, 16, False)])
+def test_int8_flash_kernel_ragged_shapes(b, sq, sk, h, d, biased):
+    """The int8-QK kernel against its plain version, both from the operands
+    the same PyTorch code makes on the card: head dims padded to the int8
+    depth (64 -> 64, 128, 40 -> 64, 80 -> 96, 16 -> 32), a key count off a
+    multiple of 4 (byte loads), ragged tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
+    k = (torch.randn(b, sk, h, d, device="cuda", generator=g) + 0.7).bfloat16()
+    v = torch.randn(b, sk, h, d, device="cuda", generator=g).bfloat16()
+    bias = None
+    if biased:
+        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
+                           tattn.NEG_BIG)
+    before = tattn.flash_attention_int8.launches
+    out = tattn.flash_attention_int8(q, k, v, bias)
+    assert tattn.flash_attention_int8.launches == before + 1 and out.shape == q.shape
+    _assert_near(out, tattn.flash_attention_int8_reference(q, k, v, bias), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,h,biased", [(2, 100, 64, 2, True), (1, 1000, 320, 8, True),
+                                            (2, 512, 640, 8, False), (1, 77, 1280, 8, False)])
+def test_fused_self_attention_kernel_ragged_shapes(b, n, c, h, biased):
+    """Row tiles of 32 (C <= 640) and 16, ragged N, padded head dims."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(n + c)
+    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    w = lambda: (rn(c, c) / c ** 0.5).bfloat16()
+    bias = None
+    if biased:
+        bias = torch.where(torch.rand(b, n, device="cuda", generator=g) < 0.6, 0.0, tattn.NEG_BIG)
+    args = (rn(b, n, c).bfloat16(), w(), w(), w(), w(), rn(c) / 8, (c // h) ** -0.5, h, bias)
+    before = tattn.fused_self_attention.launches
+    out = tattn.fused_self_attention(*args)
+    assert tattn.fused_self_attention.launches == before + 1
+    _assert_near(out, tattn.fused_self_attention_reference(*args), 2e-2)
+
+
+@pytest.mark.cuda
+def test_autograd_under_flash_variants_on_the_card():
+    """flash_attention under each variant on the card (its forward kernel,
+    the backward in the matching exp form) against autograd through the
+    default plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    x = _small_inputs("cuda", torch.bfloat16)["flash"]
+    bias = torch.where(torch.rand(2, 512, device="cuda") < 0.7, 0.0, tattn.NEG_BIG)
+    ref_in = [a.detach().requires_grad_(True) for a in x]
+    ref = tattn.attention_reference(*ref_in, bias, 40 ** -0.5)[0]
+    torch.autograd.backward(ref, torch.ones_like(ref))
+    for variant in FLASH_VARIANTS:
+        args = [a.detach().requires_grad_(True) for a in x]
+        out = tattn.flash_attention(*args, bias, 40 ** -0.5, variant)
+        torch.autograd.backward(out, torch.ones_like(out))
+        for a, r in zip(args, ref_in):
+            _assert_near(a.grad, r.grad, 3e-2)
