@@ -153,7 +153,11 @@ def attention_reference(q, k, v, key_bias, scale, mask=None, exp2=False):
     """Plain attention, and the plain version of the flash kernel: fp32
     logits and softmax, probabilities cast to v's dtype. With `exp2` it
     repeats the exp2 form's arithmetic instead (`_flash_scores`, exp2, the
-    sum divided out after p.v).
+    sum divided out after p.v). A batch row whose key bias drops every key
+    (NEG_BIG throughout) weighs its keys equally, as the JAX package's
+    `jax.nn.softmax` and the kernels do: there fp32 loses log(sum) against
+    the bias in lse, so exp(logits - lse) would sum to ~Sk, and such rows
+    take the normalized softmax instead.
     Returns (out [B,Sq,H,Dv], lse [B*H,Sq,1] float32, natural log)."""
     if exp2:
         if mask is not None:
@@ -167,7 +171,11 @@ def attention_reference(q, k, v, key_bias, scale, mask=None, exp2=False):
     if key_bias is not None:
         logits = logits + key_bias.float()[:, None, None, :]
     lse = torch.logsumexp(logits, dim=-1)
-    probs = torch.exp(logits - lse[..., None]).to(v.dtype)
+    probs = torch.exp(logits - lse[..., None])
+    if key_bias is not None:
+        dropped = (key_bias.float() <= NEG_BIG / 2).all(dim=-1)[:, None, None, None]
+        probs = torch.where(dropped, torch.softmax(logits, dim=-1), probs)
+    probs = probs.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return out, lse.reshape(b * h, sq, 1)
 

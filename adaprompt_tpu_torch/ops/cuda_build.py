@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`csrc/build/<name>-<digest>.so` (the digest covers the source and the
-flags, so an edited source is rebuilt). Nothing is built or loaded at
+`csrc/build/<name>-<digest>.so` (the digest covers the source, every
+`csrc/` header it includes, and the flags, so an edited source or header is
+rebuilt). Nothing is built or loaded at
 import: `function` compiles its library the first time a kernel is called,
 and `build` compiles several at once (one nvcc process per source).
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,10 +48,29 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and every `csrc/` header it includes, directly or
+    through another header."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).is_file()]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

@@ -14,11 +14,18 @@ warm-up + linear-decay schedule, behind MultiSteps(grad_accum)
 the device every `metrics_flush_every` steps; checkpoints are native .npz
 snapshots of the trainable parameters in the JAX package's layout.
 
+Face ids come from `face_embedder` (ArcFace, `eval/face_eval.py`'s
+`FaceSimilarityEvaluator`, or any object with `embed_image`) over each raw
+image; a faceless image falls back to a random id from the host stream, as
+in the JAX package. Without an embedder, `synthetic_faces=True` opts in to
+random ids for every image.
+
 Not in this slice (NotImplementedError): recon iterations (activation
-capture, fg/bg regularizers, conv-attention, the background branch),
-compositional iterations, EMA, `distribute`, full-state resume, the AdamW
-optimizer and a real ArcFace face embedder (`synthetic_faces=True` is
-required).
+capture, the fg/bg regularizers of `fgbg_reg`, the background branch),
+subject-token conv attention (`use_conv_attn_kernel_size` > 1),
+compositional iterations, EMA (`use_ema`), `distribute`, full-state resume
+and the AdamW optimizer (`optimizer_type="AdamW"`, `base_lr`). The config
+carries every field of the JAX package's, with its defaults.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ class TrainerConfig:
     prodigy_betas: tuple = (0.9, 0.999)
     warm_up_steps: int = 600
     scheduler_cycles: int = 1
+    base_lr: float = 8e-4                    # the AdamW path only
     composition_regs_iter_gap: int = 0
     arc2face_distill_iter_prob: float = 1.0
     # ND candidates (1, 3, 5, 7) cut at max_num_denoising_steps, with probs
@@ -65,8 +73,14 @@ class TrainerConfig:
     num_denoising_steps_probs: tuple = (0.4, 0.3, 0.2, 0.1)
     skip_weights: tuple = (1.0, 2.0, 2.0)
     randomize_clip_skip: bool = True
+    num_candidate_teachers: int = 2          # compositional iterations
+    fgbg_reg: bool = True                    # fg/bg attention regularizers of recon iterations
+    use_conv_attn_kernel_size: int = 0       # subject-token conv attention; 0 or 1 = off
     allow_self_teacher: bool = False
+    # compositional iterations without a CLIP teacher filter, opted in
+    no_teacher_filter: bool = False
     use_ema: bool = False
+    ema_decay: float = 0.9999
     seed: int = 0
     ckpt_every: int = 500
     out_dir: str = "runs/adaprompt"
@@ -138,15 +152,33 @@ class AdaPromptTrainer:
                    batch_iterator, cfg, synthetic_faces=True)
 
     def __init__(self, frozen: steps_mod.FrozenSD, vae, tokenizer, subj_basis_cfg, sbg,
-                 batch_iterator, cfg: TrainerConfig, synthetic_faces: bool = False):
+                 batch_iterator, cfg: TrainerConfig, face_embedder=None,
+                 synthetic_faces: bool = False):
+        # no CLIP scorer is ported, so compositional training without the
+        # explicit opt-in fails as the JAX trainer fails without a scorer
+        if cfg.composition_regs_iter_gap > 0 and not cfg.no_teacher_filter:
+            raise ValueError(
+                "compositional iterations (composition_regs_iter_gap="
+                f"{cfg.composition_regs_iter_gap}) with clip_scorer=None "
+                "would treat EVERY fresh compos iter as teachable — the "
+                "reference's CLIP teacher filter keeps only ~30-40% "
+                "(ddpm.py:3649-3664). Pass a clip_scorer, or opt in "
+                "explicitly with TrainerConfig(no_teacher_filter=True).")
         if cfg.composition_regs_iter_gap > 0:
             raise NotImplementedError("compositional iterations are not ported yet")
+        if cfg.use_conv_attn_kernel_size > 1:
+            raise NotImplementedError("subject-token conv attention "
+                                      "(use_conv_attn_kernel_size > 1) is not ported yet")
         if cfg.use_ema:
-            raise NotImplementedError("EMA of the trainable parameters is not ported yet")
-        if not synthetic_faces:
-            raise ValueError("the ArcFace face embedder is not ported yet: training would "
-                             "distill against random identities; opt in with "
-                             "synthetic_faces=True")
+            raise NotImplementedError("EMA of the trainable parameters (use_ema) is not "
+                                      "ported yet")
+        if face_embedder is None and not synthetic_faces:
+            raise ValueError(
+                "no face_embedder: training would distill against random "
+                "identities (gen_arc2face_rand_face is a smoke-test path, "
+                "ddpm.py:1788-1880). Pass face_embedder=FaceSimilarityEvaluator"
+                "(arcface params) or opt in with synthetic_faces=True.")
+        self.face_embedder = face_embedder
         self.frozen, self.vae, self.tokenizer = frozen, vae, tokenizer
         self.subj_basis_cfg, self.cfg = subj_basis_cfg, cfg
         self.batch_iterator = batch_iterator
@@ -191,14 +223,21 @@ class AdaPromptTrainer:
 
     @torch.no_grad()
     def prepare_recon_batch(self, raw: dict) -> dict:
-        """Latents, synthetic face ids and latent-size masks of a raw batch.
-        The embedding-noise coin and the global-scale perturbation of the
-        JAX package's batch are drawn and dropped: distillation uses neither
-        (the coin's probability is 0 there), and the draws keep the host
-        stream in the JAX package's order."""
+        """Latents, face ids and latent-size masks of a raw batch. Each
+        image's id is its first face's embedding, or a random one when it
+        shows no face or there is no embedder. The embedding-noise coin and
+        the global-scale perturbation of the JAX package's batch are drawn
+        and dropped: distillation uses neither (the coin's probability is 0
+        there), and the draws keep the host stream in the JAX package's
+        order."""
         imgs = torch.as_tensor(np.asarray(raw["image"]), device=self.device).to(self.dtype)
         z0 = (self.vae.encode(imgs)[0] * SD_SCALE_FACTOR).float()
-        faceid = self.rng.standard_normal((z0.shape[0], 512)).astype(np.float32)
+        if self.face_embedder is not None:
+            embs = [self.face_embedder.embed_image(im) for im in raw["image_unnorm"]]
+            faceid = np.stack([e[:1].reshape(-1) if len(e) else
+                               self.rng.standard_normal(512).astype(np.float32) for e in embs])
+        else:
+            faceid = self.rng.standard_normal((z0.shape[0], 512)).astype(np.float32)
         faceid = faceid / np.linalg.norm(faceid, axis=-1, keepdims=True)
         batch = {"z0": z0, "faceid": torch.as_tensor(faceid, device=self.device),
                  "fg_mask": self._latent_mask(raw["fg_mask"]),
@@ -223,7 +262,8 @@ class AdaPromptTrainer:
         raw = next(self.batch_iterator)
         do_distill = self.rng.random() < self.cfg.arc2face_distill_iter_prob
         if not do_distill:
-            raise NotImplementedError("recon iterations are not ported yet")
+            raise NotImplementedError("recon iterations (activation capture, the fg/bg "
+                                      "regularizers of fgbg_reg) are not ported yet")
         batch = self.prepare_recon_batch(raw)
         nd = self._sample_num_denoising_steps()
         if nd > 1:

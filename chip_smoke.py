@@ -12,12 +12,16 @@ Phases, in order (any failure exits non-zero without the final line):
   1. build the thirteen CUDA kernels (eleven sources, one nvcc each, in
      parallel) from adaprompt_tpu_torch/csrc/, and log what the exp2 forms
      of the flash kernels changed in the SASS;
-  2. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the paths' shapes (the kernels that no path runs, the two
-     plain 3x3 convs, the int8-QK flash attention and the fused
-     self-attention, at the UNet's shapes or the JAX tests' and ragged ones;
-     the flash variants and exp2 forms each against its own plain version,
-     plus ragged cases and the no-max kernel's underflow guard), and time
+  2. log the flash forward's resources at D=40 and 80 (registers, shared
+     memory, query rows a block, blocks an SM); hold each kernel against its
+     plain PyTorch version on the card, in bf16, at the paths' shapes (the
+     kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
+     attention and the fused self-attention, at the UNet's shapes or the JAX
+     tests' and ragged ones; the flash variants and exp2 forms each against
+     its own plain version, plus ragged cases and the no-max kernel's
+     underflow guard; the flash forward in both forms also at Sq != Sk with
+     both ragged, head dims 8 to 128, one key tile, a key tile masked whole
+     and a row masked whole), and time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
@@ -169,11 +173,17 @@ def phase_build():
 SASS_OPS = ("MUFU.EX2", "FMUL", "FFMA", "FADD", "FMNMX", "SHFL")
 
 
+# the mangled template arguments of each flash kernel's D=40 instantiation,
+# up to the EXP2 flag: B1 is templated on D/8, the others on D padded to 16
+D40_INSTANCE = {"flash_attention": "ILi5E", "flash_attention_ilv": "ILi48E",
+                "flash_attention_nomax": "ILi48E", "flash_attention_bwd": "ILi48E"}
+
+
 def sass_exp2_forms():
-    """Log, for the D=40 instantiation (DP=48) of each flash kernel, how often
-    the opcodes of the softmax arithmetic occur in the SASS of its
-    natural-log and of its exp2 form (`cuobjdump -sass`; static counts over
-    the whole kernel): whether folding log2(e) into q drops a multiply."""
+    """Log, for the D=40 instantiation of each flash kernel, how often the
+    opcodes of the softmax arithmetic occur in the SASS of its natural-log
+    and of its exp2 form (`cuobjdump -sass`; static counts over the whole
+    kernel): whether folding log2(e) into q drops a multiply."""
     import re
     import shutil
     from pathlib import Path
@@ -182,8 +192,7 @@ def sass_exp2_forms():
     if not Path(tool).exists():
         log("phase 1 sass: cuobjdump not found, exp2 forms not disassembled")
         return
-    for lib in ("flash_attention", "flash_attention_ilv", "flash_attention_nomax",
-                "flash_attention_bwd"):
+    for lib, tag in D40_INSTANCE.items():
         res = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib))],
                              capture_output=True, text=True, timeout=300, check=True)
         counts, fn = {}, None
@@ -196,10 +205,10 @@ def sass_exp2_forms():
                 for op in SASS_OPS:
                     counts[fn][op] += bool(re.search(rf"\b{re.escape(op)}\b", line))
         for fn, c in sorted(counts.items()):
-            if "ILi48E" in fn:          # the mangled template arguments: <48, false|true>
-                form = "exp2" if "ILi48ELb1E" in fn else "natural"
+            if tag in fn:               # <D40, false|true>
+                form = "exp2" if tag + "Lb1E" in fn else "natural"
                 kernel = re.search(r"flash_\w+?_kernel", fn)
-                log(f"phase 1 sass {kernel.group(0) if kernel else fn}<48> {form}: "
+                log(f"phase 1 sass {kernel.group(0) if kernel else fn}<D=40> {form}: "
                     + " ".join(f"{op}={n}" for op, n in c.items()))
 
 
@@ -226,20 +235,29 @@ def _variant_tag(variant):
     return "+".join(n for n in ("ilv", "nomax", "exp2") if getattr(variant, n)) or "default"
 
 
-def _case_flash(gen, s, d, with_bias, variant=None, b=UNET_BATCH, h=8, timed=True):
+def _case_flash(gen, s, d, with_bias, variant=None, b=UNET_BATCH, h=8, timed=True, sk=None,
+                masked=None):
     """A flash forward kernel (the one `variant` picks, in its exp2 form
-    under variant.exp2) against its own plain version; its distance from the
-    default kernel's output is logged, unbounded."""
+    under variant.exp2) against its own plain version, with s queries and sk
+    keys (default s); its distance from the default kernel's output is
+    logged, unbounded. The key bias drops ~30% of the keys at random, and
+    with masked="tile" every key of row 0's first 64-key tile, with
+    masked="row" every key of the last row."""
     import torch
     import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
     variant = variant or A.FlashVariant()
-    mk = lambda: torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
-    q, k, v = mk(), mk(), mk()
+    sk = sk or s
+    mk = lambda n: torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = mk(s), mk(sk), mk(sk)
     bias = None
     if with_bias:
-        keep = torch.rand(b, s, device="cuda", generator=gen) < 0.7
+        keep = torch.rand(b, sk, device="cuda", generator=gen) < 0.7
         bias = (keep.float() - 1.0) * (-A.NEG_BIG)
+        if masked == "tile":
+            bias[0, :64] = A.NEG_BIG
+        elif masked == "row":
+            bias[-1] = A.NEG_BIG
     scale = d ** -0.5
     fwd = lambda: A.flash_attention_fwd(q, k, v, bias, scale, variant)
     plain = lambda: A.flash_attention_fwd_reference(q, k, v, bias, scale, variant)
@@ -259,11 +277,13 @@ def _case_flash(gen, s, d, with_bias, variant=None, b=UNET_BATCH, h=8, timed=Tru
            "plain_ms": time_ms(plain, 3) if timed else float("nan"),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                qt, kt, vt, attn_mask=mask, scale=scale), 10) if timed else float("nan")}
-    flops = 4 * b * h * s * s * d
-    nbytes = 4 * b * s * h * d * 2 + b * h * s * 4 + (b * s * 4 if with_bias else 0)
-    res.update(_bound(flops, nbytes, exps=b * h * s * s))
-    return (f"flash_attention_fwd[{_variant_tag(variant)}] D={d} S={s} B={b} H={h} "
-            f"bias={with_bias}", err, mag, 2e-2, ok, res, detail)
+    # q, out (bf16) and lse once, k, v (bf16) and the bias once
+    flops = 4 * b * h * s * sk * d
+    nbytes = 2 * b * (s + sk) * h * d * 2 + b * h * s * 4 + (b * sk * 4 if with_bias else 0)
+    res.update(_bound(flops, nbytes, exps=b * h * s * sk))
+    seq = f"S={s}" if sk == s else f"Sq={s} Sk={sk}"
+    return (f"flash_attention_fwd[{_variant_tag(variant)}] D={d} {seq} B={b} H={h} "
+            f"bias={masked or with_bias}", err, mag, 2e-2, ok, res, detail)
 
 
 def _case_nomax_underflow():
@@ -594,10 +614,28 @@ def _case_gn_conv(gen, b, h, c, o, gn_shift):
             CONV_TOL, ok, res, detail)
 
 
+def flash_fwd_resources():
+    """Log B1's resources at the UNet's head dims, in both forms, from the
+    runtime (registers a thread, shared memory a block, query rows a block,
+    resident blocks an SM)."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("flash_attention", "flash_attention_fwd_describe",
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for d in (40, 80):
+        for exp2 in (False, True):
+            info = (ctypes.c_int * 4)()
+            cuda_build.check(fn(d, int(exp2), ctypes.addressof(info)), "flash_attention_fwd_describe")
+            log(f"kernel flash_attention_fwd{':exp2' if exp2 else ''} D={d}: {info[0]} registers a "
+                f"thread, {info[1]} B shared memory a block, {info[2]} query rows a block, "
+                f"{info[3]} blocks an SM")
+
+
 def phase_kernels():
     """Returns {wrapper name: [per-shape results]} for the kernels line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
+    flash_fwd_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -687,6 +725,17 @@ def phase_kernels():
                                                           timed=False)))
     cases.append(("flash_attention_fwd_ilv", (), lambda: _case_flash(
         gen, 50, 16, False, V(ilv=True), b=2, h=2, timed=False)))
+    # B1 in both forms: Sq != Sk with both ragged, head dims 8 to 128, one key
+    # tile only (Sk = 50, 64), a key tile masked whole, a row masked whole
+    for fwd, name in ((V(), "flash_attention_fwd"), (V(exp2=True), "flash_attention_fwd:exp2")):
+        for s_, sk_, d_, bias_, masked, b_, h_ in (
+                (300, 200, 64, True, None, 1, 3), (129, 1000, 128, False, None, 2, 1),
+                (100, 77, 80, True, None, 2, 2), (64, 64, 8, False, None, 2, 4),
+                (200, 50, 16, True, None, 2, 2), (333, 300, 40, True, "tile", 2, 2),
+                (257, 190, 40, True, "row", 2, 2)):
+            cases.append((name, (), lambda a=(s_, d_, bias_, fwd),
+                          kw=dict(b=b_, h=h_, sk=sk_, masked=masked): _case_flash(
+                              gen, *a, timed=False, **kw)))
     cases.append(("flash_attention_bwd:exp2", (), lambda: _case_flash_bwd(
         gen, 300, 64, True, exp2=True, b=1, h=3, timed=False)))
     # the two attention kernels that no path runs (wired nowhere, as in the

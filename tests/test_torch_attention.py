@@ -50,6 +50,32 @@ def test_flash_attention_matches_public_jax_op():
                  atol=FLASH_ATOL)
 
 
+@pytest.mark.parametrize("exp2", [False, True])
+def test_fully_masked_rows_match_jax(exp2):
+    """Key bias that masks every key of one batch row (an image masked out
+    whole) and the first 64-key tile of the other: the plain version of the
+    flash forward weighs the masked keys of the first equally (the mean of
+    v), as the Pallas kernel (interpret mode) and JAX's softmax do, and
+    agrees with both on the other row; the lse of the masked row is JAX's."""
+    rng = np.random.default_rng(11)
+    b, s, h, d = 2, 256, 2, 16
+    q, k, v = _qkv(rng, b, s, h, d)
+    bias = _bias(rng, b, s)
+    bias[0, :64] = jattn.NEG_BIG
+    bias[1] = jattn.NEG_BIG
+    scale = d ** -0.5
+    out_j, lse_j = jattn._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         jnp.asarray(bias), scale, interpret=True)
+    xla_j = jattn._attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                                 jnp.asarray(bias), scale)
+    out_t, lse_t = tattn.attention_reference(t(q), t(k), t(v), t(bias), scale, exp2=exp2)
+    assert_close(out_t, out_j, atol=FLASH_ATOL)
+    assert_close(out_t, xla_j, atol=FLASH_ATOL)
+    assert_close(lse_t, lse_j, atol=FLASH_ATOL)
+    np.testing.assert_allclose(out_t[1].numpy(), np.broadcast_to(v[1].mean(0), (s, h, d)),
+                               atol=1e-5)
+
+
 def _bias(rng, b, s):
     keep = rng.random((b, s)) < 0.7
     return ((keep.astype(np.float32) - 1.0) * -jattn.NEG_BIG).astype(np.float32)

@@ -282,6 +282,33 @@ def test_kernel_sources_and_wrappers_exist():
     assert adaprompt_tpu_torch.__version__
 
 
+def test_library_path_covers_included_headers(monkeypatch, tmp_path):
+    """A kernel's library name hashes its source and every csrc header the
+    source includes, directly or through another header: editing any of
+    them names a new library, so a stale build is never loaded."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    flash = [p.name for p in cuda_build.source_files("flash_attention")]
+    assert flash == ["flash_attention.cu", "flash_sm90.cuh"]
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "kern.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "unused.cuh").write_text("// not included\n")
+    first = cuda_build.library_path("kern")
+    assert first.parent == tmp_path / "build" and first.name.startswith("kern-")
+    assert [p.name for p in cuda_build.source_files("kern")] == ["kern.cu", "a.cuh", "b.cuh"]
+    (tmp_path / "unused.cuh").write_text("// edited\n")
+    assert cuda_build.library_path("kern") == first
+    seen = {first}
+    for name, text in (("b.cuh", "// b, edited\n"), ("a.cuh", '#include "b.cuh"\n// edited\n'),
+                       ("kern.cu", '#include "a.cuh"\nint y;\n')):
+        (tmp_path / name).write_text(text)
+        path = cuda_build.library_path("kern")
+        assert path not in seen, name
+        seen.add(path)
+
+
 def _assert_near(out, ref, tol):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -328,24 +355,42 @@ def test_kernels_match_plain_versions_on_the_card():
     assert after == {n: before[n] + (2 if n == "flash_attention_fwd" else 1) for n in after}
 
 
+def _flash_bias(kind, b, sk, g):
+    """None, or a [B, Sk] key bias: ~40% of keys masked at random; under
+    "tile" also every key of row 0's first 64-key tile; under "row" every
+    key of the last row."""
+    if kind is None:
+        return None
+    bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0, tattn.NEG_BIG)
+    if kind == "tile":
+        bias[0, :64] = tattn.NEG_BIG
+    if kind == "row":
+        bias[-1] = tattn.NEG_BIG
+    return bias
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 200, 3, 64, True),
-                                                (2, 100, 77, 2, 80, True),
-                                                (1, 129, 1000, 1, 128, False),
-                                                (2, 64, 64, 4, 8, False)])
-def test_flash_kernel_ragged_shapes(b, sq, sk, h, d, biased):
-    """Ragged q and key tiles, padded head dims, key bias; out and lse."""
+@pytest.mark.parametrize("exp2", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,d,bias", [(1, 300, 200, 3, 64, "random"),
+                                              (2, 100, 77, 2, 80, "random"),
+                                              (1, 129, 1000, 1, 128, None),
+                                              (2, 64, 64, 4, 8, None),
+                                              (2, 200, 50, 2, 16, "random"),
+                                              (2, 333, 300, 2, 40, "tile"),
+                                              (2, 257, 190, 2, 40, "row")])
+def test_flash_kernel_ragged_shapes(b, sq, sk, h, d, bias, exp2):
+    """Ragged q and key tiles with Sq != Sk, padded and odd head dims, one
+    key tile only (Sk = 50, 64), key bias that masks a whole key tile or
+    every key of a row; out and lse, in both forms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(sq + sk)
     q = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
     k, v = (torch.randn(b, sk, h, d, device="cuda", generator=g).bfloat16() for _ in range(2))
-    bias = None
-    if biased:
-        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
-                           tattn.NEG_BIG)
-    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5)
-    ref, lse_ref = tattn.attention_reference(q, k, v, bias, d ** -0.5)
+    bias = _flash_bias(bias, b, sk, g)
+    variant = tattn.FlashVariant(exp2=exp2)
+    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, variant)
+    ref, lse_ref = tattn.flash_attention_fwd_reference(q, k, v, bias, d ** -0.5, variant)
     _assert_near(out, ref, 2e-2)
     assert (lse - lse_ref).abs().max().item() <= 1e-2
 

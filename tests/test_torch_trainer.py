@@ -1,7 +1,9 @@
 """Port Stage-1 training vs the JAX package (tiny models, CPU, float32):
 the Arc2Face teacher chain with injected draws, and the trainer's host
-behaviour (the numpy draws in JAX's order, ND, HALF_BS) and checkpoints."""
+behaviour (the numpy draws in JAX's order, ND, HALF_BS, face ids), its
+config and refusals, and checkpoints."""
 
+import dataclasses
 import json
 
 import jax
@@ -131,3 +133,81 @@ def test_trainer_host_behaviour_and_checkpoint_match_jax(env, tmp_path):
     assert ttr2.load_checkpoint(path)["step"] == steps
     for k, v in ttr2.state.params["subj_basis"].state_dict().items():
         np.testing.assert_array_equal(v.numpy(), want[k])
+
+
+def test_trainer_config_matches_jax():
+    """The port's TrainerConfig has the JAX one's fields, in its order and
+    with its defaults; one keyword set builds equal configs in both packages,
+    and the Stage-2 presets agree."""
+    fields = lambda cls: [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert fields(ttrainer.TrainerConfig) == fields(jtrainer.TrainerConfig)
+    kw = dict(base_lr=1e-4, num_candidate_teachers=3, fgbg_reg=False, use_conv_attn_kernel_size=1,
+              no_teacher_filter=True, ema_decay=0.99, seed=5, max_num_denoising_steps=3)
+    assert (dataclasses.asdict(ttrainer.TrainerConfig(**kw))
+            == dataclasses.asdict(jtrainer.TrainerConfig(**kw)))
+    assert (dataclasses.asdict(ttrainer.TrainerConfig.stage2(seed=2))
+            == dataclasses.asdict(jtrainer.TrainerConfig.stage2(seed=2)))
+
+
+@pytest.mark.parametrize("kw,embedder,error,words", [
+    (dict(composition_regs_iter_gap=3), None, ValueError, "no_teacher_filter=True"),
+    (dict(), None, ValueError, "no face_embedder"),
+    (dict(composition_regs_iter_gap=3, no_teacher_filter=True), True, NotImplementedError,
+     "compositional iterations"),
+    (dict(use_conv_attn_kernel_size=3), True, NotImplementedError, "use_conv_attn_kernel_size"),
+    (dict(use_ema=True), True, NotImplementedError, "use_ema"),
+])
+def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
+    """What the port refuses at construction: the JAX trainer's own
+    ValueErrors, with its messages (compositional training without a teacher
+    filter, no face embedder), then each unported path by name."""
+    cfg = dict(out_dir=str(tmp_path), **kw)
+    face = _StubEmbedder() if embedder else None
+    with pytest.raises(error, match=words) as port:
+        ttrainer.AdaPromptTrainer(env["tfrozen"], None, env["ttok"], env["tscfg"], None, iter(()),
+                                  ttrainer.TrainerConfig(**cfg), face_embedder=face)
+    if error is ValueError:
+        with pytest.raises(ValueError) as ref:
+            jtrainer.AdaPromptTrainer(env["jfrozen"], None, None, env["jtok"], env["jscfg"], None,
+                                      iter(()), jtrainer.TrainerConfig(**cfg), face_embedder=face)
+        assert str(port.value) == str(ref.value)
+
+
+class _StubEmbedder:
+    """ArcFace stand-in: two faces a photo, embeddings drawn from a seed made
+    of the photo's pixels, and no face in the second photo it is shown."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def embed_image(self, image_np):
+        self.calls += 1
+        if self.calls == 2:
+            return np.zeros((0, 512), np.float32)
+        rng = np.random.default_rng(int(np.asarray(image_np, np.int64).sum()))
+        return rng.standard_normal((2, 512)).astype(np.float32)
+
+
+def test_trainer_face_embedder_matches_jax(env, tmp_path):
+    """Face ids through a face embedder: each image's first face, and for
+    the faceless one a random id from the host stream in the JAX trainer's
+    order; the faceid rows and the stream after them agree with JAX's."""
+    vcfg = dict(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1)
+    vt = reset_parameters(tvae.VAE(tvae.VAEConfig(**vcfg)), torch.Generator().manual_seed(9))
+    cfg = dict(compute_dtype="float32", seed=3)
+    raws = list(zip(range(2), ttrainer.synthetic_raw_batches(0, batch_size=4, size=32)))
+    jtr = jtrainer.AdaPromptTrainer(
+        env["jfrozen"], jax.tree.map(jnp.asarray, module_tree(vt)), jvae.VAEConfig(**vcfg),
+        env["jtok"], env["jscfg"], env["jsp"], iter(()),
+        jtrainer.TrainerConfig(out_dir=str(tmp_path / "jax"), **cfg), face_embedder=_StubEmbedder())
+    ttr = ttrainer.AdaPromptTrainer(
+        env["tfrozen"], vt, env["ttok"], env["tscfg"], _port_sbg(env), iter(()),
+        ttrainer.TrainerConfig(out_dir=str(tmp_path / "port"), **cfg),
+        face_embedder=_StubEmbedder())
+    for _, raw in raws:
+        got = ttr.prepare_recon_batch(raw)["faceid"].numpy()
+        want = np.asarray(jtr.prepare_recon_batch(raw, iter_type="arc2face_distill_iter")["faceid"])
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
+    assert ttr.face_embedder.calls == jtr.face_embedder.calls == 8
+    np.testing.assert_array_equal(jtr.rng.random(4), ttr.rng.random(4))   # same stream after
