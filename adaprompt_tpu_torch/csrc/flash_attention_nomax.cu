@@ -1,252 +1,321 @@
 // No-max flash attention forward for Hopper (sm_90a): the function of
 // csrc/flash_attention.cu with the running row max replaced by a cap on the
-// row's scores that is computed outside the kernel:
+// row's scores:
 //   p = exp(q-hat.k^T + key_bias - cap),  l = sum_k p,  out = (p.v) / max(l, 1e-30),
 //   lse = cap + log(max(l, 1e-30))
-// where q-hat = q*scale rounded to bf16 and cap_i = |q-hat_i| * max_k |k_k| + 1
-// (Cauchy-Schwarz plus a margin for rounding), both made by the wrapper in
-// PyTorch from the very values the kernel multiplies.
+// where q-hat = q*scale rounded to bf16 and cap_i = |q-hat_i| * kmax + 1,
+// kmax = max_k |k_k| of the (batch, head) (Cauchy-Schwarz plus a margin for
+// rounding). The kernel takes q and forms q-hat and |q-hat_i| itself as it
+// stages the q tile, so the cap is built from the very values it multiplies;
+// kmax comes from a pre-pass over K launched by the same call (one block per
+// batch and head, ~10 MB read at the UNet's 4096 tokens; its plain version is
+// ops/attention.py::nomax_key_max). Made by the wrapper in PyTorch, kmax took
+// two to three eager launches and the host time to issue them on every call;
+// made inside the attention kernel, it would re-read all of K for every q
+// tile.
 //
 // Replaces the TPU kernel adaprompt_tpu/ops/attention.py::_fwd_kernel_nomax
-// (launched from _flash_fwd_impl under the _NOMAX switch). Layouts: q-hat/k/v
-// [B, S, H, D] bf16, contiguous; key_bias [B, Sk] f32 or NULL; cap [B*H, Sq]
-// f32; out [B, Sq, H, D] bf16; lse [B*H, Sq] f32 (natural log).
+// (launched from _flash_fwd_impl under the _NOMAX switch). Layouts:
+// q/k/v [B, S, H, D] bf16, contiguous; key_bias [B, Sk] f32 or NULL; kmax
+// [B*H] f32; out [B, Sq, H, D] bf16; lse [B*H, Sq] f32 (natural log). D is a
+// multiple of 8, at most 128; Sq and Sk are any lengths, equal or not.
 //
 // What bounds it: as the one-chain kernel, 4*D tensor-core flops and one
-// exponential per score. What the cap buys on this card: p <= e^-1 whatever
-// the tile, so nothing is ever rescaled: no running max, no max reduction
-// across the warp, no second exponential per row and tile, and the output
-// accumulators stay in registers (WMMA fragments) for the whole key loop
-// where the one-chain kernel round-trips them through shared memory to scale
-// them. The row sum is kept as per-lane partial sums and reduced once.
-// A row whose scores all sit more than ~87 (the fp32 exponent range) below
-// the cap underflows to p = 0 everywhere: l is clamped at 1e-30, so the row
-// comes out as finite zeros, not 0/0.
-// Design: one block per (b*h, 64-row q tile), four warps, each owning 16 query
-// rows; K/V stream through shared memory in 64-key tiles; bf16 WMMA with fp32
-// sums. D is padded to a multiple of 16 in shared memory only.
+// exponential per score; at D=40 the exponentials bind. What the cap buys:
+// p <= e^-1 whatever the tile, so nothing is ever rescaled: no running max,
+// no max shuffles across the quad, no second exponential per row and tile,
+// no O rescale. A score costs one multiply-add and one ex2.approx (two
+// multiply-adds with a key bias).
 //
-// EXP2 = true is the exp2 form (the JAX package's _EXP2 switch): the wrapper
-// folds log2(e) into q-hat and hence into cap; the kernel folds it into the
-// bias, takes exp2(s + bias - cap) with no multiply, and divides cap by
-// log2(e) for the lse. The natural form multiplies (s + bias - cap) by
-// log2(e) before the same ex2.approx.
+// Design: the one-chain kernel's (csrc/flash_attention.cu, on the tile steps
+// of csrc/flash_sm90.cuh): one block of four warps per (b*h, q tile), 128
+// query rows for D <= 80 (32 a warp: two m16 tiles), 64 above; for D <= 48
+// registers capped at 168, so that three blocks share an SM (with no row
+// max the kernel needs fewer; on the H100 the cap won at D=40 S=4096 and
+// lost at D=80, where it spills); Q's A
+// fragments loaded once by ldmatrix and kept in registers; S = Q.K^T by
+// mma.m16n8k16 into registers, D padded to 16 for that product only; P
+// rounded to bf16 straight from the score registers as the A fragments of
+// O += P.V, V by ldmatrix.trans in n8 steps; O in fp32 registers; K/V tiles
+// of 64 keys and their key bias through a ring of cp.async stages (three for
+// D <= 64, two above) with 16-byte-padded rows; the epilogue stages O/l in
+// the warp's own rows of the Q tile and stores 16 bytes a lane. l is a
+// per-thread partial, reduced over the quad once at the end and clamped at
+// 1e-30: a row whose scores all sit more than ~87 (the fp32 exponent range)
+// below the cap underflows to p = 0 everywhere and comes out as
+// finite zeros, not 0/0.
+// |q-hat_i|: after the q tile is staged (q times scale, or scale*log2(e) in
+// the exp2 form, rounded to bf16), each lane of a quad sums the squares of a
+// quarter of the row's bf16 values in fp32 and the quad adds them up.
+//
+// EXP2 = true is the exp2 form (the JAX package's _EXP2 switch): q-hat =
+// q*scale*log2(e), so the scores and the cap come out in the log2 domain;
+// the bias is folded by log2(e), the exponent is exp2(s + bias - cap) and the
+// lse divides the cap by log2(e). The natural form multiplies (s + bias -
+// cap) by log2(e) before the same ex2.approx.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
+using bf16 = __nv_bfloat16;
+using namespace flash_sm90;
+
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
 
-using bf16 = __nv_bfloat16;
+// Tile shapes for a head dim of D = 8*DN (those of the one-chain kernel).
+template <int DN>
+struct Tiles {
+  static constexpr int D = 8 * DN;
+  static constexpr int DP = (D + 15) / 16 * 16;     // depth of Q.K^T
+  static constexpr int SROW = padded_row(DP);        // shared-memory row stride (elements)
+  static constexpr int MT = DP <= 80 ? 2 : 1;        // m16 row tiles per warp
+  static constexpr int BQ = 16 * MT * NWARPS;        // query rows per block
+  static constexpr int BK = 64;                      // keys per tile
+  static constexpr int NSTAGE = DP <= 64 ? 3 : 2;    // K/V stages in the ring
+  static constexpr int MIN_BLOCKS = DP <= 48 ? 3 : 1;  // blocks an SM the registers must allow
+  static constexpr size_t SMEM = (size_t)(BQ + NSTAGE * 2 * BK) * SROW * sizeof(bf16)
+                                 + (size_t)NSTAGE * BK * sizeof(float);
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// width of a warp's fp32 area, which holds its scores, then its output rows
-template <int DP>
-__host__ __device__ constexpr int score_width() { return DP > BK ? DP : BK; }
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return (size_t)(BQ * DP + 2 * BK * DP + BQ * BK) * sizeof(bf16) +
-         (size_t)(BQ * score_width<DP>() + BQ) * sizeof(float);
-}
-
-template <int DP, bool EXP2>
-__global__ void __launch_bounds__(NTHREADS)
+template <int DN, bool EXP2>
+__global__ void __launch_bounds__(NTHREADS, Tiles<DN>::MIN_BLOCKS)
 flash_fwd_nomax_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ bias,
-                       const float* __restrict__ cap, bf16* __restrict__ out,
-                       float* __restrict__ lse, int H, int Sq, int Sk, int D) {
-  constexpr int SW = score_width<DP>();
+                       const float* __restrict__ kmax, bf16* __restrict__ out,
+                       float* __restrict__ lse, int H, int Sq, int Sk, float qscale) {
+  using T = Tiles<DN>;
+  constexpr int D = T::D, SROW = T::SROW, MT = T::MT, BQ = T::BQ, BK = T::BK, NSTAGE = T::NSTAGE;
+  constexpr int KS = T::DP / 16;                                  // k16 steps of Q.K^T
+  constexpr int NT = BK / 8;                                      // n8 score tiles per key tile
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                       // [BQ][DP]
-  bf16* Ks = Qs + BQ * DP;                                        // [BK][DP]
-  bf16* Vs = Ks + BK * DP;                                        // [BK][DP]
-  bf16* Ps = Vs + BK * DP;                                        // [BQ][BK]
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * BK);             // [NWARPS][16][SW]
-  float* cap_s = Ss + BQ * SW;                                    // [BQ]
+  bf16* Qs = reinterpret_cast<bf16*>(smem);                       // [BQ][SROW]
+  bf16* KVs = Qs + BQ * SROW;                                     // [NSTAGE][K, V][BK][SROW]
+  float* Bs = reinterpret_cast<float*>(KVs + NSTAGE * 2 * BK * SROW);  // [NSTAGE][BK] key bias
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;                           // fragment row and column pair
   const long rs = (long)H * D;                                    // elements per sequence position
-  const bf16* qb = q + (long)b * Sq * rs + (long)h * D;
   const bf16* kb = k + (long)b * Sk * rs + (long)h * D;
   const bf16* vb = v + (long)b * Sk * rs + (long)h * D;
   const float* biasb = bias ? bias + (long)b * Sk : nullptr;
-  const int chunks = D / 8;                                       // 16-byte chunks per row
+  const int ntiles = (Sk + BK - 1) / BK;
 
-  // zero Q/K/V tiles once: their pad columns [D, DP) then stay zero
-  for (int i = tid; i < (BQ + 2 * BK) * DP; i += NTHREADS) Qs[i] = __float2bfloat16(0.f);
-  for (int i = tid; i < BQ; i += NTHREADS)
-    cap_s[i] = q0 + i < Sq ? cap[(long)bh * Sq + q0 + i] : 0.f;
+  // the pad columns [D, DP) of every Q/K/V row are zero, so they add nothing to q.k
+  if (D < T::DP)
+    for (int r = tid; r < BQ + NSTAGE * 2 * BK; r += NTHREADS)
+      *reinterpret_cast<uint4*>(Qs + r * SROW + D) = make_uint4(0, 0, 0, 0);
+
+  auto load_kv = [&](int n) {                                     // key tile n -> stage n % NSTAGE
+    bf16* Kst = KVs + (n % NSTAGE) * 2 * BK * SROW;
+    stage_kv<DN, BK, SROW, NTHREADS>(Kst, Kst + BK * SROW, Bs + (n % NSTAGE) * BK, kb, vb, biasb,
+                                     n * BK, Sk, rs, tid);
+  };
+#pragma unroll
+  for (int n = 0; n < NSTAGE - 1; ++n) {
+    if (n < ntiles) load_kv(n);
+    cp_async_commit();                                            // one group per tile, empty or not
+  }
+
+  // q-hat = q * qscale rounded to bf16, the operand of Q.K^T and of the cap
+  stage_q<DN, BQ, SROW, NTHREADS, true>(Qs, q + (long)b * Sq * rs + (long)h * D, q0, Sq, rs,
+                                        qscale, tid);
   __syncthreads();
-  for (int i = tid; i < BQ * chunks; i += NTHREADS) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(qb + (long)(q0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(Qs + r * DP + c) = val;
-  }
 
-  const int row0 = warp * 16;                                     // this warp's query rows
-  float* Sw = Ss + warp * 16 * SW;                                // this warp's scores [16][BK]
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[DP / 16];
-#pragma unroll
-  for (int dj = 0; dj < DP / 16; ++dj) wmma::fill_fragment(fo[dj], 0.f);
-  float lsum[16];                                                 // this lane's share of the row sums
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) lsum[rr] = 0.f;
+  const int row0 = warp * 16 * MT;                                // this warp's first row of the tile
+  uint32_t qf[MT][KS][4];                                         // Q's A fragments, for the whole loop
+  load_q_fragments<MT, KS, SROW>(qf, Qs, row0, lane);
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();                                              // previous tile fully consumed
-    for (int i = tid; i < BK * chunks; i += NTHREADS) {
-      const int r = i / chunks, c = (i % chunks) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long)(k0 + r) * rs + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (long)(k0 + r) * rs + c);
+  // With a key bias, scores are biased in the log2 domain first (s =
+  // x*sl + bias*log2(e), exponent factor 1); without one the factor is sl.
+  const float sl = EXP2 ? 1.f : kLog2e;                           // score units -> log2 units
+  const float sc = biasb ? 1.f : sl;
+  const float km = kmax[bh];
+  float cap[MT][2], ncap[MT][2], l[MT][2];                        // rows g and g+8 of each m16 tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bf16* row = Qs + (row0 + mt * 16 + g + 8 * r) * SROW;
+      float n2 = 0.f;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        const float2 x =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + dn * 8 + 2 * t));
+        n2 = fmaf(x.x, x.x, fmaf(x.y, x.y, n2));
       }
-      *reinterpret_cast<uint4*>(Ks + r * DP + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * DP + c) = vv;
+      cap[mt][r] = sqrtf(quad_sum(n2)) * km + 1.f;
+      ncap[mt][r] = -cap[mt][r] * sl;
+      l[mt][r] = 0.f;
     }
-    __syncthreads();
+  float o[MT][DN][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][dn][e] = 0.f;
 
-    // scores S[row0:row0+16, 0:BK] = Q-hat K^T
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+  for (int n = 0; n < ntiles; ++n) {
+    cp_async_wait<NSTAGE - 2>();                                  // tile n has landed (this thread's part)
+    __syncthreads();                                              // ... every thread's; tile n-1 consumed
+    if (n + NSTAGE - 1 < ntiles) load_kv(n + NSTAGE - 1);         // into the stage tile n-1 left
+    cp_async_commit();
+    const bf16* Kst = KVs + (n % NSTAGE) * 2 * BK * SROW;
+    const int k0 = n * BK;
+
+    float s[MT][NT][4];
+    qk_product<MT, KS, NT, SROW>(s, qf, Kst, lane);
+    if (biasb) add_key_bias<MT, NT>(s, Bs + (n % NSTAGE) * BK, sl, t);
+    if (k0 + BK > Sk) mask_keys_past<MT, NT>(s, k0, Sk, t);      // the ragged last tile
+
+    // one exponential a score: no max, no rescale
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Qs + row0 * DP + kk, DP);
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, Ks + j * 16 * DP + kk, DP);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(fmaf(s[mt][j][e], sc, ncap[mt][e / 2]));
+          s[mt][j][e] = p;
+          l[mt][e / 2] += p;
         }
+    pv_product<MT, NT, DN, SROW>(o, s, Kst + BK * SROW, lane);
+  }
+
+  // epilogue: O/l through the warp's own rows of the Q tile; lse in natural log
+  float inv[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lt = fmaxf(quad_sum(l[mt][r]), 1e-30f);         // underflow row: zeros, not NaN
+      inv[mt][r] = 1.f / lt;
+      const int row = row0 + mt * 16 + g + 8 * r;
+      if (t == 0 && q0 + row < Sq)
+        lse[(long)bh * Sq + q0 + row] = (EXP2 ? cap[mt][r] / kLog2e : cap[mt][r]) + logf(lt);
+    }
+  store_rows<MT, DN, SROW>(out + (long)b * Sq * rs + (long)h * D, Qs, o, inv, row0, q0, Sq, rs,
+                           lane);
+}
+
+constexpr int KMAX_THREADS = 512;
+
+// kmax[b*h] = max_k |k_k| over the Sk keys of one (batch, head), each
+// squared norm summed in fp32 from the bf16 values, a row a thread; one
+// block per b*h.
+template <int DN>
+__global__ void __launch_bounds__(KMAX_THREADS)
+nomax_key_max_kernel(const bf16* __restrict__ k, float* __restrict__ kmax, int H, int Sk) {
+  constexpr int D = 8 * DN;
+  __shared__ float warp_best[KMAX_THREADS / 32];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const long rs = (long)H * D;
+  const bf16* kb = k + (long)b * Sk * rs + (long)h * D;
+  float best = 0.f;                                               // the largest squared norm
+#pragma unroll 4
+  for (int r = threadIdx.x; r < Sk; r += KMAX_THREADS) {
+    float n2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < DN; ++c) {
+      const uint4 u = *reinterpret_cast<const uint4*>(kb + (long)r * rs + c * 8);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(x2[i]);
+        n2 = fmaf(x.x, x.x, fmaf(x.y, x.y, n2));
       }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        wmma::store_matrix_sync(Sw + j * 16, acc[j], BK, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // one exponential pass, two keys per lane: no max, no rescale
-    const int c0 = lane, c1 = lane + 32;
-    const bool ok0 = k0 + c0 < Sk, ok1 = k0 + c1 < Sk;
-    const float fold = EXP2 ? LOG2E : 1.f;
-    const float bias0 = (biasb && ok0) ? biasb[k0 + c0] * fold : 0.f;
-    const float bias1 = (biasb && ok1) ? biasb[k0 + c1] * fold : 0.f;
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const float off0 = bias0 - cap_s[row0 + rr], off1 = bias1 - cap_s[row0 + rr];
-      const float e0 = Sw[rr * BK + c0] + off0, e1 = Sw[rr * BK + c1] + off1;
-      const float p0 = ok0 ? exp2f(EXP2 ? e0 : e0 * LOG2E) : 0.f;
-      const float p1 = ok1 ? exp2f(EXP2 ? e1 : e1 * LOG2E) : 0.f;
-      lsum[rr] += p0 + p1;
-      Ps[(row0 + rr) * BK + c0] = __float2bfloat16(p0);
-      Ps[(row0 + rr) * BK + c1] = __float2bfloat16(p1);
-    }
-    __syncwarp();
-
-    // O[row0:row0+16, :] += P V, accumulators in registers
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, Ps + row0 * BK + kk, BK);
-#pragma unroll
-      for (int dj = 0; dj < DP / 16; ++dj) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, Vs + kk * DP + dj * 16, DP);
-        wmma::mma_sync(fo[dj], fp, fv, fo[dj]);
-      }
-    }
+    best = fmaxf(best, n2);
   }
-  __syncwarp();
-
-  // the warp's fp32 area now stages its output rows [16][DP]
 #pragma unroll
-  for (int dj = 0; dj < DP / 16; ++dj)
-    wmma::store_matrix_sync(Sw + dj * 16, fo[dj], DP, wmma::mem_row_major);
-  float l_mine = 1.f;                                             // lane rr keeps row rr's sum
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const float l = fmaxf(warp_sum(lsum[rr]), 1e-30f);            // underflow row: zeros, not NaN
-    if (lane == rr) l_mine = l;
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int rr = i / D, d = i % D;
-    const float l = __shfl_sync(0xffffffffu, l_mine, rr);
-    if (q0 + row0 + rr < Sq)
-      out[((long)b * Sq + q0 + row0 + rr) * rs + (long)h * D + d] =
-          __float2bfloat16(Sw[rr * DP + d] / l);
-  }
-  if (lane < 16) {
-    const int r = row0 + lane;
-    if (q0 + r < Sq)
-      lse[(long)bh * Sq + q0 + r] = (EXP2 ? cap_s[r] / LOG2E : cap_s[r]) + logf(l_mine);
+  for (int o = 16; o > 0; o >>= 1) best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+  if (threadIdx.x % 32 == 0) warp_best[threadIdx.x / 32] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < KMAX_THREADS / 32; ++w) best = fmaxf(best, warp_best[w]);
+    kmax[bh] = sqrtf(best);                                       // sqrt is monotonic: the max of the norms
   }
 }
 
-template <int DP, bool EXP2>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* cap, void* out, void* lse, int B, int Sq, int Sk, int H, int D,
+// The pre-pass into kmax, then the attention kernel.
+template <int DN, bool EXP2>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* kmax,
+                   void* out, void* lse, int B, int Sq, int Sk, int H, float qscale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_nomax_kernel<DP, EXP2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using T = Tiles<DN>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_nomax_kernel<DN, EXP2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_nomax_kernel<DP, EXP2><<<grid, NTHREADS, smem, stream>>>(
+  nomax_key_max_kernel<DN><<<B * H, KMAX_THREADS, 0, stream>>>(static_cast<const bf16*>(k),
+                                                               static_cast<float*>(kmax), H, Sk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dim3 grid((Sq + T::BQ - 1) / T::BQ, B * H);
+  flash_fwd_nomax_kernel<DN, EXP2><<<grid, NTHREADS, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const float*>(cap), static_cast<bf16*>(out),
-      static_cast<float*>(lse), H, Sq, Sk, D);
+      static_cast<const float*>(bias), static_cast<const float*>(kmax), static_cast<bf16*>(out),
+      static_cast<float*>(lse), H, Sq, Sk, qscale);
   return cudaGetLastError();
+}
+
+// registers a thread, shared memory a block, query rows a block, resident blocks an SM
+template <int DN, bool EXP2>
+cudaError_t describe(int* info) {
+  using T = Tiles<DN>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_nomax_kernel<DN, EXP2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_nomax_kernel<DN, EXP2>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_nomax_kernel<DN, EXP2>,
+                                                      NTHREADS, T::SMEM);
+  info[0] = attr.numRegs;
+  info[1] = (int)T::SMEM;
+  info[2] = T::BQ;
+  info[3] = blocks;
+  return err;
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted. q is the
-// pre-scaled q-hat and cap the row caps in the same domain (natural, or log2
-// when exp2 != 0).
+#define FLASH_NOMAX_DISPATCH(CALL)                                                            \
+  switch (D / 8) {                                                                            \
+    CALL(1) CALL(2) CALL(3) CALL(4) CALL(5) CALL(6) CALL(7) CALL(8)                          \
+    CALL(9) CALL(10) CALL(11) CALL(12) CALL(13) CALL(14) CALL(15) CALL(16)                   \
+    default: return (int)cudaErrorInvalidValue;                                               \
+  }
+
+// Returns a cudaError_t code: 0 when the launches were accepted. q is the raw
+// q; the kernel forms q-hat = q*qscale rounded to bf16, where qscale is the
+// scale (times log2(e) when exp2 != 0, the exp2 form). kmax ([B*H] f32)
+// receives max_k |k_k| per (batch, head) from the pre-pass.
 extern "C" int flash_attention_fwd_nomax(const void* q, const void* k, const void* v,
-                                         const void* bias, const void* cap, void* out,
-                                         void* lse, int B, int Sq, int Sk, int H, int D,
+                                         const void* bias, void* kmax, void* out, void* lse,
+                                         int B, int Sq, int Sk, int H, int D, float qscale,
                                          int exp2, void* stream) {
   if (D % 8 != 0 || D <= 0 || D > 128 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_NOMAX_CASE(DP)                                                                  \
-  case DP:                                                                                    \
-    return (int)(exp2 ? launch<DP, true>(q, k, v, bias, cap, out, lse, B, Sq, Sk, H, D, s)    \
-                      : launch<DP, false>(q, k, v, bias, cap, out, lse, B, Sq, Sk, H, D, s));
-  switch ((D + 15) / 16 * 16) {
-    FLASH_NOMAX_CASE(16)
-    FLASH_NOMAX_CASE(32)
-    FLASH_NOMAX_CASE(48)
-    FLASH_NOMAX_CASE(64)
-    FLASH_NOMAX_CASE(80)
-    FLASH_NOMAX_CASE(96)
-    FLASH_NOMAX_CASE(112)
-    FLASH_NOMAX_CASE(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef FLASH_NOMAX_CASE
+#define FLASH_NOMAX_LAUNCH(DN)                                                                \
+  case DN:                                                                                    \
+    return (int)(exp2 ? launch<DN, true>(q, k, v, bias, kmax, out, lse, B, Sq, Sk, H, qscale, s)  \
+                      : launch<DN, false>(q, k, v, bias, kmax, out, lse, B, Sq, Sk, H, qscale, s));
+  FLASH_NOMAX_DISPATCH(FLASH_NOMAX_LAUNCH)
+#undef FLASH_NOMAX_LAUNCH
+}
+
+// The kernel's resources at head dim D: info[0..3] = registers a thread,
+// shared memory a block (bytes), query rows a block, resident blocks an SM.
+extern "C" int flash_attention_fwd_nomax_describe(int D, int exp2, int* info) {
+  if (D % 8 != 0 || D <= 0 || D > 128) return (int)cudaErrorInvalidValue;
+#define FLASH_NOMAX_DESCRIBE(DN)                                                              \
+  case DN:                                                                                    \
+    return (int)(exp2 ? describe<DN, true>(info) : describe<DN, false>(info));
+  FLASH_NOMAX_DISPATCH(FLASH_NOMAX_DESCRIBE)
+#undef FLASH_NOMAX_DESCRIBE
 }

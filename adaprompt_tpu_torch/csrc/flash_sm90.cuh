@@ -2,8 +2,11 @@
 // for Hopper (sm_90a): 16-byte cp.async copies into shared memory, ldmatrix
 // (plain and transposed) and the bf16 mma.sync.m16n8k16 with fp32 sums,
 // plus the padded shared-memory row stride that keeps ldmatrix free of bank
-// conflicts. Header-only; each kernel source that includes it is built on its
-// own (ops/cuda_build.py hashes this header into the library's name).
+// conflicts; and the tile steps of a flash forward on them (staging q and a
+// K/V tile, Q's fragments, S = Q.K^T, the key bias and the ragged edge,
+// O += P.V, the epilogue), which the two-chain and the no-max kernels share.
+// Header-only; each kernel source that includes it is built on its own
+// (ops/cuda_build.py hashes this header into the library's name).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -111,6 +114,196 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------------------
+// Tile steps of a flash forward kernel on the layout above, shared by the
+// two-chain and the no-max kernels. A warp owns 16*MT query rows (MT m16
+// tiles) of a block whose shared-memory rows are SROW elements long; the head
+// dim is D = 8*DN, padded to KS*16 for Q.K^T only; a key tile of 8*NT keys.
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// eight bf16 values times f, each rounded to bf16 again (q-hat as staged)
+__device__ __forceinline__ uint4 bf16x8_times(uint4 v, float f) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(p[i]);
+    p[i] = __floats2bfloat162_rn(x.x * f, x.y * f);
+  }
+  return v;
+}
+
+// Rows [q0, q0 + ROWS) of one head's q -> Qs, 16 bytes a thread; with SCALE
+// each value is multiplied by f and rounded to bf16 again. Rows past Sq are
+// zero. The caller publishes Qs with a block barrier.
+template <int DN, int ROWS, int SROW, int NTHREADS, bool SCALE>
+__device__ __forceinline__ void stage_q(__nv_bfloat16* Qs, const __nv_bfloat16* qb, int q0,
+                                        int Sq, long rs, float f, int tid) {
+  for (int i = tid; i < ROWS * DN; i += NTHREADS) {
+    const int r = i / DN, c = (i % DN) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(qb + (long)(q0 + r) * rs + c);
+    if (SCALE) val = bf16x8_times(val, f);
+    *reinterpret_cast<uint4*>(Qs + r * SROW + c) = val;
+  }
+}
+
+// Keys [k0, k0 + ROWS) of one head's K and V -> Kst, Vst ([ROWS][SROW]) and,
+// with a key bias, its ROWS values -> Bst, all by cp.async (the caller
+// commits the group); keys past Sk are zero-filled, not read.
+template <int DN, int ROWS, int SROW, int NTHREADS>
+__device__ __forceinline__ void stage_kv(__nv_bfloat16* Kst, __nv_bfloat16* Vst, float* Bst,
+                                         const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                         const float* biasb, int k0, int Sk, long rs, int tid) {
+  for (int i = tid; i < ROWS * DN; i += NTHREADS) {
+    const int r = i / DN, c = (i % DN) * 8;
+    const bool ok = k0 + r < Sk;
+    const long off = ok ? (long)(k0 + r) * rs + c : 0;
+    cp_async_16(smem_addr(Kst + r * SROW + c), kb + off, ok);
+    cp_async_16(smem_addr(Vst + r * SROW + c), vb + off, ok);
+  }
+  if (biasb)
+    for (int i = tid; i < ROWS; i += NTHREADS) {
+      const bool ok = k0 + i < Sk;
+      cp_async_4(smem_addr(Bst + i), biasb + (ok ? k0 + i : 0), ok);
+    }
+}
+
+// The A fragments of the warp's rows [row0, row0 + 16*MT) of Qs, by ldmatrix.
+template <int MT, int KS, int SROW>
+__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[MT][KS][4],
+                                                 const __nv_bfloat16* Qs, int row0, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      ldmatrix_x4(qf[mt][kk], smem_addr(Qs + (row0 + mt * 16 + lane % 8 + (lane / 8) % 2 * 8) * SROW
+                                        + kk * 16 + lane / 16 * 8));
+}
+
+// S = Q.K^T over the 8*NT keys of Kst (NT even): [16*MT x 8*NT] fp32 in the
+// C fragments s[mt][n8 tile].
+template <int MT, int KS, int NT, int SROW>
+__device__ __forceinline__ void qk_product(float (&s)[MT][NT][4], const uint32_t (&qf)[MT][KS][4],
+                                           const __nv_bfloat16* Kst, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int j2 = 0; j2 < NT / 2; ++j2) {
+      uint32_t kf[4];                                             // B fragments of n8 tiles 2*j2, 2*j2+1
+      ldmatrix_x4(kf, smem_addr(Kst + (j2 * 16 + lane % 8 + lane / 16 * 8) * SROW
+                                + kk * 16 + (lane / 8) % 2 * 8));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16_16816(s[mt][2 * j2], qf[mt][kk], kf[0], kf[1]);
+        mma_bf16_16816(s[mt][2 * j2 + 1], qf[mt][kk], kf[2], kf[3]);
+      }
+    }
+  }
+}
+
+// s = s*f + bias*log2(e) with the tile's key bias Bst (8*NT values).
+template <int MT, int NT>
+__device__ __forceinline__ void add_key_bias(float (&s)[MT][NT][4], const float* Bst, float f,
+                                             int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 kb2 = *reinterpret_cast<const float2*>(Bst + j * 8 + 2 * t);
+    const float b0 = kb2.x * kLog2e, b1 = kb2.y * kLog2e;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      s[mt][j][0] = fmaf(s[mt][j][0], f, b0);
+      s[mt][j][1] = fmaf(s[mt][j][1], f, b1);
+      s[mt][j][2] = fmaf(s[mt][j][2], f, b0);
+      s[mt][j][3] = fmaf(s[mt][j][3], f, b1);
+    }
+  }
+}
+
+// -inf for the keys at or past Sk of a tile that starts at key k0.
+template <int MT, int NT>
+__device__ __forceinline__ void mask_keys_past(float (&s)[MT][NT][4], int k0, int Sk, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = k0 + j * 8 + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (c >= Sk) s[mt][j][0] = s[mt][j][2] = -INFINITY;
+      if (c + 1 >= Sk) s[mt][j][1] = s[mt][j][3] = -INFINITY;
+    }
+  }
+}
+
+// O += P.V over the 8*NT keys of Vst: P from the score registers, rounded to
+// bf16 in pairs, as the A fragments; V's B fragments by ldmatrix.trans, over
+// D in n8 steps (an odd last step by ldmatrix.x2.trans: D=40 is not padded).
+template <int MT, int NT, int DN, int SROW>
+__device__ __forceinline__ void pv_product(float (&o)[MT][DN][4], const float (&p)[MT][NT][4],
+                                           const __nv_bfloat16* Vst, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      pa[mt][0] = pack_bf16(p[mt][2 * kk][0], p[mt][2 * kk][1]);
+      pa[mt][1] = pack_bf16(p[mt][2 * kk][2], p[mt][2 * kk][3]);
+      pa[mt][2] = pack_bf16(p[mt][2 * kk + 1][0], p[mt][2 * kk + 1][1]);
+      pa[mt][3] = pack_bf16(p[mt][2 * kk + 1][2], p[mt][2 * kk + 1][3]);
+    }
+    const __nv_bfloat16* vrow = Vst + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * SROW;
+#pragma unroll
+    for (int dp = 0; dp < DN / 2; ++dp) {
+      uint32_t vf[4];                                             // B fragments of n8 tiles 2*dp, 2*dp+1
+      ldmatrix_x4_trans(vf, smem_addr(vrow + dp * 16 + lane / 16 * 8));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16_16816(o[mt][2 * dp], pa[mt], vf[0], vf[1]);
+        mma_bf16_16816(o[mt][2 * dp + 1], pa[mt], vf[2], vf[3]);
+      }
+    }
+    if (DN % 2) {
+      uint32_t vf[2];
+      ldmatrix_x2_trans(vf, smem_addr(vrow + (DN - 1) * 8));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(o[mt][DN - 1], pa[mt], vf[0], vf[1]);
+    }
+  }
+}
+
+// The epilogue: O[mt] times inv[mt][r] (rows g, g+8) rounded to bf16 into the
+// warp's own rows of the staging tile Qs (no other warp reads them), then
+// stored 16 bytes a lane to the rows before Sq of outb ([Sq][rs], the head's
+// first column).
+template <int MT, int DN, int SROW>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* outb, __nv_bfloat16* Qs,
+                                           const float (&o)[MT][DN][4], const float (&inv)[MT][2],
+                                           int row0, int q0, int Sq, long rs, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + mt * 16 + g + 8 * r;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn)
+        *reinterpret_cast<uint32_t*>(Qs + row * SROW + dn * 8 + 2 * t) =
+            pack_bf16(o[mt][dn][2 * r] * inv[mt][r], o[mt][dn][2 * r + 1] * inv[mt][r]);
+    }
+  __syncwarp();
+  for (int i = lane; i < 16 * MT * DN; i += 32) {
+    const int row = row0 + i / DN, c = (i % DN) * 8;
+    if (q0 + row < Sq)
+      *reinterpret_cast<uint4*>(outb + (long)(q0 + row) * rs + c) =
+          *reinterpret_cast<const uint4*>(Qs + row * SROW + c);
+  }
 }
 
 }  // namespace flash_sm90

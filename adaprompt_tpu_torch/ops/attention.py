@@ -12,7 +12,7 @@ launch count on its wrapper:
     chains over alternating key tiles (CUDA: csrc/flash_attention_ilv.cu;
     replaces `_fwd_kernel_ilv`);
   * `flash_attention_fwd_nomax` — the same function with the row max
-    replaced by a cap computed outside the kernel (CUDA:
+    replaced by a cap on the row's scores, |q-hat_i| max_k |k_k| + 1 (CUDA:
     csrc/flash_attention_nomax.cu; replaces `_fwd_kernel_nomax`);
   * `flash_attention_bwd` — the recomputation backward from the logsumexp
     (CUDA: csrc/flash_attention_bwd.cu; replaces `_dq_kernel` and
@@ -280,15 +280,22 @@ flash_attention_fwd_ilv.exp2_launches = 0
 # Kernel 1c: the no-max flash forward
 # ---------------------------------------------------------------------------
 
+def nomax_key_max(k):
+    """max_k |k_k| of each (batch, head), [B*H] float32: the factor of the
+    no-max kernel's row caps, which the kernel completes with the row norms
+    of its own q-hat. The plain version of the kernel call's pre-pass over K."""
+    return torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=1).reshape(-1)
+
+
 def nomax_cap(q_hat, k):
     """The row cap of the no-max kernel, [B, H, Sq, 1] float32: by
     Cauchy-Schwarz every score q-hat_i . k_k is at most |q-hat_i| max_k |k_k|;
     +1 absorbs the roundings (it shrinks every p alike, which the normalized
-    output does not see). Made outside the kernel, as the JAX package leaves
-    it to XLA."""
+    output does not see). The kernel forms the same from q-hat as it stages
+    it and `nomax_key_max`."""
+    b, _, h, _ = k.shape
     qn = torch.linalg.vector_norm(q_hat.float(), dim=-1).permute(0, 2, 1)[..., None]
-    kn = torch.linalg.vector_norm(k.float(), dim=-1).amax(dim=1)[:, :, None, None]
-    return qn * kn + 1.0
+    return qn * nomax_key_max(k).reshape(b, h, 1, 1) + 1.0
 
 
 def attention_reference_nomax(q, k, v, key_bias, scale, exp2=False):
@@ -304,23 +311,32 @@ def attention_reference_nomax(q, k, v, key_bias, scale, exp2=False):
     return _finish(q, cap, l, acc, exp2)
 
 
+def nomax_kernel_call(q, k, v, bias, kmax, out, lse, scale, exp2):
+    """The no-max kernel's C call on bf16 CUDA operands as
+    `flash_attention_fwd_nomax` validates them: a pre-pass over K writes
+    max_k |k_k| into kmax ([B*H] float32), then the attention kernel fills out
+    and lse. Not counted: the wrapper counts its calls."""
+    b, sq, h, d = q.shape
+    fn = cuda_build.function("flash_attention_nomax", "flash_attention_fwd_nomax",
+                             [_P] * 7 + [_I] * 5 + [_F, _I, _P])
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        bias.data_ptr() if bias is not None else None, kmax.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h, d,
+                        float(scale * (LOG2E if exp2 else 1.0)), int(exp2),
+                        torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_attention_fwd_nomax")
+
+
 def flash_attention_fwd_nomax(q, k, v, key_bias, scale, exp2=False):
     """The no-max flash forward (same contract as `flash_attention_fwd`).
-    q-hat and the cap are made here in PyTorch; the kernel does the rest."""
+    The kernel's call forms q-hat, the row norms and max_k |k_k| itself."""
     if q.device.type == "cpu":
         return attention_reference_nomax(q, k, v, key_bias, scale, exp2)
     q, k, v, bias, (b, sq, sk, h, d) = _flash_operands("no-max flash kernel", q, k, v, key_bias)
-    q_hat = (q.float() * (scale * (LOG2E if exp2 else 1.0))).to(q.dtype)
-    cap = nomax_cap(q_hat, k).contiguous()                       # [B, H, Sq, 1]
+    kmax = torch.empty(b * h, device=q.device, dtype=torch.float32)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq, 1), device=q.device, dtype=torch.float32)
-    fn = cuda_build.function("flash_attention_nomax", "flash_attention_fwd_nomax",
-                             [_P] * 7 + [_I] * 5 + [_I, _P])
-    cuda_build.check(fn(q_hat.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        bias.data_ptr() if bias is not None else None, cap.data_ptr(),
-                        out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
-                        int(exp2), torch.cuda.current_stream(q.device).cuda_stream),
-                     "flash_attention_fwd_nomax")
+    nomax_kernel_call(q, k, v, bias, kmax, out, lse, scale, exp2)
     _count(flash_attention_fwd_nomax, exp2)
     return out, lse
 

@@ -52,6 +52,7 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "conv3x3_im2col_kernel": "conv3x3_im2col",
                "flash_fwd_ilv_kernel": "flash_attention_fwd_ilv",
                "flash_fwd_nomax_kernel": "flash_attention_fwd_nomax",
+               "nomax_key_max_kernel": "flash_attention_fwd_nomax",     # its pre-pass over K
                "flash_fwd_int8_kernel": "flash_attention_int8",
                "fused_self_kernel": "fused_self_attention"}
 

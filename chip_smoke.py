@@ -12,21 +12,23 @@ Phases, in order (any failure exits non-zero without the final line):
   1. build the thirteen CUDA kernels (eleven sources, one nvcc each, in
      parallel) from adaprompt_tpu_torch/csrc/, and log what the exp2 forms
      of the flash kernels changed in the SASS;
-  2. log the flash forward's resources at D=40 and 80 (registers, shared
-     memory, query rows a block, blocks an SM); hold each kernel against its
-     plain PyTorch version on the card, in bf16, at the paths' shapes (the
+  2. log the three flash forwards' resources at D=40 and 80 (registers,
+     shared memory, query rows a block, blocks an SM); hold each kernel
+     against its plain PyTorch version on the card, in bf16, at the paths'
+     shapes (the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
      tests' and ragged ones; the flash variants and exp2 forms each against
-     its own plain version, plus ragged cases and the no-max kernel's
-     underflow guard; the flash forward in both forms also at Sq != Sk with
-     both ragged, head dims 8 to 128, one key tile, a key tile masked whole
-     and a row masked whole), and time
+     its own plain version, plus the no-max kernel's underflow guard; each
+     flash forward in both forms also at Sq != Sk with both ragged, head dims
+     8 to 128, one key tile, a key tile masked whole and a row masked whole,
+     the two-chain one also at 9 key tiles), and time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
      convs); beside the fused GroupNorm-SiLU-conv, which no single call
-     computes, the port's own unfused pair (group_norm + conv2d);
+     computes, the port's own unfused pair (group_norm + conv2d); beside the
+     no-max wrapper's call, its kernel alone (kmax made beforehand);
   3. run one full-width UNet forward on the card in bf16, one with
      quant="int8", one with fused_conv and one under each flash variant
      (ilv, nomax, exp2), and the same weights on the CPU
@@ -174,9 +176,10 @@ SASS_OPS = ("MUFU.EX2", "FMUL", "FFMA", "FADD", "FMNMX", "SHFL")
 
 
 # the mangled template arguments of each flash kernel's D=40 instantiation,
-# up to the EXP2 flag: B1 is templated on D/8, the others on D padded to 16
-D40_INSTANCE = {"flash_attention": "ILi5E", "flash_attention_ilv": "ILi48E",
-                "flash_attention_nomax": "ILi48E", "flash_attention_bwd": "ILi48E"}
+# up to the EXP2 flag: the three forwards are templated on D/8, the backward
+# on D padded to 16
+D40_INSTANCE = {"flash_attention": "ILi5E", "flash_attention_ilv": "ILi5E",
+                "flash_attention_nomax": "ILi5E", "flash_attention_bwd": "ILi48E"}
 
 
 def sass_exp2_forms():
@@ -271,12 +274,28 @@ def _case_flash(gen, s, d, with_bias, variant=None, b=UNET_BATCH, h=8, timed=Tru
         base = A.flash_attention_fwd(q, k, v, bias, scale)[0]
         detail += f" vs default kernel {(out.float() - base.float()).abs().max().item():.2e}"
     del out, lse, ref, lse_ref
+    res = {}
+    if variant.forward == "nomax":
+        # the kernel's C call alone (its pre-pass over K and the attention
+        # kernel, without the wrapper's host work), and the pre-pass's kmax
+        # against its plain version
+        kmax, out_c = torch.empty(b * h, device="cuda"), torch.empty_like(q)
+        lse_c = torch.empty(b * h, s, 1, device="cuda")
+        call = lambda: A.nomax_kernel_call(q, k, v, bias, kmax, out_c, lse_c, scale, variant.exp2)
+        call()
+        kmax_ref = A.nomax_key_max(k)
+        kmax_err = ((kmax - kmax_ref).abs().max() / kmax_ref.max()).item()
+        ok = ok and kmax_err <= 1e-5
+        detail += f" kmax pre-pass rel err {kmax_err:.1e} (tol 1e-5)"
+        if timed:
+            res["kernel_only_ms"] = time_ms(call, 10)
+            detail += f" kernel_only_ms={res['kernel_only_ms']:.4f}"
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
-    res = {"kernel_ms": time_ms(fwd, 10) if timed else float("nan"),
-           "plain_ms": time_ms(plain, 3) if timed else float("nan"),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, attn_mask=mask, scale=scale), 10) if timed else float("nan")}
+    res.update(kernel_ms=time_ms(fwd, 10) if timed else float("nan"),
+               plain_ms=time_ms(plain, 3) if timed else float("nan"),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask, scale=scale), 10) if timed else float("nan"))
     # q, out (bf16) and lse once, k, v (bf16) and the bias once
     flops = 4 * b * h * s * sk * d
     nbytes = 2 * b * (s + sk) * h * d * 2 + b * h * s * 4 + (b * sk * 4 if with_bias else 0)
@@ -615,20 +634,23 @@ def _case_gn_conv(gen, b, h, c, o, gn_shift):
 
 
 def flash_fwd_resources():
-    """Log B1's resources at the UNet's head dims, in both forms, from the
-    runtime (registers a thread, shared memory a block, query rows a block,
-    resident blocks an SM)."""
+    """Log the three flash forwards' resources (B1, B12, B13) at the UNet's
+    head dims, in both forms, from the runtime (registers a thread, shared
+    memory a block, query rows a block, resident blocks an SM)."""
     import ctypes
     from adaprompt_tpu_torch.ops import cuda_build
-    fn = cuda_build.function("flash_attention", "flash_attention_fwd_describe",
-                             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    for d in (40, 80):
-        for exp2 in (False, True):
-            info = (ctypes.c_int * 4)()
-            cuda_build.check(fn(d, int(exp2), ctypes.addressof(info)), "flash_attention_fwd_describe")
-            log(f"kernel flash_attention_fwd{':exp2' if exp2 else ''} D={d}: {info[0]} registers a "
-                f"thread, {info[1]} B shared memory a block, {info[2]} query rows a block, "
-                f"{info[3]} blocks an SM")
+    for lib, wrapper in (("flash_attention", "flash_attention_fwd"),
+                         ("flash_attention_ilv", "flash_attention_fwd_ilv"),
+                         ("flash_attention_nomax", "flash_attention_fwd_nomax")):
+        fn = cuda_build.function(lib, wrapper + "_describe",
+                                 [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        for d in (40, 80):
+            for exp2 in (False, True):
+                info = (ctypes.c_int * 4)()
+                cuda_build.check(fn(d, int(exp2), ctypes.addressof(info)), wrapper + "_describe")
+                log(f"kernel {wrapper}{':exp2' if exp2 else ''} D={d}: {info[0]} registers a "
+                    f"thread, {info[1]} B shared memory a block, {info[2]} query rows a block, "
+                    f"{info[3]} blocks an SM")
 
 
 def phase_kernels():
@@ -715,24 +737,21 @@ def phase_kernels():
     for s_, d_ in ((4096, 40), (1024, 80)):
         cases.append(("flash_attention_bwd:exp2", ("train_exp2",),
                       lambda a=(s_, d_): _case_flash_bwd(gen, *a, True, exp2=True)))
-    # ragged cases: 9 key tiles (an odd count) and a last tile of 40 keys for
-    # the two-chain kernel, one tile only, ragged q and key tiles for the others
-    for fwd, name in ((V(ilv=True), "flash_attention_fwd_ilv"),
+    # ragged cases, each forward in both forms: Sq != Sk with both ragged,
+    # head dims 8 to 128, one key tile only (Sk = 50, 64), a key tile masked
+    # whole, a row masked whole; key-tile counts 1, 2, 3, 4, 5, 16 and, for the
+    # two-chain kernel, also 9 (an odd count with a last tile of 40 keys)
+    ragged = [(300, 200, 64, True, None, 1, 3), (129, 1000, 128, False, None, 2, 1),
+              (100, 77, 80, True, None, 2, 2), (64, 64, 8, False, None, 2, 4),
+              (200, 50, 16, True, None, 2, 2), (333, 300, 40, True, "tile", 2, 2),
+              (257, 190, 40, True, "row", 2, 2)]
+    for fwd, name in ((V(), "flash_attention_fwd"), (V(exp2=True), "flash_attention_fwd:exp2"),
+                      (V(ilv=True), "flash_attention_fwd_ilv"),
                       (V(ilv=True, exp2=True), "flash_attention_fwd_ilv:exp2"),
                       (V(nomax=True), "flash_attention_fwd_nomax"),
-                      (V(exp2=True), "flash_attention_fwd:exp2")):
-        cases.append((name, (), lambda f=fwd: _case_flash(gen, 552, 40, True, f, b=2, h=3,
-                                                          timed=False)))
-    cases.append(("flash_attention_fwd_ilv", (), lambda: _case_flash(
-        gen, 50, 16, False, V(ilv=True), b=2, h=2, timed=False)))
-    # B1 in both forms: Sq != Sk with both ragged, head dims 8 to 128, one key
-    # tile only (Sk = 50, 64), a key tile masked whole, a row masked whole
-    for fwd, name in ((V(), "flash_attention_fwd"), (V(exp2=True), "flash_attention_fwd:exp2")):
-        for s_, sk_, d_, bias_, masked, b_, h_ in (
-                (300, 200, 64, True, None, 1, 3), (129, 1000, 128, False, None, 2, 1),
-                (100, 77, 80, True, None, 2, 2), (64, 64, 8, False, None, 2, 4),
-                (200, 50, 16, True, None, 2, 2), (333, 300, 40, True, "tile", 2, 2),
-                (257, 190, 40, True, "row", 2, 2)):
+                      (V(nomax=True, exp2=True), "flash_attention_fwd_nomax:exp2")):
+        extra = [(552, 552, 40, True, None, 2, 3)] if fwd.ilv else []
+        for s_, sk_, d_, bias_, masked, b_, h_ in ragged + extra:
             cases.append((name, (), lambda a=(s_, d_, bias_, fwd),
                           kw=dict(b=b_, h=h_, sk=sk_, masked=masked): _case_flash(
                               gen, *a, timed=False, **kw)))
@@ -1358,7 +1377,7 @@ def kernels_line(results, launches_by_path):
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
-        for extra in ("unfused_ms", "affine_ms", "operands_ms", "kv_ms"):
+        for extra in ("unfused_ms", "affine_ms", "operands_ms", "kv_ms", "kernel_only_ms"):
             if extra in rs[0]:
                 out[-1][extra] = mean(extra)
         if name in EXP2_PATHS:

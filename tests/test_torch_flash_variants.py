@@ -132,6 +132,52 @@ def test_nomax_underflow_gives_finite_zeros(exp2):
     assert_close(lse_t, lse_j, atol=1e-2, rtol=1e-6)       # |lse| ~ 2.3e4
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("exp2", [False, True])
+def test_nomax_key_max_and_cap_match_jax(exp2, dtype, monkeypatch):
+    """The no-max kernel's cap, piece by piece. `nomax_key_max` (the plain
+    version of the kernel call's pre-pass over K) against the JAX package's
+    kn, max_k |k_k| per (batch, head), taken from the K operand that its
+    `_flash_fwd_impl` hands to the Pallas call; |q-hat_i| kmax + 1 formed as
+    the kernel forms it (q-hat = q*scale, times log2(e) under exp2, rounded to
+    q's dtype; squares summed in fp32) against the cap JAX hands to the
+    kernel and against the port's `nomax_cap`, to fp32 rounding (1e-6); in
+    float32 the plain version still matches the Pallas kernel (interpret
+    mode) at the bounds of `test_flash_variant_forward_matches_pallas`."""
+    rng = np.random.default_rng(41 + exp2)
+    b, s, h, d = 2, 256, 2, 40
+    q, k, v = _qkv(rng, b, s, h, d)
+    k[1] *= 3.0                                            # the batches' key norms differ
+    bias = _bias(rng, b, s)
+    calls = []
+    pallas_call = jattn.pl.pallas_call
+
+    def recording(*args, **kwargs):
+        call = pallas_call(*args, **kwargs)
+        return lambda *operands: calls.append(operands) or call(*operands)
+
+    monkeypatch.setattr(jattn.pl, "pallas_call", recording)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with jax_flash(FlashVariant(nomax=True, exp2=exp2)):
+        out_j, lse_j = jattn._flash_fwd_impl(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                             jnp.asarray(bias), d ** -0.5, interpret=True)
+    (_, kf, _, _, cap_j), = calls
+    kn_j = jnp.max(jnp.linalg.norm(kf.astype(jnp.float32), axis=-1), axis=-1)   # [b*h]
+    qt, kt, vt = (t(a).to(tdt) for a in (q, k, v))
+    kmax = tattn.nomax_key_max(kt)
+    assert kmax.shape == (b * h,) and kmax.dtype == torch.float32
+    np.testing.assert_allclose(kmax.numpy(), np.asarray(kn_j), rtol=1e-6)
+    q_hat = (qt.float() * (d ** -0.5 * (tattn.LOG2E if exp2 else 1.0))).to(tdt)
+    cap = (q_hat.float() ** 2).sum(-1).sqrt().permute(0, 2, 1) * kmax.reshape(b, h, 1) + 1.0
+    np.testing.assert_allclose(cap.reshape(b * h, s, 1).numpy(), np.asarray(cap_j), rtol=1e-6)
+    np.testing.assert_allclose(cap[..., None].numpy(), tattn.nomax_cap(q_hat, kt).numpy(),
+                               rtol=1e-6)
+    if dtype == "float32":
+        out_t, lse_t = tattn.attention_reference_nomax(qt, kt, vt, t(bias), d ** -0.5, exp2)
+        assert_close(out_t, out_j, atol=2e-4)
+        assert_close(lse_t, lse_j, atol=1e-4)
+
+
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_exp2_backward_matches_pallas(with_bias):
     """The backward's plain version under exp2 against `_flash_bwd_impl` with

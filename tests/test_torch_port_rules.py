@@ -578,25 +578,28 @@ def test_gn_silu_conv_kernel_ragged_shapes(b, h, w, c, o, gn_shift):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", FLASH_VARIANTS, ids=str)
-@pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 200, 3, 64, True),
-                                                (2, 100, 77, 2, 80, True),
-                                                (1, 129, 1000, 1, 128, False),
-                                                (2, 64, 64, 4, 8, False),
-                                                (2, 128, 576, 2, 40, True)])
-def test_flash_variant_kernels_ragged_shapes(variant, b, sq, sk, h, d, biased):
-    """Each forward kernel and exp2 form against its own plain version:
-    ragged q and key tiles, padded head dims, key bias; key tile counts 4, 2,
-    16, 1 and 9 (an odd count for the two-chain kernel); out, lse and the
-    launch counts."""
+@pytest.mark.parametrize("b,sq,sk,h,d,bias", [(1, 300, 200, 3, 64, "random"),
+                                              (2, 100, 77, 2, 80, "random"),
+                                              (1, 129, 1000, 1, 128, None),
+                                              (2, 64, 64, 4, 8, None),
+                                              (2, 200, 50, 2, 16, "random"),
+                                              (2, 333, 300, 2, 40, "tile"),
+                                              (2, 257, 190, 2, 40, "row"),
+                                              (2, 128, 576, 2, 40, "random"),
+                                              (1, 100, 128, 2, 40, None),
+                                              (1, 100, 192, 2, 24, "random")])
+def test_flash_variant_kernels_ragged_shapes(variant, b, sq, sk, h, d, bias):
+    """Each forward kernel and exp2 form against its own plain version, on
+    the one-chain kernel's ragged cases: Sq != Sk with both ragged, head dims
+    8 to 128, key bias, a key tile masked whole, a row masked whole; key-tile
+    counts 4, 2, 16, 1, 1, 5, 3, 9, 2 and 3 (for the two-chain kernel odd and
+    even, whole and ragged); out, lse and the launch counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(sq + sk)
     q = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
     k, v = (torch.randn(b, sk, h, d, device="cuda", generator=g).bfloat16() for _ in range(2))
-    bias = None
-    if biased:
-        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
-                           tattn.NEG_BIG)
+    bias = _flash_bias(bias, b, sk, g)
     wrapper = {"base": tattn.flash_attention_fwd, "ilv": tattn.flash_attention_fwd_ilv,
                "nomax": tattn.flash_attention_fwd_nomax}[variant.forward]
     before = (wrapper.launches, wrapper.exp2_launches)
@@ -605,6 +608,25 @@ def test_flash_variant_kernels_ragged_shapes(variant, b, sq, sk, h, d, biased):
     ref, lse_ref = tattn.flash_attention_fwd_reference(q, k, v, bias, d ** -0.5, variant)
     _assert_near(out, ref, 2e-2)
     assert (lse - lse_ref).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sk,h,d", [(1, 1000, 3, 40), (2, 77, 2, 128), (4, 4096, 8, 40)])
+def test_nomax_key_max_prepass(b, sk, h, d):
+    """The no-max kernel call's pre-pass over K against `nomax_key_max`, to
+    fp32 rounding; the call's out and lse are the wrapper's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(sk + d)
+    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    k = (rn(b, sk, h, d) * torch.rand(b, sk, 1, 1, device="cuda", generator=g) * 3).bfloat16()
+    q, v = rn(b, sk, h, d).bfloat16(), k.flip(1).contiguous()
+    kmax, out = torch.empty(b * h, device="cuda"), torch.empty_like(q)
+    lse = torch.empty(b * h, sk, 1, device="cuda")
+    tattn.nomax_kernel_call(q, k, v, None, kmax, out, lse, d ** -0.5, False)
+    _assert_near(kmax, tattn.nomax_key_max(k), 1e-5)
+    out_w, lse_w = tattn.flash_attention_fwd_nomax(q, k, v, None, d ** -0.5)
+    assert torch.equal(out, out_w) and torch.equal(lse, lse_w)
 
 
 @pytest.mark.cuda
