@@ -379,14 +379,40 @@ def flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale, exp2
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_delta(out, dout):
+    """delta = rowsum(dout * out) in fp32, [B*H, Sq] float32 (heads folded
+    into the batch, as lse): the plain version of the backward kernel call's
+    pre-pass, which the call computes itself on the card."""
+    b, sq, h, _ = out.shape
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(b * h, sq)
+
+
+def flash_bwd_kernel_call(q, k, v, bias, out, lse, dout, ld, dq_acc, dq, dk, dv, scale, exp2):
+    """The backward kernel's C call on bf16 CUDA operands as
+    `flash_attention_bwd` validates them: a pre-pass writes (lse*log2(e),
+    delta) into ld ([B*H, Sq, 2] float32) and zeroes dq_acc ([B, Sq, H, D]
+    float32), the kernel adds dQ into dq_acc and writes dk and dv, and an
+    epilogue writes dq. Not counted: the wrapper counts its calls."""
+    b, sq, h, d = q.shape
+    fn = cuda_build.function("flash_attention_bwd", "flash_attention_bwd",
+                             [_P] * 12 + [_I] * 5 + [_F, _I, _P])
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        bias.data_ptr() if bias is not None else None,
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), ld.data_ptr(),
+                        dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        b, sq, k.shape[1], h, d, float(scale), int(exp2),
+                        torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_attention_bwd")
+
+
 def flash_attention_bwd(q, k, v, key_bias, out, lse, dout, scale,
                         variant: FlashVariant = FlashVariant()):
     """Flash attention backward: q/k/v/out/dout [B, S, H, D], lse [B*H, Sq, 1]
     float32 (natural log) from any flash forward. Returns (dq, dk, dv); the
-    key bias gets no gradient. delta = rowsum(dout * out) is a small torch
-    reduction, as the JAX package leaves it to XLA. Of `variant` only `exp2`
-    matters here (the kernels' exp2 form): there is one backward for every
-    forward kernel."""
+    key bias gets no gradient. On the card the kernel's call forms delta =
+    rowsum(dout * out) itself (`flash_bwd_delta` is its plain version). Of
+    `variant` only `exp2` matters here (the kernel's exp2 form): there is one
+    backward for every forward kernel."""
     exp2 = variant.exp2
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, key_bias, out, lse, dout, scale, exp2)
@@ -399,24 +425,17 @@ def flash_attention_bwd(q, k, v, key_bias, out, lse, dout, scale,
                          f"lse{tuple(lse.shape)}")
     if d % 8 or d > 128:
         raise ValueError(f"flash backward kernel: head dim {d} must be a multiple of 8, <= 128")
-    q, k, v, dout = cuda_build.kernel_operands("flash backward kernel", q, k, v, dout)
+    q, k, v, out, dout = cuda_build.kernel_operands("flash backward kernel", q, k, v, out, dout)
     bias = None
     if key_bias is not None:
         bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
         if bias.shape != (b, sk):
             raise ValueError(f"flash backward kernel: key_bias {tuple(bias.shape)} != {(b, sk)}")
     lse = lse.to(torch.float32).contiguous()
-    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()   # [B, H, Sq]
+    ld = torch.empty((b * h, sq, 2), device=q.device, dtype=torch.float32)
+    dq_acc = torch.empty((b, sq, h, d), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    fn = cuda_build.function("flash_attention_bwd", "flash_attention_bwd",
-                             [_P] * 10 + [_I] * 5 + [_F, _I, _P])
-    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        bias.data_ptr() if bias is not None else None,
-                        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
-                        float(scale), int(exp2),
-                        torch.cuda.current_stream(q.device).cuda_stream),
-                     "flash_attention_bwd")
+    flash_bwd_kernel_call(q, k, v, bias, out, lse, dout, ld, dq_acc, dq, dk, dv, scale, exp2)
     _count(flash_attention_bwd, exp2)
     return dq, dk, dv
 

@@ -41,8 +41,9 @@ import time
 PROMPTS = ["a portrait photo of a person, detailed, studio lighting",
            "a photo of a red car parked by the sea"]
 OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
-               "flash_bwd_dq_kernel": "flash_attention_bwd",
-               "flash_bwd_dkv_kernel": "flash_attention_bwd",
+               "flash_bwd_kernel": "flash_attention_bwd",
+               "flash_bwd_prepass_kernel": "flash_attention_bwd",     # delta, dQ scratch zeroed
+               "flash_bwd_dq_convert_kernel": "flash_attention_bwd",  # dQ scratch -> bf16
                "fused_cross_kernel": "fused_cross_attention",
                "geglu_kernel": "geglu_fwd",
                "fused_cross_int8_kernel": "fused_cross_attention_int8",

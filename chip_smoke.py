@@ -12,23 +12,27 @@ Phases, in order (any failure exits non-zero without the final line):
   1. build the thirteen CUDA kernels (eleven sources, one nvcc each, in
      parallel) from adaprompt_tpu_torch/csrc/, and log what the exp2 forms
      of the flash kernels changed in the SASS;
-  2. log the three flash forwards' resources at D=40 and 80 (registers,
-     shared memory, query rows a block, blocks an SM); hold each kernel
-     against its plain PyTorch version on the card, in bf16, at the paths'
-     shapes (the
+  2. log the four flash kernels' resources at D=40 and 80 (registers,
+     shared memory, rows a block, blocks an SM; the three forwards and the
+     backward's main kernel); hold each kernel against its plain PyTorch
+     version on the card, in bf16, at the paths' shapes (the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
      tests' and ragged ones; the flash variants and exp2 forms each against
      its own plain version, plus the no-max kernel's underflow guard; each
-     flash forward in both forms also at Sq != Sk with both ragged, head dims
-     8 to 128, one key tile, a key tile masked whole and a row masked whole,
-     the two-chain one also at 9 key tiles), and time
+     flash forward and the backward in both forms also at Sq != Sk with both
+     ragged, head dims 8 to 128, one key tile, a key tile masked whole and a
+     row masked whole, the two-chain one also at 9 key tiles; the backward's
+     pre-pass delta against its plain version, and the spread of its
+     atomically summed dq over two calls), and time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
      convs); beside the fused GroupNorm-SiLU-conv, which no single call
      computes, the port's own unfused pair (group_norm + conv2d); beside the
-     no-max wrapper's call, its kernel alone (kmax made beforehand);
+     no-max wrapper's call, its kernel alone (kmax made beforehand); the
+     backward timed as its C call (pre-pass, kernel and dQ epilogue), its
+     wrapper's call beside;
   3. run one full-width UNet forward on the card in bf16, one with
      quant="int8", one with fused_conv and one under each flash variant
      (ilv, nomax, exp2), and the same weights on the CPU
@@ -176,10 +180,10 @@ SASS_OPS = ("MUFU.EX2", "FMUL", "FFMA", "FADD", "FMNMX", "SHFL")
 
 
 # the mangled template arguments of each flash kernel's D=40 instantiation,
-# up to the EXP2 flag: the three forwards are templated on D/8, the backward
-# on D padded to 16
+# up to the EXP2 flag: all four are templated on D/8 (the backward's pre-pass
+# and dQ epilogue are not templated, so they are not listed)
 D40_INSTANCE = {"flash_attention": "ILi5E", "flash_attention_ilv": "ILi5E",
-                "flash_attention_nomax": "ILi5E", "flash_attention_bwd": "ILi48E"}
+                "flash_attention_nomax": "ILi5E", "flash_attention_bwd": "ILi5E"}
 
 
 def sass_exp2_forms():
@@ -325,48 +329,81 @@ def _case_nomax_underflow():
             raise AssertionError("the no-max kernel's underflow guard failed")
 
 
-def _case_flash_bwd(gen, s, d, with_bias, exp2=False, b=UNET_BATCH, h=8, timed=True):
+def _case_flash_bwd(gen, s, d, with_bias, exp2=False, b=UNET_BATCH, h=8, timed=True, sk=None,
+                    masked=None):
+    """The backward kernel (its exp2 form under `exp2`), from the matching
+    forward's out and lse, against its plain version, with s queries and sk
+    keys (default s); the key bias drops ~30% of the keys, and masked= masks a
+    key tile or a row whole as in `_case_flash`. Besides: its C call's
+    pre-pass delta against `flash_bwd_delta` (max error over max|delta|, tol
+    1e-5), and how far dq of two C calls on the same inputs differ (dQ is
+    summed with atomics: logged, unbounded). kernel_ms times the C call
+    (pre-pass, kernel and dQ epilogue); the wrapper's call is logged beside."""
     import torch
     import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
-    mk = lambda: torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
-    q, k, v, dout = mk(), mk(), mk(), mk()
+    sk = sk or s
+    mk = lambda n: torch.randn(b, n, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v, dout = mk(s), mk(sk), mk(sk), mk(s)
     bias = None
     if with_bias:
-        keep = torch.rand(b, s, device="cuda", generator=gen) < 0.7
+        keep = torch.rand(b, sk, device="cuda", generator=gen) < 0.7
         bias = (keep.float() - 1.0) * (-A.NEG_BIG)
+        if masked == "tile":
+            bias[0, :64] = A.NEG_BIG
+        elif masked == "row":
+            bias[-1] = A.NEG_BIG
     scale = d ** -0.5
-    out, lse = A.flash_attention_fwd(q, k, v, bias, scale, A.FlashVariant(exp2=exp2))
-    args = (q, k, v, bias, out, lse, dout, scale)
     variant = A.FlashVariant(exp2=exp2)
+    out, lse = A.flash_attention_fwd(q, k, v, bias, scale, variant)
+    args = (q, k, v, bias, out, lse, dout, scale)
     got = A.flash_attention_bwd(*args, variant)
     ref = A.flash_attention_bwd_reference(*args, exp2)
     cmp = [_compare(x, y, FLASH_BWD_TOL) for x, y in zip(got, ref)]
     err = max(c[0] for c in cmp)
     mag = max(c[1] for c in cmp)
     ok = all(c[2] for c in cmp)
-    del got, ref
+    detail = " ".join(f"{n}={c[0] / c[1]:.2e}" for n, c in zip(("dq", "dk", "dv"), cmp))
+    del ref
+    ld = torch.empty(b * h, s, 2, device="cuda")
+    dq_acc = torch.empty(b, s, h, d, device="cuda")
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    call = lambda: A.flash_bwd_kernel_call(q, k, v, bias, out, lse, dout, ld, dq_acc, *grads,
+                                           scale, exp2)
+    call()
+    delta = A.flash_bwd_delta(out, dout)
+    delta_err = ((ld[..., 1] - delta).abs().max() / delta.abs().max()).item()
+    ok = ok and delta_err <= 1e-5
+    first = [x.clone() for x in grads]
+    call()
+    rerun = [(x.float() - y.float()).abs().max().item() for x, y in zip(grads, first)]
+    detail += (f" delta pre-pass rel err {delta_err:.1e} (tol 1e-5); two calls differ by "
+               f"dq {rerun[0]:.1e} dk {rerun[1]:.1e} dv {rerun[2]:.1e}")
+    del got, first
+    nan = float("nan")
+    res = {"kernel_ms": time_ms(call, 10) if timed else nan,
+           "wrapper_ms": (time_ms(lambda: A.flash_attention_bwd(*args, variant), 10)
+                          if timed else nan),
+           "plain_ms": (time_ms(lambda: A.flash_attention_bwd_reference(*args, exp2), 2)
+                        if timed else nan)}
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
     gt = dout.transpose(1, 2)
-    nan = float("nan")
     sdpa_fwd_ms = time_ms(sdpa, 10) if timed else nan
     sdpa_both_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt), 10)
                     if timed else nan)
-    res = {"kernel_ms": (time_ms(lambda: A.flash_attention_bwd(*args, variant), 10)
-                         if timed else nan),
-           "plain_ms": (time_ms(lambda: A.flash_attention_bwd_reference(*args, exp2), 2)
-                        if timed else nan),
-           "library_ms": sdpa_both_ms - sdpa_fwd_ms}
-    # 5 S^2 D products of 2 flops; each input (q, k, v, out, dout, lse, bias)
-    # read once and dq, dk, dv written once; one exponential per score
-    flops = 10 * b * h * s * s * d
-    nbytes = 8 * b * s * h * d * 2 + b * h * s * 4 + (b * s * 4 if with_bias else 0)
-    res.update(_bound(flops, nbytes, exps=b * h * s * s))
-    detail = " ".join(f"{n}={c[0] / c[1]:.2e}" for n, c in zip(("dq", "dk", "dv"), cmp))
-    return (f"flash_attention_bwd[{'exp2' if exp2 else 'default'}] D={d} S={s} B={b} H={h} "
-            f"bias={with_bias}", err, mag, FLASH_BWD_TOL, ok, res, detail)
+    res["library_ms"] = sdpa_both_ms - sdpa_fwd_ms
+    if timed:
+        detail += f" wrapper_ms={res['wrapper_ms']:.4f}"
+    # 5 Sq*Sk*D products of 2 flops; each input (q, out, dout, k, v, lse,
+    # bias) read once and dq, dk, dv written once; one exponential per score
+    flops = 10 * b * h * s * sk * d
+    nbytes = (4 * s + 4 * sk) * b * h * d * 2 + b * h * s * 4 + (b * sk * 4 if with_bias else 0)
+    res.update(_bound(flops, nbytes, exps=b * h * s * sk))
+    seq = f"S={s}" if sk == s else f"Sq={s} Sk={sk}"
+    return (f"flash_attention_bwd[{'exp2' if exp2 else 'default'}] D={d} {seq} B={b} H={h} "
+            f"bias={masked or with_bias}", err, mag, FLASH_BWD_TOL, ok, res, detail)
 
 
 def _case_flash_int8(gen, s, d, with_bias, b=UNET_BATCH, h=8, sk=None, timed=True):
@@ -633,31 +670,38 @@ def _case_gn_conv(gen, b, h, c, o, gn_shift):
             CONV_TOL, ok, res, detail)
 
 
-def flash_fwd_resources():
-    """Log the three flash forwards' resources (B1, B12, B13) at the UNet's
-    head dims, in both forms, from the runtime (registers a thread, shared
-    memory a block, query rows a block, resident blocks an SM)."""
+def flash_resources():
+    """Log the four flash kernels' resources (the forwards B1, B12, B13 and
+    the backward B4's main kernel) at the UNet's head dims, in both forms,
+    from the runtime: registers a thread, shared memory a block, query rows
+    a block (the backward: keys a block and query rows a streamed tile),
+    resident blocks an SM (the backward also its local memory a thread)."""
     import ctypes
     from adaprompt_tpu_torch.ops import cuda_build
     for lib, wrapper in (("flash_attention", "flash_attention_fwd"),
                          ("flash_attention_ilv", "flash_attention_fwd_ilv"),
-                         ("flash_attention_nomax", "flash_attention_fwd_nomax")):
+                         ("flash_attention_nomax", "flash_attention_fwd_nomax"),
+                         ("flash_attention_bwd", "flash_attention_bwd")):
         fn = cuda_build.function(lib, wrapper + "_describe",
                                  [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         for d in (40, 80):
             for exp2 in (False, True):
-                info = (ctypes.c_int * 4)()
+                info = (ctypes.c_int * 6)()
                 cuda_build.check(fn(d, int(exp2), ctypes.addressof(info)), wrapper + "_describe")
-                log(f"kernel {wrapper}{':exp2' if exp2 else ''} D={d}: {info[0]} registers a "
-                    f"thread, {info[1]} B shared memory a block, {info[2]} query rows a block, "
-                    f"{info[3]} blocks an SM")
+                head = (f"kernel {wrapper}{':exp2' if exp2 else ''} D={d}: {info[0]} registers "
+                        f"a thread, {info[1]} B shared memory a block, ")
+                if lib == "flash_attention_bwd":
+                    log(head + f"{info[2]} keys a block, {info[3]} query rows a tile, "
+                        f"{info[4]} blocks an SM, {info[5]} B local memory a thread")
+                else:
+                    log(head + f"{info[2]} query rows a block, {info[3]} blocks an SM")
 
 
 def phase_kernels():
     """Returns {wrapper name: [per-shape results]} for the kernels line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash_fwd_resources()
+    flash_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -757,6 +801,12 @@ def phase_kernels():
                               gen, *a, timed=False, **kw)))
     cases.append(("flash_attention_bwd:exp2", (), lambda: _case_flash_bwd(
         gen, 300, 64, True, exp2=True, b=1, h=3, timed=False)))
+    # the backward in both forms, untimed, on the forwards' ragged cases
+    for exp2, name in ((False, "flash_attention_bwd"), (True, "flash_attention_bwd:exp2")):
+        for s_, sk_, d_, bias_, masked, b_, h_ in ragged:
+            cases.append((name, (), lambda a=(s_, d_, bias_), kw=dict(
+                exp2=exp2, b=b_, h=h_, sk=sk_, masked=masked): _case_flash_bwd(
+                    gen, *a, timed=False, **kw)))
     # the two attention kernels that no path runs (wired nowhere, as in the
     # JAX package), at the UNet's self-attention shapes and ragged ones
     for s_, d_ in ((4096, 40), (2048, 40), (1024, 80)):
@@ -1377,7 +1427,8 @@ def kernels_line(results, launches_by_path):
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
-        for extra in ("unfused_ms", "affine_ms", "operands_ms", "kv_ms", "kernel_only_ms"):
+        for extra in ("unfused_ms", "affine_ms", "operands_ms", "kv_ms", "kernel_only_ms",
+                      "wrapper_ms"):
             if extra in rs[0]:
                 out[-1][extra] = mean(extra)
         if name in EXP2_PATHS:

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
+import torch
 
 from adaprompt_tpu.ops import attention as jattn
 from adaprompt_tpu_torch.ops import attention as tattn
@@ -102,6 +103,26 @@ def test_flash_backward_matches_pallas(d, s, with_bias):
     for a, ref in zip(grads_t, grads_j[:3]):
         assert a.shape == (b, s, h, d)
         assert_close(a, ref, atol=FLASH_ATOL)      # fp32; blockwise vs one-pass sums
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_delta_matches_jax(dtype):
+    """`flash_bwd_delta`, the plain version of the backward kernel call's
+    pre-pass, against the delta of `_flash_bwd_impl` (rowsum of dO*O over the
+    folded heads, in fp32) on the same numpy inputs, in f32 and in bf16
+    (both cast to fp32 before the product, so bf16 products are exact): they
+    differ only in the order of a 40-term fp32 sum, hence atol 1e-5 on
+    values of order 10."""
+    rng = np.random.default_rng(5)
+    b, s, h, d = 2, 77, 3, 40
+    out, g = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                      torch.bfloat16)
+    fold = lambda x: jattn._fold_heads(jnp.asarray(x, jdt)).astype(jnp.float32)
+    delta_j = jnp.sum(fold(g) * fold(out), axis=-1)
+    delta_t = tattn.flash_bwd_delta(t(out).to(tdt), t(g).to(tdt))
+    assert delta_t.dtype == torch.float32 and delta_t.shape == (b * h, s)
+    assert_close(delta_t, delta_j, atol=1e-5)
 
 
 @pytest.mark.parametrize("with_bias", [False, True])

@@ -309,6 +309,42 @@ def test_library_path_covers_included_headers(monkeypatch, tmp_path):
         seen.add(path)
 
 
+def test_flash_backward_source_structure():
+    """The backward kernel is built on the Hopper helpers the forwards share
+    (cp.async, ldmatrix, mma.sync in flash_sm90.cuh), not on WMMA; its
+    library's name hashes that header; its C call and its describe function
+    are there."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert '#include "flash_sm90.cuh"' in src
+    assert "wmma::" not in src and "<mma.h>" not in src
+    assert [p.name for p in cuda_build.source_files("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "flash_sm90.cuh"]
+    for fn in ("flash_attention_bwd", "flash_attention_bwd_describe"):
+        assert f'extern "C" int {fn}(' in src
+
+
+@pytest.mark.parametrize("exp2", [False, True])
+def test_flash_backward_wrapper_off_the_card(monkeypatch, exp2):
+    """On CPU tensors the backward wrapper returns its plain version and
+    never reaches the kernel's C call nor counts a launch; on meta tensors it
+    raises TypeError before the call."""
+    calls = []
+    monkeypatch.setattr(tattn, "flash_bwd_kernel_call", lambda *a: calls.append(a))
+    variant = tattn.FlashVariant(exp2=exp2)
+    x = _small_inputs("cpu", torch.float32)["flash_bwd"]
+    before = (tattn.flash_attention_bwd.launches, tattn.flash_attention_bwd.exp2_launches)
+    got = tattn.flash_attention_bwd(*x, 40 ** -0.5, variant)
+    for a, ref in zip(got, tattn.flash_attention_bwd_reference(*x, 40 ** -0.5, exp2)):
+        assert torch.equal(a, ref)
+    meta = [None if a is None else a.to("meta") for a in x]
+    with pytest.raises(TypeError, match="CUDA"):
+        tattn.flash_attention_bwd(*meta, 40 ** -0.5, variant)
+    assert not calls
+    assert (tattn.flash_attention_bwd.launches,
+            tattn.flash_attention_bwd.exp2_launches) == before
+
+
 def _assert_near(out, ref, tol):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -422,24 +458,31 @@ def test_geglu_kernel_ragged_shapes(m, c):
     _assert_near(tgeglu.geglu(*args), tgeglu.geglu_reference(*args), 1e-2)
 
 
+def _bwd_bias(biased, b, sk, g):
+    """The backward tests' key bias: True for ~40% of keys masked at random,
+    or "tile" / "row" as `_flash_bias`."""
+    return _flash_bias({True: "random", False: None}.get(biased, biased), b, sk, g)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 200, 3, 64, True),
                                                 (2, 100, 77, 2, 80, True),
                                                 (1, 129, 1000, 1, 128, False),
                                                 (2, 64, 64, 4, 8, False),
-                                                (2, 512, 512, 8, 40, True)])
+                                                (2, 512, 512, 8, 40, True),
+                                                (2, 200, 50, 2, 16, True),
+                                                (2, 333, 300, 2, 40, "tile"),
+                                                (2, 257, 190, 2, 40, "row")])
 def test_flash_backward_kernel_ragged_shapes(b, sq, sk, h, d, biased):
-    """Ragged q and key tiles, padded head dims, key bias: dq, dk, dv
-    against the plain version (P and dS are rounded to bf16 in the kernel)."""
+    """Ragged q and key tiles, padded head dims, one key tile only, key bias
+    that masks a whole key tile or every key of a row: dq, dk, dv against the
+    plain version (P and dS are rounded to bf16 in the kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
     rn = lambda s: torch.randn(*s, device="cuda", generator=g).bfloat16()
     q, k, v, dout = rn((b, sq, h, d)), rn((b, sk, h, d)), rn((b, sk, h, d)), rn((b, sq, h, d))
-    bias = None
-    if biased:
-        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
-                           tattn.NEG_BIG)
+    bias = _bwd_bias(biased, b, sk, g)
     out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5)
     args = (q, k, v, bias, out, lse, dout, d ** -0.5)
     for got, ref in zip(tattn.flash_attention_bwd(*args),
@@ -643,20 +686,20 @@ def test_nomax_kernel_underflow_gives_finite_zeros():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 200, 3, 64, True),
                                                 (2, 512, 512, 8, 40, True),
-                                                (1, 129, 1000, 1, 128, False)])
+                                                (1, 129, 1000, 1, 128, False),
+                                                (2, 333, 300, 2, 40, "tile"),
+                                                (2, 257, 190, 2, 40, "row")])
 def test_flash_backward_exp2_kernel_ragged_shapes(b, sq, sk, h, d, biased):
     """The backward's exp2 form from an exp2 forward's out and lse, against
-    its plain version; and any forward pairs with any backward: the natural
-    backward from the same lse agrees with the exp2 one."""
+    its plain version, also with a key tile or a row masked whole; and any
+    forward pairs with any backward: the natural backward from the same lse
+    agrees with the exp2 one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
     rn = lambda s: torch.randn(*s, device="cuda", generator=g).bfloat16()
     q, k, v, dout = rn((b, sq, h, d)), rn((b, sk, h, d)), rn((b, sk, h, d)), rn((b, sq, h, d))
-    bias = None
-    if biased:
-        bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
-                           tattn.NEG_BIG)
+    bias = _bwd_bias(biased, b, sk, g)
     out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, tattn.FlashVariant(exp2=True))
     args = (q, k, v, bias, out, lse, dout, d ** -0.5)
     before = tattn.flash_attention_bwd.exp2_launches
@@ -666,6 +709,37 @@ def test_flash_backward_exp2_kernel_ragged_shapes(b, sq, sk, h, d, biased):
                            tattn.flash_attention_bwd(*args)):
         _assert_near(a, ref, 1e-2)
         _assert_near(a, nat, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp2", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 300, 200, 3, 64), (2, 512, 512, 8, 40),
+                                         (2, 100, 77, 2, 80)])
+def test_flash_backward_kernel_call_prepass(b, sq, sk, h, d, exp2):
+    """The backward kernel call fills its scratch itself: the pre-pass's
+    (lse*log2(e), delta) against lse and `flash_bwd_delta` (1e-5 of the
+    largest), dk and dv bit for bit the wrapper's, and dq the wrapper's up to
+    the order of its atomic sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    rn = lambda s: torch.randn(*s, device="cuda", generator=g).bfloat16()
+    q, k, v, dout = rn((b, sq, h, d)), rn((b, sk, h, d)), rn((b, sk, h, d)), rn((b, sq, h, d))
+    bias = _bwd_bias(True, b, sk, g)
+    variant = tattn.FlashVariant(exp2=exp2)
+    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, variant)
+    ld = torch.full((b * h, sq, 2), float("nan"), device="cuda")
+    dq_acc = torch.full((b, sq, h, d), float("nan"), device="cuda")
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    before = tattn.flash_attention_bwd.launches
+    tattn.flash_bwd_kernel_call(q, k, v, bias, out, lse, dout, ld, dq_acc, *grads, d ** -0.5,
+                                exp2)
+    assert tattn.flash_attention_bwd.launches == before
+    _assert_near(ld[..., 1], tattn.flash_bwd_delta(out, dout), 1e-5)
+    _assert_near(ld[..., 0], lse[..., 0] * tattn.LOG2E, 1e-6)
+    dq, dk, dv = tattn.flash_attention_bwd(q, k, v, bias, out, lse, dout, d ** -0.5, variant)
+    assert torch.equal(dk, grads[1]) and torch.equal(dv, grads[2])
+    _assert_near(grads[0], dq, 1e-2)
 
 
 @pytest.mark.cuda
