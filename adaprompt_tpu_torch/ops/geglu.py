@@ -4,7 +4,9 @@ Port of `adaprompt_tpu/ops/geglu.py`. Two kernel wrappers, each with a
 launch count, each taking its plain version for CPU tensors only and for
 CUDA tensors launching its kernel or raising:
   * `geglu_fwd` (CUDA: csrc/geglu.cu; replaces `_geglu_kernel`), bfloat16,
-    plain version `geglu_reference`. `geglu` is the differentiable op: an
+    plain version `geglu_reference`. One C call runs two kernels, x.W1^T ->
+    g and g.W2^T -> out, with g [M, F] bf16 in a scratch that the wrapper
+    allocates; it counts one launch. `geglu` is the differentiable op: an
     autograd Function whose forward is `geglu_fwd` and whose backward
     recomputes through `geglu_reference` under autograd, as the JAX
     package's `_geglu_bwd` does (its backward is XLA, not a kernel);
@@ -58,18 +60,18 @@ def geglu_fwd(x, w1, b1, w2, b2):
     if w1.shape != (f2, c) or w2.shape != (c, f) or f2 % 2:
         raise ValueError(f"geglu kernel: shapes x{tuple(shape)} w1{tuple(w1.shape)} "
                          f"w2{tuple(w2.shape)}")
-    if c % 16 or c > 640 or f % 64:
-        raise ValueError(f"geglu kernel: needs C % 16 == 0, C <= 640 and F % 64 == 0 "
-                         f"(C={c}, F={f})")
+    if c % 16 or f % 64:
+        raise ValueError(f"geglu kernel: needs C % 16 == 0 and F % 64 == 0 (C={c}, F={f})")
     m = x.numel() // c
     x2, w1, w2 = cuda_build.kernel_operands("geglu kernel", x.reshape(m, c), w1, w2)
     b1 = b1.to(device=x.device, dtype=torch.float32).contiguous()
     b2 = b2.to(device=x.device, dtype=torch.float32).contiguous()
+    g = torch.empty((m, f), dtype=x2.dtype, device=x2.device)   # the kernels' scratch
     out = torch.empty_like(x2)
     fn = cuda_build.function("geglu", "geglu_fwd",
-                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     cuda_build.check(fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                        b2.data_ptr(), out.data_ptr(), m, c, f,
+                        b2.data_ptr(), g.data_ptr(), out.data_ptr(), m, c, f,
                         torch.cuda.current_stream(x.device).cuda_stream),
                      "geglu_fwd")
     geglu_fwd.launches += 1

@@ -45,7 +45,8 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "flash_bwd_prepass_kernel": "flash_attention_bwd",     # delta, dQ scratch zeroed
                "flash_bwd_dq_convert_kernel": "flash_attention_bwd",  # dQ scratch -> bf16
                "fused_cross_kernel": "fused_cross_attention",
-               "geglu_kernel": "geglu_fwd",
+               "geglu_proj_kernel": "geglu_fwd",        # x.W1^T -> g
+               "geglu_out_kernel": "geglu_fwd",         # g.W2^T -> out
                "fused_cross_int8_kernel": "fused_cross_attention_int8",
                "geglu_int8_kernel": "geglu_int8",
                "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",

@@ -14,8 +14,10 @@ Phases, in order (any failure exits non-zero without the final line):
      of the flash kernels changed in the SASS;
   2. log the four flash kernels' resources at D=40 and 80 (registers,
      shared memory, rows a block, blocks an SM; the three forwards and the
-     backward's main kernel); hold each kernel against its plain PyTorch
-     version on the card, in bf16, at the paths' shapes (the
+     backward's main kernel) and the GEGLU's two kernels' at C=320 and 640
+     (also their grids); hold each kernel against its plain PyTorch
+     version on the card, in bf16, at the paths' shapes (the GEGLU also
+     untimed at ragged shapes, with its launch count checked a call; the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
      tests' and ragged ones; the flash variants and exp2 forms each against
@@ -29,7 +31,8 @@ Phases, in order (any failure exits non-zero without the final line):
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
      convs); beside the fused GroupNorm-SiLU-conv, which no single call
-     computes, the port's own unfused pair (group_norm + conv2d); beside the
+     computes, the port's own unfused pair (group_norm + conv2d), and beside
+     the GEGLU the port's unfused feed-forward on cuBLAS; beside the
      no-max wrapper's call, its kernel alone (kmax made beforehand); the
      backward timed as its C call (pre-pass, kernel and dQ epilogue), its
      wrapper's call beside;
@@ -519,10 +522,18 @@ def _case_cross(gen, n, c, b=UNET_BATCH):
     return f"fused_cross_attention C={c} N={n} B={b}", err, mag, 2e-2, ok, res, ""
 
 
-def _case_geglu(gen, n, c):
+def _case_geglu(gen, m, c, timed=True):
+    """B3 (one C call: the proj and out kernels) against its plain version,
+    on m rows of width c; its launch count must rise by one a call. No single
+    PyTorch call computes it (library_ms None); `unfused_ms` is the port's own
+    unfused feed-forward in bf16 as `models.unet._geglu_ff` runs it where the
+    fused kernel is not taken (proj -> chunk -> a * gelu(gate) -> out on
+    cuBLAS), the time to beat."""
     import torch
+    import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import geglu as G
-    m, f = UNET_BATCH * n, 4 * c
+    from adaprompt_tpu_torch.ops.layers import gelu
+    f = 4 * c
     bf = torch.bfloat16
     u = lambda *shape, fan: ((torch.rand(*shape, device="cuda", generator=gen) * 2 - 1)
                              / math.sqrt(fan))
@@ -530,16 +541,36 @@ def _case_geglu(gen, n, c):
     w1, b1 = u(2 * f, c, fan=c).to(bf), u(2 * f, fan=c)
     w2, b2 = u(c, f, fan=f).to(bf), u(c, fan=f)
     args = (x, w1, b1, w2, b2)
+    before = G.geglu_fwd.launches
     out = G.geglu_fwd(*args)
+    if G.geglu_fwd.launches != before + 1:
+        raise AssertionError(f"geglu_fwd counted {G.geglu_fwd.launches - before} launches "
+                             "for one call")
     ref = G.geglu_reference(*args)
     err, mag, ok = _compare(out, ref, 1e-2)
-    res = {"kernel_ms": time_ms(lambda: G.geglu_fwd(*args), 10),
-           "plain_ms": time_ms(lambda: G.geglu_reference(*args), 3),
-           "library_ms": None}
+    b1h, b2h = b1.to(bf), b2.to(bf)
+
+    def unfused():
+        a, gate = F.linear(x, w1, b1h).chunk(2, dim=-1)
+        return F.linear(a * gelu(gate), w2, b2h)
+
+    nan = float("nan")
+    res = {"kernel_ms": time_ms(lambda: G.geglu_fwd(*args), 10) if timed else nan,
+           "plain_ms": time_ms(lambda: G.geglu_reference(*args), 3) if timed else nan,
+           "library_ms": None,
+           "unfused_ms": time_ms(unfused, 10) if timed else nan}
     flops = 6 * m * c * f
     nbytes = 2 * m * c * 2 + 3 * f * c * 2 + 2 * f * 4 + c * 4
     res.update(_bound(flops, nbytes, exps=m * f))
-    return f"geglu C={c} M={m}", err, mag, 1e-2, ok, res, ""
+    detail = f"unfused_ms={res['unfused_ms']:.4f}"
+    return f"geglu C={c} M={m}", err, mag, 1e-2, ok, res, detail
+
+
+# B3's ragged cases (M, C), checked untimed: rows across the 128-row tile
+# edge, C = 48 and 16 (K not a multiple of the ring's 64-deep stages, out's
+# columns past C in the last 160-wide tile), C = 640 at the UNet's row count
+GEGLU_RAGGED = ((50, 320), (33, 640), (96, 16), (127, 320), (129, 320), (257, 320),
+                (200, 48), (4096, 640))
 
 
 def _int8_weights(gen, n, k):
@@ -697,11 +728,28 @@ def flash_resources():
                     log(head + f"{info[2]} query rows a block, {info[3]} blocks an SM")
 
 
+def geglu_resources():
+    """Log B3's two kernels' resources at the UNet's two fused widths, from
+    the runtime: registers a thread, shared memory a block, the tile, resident
+    blocks an SM, blocks in the grid, local memory a thread."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("geglu", "geglu_describe", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for m, c in ((UNET_BATCH * 4096, 320), (UNET_BATCH * 1024, 640)):
+        info = (ctypes.c_int * 14)()
+        cuda_build.check(fn(m, c, 4 * c, ctypes.addressof(info)), "geglu_describe")
+        for name, i in (("geglu_proj_kernel", info[:7]), ("geglu_out_kernel", info[7:])):
+            log(f"kernel geglu_fwd {name} C={c} M={m}: {i[0]} registers a thread, {i[1]} B "
+                f"shared memory a block, {i[2]} x {i[3]} tile, {i[4]} blocks an SM, {i[5]} blocks "
+                f"in the grid, {i[6]} B local memory a thread")
+
+
 def phase_kernels():
     """Returns {wrapper name: [per-shape results]} for the kernels line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_resources()
+    geglu_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -731,9 +779,10 @@ def phase_kernels():
               lambda: _case_cross(gen, 1024, 640)),
              ("fused_cross_attention", ("serve_bf16",), lambda: _case_cross(gen, 4096, 320, 2)),
              ("fused_cross_attention", ("serve_bf16",), lambda: _case_cross(gen, 1024, 640, 2)),
-             ("geglu_fwd", both, lambda: _case_geglu(gen, 4096, 320)),
-             ("geglu_fwd", both + ("serve_bf16",), lambda: _case_geglu(gen, 1024, 640)),
-             ("geglu_fwd", ("serve_bf16",), lambda: _case_geglu(gen, 2048, 320)),
+             ("geglu_fwd", both, lambda: _case_geglu(gen, UNET_BATCH * 4096, 320)),
+             ("geglu_fwd", both + ("serve_bf16",),
+              lambda: _case_geglu(gen, UNET_BATCH * 1024, 640)),
+             ("geglu_fwd", ("serve_bf16",), lambda: _case_geglu(gen, UNET_BATCH * 2048, 320)),
              ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 4096, 320, 4)),
              ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 1024, 640, 4)),
              ("fused_cross_attention_int8", s8, lambda: _case_cross_int8(gen, 4096, 320, 2)),
@@ -753,6 +802,8 @@ def phase_kernels():
                     (32, 1280, 640), (64, 960, 320), (64, 640, 320)):
         cases.append(("gn_silu_conv3x3_halo", (),
                       lambda s=(h, c, o): _case_gn_conv(gen, 4, *s, 0.0)))
+    for m_, c_ in GEGLU_RAGGED:
+        cases.append(("geglu_fwd", (), lambda a=(m_, c_): _case_geglu(gen, *a, timed=False)))
     # the two plain convs run on no path (wired nowhere, as in the JAX package)
     for fn_name in ("conv3x3_halo", "conv3x3_im2col"):
         for shape in ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),

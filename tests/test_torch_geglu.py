@@ -22,8 +22,10 @@ def _weights(rng, c, f):
     return w1, b1, w2, b2
 
 
-@pytest.mark.parametrize("m,c", [(64, 32), (128, 64), (40, 48)])
+@pytest.mark.parametrize("m,c", [(64, 32), (128, 64), (40, 48), (200, 320)])
 def test_geglu_matches_pallas_and_reference(m, c):
+    """(200, 320): a main-path width (F = 1280) with a row count that is not a
+    multiple of the CUDA kernel's 128-row tile."""
     rng = np.random.default_rng(m + c)
     f = 4 * c
     x = rng.standard_normal((m, c)).astype(np.float32)

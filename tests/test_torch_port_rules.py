@@ -324,6 +324,33 @@ def test_flash_backward_source_structure():
         assert f'extern "C" int {fn}(' in src
 
 
+def test_geglu_source_structure():
+    """B3 is built on the Hopper helpers of flash_sm90.cuh (cp.async,
+    ldmatrix, mma.sync), not on WMMA; its library's name hashes that header;
+    its C call and its describe function are there."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "geglu.cu").read_text()
+    assert '#include "flash_sm90.cuh"' in src
+    assert "wmma::" not in src and "<mma.h>" not in src
+    assert [p.name for p in cuda_build.source_files("geglu")] == ["geglu.cu", "flash_sm90.cuh"]
+    for fn in ("geglu_fwd", "geglu_describe"):
+        assert f'extern "C" int {fn}(' in src
+
+
+@pytest.mark.parametrize("name,label", [
+    ("void (anonymous namespace)::geglu_proj_kernel(__nv_bfloat16 const*, int, int, int)",
+     "geglu_fwd"),
+    ("_ZN12_GLOBAL__N_116geglu_out_kernelEPK13__nv_bfloat16S2_PKfPS0_iii", "geglu_fwd"),
+    ("_ZN12_GLOBAL__N_117geglu_int8_kernelEPK13__nv_bfloat16PKaPKfS6_S4_S6_S6_PS0_iii",
+     "geglu_int8"),
+    ("flash_fwd_kernel<5, false>", "flash_attention_fwd")])
+def test_profile_step_classes_kernels_by_name(name, label):
+    """The profile's kernel classes: both of B3's kernels count as its
+    wrapper's, the int8 GEGLU kernel as its own."""
+    from adaprompt_tpu_torch.profile_step import kernel_class
+    assert kernel_class(name) == label
+
+
 @pytest.mark.parametrize("exp2", [False, True])
 def test_flash_backward_wrapper_off_the_card(monkeypatch, exp2):
     """On CPU tensors the backward wrapper returns its plain version and
@@ -446,8 +473,12 @@ def test_fused_cross_kernel_ragged_shapes(b, n, c, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,c", [(50, 320), (33, 640), (96, 16)])
+@pytest.mark.parametrize("m,c", [(50, 320), (33, 640), (96, 16), (127, 320), (129, 320),
+                                 (257, 320), (200, 48), (4096, 640)])
 def test_geglu_kernel_ragged_shapes(m, c):
+    """Rows across the 128-row tile edge, C = 48 and 16 (K not a multiple of
+    the 64-deep ring stages; out's columns past C in its last tile), C = 640
+    at the UNet's row count; one launch counted a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(m + c)
@@ -455,7 +486,9 @@ def test_geglu_kernel_ragged_shapes(m, c):
     f = 4 * c
     args = (rn(m, c).bfloat16(), (rn(2 * f, c) / c ** 0.5).bfloat16(), rn(2 * f) / 8,
             (rn(c, f) / f ** 0.5).bfloat16(), rn(c) / 8)
+    before = tgeglu.geglu_fwd.launches
     _assert_near(tgeglu.geglu(*args), tgeglu.geglu_reference(*args), 1e-2)
+    assert tgeglu.geglu_fwd.launches == before + 1
 
 
 def _bwd_bias(biased, b, sk, g):
