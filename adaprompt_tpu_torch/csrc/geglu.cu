@@ -19,11 +19,12 @@
 // registers across the whole F loop; that caps the row tile at 32-64 rows, and
 // every tile then re-reads all of W1 and W2 through L2 (1.26 GB a call at
 // C=320, M=16384). So the call is split where both packages already round g
-// to bf16, into two kernels on one block-GEMM main loop (BlockGemm below:
-// C = A.B^T with A [M, K] and B [N, K], K contiguous; a cp.async ring of A and
-// B tiles 64 deep in K, rows padded to an odd number of 16-byte units so that
-// ldmatrix is free of bank conflicts; ldmatrix fragments and
-// mma.sync.m16n8k16 with fp32 sums, on the helpers of flash_sm90.cuh):
+// to bf16, into two kernels on one block-GEMM main loop (BlockGemm of
+// block_gemm.cuh: C = A.B^T with A [M, K] and B [N, K], K contiguous; a
+// cp.async ring of A and B tiles 64 deep in K, rows padded to an odd number
+// of 16-byte units so that ldmatrix is free of bank conflicts; ldmatrix
+// fragments and mma.sync.m16n8k16 with fp32 sums, on the helpers of
+// flash_sm90.cuh):
 //   * geglu_proj_kernel computes a 128 x 128 tile of h with 8 warps (4 x 2).
 //     Its 128 B rows are 64 rows of W1's a-half and the same 64 of its
 //     gate-half, interleaved in groups of 32 (a, gate, a, gate), so that each
@@ -53,116 +54,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "block_gemm.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
 
+using namespace block_gemm;
 using namespace flash_sm90;
 using bf16 = __nv_bfloat16;
-
-// One block tile of C = A.B^T, BM x BN, and its main loop: WM x WN warps,
-// a STAGES-deep cp.async ring of A and B tiles BK deep in K.
-template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_>
-struct BlockGemm {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, STAGES = STAGES_;
-  static constexpr int NTHREADS = WM * WN * 32;
-  static constexpr int SROW = padded_row(BK);              // ring row stride (elements)
-  static constexpr int MT = BM / WM / 16;                  // m16 tiles a warp
-  static constexpr int NT = BN / WN / 8;                   // n8 tiles a warp
-  static constexpr int UNITS = BK / 8;                     // 16-byte units a ring row
-  static constexpr int ROWS_A_PASS = NTHREADS / UNITS;     // rows one pass of the block copies
-  static constexpr int A_LOADS = BM / ROWS_A_PASS;         // 16-byte units a thread a stage
-  static constexpr int B_LOADS = BN / ROWS_A_PASS;
-  static constexpr int STAGE = (BM + BN) * SROW;           // elements a ring stage
-  static constexpr int SMEM = STAGES * STAGE * 2;          // bytes
-  static_assert(NT % 2 == 0 && A_LOADS * ROWS_A_PASS == BM && B_LOADS * ROWS_A_PASS == BN,
-                "tile shape");
-
-  // A thread copies the 16-byte unit at column (tid % UNITS) * 8 of the
-  // stage's rows tid / UNITS + ROWS_A_PASS * i. src[i] points at that unit of
-  // k tile 0 (anywhere valid if the row is out of range, ok[i] false).
-  template <int N>
-  struct Rows {
-    const bf16* src[N];
-    bool ok[N];
-  };
-  using ARows = Rows<A_LOADS>;
-  using BRows = Rows<B_LOADS>;
-
-  static __device__ __forceinline__ int row_of(int tid, int i) {
-    return tid / UNITS + ROWS_A_PASS * i;
-  }
-  static __device__ __forceinline__ int col_of(int tid) { return (tid % UNITS) * 8; }
-
-  static __device__ __forceinline__ void load_stage(bf16* st, const ARows& a, const BRows& b,
-                                                    int k0, int K, int tid) {
-    const int c = col_of(tid);
-    const bool kok = k0 + c < K;
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const bool ok = a.ok[i] && kok;
-      cp_async_16(smem_addr(st + row_of(tid, i) * SROW + c), a.src[i] + (ok ? k0 : 0), ok);
-    }
-    bf16* Bs = st + BM * SROW;
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const bool ok = b.ok[i] && kok;
-      cp_async_16(smem_addr(Bs + row_of(tid, i) * SROW + c), b.src[i] + (ok ? k0 : 0), ok);
-    }
-  }
-
-  // acc = A . B^T over K for the warp's 16*MT rows (from row (warp / WN) * 16*MT)
-  // and 8*NT B rows (from (warp % WN) * 8*NT) of the tile. Ends with the ring
-  // drained and a block barrier, so the caller may reuse its shared memory.
-  static __device__ __forceinline__ void mainloop(float (&acc)[MT][NT][4], bf16* smem,
-                                                  const ARows& a, const BRows& b, int K,
-                                                  int tid) {
-    const int lane = tid % 32, warp = tid / 32;
-    const int arow = (warp / WN) * MT * 16, brow = (warp % WN) * NT * 8;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    const int KT = (K + BK - 1) / BK;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < KT) load_stage(smem + s * STAGE, a, b, s * BK, K, tid);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait<STAGES - 2>();       // k tile kt has landed (this thread's copies)
-      __syncthreads();                   // ... every thread's; and stage kt-1 is read
-      const int next = kt + STAGES - 1;
-      if (next < KT) load_stage(smem + (next % STAGES) * STAGE, a, b, next * BK, K, tid);
-      cp_async_commit();
-      const bf16* As = smem + (kt % STAGES) * STAGE;
-      const bf16* Bs = As + BM * SROW;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t af[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ldmatrix_x4(af[mt], smem_addr(As + (arow + mt * 16 + lane % 16) * SROW + kk * 16
-                                        + lane / 16 * 8));
-#pragma unroll
-        for (int j2 = 0; j2 < NT / 2; ++j2) {
-          uint32_t bf[4];                // B fragments of n8 tiles 2*j2, 2*j2+1
-          ldmatrix_x4(bf, smem_addr(Bs + (brow + j2 * 16 + lane % 8 + lane / 16 * 8) * SROW
-                                    + kk * 16 + (lane / 8) % 2 * 8));
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16_16816(acc[mt][2 * j2], af[mt], bf[0], bf[1]);
-            mma_bf16_16816(acc[mt][2 * j2 + 1], af[mt], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-};
 
 // The tile shapes, the fastest of those timed on an H100 SXM (700 W) at C=320
 // M=16384 and C=640 M=4096: for h, 128 x 128 with 8 or 4 warps, 128 x 256 and
@@ -172,34 +71,6 @@ using Proj = BlockGemm<128, 128, 64, 4, 2, 3>;   // tiles of h: 64 g columns
 using Out = BlockGemm<128, 160, 64, 4, 2, 4>;    // tiles of out
 constexpr int PROJ_MIN_BLOCKS = 2, OUT_MIN_BLOCKS = 1;   // resident blocks an SM (launch bounds)
 constexpr int GCOLS = Proj::BN / 2;                      // g columns a proj tile
-
-// The epilogue's staging tile: Gemm::BM x COLS bf16 in the ring's shared
-// memory, rows padded as the ring's are.
-template <class Gemm, int COLS>
-struct Staging {
-  static constexpr int ROW = padded_row(COLS);
-  static_assert(Gemm::BM * ROW <= Gemm::STAGES * Gemm::STAGE, "the tile fits the ring");
-
-  // out's values (v0, v1) at (row, col), col even
-  static __device__ __forceinline__ void put(bf16* Ts, int row, int col, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(Ts + row * ROW + col) = pack_bf16(v0, v1);
-  }
-
-  // The staged tile -> rows [m0, m0 + BM) and columns [n0, n0 + COLS) of dst
-  // ([rows][ld]), 16 bytes a thread; rows at or past M and columns at or past
-  // N (a multiple of 8) are skipped. The caller has published Ts with a block
-  // barrier.
-  static __device__ __forceinline__ void store(bf16* dst, long ld, int m0, int M, int n0, int N,
-                                               const bf16* Ts, int tid) {
-    constexpr int UNITS = COLS / 8;
-    for (int i = tid; i < Gemm::BM * UNITS; i += Gemm::NTHREADS) {
-      const int r = i / UNITS, c = (i % UNITS) * 8;
-      if (m0 + r < M && n0 + c < N)
-        *reinterpret_cast<uint4*>(dst + (long)(m0 + r) * ld + n0 + c) =
-            *reinterpret_cast<const uint4*>(Ts + r * ROW + c);
-    }
-  }
-};
 
 __device__ __forceinline__ float geglu_value(float a, float gate) {
   return a * (0.5f * gate * (1.f + erff(gate * 0.70710678118654752f)));

@@ -18,8 +18,8 @@ launch count on its wrapper:
     (CUDA: csrc/flash_attention_bwd.cu; replaces `_dq_kernel` and
     `_dkv_kernel`);
   * `fused_cross_attention` — q-projection, attention over a small
-    precomputed K/V and out-projection in one kernel, forward only (CUDA:
-    csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`);
+    precomputed K/V and out-projection in one C call of two kernels, forward
+    only (CUDA: csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`);
   * `fused_cross_attention_int8` — its w8a8 variant for the `quant="int8"`
     serving path, with int8 q- and out-projections, forward only (CUDA:
     csrc/fused_cross_attention_int8.cu; replaces `_fused_cross_i8_kernel`);
@@ -476,6 +476,10 @@ def flash_attention(q, k, v, key_bias, scale, variant: FlashVariant = FlashVaria
 # Kernel 3: fused cross-attention over a precomputed small K/V
 # ---------------------------------------------------------------------------
 
+_CROSS_MAX_HD = 160     # csrc/fused_cross_attention.cu: one head's columns a tile
+_CROSS_MAX_KEYS = 80    # ... and all keys in one tile (the UNet's context has 77)
+
+
 def fused_cross_attention_reference(x, wq, k, v, wo, bo, scale, num_heads):
     """Plain version of the fused kernel, rounding where the TPU kernel does:
     q to x's dtype, probabilities to x's dtype, the head concat to x's dtype."""
@@ -487,6 +491,22 @@ def fused_cross_attention_reference(x, wq, k, v, wo, bo, scale, num_heads):
     o = torch.einsum("bhns,bshd->bnhd", p.float(), v.float())
     o = o.reshape(b, n, c).to(x.dtype)
     return (o.float() @ wo.float().t() + bo.float()).to(x.dtype)
+
+
+def fused_cross_kernel_call(x, wq, k, v, wo, bo32, o, out, scale, num_heads):
+    """The fused kernel's C call on operands as `fused_cross_attention`
+    validates them (bo32 float32; o, the [B, N, C] bf16 scratch of the
+    concatenated heads, and out allocated): the q-attention kernel fills o,
+    the out-projection kernel out. Not counted: the wrapper counts its
+    calls."""
+    b, n, c = x.shape
+    fn = cuda_build.function("fused_cross_attention", "fused_cross_attention_fwd",
+                             [_P] * 8 + [_I] * 5 + [_F, _P])
+    cuda_build.check(fn(x.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        wo.data_ptr(), bo32.data_ptr(), o.data_ptr(), out.data_ptr(),
+                        b, n, c, num_heads, k.shape[1], float(scale),
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "fused_cross_attention_fwd")
 
 
 def fused_cross_attention(x, wq, k, v, wo, bo, scale, num_heads):
@@ -507,16 +527,14 @@ def fused_cross_attention(x, wq, k, v, wo, bo, scale, num_heads):
                          f"v{tuple(v.shape)} wq{tuple(wq.shape)} with {num_heads} heads")
     if c % 16:
         raise ValueError(f"fused cross kernel: C={c} must be a multiple of 16")
+    if hd > _CROSS_MAX_HD or s > _CROSS_MAX_KEYS:
+        raise ValueError(f"fused cross kernel: head dim {hd} and {s} keys; the kernel takes "
+                         f"head dims up to {_CROSS_MAX_HD} and up to {_CROSS_MAX_KEYS} keys")
     x, wq, k, v, wo = cuda_build.kernel_operands("fused cross kernel", x, wq, k, v, wo)
     bo32 = bo.to(device=x.device, dtype=torch.float32).contiguous()
+    o = torch.empty_like(x)              # the concatenated heads, between the two kernels
     out = torch.empty_like(x)
-    fn = cuda_build.function("fused_cross_attention", "fused_cross_attention_fwd",
-                             [_P] * 7 + [_I] * 5 + [_F, _P])
-    cuda_build.check(fn(x.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        wo.data_ptr(), bo32.data_ptr(), out.data_ptr(),
-                        b, n, c, num_heads, s, float(scale),
-                        torch.cuda.current_stream(x.device).cuda_stream),
-                     "fused_cross_attention_fwd")
+    fused_cross_kernel_call(x, wq, k, v, wo, bo32, o, out, scale, num_heads)
     fused_cross_attention.launches += 1
     return out
 

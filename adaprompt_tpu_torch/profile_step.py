@@ -44,7 +44,8 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "flash_bwd_kernel": "flash_attention_bwd",
                "flash_bwd_prepass_kernel": "flash_attention_bwd",     # delta, dQ scratch zeroed
                "flash_bwd_dq_convert_kernel": "flash_attention_bwd",  # dQ scratch -> bf16
-               "fused_cross_kernel": "fused_cross_attention",
+               "cross_q_attn_kernel": "fused_cross_attention",   # x.Wq^T, attention -> o
+               "cross_out_kernel": "fused_cross_attention",      # o.Wo^T -> out
                "geglu_proj_kernel": "geglu_fwd",        # x.W1^T -> g
                "geglu_out_kernel": "geglu_fwd",         # g.W2^T -> out
                "fused_cross_int8_kernel": "fused_cross_attention_int8",

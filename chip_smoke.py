@@ -14,10 +14,12 @@ Phases, in order (any failure exits non-zero without the final line):
      of the flash kernels changed in the SASS;
   2. log the four flash kernels' resources at D=40 and 80 (registers,
      shared memory, rows a block, blocks an SM; the three forwards and the
-     backward's main kernel) and the GEGLU's two kernels' at C=320 and 640
-     (also their grids); hold each kernel against its plain PyTorch
-     version on the card, in bf16, at the paths' shapes (the GEGLU also
-     untimed at ragged shapes, with its launch count checked a call; the
+     backward's main kernel), the GEGLU's two kernels' at C=320 and 640
+     and the fused cross-attention's two at its four shapes (also their
+     grids); hold each kernel against its plain PyTorch
+     version on the card, in bf16, at the paths' shapes (the GEGLU and the
+     fused cross-attention also untimed at ragged shapes, with their launch
+     counts checked a call; the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
      tests' and ragged ones; the flash variants and exp2 forms each against
@@ -31,8 +33,9 @@ Phases, in order (any failure exits non-zero without the final line):
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
      convs); beside the fused GroupNorm-SiLU-conv, which no single call
-     computes, the port's own unfused pair (group_norm + conv2d), and beside
-     the GEGLU the port's unfused feed-forward on cuBLAS; beside the
+     computes, the port's own unfused pair (group_norm + conv2d), beside
+     the GEGLU the port's unfused feed-forward on cuBLAS, and beside the
+     fused cross-attention its unfused chain (cuBLAS, SDPA, cuBLAS); beside the
      no-max wrapper's call, its kernel alone (kmax made beforehand); the
      backward timed as its C call (pre-pass, kernel and dQ epilogue), its
      wrapper's call beside;
@@ -497,29 +500,66 @@ def _case_self(gen, n, c, with_bias, b=UNET_BATCH, timed=True):
             res, detail)
 
 
-def _case_cross(gen, n, c, b=UNET_BATCH):
+def _case_cross(gen, n, c, b=UNET_BATCH, h=8, timed=True):
+    """B2 (one C call: the q-attention and out kernels) against its plain
+    version; its launch count must rise by one a call. `kernel_ms` is the
+    wrapper's call, `kernel_only_ms` its C call alone on allocated operands
+    (where the wrapper's host work exceeds the kernels' time, back-to-back
+    wrapper calls measure the host). No single PyTorch call
+    computes it (library_ms None); `unfused_ms` is the chain of library calls
+    it fuses, the time to beat: F.linear(x, wq) -> SDPA over the 77 keys
+    ([B, H, S, hd] views of k and v) -> F.linear(o, wo, bo), in bf16."""
     import torch
+    import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
-    h, s = 8, 77
+    s = 77
+    hd = c // h
     bf = torch.bfloat16
     x = torch.randn(b, n, c, device="cuda", generator=gen).to(bf)
     w = lambda: ((torch.rand(c, c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)).to(bf)
     wq, wo = w(), w()
-    k = torch.randn(b, s, h, c // h, device="cuda", generator=gen).to(bf)
-    v = torch.randn(b, s, h, c // h, device="cuda", generator=gen).to(bf)
+    k = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(bf)
+    v = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(bf)
     bo = (torch.rand(c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)
-    scale = (c // h) ** -0.5
+    scale = hd ** -0.5
     args = (x, wq, k, v, wo, bo, scale, h)
+    before = A.fused_cross_attention.launches
     out = A.fused_cross_attention(*args)
+    if A.fused_cross_attention.launches != before + 1:
+        raise AssertionError(f"fused_cross_attention counted "
+                             f"{A.fused_cross_attention.launches - before} launches for one call")
     ref = A.fused_cross_attention_reference(*args)
     err, mag, ok = _compare(out, ref, 2e-2)
-    res = {"kernel_ms": time_ms(lambda: A.fused_cross_attention(*args), 10),
-           "plain_ms": time_ms(lambda: A.fused_cross_attention_reference(*args), 3),
-           "library_ms": None}
+    bo16 = bo.to(bf)
+
+    def unfused():
+        q = F.linear(x, wq).view(b, n, h, hd).transpose(1, 2)
+        o = F.scaled_dot_product_attention(q, k.transpose(1, 2), v.transpose(1, 2), scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(b, n, c), wo, bo16)
+
+    o, out2 = torch.empty_like(x), torch.empty_like(x)
+    call = lambda: A.fused_cross_kernel_call(x, wq, k, v, wo, bo, o, out2, scale, h)
+
+    nan = float("nan")
+    res = {"kernel_ms": time_ms(lambda: A.fused_cross_attention(*args), 10) if timed else nan,
+           "kernel_only_ms": time_ms(call, 20) if timed else nan,
+           "plain_ms": time_ms(lambda: A.fused_cross_attention_reference(*args), 3)
+           if timed else nan,
+           "library_ms": None,
+           "unfused_ms": time_ms(unfused, 10) if timed else nan}
     flops = b * n * (4 * c * c + 4 * s * c)
     nbytes = 2 * b * n * c * 2 + 2 * c * c * 2 + 2 * b * s * c * 2 + c * 4
     res.update(_bound(flops, nbytes, exps=b * h * n * s))
-    return f"fused_cross_attention C={c} N={n} B={b}", err, mag, 2e-2, ok, res, ""
+    detail = f"kernel_only_ms={res['kernel_only_ms']:.4f} unfused_ms={res['unfused_ms']:.4f}"
+    return f"fused_cross_attention C={c} N={n} B={b} H={h}", err, mag, 2e-2, ok, res, detail
+
+
+# B2's ragged cases (B, N, C, H), checked untimed: rows across the row-tile
+# edges (N = 70, 100, 127, 129, 300), head dims 8, 12 (not a multiple of 8:
+# K/V and o through 2-byte accesses), 32, 64 (one head) and 160, B = 3
+CROSS_RAGGED = ((2, 100, 64, 2), (1, 512, 320, 8), (1, 70, 1280, 8), (4, 127, 320, 8),
+                (4, 129, 320, 8), (2, 100, 96, 8), (2, 100, 64, 1), (3, 300, 640, 8),
+                (2, 65, 64, 8))
 
 
 def _case_geglu(gen, m, c, timed=True):
@@ -738,10 +778,33 @@ def geglu_resources():
     for m, c in ((UNET_BATCH * 4096, 320), (UNET_BATCH * 1024, 640)):
         info = (ctypes.c_int * 14)()
         cuda_build.check(fn(m, c, 4 * c, ctypes.addressof(info)), "geglu_describe")
-        for name, i in (("geglu_proj_kernel", info[:7]), ("geglu_out_kernel", info[7:])):
-            log(f"kernel geglu_fwd {name} C={c} M={m}: {i[0]} registers a thread, {i[1]} B "
-                f"shared memory a block, {i[2]} x {i[3]} tile, {i[4]} blocks an SM, {i[5]} blocks "
-                f"in the grid, {i[6]} B local memory a thread")
+        _log_two_kernels("geglu_fwd", ("geglu_proj_kernel", "geglu_out_kernel"), f"C={c} M={m}",
+                         info)
+
+
+def _log_two_kernels(wrapper, names, shape, info):
+    """One line per kernel of a two-kernel C call from its describe entry's
+    info[0..13] (seven values a kernel)."""
+    for name, i in zip(names, (info[:7], info[7:])):
+        log(f"kernel {wrapper} {name} {shape}: {i[0]} registers a thread, {i[1]} B shared "
+            f"memory a block, {i[2]} x {i[3]} tile, {i[4]} blocks an SM, {i[5]} blocks in the "
+            f"grid, {i[6]} B local memory a thread")
+
+
+def cross_resources():
+    """Log B2's two kernels' resources at its four main-path shapes, from the
+    runtime: registers a thread, shared memory a block, the tile, resident
+    blocks an SM, blocks in the grid, local memory a thread."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("fused_cross_attention", "fused_cross_describe",
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for b, n, c in ((UNET_BATCH, 4096, 320), (UNET_BATCH, 1024, 640), (2, 4096, 320),
+                    (2, 1024, 640)):
+        info = (ctypes.c_int * 14)()
+        cuda_build.check(fn(b, n, c, 8, ctypes.addressof(info)), "fused_cross_describe")
+        _log_two_kernels("fused_cross_attention", ("cross_q_attn_kernel", "cross_out_kernel"),
+                         f"C={c} N={n} B={b}", info)
 
 
 def phase_kernels():
@@ -750,6 +813,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_resources()
     geglu_resources()
+    cross_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -804,6 +868,9 @@ def phase_kernels():
                       lambda s=(h, c, o): _case_gn_conv(gen, 4, *s, 0.0)))
     for m_, c_ in GEGLU_RAGGED:
         cases.append(("geglu_fwd", (), lambda a=(m_, c_): _case_geglu(gen, *a, timed=False)))
+    for b_, n_, c_, h_ in CROSS_RAGGED:
+        cases.append(("fused_cross_attention", (), lambda a=(n_, c_, b_, h_): _case_cross(
+            gen, *a, timed=False)))
     # the two plain convs run on no path (wired nowhere, as in the JAX package)
     for fn_name in ("conv3x3_halo", "conv3x3_im2col"):
         for shape in ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),

@@ -164,6 +164,36 @@ def test_fused_cross_matches_pallas(c, heads, n):
     assert_close(out_t, out_j, atol=2e-5)   # fp32; different summation order
 
 
+@pytest.mark.parametrize("c,heads,n", [(80, 2, 128), (160, 2, 64), (80, 2, 100)])
+def test_fused_cross_bf16_matches_pallas(c, heads, n):
+    """The plain version the kernel is held to on the card, in bf16 against
+    the Pallas kernel (interpret mode) in bf16: both round q, the normalized
+    probabilities and the concatenated o to bf16, so they agree to within one
+    bf16 step of the output's magnitude (2**-8 max|ref|); head dims 40 and
+    80, N = 100 ragged."""
+    rng = np.random.default_rng(c + n + 1)
+    b, s = 2, 77
+    hd = c // heads
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    x = bf(rng.standard_normal((b, n, c)))
+    wq = bf(rng.uniform(-1, 1, (c, c)) / np.sqrt(c))     # JAX [in, out]
+    wo = bf(rng.uniform(-1, 1, (c, c)) / np.sqrt(c))
+    bo = rng.uniform(-0.1, 0.1, (c,)).astype(np.float32)
+    k = bf(rng.standard_normal((b, s, heads, hd)))
+    v = bf(rng.standard_normal((b, s, heads, hd)))
+    scale = hd ** -0.5
+    j16 = lambda a: jnp.asarray(a, jnp.bfloat16)
+    out_j = jattn.fused_cross_attention(j16(x), j16(wq), j16(k), j16(v), j16(wo),
+                                        jnp.asarray(bo), scale, heads, interpret=True)
+    t16 = lambda a: t(a).to(torch.bfloat16)
+    out_t = tattn.fused_cross_attention(t16(x), t16(wq.T), t16(k), t16(v), t16(wo.T), t(bo),
+                                        scale, heads)
+    assert out_t.dtype == torch.bfloat16
+    ref = np.asarray(out_j.astype(jnp.float32))
+    diff = np.abs(out_t.float().numpy() - ref).max()
+    assert diff <= 2.0 ** -8 * np.abs(ref).max(), diff
+
+
 @pytest.mark.parametrize("with_key_bias", [False, True])
 def test_dot_product_attention_causal_matches_jax(with_key_bias):
     rng = np.random.default_rng(3)

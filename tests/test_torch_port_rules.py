@@ -325,16 +325,57 @@ def test_flash_backward_source_structure():
 
 
 def test_geglu_source_structure():
-    """B3 is built on the Hopper helpers of flash_sm90.cuh (cp.async,
-    ldmatrix, mma.sync), not on WMMA; its library's name hashes that header;
-    its C call and its describe function are there."""
+    """B3 is built on the block-GEMM main loop of block_gemm.cuh, over the
+    Hopper helpers of flash_sm90.cuh (cp.async, ldmatrix, mma.sync), not on
+    WMMA; its library's name hashes both headers; its C call and its
+    describe function are there."""
     from adaprompt_tpu_torch.ops import cuda_build
     src = (cuda_build.CSRC / "geglu.cu").read_text()
-    assert '#include "flash_sm90.cuh"' in src
+    assert '#include "block_gemm.cuh"' in src
+    assert '#include "flash_sm90.cuh"' in (cuda_build.CSRC / "block_gemm.cuh").read_text()
     assert "wmma::" not in src and "<mma.h>" not in src
-    assert [p.name for p in cuda_build.source_files("geglu")] == ["geglu.cu", "flash_sm90.cuh"]
+    assert "struct BlockGemm" not in src and "struct Staging" not in src
+    assert sorted(p.name for p in cuda_build.source_files("geglu")) == [
+        "block_gemm.cuh", "flash_sm90.cuh", "geglu.cu"]
     for fn in ("geglu_fwd", "geglu_describe"):
         assert f'extern "C" int {fn}(' in src
+
+
+def test_fused_cross_source_structure():
+    """B2 is built on the same block-GEMM main loop and Hopper helpers as
+    B3, not on WMMA; its library's name hashes both headers; its C call and
+    its describe function are there, and no `fused_cross_kernel` is left for
+    the profile to file."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "fused_cross_attention.cu").read_text()
+    assert '#include "block_gemm.cuh"' in src
+    assert "wmma::" not in src and "<mma.h>" not in src
+    assert "\nfused_cross_kernel(" not in src
+    assert sorted(p.name for p in cuda_build.source_files("fused_cross_attention")) == [
+        "block_gemm.cuh", "flash_sm90.cuh", "fused_cross_attention.cu"]
+    for fn in ("fused_cross_attention_fwd", "fused_cross_describe"):
+        assert f'extern "C" int {fn}(' in src
+    for kernel in ("cross_q_attn_kernel", "cross_out_kernel"):
+        assert f"\n{kernel}(" in src
+
+
+@pytest.mark.parametrize("shape", [dict(c=72), dict(keys=81), dict(c=320, heads=1),
+                                   dict(c=336, heads=2)])
+def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
+    """Off the CPU the wrapper names a shape that the kernels cannot take (C
+    not a multiple of 16, more than 80 keys, a head dim over 160) before it
+    reaches the C call; 77 keys and head dims up to 160 pass on to it."""
+    c, heads, keys = shape.get("c", 64), shape.get("heads", 2), shape.get("keys", 77)
+    hd = c // heads
+    meta = lambda *s: torch.empty(*s, device="meta")
+    args = (meta(2, 10, c), meta(c, c), meta(2, keys, heads, hd), meta(2, keys, heads, hd),
+            meta(c, c), meta(c), hd ** -0.5, heads)
+    with pytest.raises(ValueError, match=f"{c}" if c % 16 else f"head dim {hd} and {keys} keys"):
+        tattn.fused_cross_attention(*args)
+    ok = (meta(2, 10, 320), meta(320, 320), meta(2, 77, 2, 160), meta(2, 77, 2, 160),
+          meta(320, 320), meta(320), 160 ** -0.5, 2)
+    with pytest.raises(TypeError, match="CUDA"):
+        tattn.fused_cross_attention(*ok)
 
 
 @pytest.mark.parametrize("name,label", [
@@ -343,10 +384,17 @@ def test_geglu_source_structure():
     ("_ZN12_GLOBAL__N_116geglu_out_kernelEPK13__nv_bfloat16S2_PKfPS0_iii", "geglu_fwd"),
     ("_ZN12_GLOBAL__N_117geglu_int8_kernelEPK13__nv_bfloat16PKaPKfS6_S4_S6_S6_PS0_iii",
      "geglu_int8"),
-    ("flash_fwd_kernel<5, false>", "flash_attention_fwd")])
+    ("flash_fwd_kernel<5, false>", "flash_attention_fwd"),
+    ("void (anonymous namespace)::cross_q_attn_kernel<48>(__nv_bfloat16 const*, int, float)",
+     "fused_cross_attention"),
+    ("_ZN12_GLOBAL__N_116cross_out_kernelEPK13__nv_bfloat16S2_PKfPS0_ii",
+     "fused_cross_attention"),
+    ("_ZN12_GLOBAL__N_123fused_cross_int8_kernelEPK13__nv_bfloat16PKaPKfS2_S2_S4_S6_S6_PS0_iiiiif",
+     "fused_cross_attention_int8")])
 def test_profile_step_classes_kernels_by_name(name, label):
     """The profile's kernel classes: both of B3's kernels count as its
-    wrapper's, the int8 GEGLU kernel as its own."""
+    wrapper's, as both of B2's count as B2's; the int8 GEGLU and the int8
+    cross-attention kernels as their own."""
     from adaprompt_tpu_torch.profile_step import kernel_class
     assert kernel_class(name) == label
 
@@ -459,8 +507,14 @@ def test_flash_kernel_ragged_shapes(b, sq, sk, h, d, bias, exp2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c,h", [(2, 100, 64, 2), (1, 512, 320, 8), (1, 70, 1280, 8)])
+@pytest.mark.parametrize("b,n,c,h", [(2, 100, 64, 2), (1, 512, 320, 8), (1, 70, 1280, 8),
+                                     (4, 127, 320, 8), (4, 129, 320, 8), (2, 100, 96, 8),
+                                     (2, 100, 64, 1), (3, 300, 640, 8)])
 def test_fused_cross_kernel_ragged_shapes(b, n, c, h):
+    """Rows across the q kernel's 128- and 64-row tile edges (N = 127, 129),
+    a head dim that is not a multiple of 8 (12: K/V and o through 2-byte
+    accesses), one head (hd = C = 64), head dim 160 and B = 3; one launch
+    counted a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(n + c)
@@ -468,8 +522,10 @@ def test_fused_cross_kernel_ragged_shapes(b, n, c, h):
     args = (rn(b, n, c).bfloat16(), (rn(c, c) / c ** 0.5).bfloat16(),
             rn(b, 77, h, c // h).bfloat16(), rn(b, 77, h, c // h).bfloat16(),
             (rn(c, c) / c ** 0.5).bfloat16(), rn(c) / 8, (c // h) ** -0.5, h)
+    before = tattn.fused_cross_attention.launches
     _assert_near(tattn.fused_cross_attention(*args),
                  tattn.fused_cross_attention_reference(*args), 2e-2)
+    assert tattn.fused_cross_attention.launches == before + 1
 
 
 @pytest.mark.cuda
