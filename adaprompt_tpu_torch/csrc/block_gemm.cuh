@@ -1,6 +1,7 @@
 // A block-GEMM main loop for Hopper (sm_90a) and its epilogue's staging
 // tile, shared by the port's two-kernel feed-forward (csrc/geglu.cu) and
-// cross-attention (csrc/fused_cross_attention.cu).
+// cross-attention (csrc/fused_cross_attention.cu); and its int8 sibling
+// BlockGemmS8, the main loop of the w8a8 feed-forward (csrc/geglu_int8.cu).
 //
 // BlockGemm computes one BM x BN tile of C = A.B^T, with A [M, K] and B [N, K]
 // both K-contiguous bf16 and the sums in fp32: WM x WN warps, each holding
@@ -13,6 +14,13 @@
 // loop ends with the ring drained and a block barrier, so the epilogue may
 // reuse the ring's shared memory: Staging packs bf16 results into it and
 // writes them out in 16-byte row pieces.
+//
+// BlockGemmS8 is the same main loop for int8 operands with exact int32 sums
+// (mma.m16n8k32 s8 x s8 -> s32), counted in bytes: a 16-byte unit holds 16
+// int8 values, a ring row is BK bytes padded by one unit, and one k step of
+// the tensor cores is 32 deep. On K-contiguous rows the A and B fragments of
+// m16n8k32 lie in 16-byte rows exactly as those of m16n8k16 do, so ldmatrix
+// fetches them with the same addressing; k steps wholly past K are skipped.
 //
 // What it leaves for later: wgmma and TMA, and a persistent grid whose next
 // tile's loads overlap this tile's epilogue. Header-only, on the helpers of
@@ -141,7 +149,7 @@ struct BlockGemm {
 template <class Gemm, int COLS>
 struct Staging {
   static constexpr int ROW = padded_row(COLS);
-  static_assert(Gemm::BM * ROW <= Gemm::STAGES * Gemm::STAGE, "the tile fits the ring");
+  static_assert(Gemm::BM * ROW * 2 <= Gemm::SMEM, "the tile fits the ring");   // bytes
 
   // out's values (v0, v1) at (row, col), col even
   static __device__ __forceinline__ void put(bf16* Ts, int row, int col, float v0, float v1) {
@@ -161,6 +169,123 @@ struct Staging {
         *reinterpret_cast<uint4*>(dst + (long)(m0 + r) * ld + n0 + c) =
             *reinterpret_cast<const uint4*>(Ts + r * ROW + c);
     }
+  }
+};
+
+// d += a . b on the int8 tensor cores: [16x32] s8 x [32x8] s8 -> [16x8] s32.
+// Fragments as m16n8k16's, each 32-bit register holding four int8 values
+// along k: a0 (row g, k 4t..4t+3), a1 (row g+8), a2, a3 (k + 16); b0 (k
+// 4t..4t+3, col g), b1 (k + 16); d as the fp32 C fragment.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block tile of C = A.B^T for int8 A [M, K] and B [N, K], K contiguous,
+// with int32 sums: BlockGemm's ring and warp layout, BK counted in bytes (=
+// int8 values).
+template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_>
+struct BlockGemmS8 {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, STAGES = STAGES_;
+  static constexpr int NTHREADS = WM * WN * 32;
+  static constexpr int SROW = BK + 16;                     // ring row stride (bytes)
+  static constexpr int MT = BM / WM / 16;                  // m16 tiles a warp
+  static constexpr int NT = BN / WN / 8;                   // n8 tiles a warp
+  static constexpr int UNITS = BK / 16;                    // 16-byte units a ring row
+  static constexpr int ROWS_A_PASS = NTHREADS / UNITS;     // rows one pass of the block copies
+  static constexpr int A_LOADS = BM / ROWS_A_PASS;         // 16-byte units a thread a stage
+  static constexpr int B_LOADS = BN / ROWS_A_PASS;
+  static constexpr int STAGE = (BM + BN) * SROW;           // bytes a ring stage
+  static constexpr int SMEM = STAGES * STAGE;              // bytes
+  // BK a multiple of 32: whole k steps, and an odd number of 16-byte units a
+  // padded row, so that ldmatrix is free of bank conflicts
+  static_assert(BK % 32 == 0 && NT % 2 == 0 && A_LOADS * ROWS_A_PASS == BM
+                && B_LOADS * ROWS_A_PASS == BN, "tile shape");
+
+  // As BlockGemm::Rows: src[i] points at this thread's 16-byte unit of k tile 0
+  template <int N>
+  struct Rows {
+    const int8_t* src[N];
+    bool ok[N];
+  };
+  using ARows = Rows<A_LOADS>;
+  using BRows = Rows<B_LOADS>;
+
+  static __device__ __forceinline__ int row_of(int tid, int i) {
+    return tid / UNITS + ROWS_A_PASS * i;
+  }
+  static __device__ __forceinline__ int col_of(int tid) { return (tid % UNITS) * 16; }
+
+  static __device__ __forceinline__ void load_stage(int8_t* st, const ARows& a, const BRows& b,
+                                                    int k0, int K, int tid) {
+    const int c = col_of(tid);
+    const bool kok = k0 + c < K;
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const bool ok = a.ok[i] && kok;
+      cp_async_16(smem_addr(st + row_of(tid, i) * SROW + c), a.src[i] + (ok ? k0 : 0), ok);
+    }
+    int8_t* Bs = st + BM * SROW;
+#pragma unroll
+    for (int i = 0; i < B_LOADS; ++i) {
+      const bool ok = b.ok[i] && kok;
+      cp_async_16(smem_addr(Bs + row_of(tid, i) * SROW + c), b.src[i] + (ok ? k0 : 0), ok);
+    }
+  }
+
+  // acc = A . B^T over K for the warp's 16*MT rows and 8*NT B rows, as
+  // BlockGemm::mainloop; ends with the ring drained and a block barrier.
+  static __device__ __forceinline__ void mainloop(int (&acc)[MT][NT][4], int8_t* smem,
+                                                  const ARows& a, const BRows& b, int K,
+                                                  int tid) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int arow = (warp / WN) * MT * 16, brow = (warp % WN) * NT * 8;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+    const int KT = (K + BK - 1) / BK;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < KT) load_stage(smem + s * STAGE, a, b, s * BK, K, tid);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<STAGES - 2>();       // k tile kt has landed (this thread's copies)
+      __syncthreads();                   // ... every thread's; and stage kt-1 is read
+      const int next = kt + STAGES - 1;
+      if (next < KT) load_stage(smem + (next % STAGES) * STAGE, a, b, next * BK, K, tid);
+      cp_async_commit();
+      const int8_t* As = smem + (kt % STAGES) * STAGE;
+      const int8_t* Bs = As + BM * SROW;
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        if (kt * BK + kk * 32 >= K) break;   // the ragged last tile: only zeros left
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(af[mt], smem_addr(As + (arow + mt * 16 + lane % 16) * SROW + kk * 32
+                                        + lane / 16 * 16));
+#pragma unroll
+        for (int j2 = 0; j2 < NT / 2; ++j2) {
+          uint32_t bf[4];                // B fragments of n8 tiles 2*j2, 2*j2+1
+          ldmatrix_x4(bf, smem_addr(Bs + (brow + j2 * 16 + lane % 8 + lane / 16 * 8) * SROW
+                                    + kk * 32 + (lane / 8) % 2 * 16));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_s8_16832(acc[mt][2 * j2], af[mt], bf[0], bf[1]);
+            mma_s8_16832(acc[mt][2 * j2 + 1], af[mt], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
   }
 };
 

@@ -1,4 +1,5 @@
-// w8a8 fused GEGLU feed-forward for Hopper (sm_90a), forward only:
+// w8a8 fused GEGLU feed-forward for Hopper (sm_90a), forward only, as four
+// kernels in one C call:
 //   x_q, xs = quant_row(x);  h = int(x_q . W1_q^T) * xs * s1 + b1   (fp32)
 //   (a, gate) = split(h);  g = a * gelu_erf(gate)                      (fp32)
 //   g_q, gs = quant_row(g);  out = int(g_q . W2_q^T) * gs * s2 + b2
@@ -11,52 +12,91 @@
 // channel scales s1 [2F], s2 [C] f32 (quant.quantize_weight); b1 [2F],
 // b2 [C] f32; out [M, C] bf16.
 //
-// What bounds it: 24*M*C^2 int8 operations (F = 4C) against 4*M*C bytes
-// of activations plus 12*C^2 bytes of int8 weights: far above the H100's
-// ridge point, so the tensor cores bound it (1979 TOPS int8 dense).
+// What bounds it: 6*M*C*F int8 operations (F = 4C) against x, out and the
+// int8 weights: ~1,700 operations a byte at C=320 M=8192, far above the
+// card's int8 ridge (~590), so the tensor cores bound the function (1979
+// TOPS int8 dense). The split below adds g's fp32 round trip and g_q's
+// (~105 MB at the main shapes, ~0.03 ms at the rate of device memory, which
+// the g pass runs at): that is what the split costs.
 //
-// Design. Unlike the bf16 kernel (csrc/geglu.cu), which folds each 64-wide
-// chunk of g into the output as it goes, g must be quantized per row over
-// all F columns before the second product can start, so a block holds the
-// whole fp32 g of its rows in shared memory: tm x F floats (160 KB at
-// tm=16, F=2560; tm=32 where it fits, i.e. C=320). g is quantized from that
-// fp32 value, never from a bf16 copy. Both products use the int8 tensor
-// cores through mma.sync m16n8k32 (s8 x s8 -> s32): A fragments from the
-// int8 tiles in shared memory (rows padded by 16 bytes so the fragment
-// loads hit distinct banks), B fragments read as 32-bit words straight from
-// the weights in global memory (L2), each warp owning 16x8 output tiles.
-// The int32 sums are exact; the scales are true divisions and the
-// dequantization uses explicitly rounded multiplies and adds (no FMA
-// contraction), as the plain version's separate tensor operations round,
-// so that from the same input the int8 x and h equal the plain version's.
-// A TMA/wgmma pipeline that stages the weights once per block is later work.
+// Why it splits at g's quantization. The TPU kernel keeps h and g of its
+// rows in VMEM. Here one kernel would have to hold a row's whole fp32 g
+// before quantizing it, since g's scale is the maximum over all F columns
+// (42 MB of g at C=320 M=8192): a block could hold it for 16-32 rows only,
+// and every such block re-read all of W1_q and W2_q from L2. So the call is
+// split where the packages themselves take that maximum, into two products
+// on one int8 block-GEMM (BlockGemmS8 of block_gemm.cuh: a cp.async ring of
+// A and B tiles 128 bytes deep in K, rows padded to an odd number of 16-byte
+// units, ldmatrix fragments and mma.sync.m16n8k32 s8 x s8 -> s32) and two
+// row passes:
+//   * geglu_int8_quant_x_kernel: x_q [M, C] int8 and xs [M], a warp a row;
+//   * geglu_int8_proj_kernel: a 128 x 128 tile of h = x_q . W1_q^T (K = C),
+//     its B rows W1_q's a- and gate-halves interleaved in groups of 32, as
+//     geglu.cu's proj kernel has them, so that each thread holds a and gate
+//     of the same (row, column); the epilogue dequantizes, forms g in fp32,
+//     writes it to a g [M, F] fp32 scratch and each warp's max|g| of each
+//     row over its 32 columns to pmax [M, F / 32]. Two blocks an SM, so that
+//     one block's erff epilogue runs beside the other's products;
+//   * geglu_int8_quant_g_kernel: gs from the row's F / 32 partial maxima
+//     (max is exact in any order, and nothing needs zeroing between calls),
+//     then g_q [M, F] int8 from g read in 16-byte units, a warp a row;
+//   * geglu_int8_out_kernel: a 128 x 160 tile of out = g_q . W2_q^T (K = F),
+//     one block an SM, or 64 x 160, two an SM, where the 128-row grid would
+//     leave more than half the SMs idle (the serving stack's batch-2 steps);
+//     dequantized, rounded to bf16, staged in the ring's shared memory and
+//     stored in 16-byte row pieces.
+// Both product grids put the column tiles of one row tile next to each other
+// in launch order, so x_q's and g_q's rows are re-read while still in L2. The
+// last three kernels are launched as programmatic dependents of the one
+// before, which hides most of the gap between two launches.
+//
+// What bounds it on the card (tools/geglu_int8_tiles.py times each kernel):
+// the proj kernel's epilogue (exact erff, two conversions and the dequant
+// arithmetic for each of the M*F values of g: at C=640, with twice C=320's
+// products, it takes ~0.02 ms more, so its fixed part at M*F = 10.5 M is the
+// epilogue's), then the g pass, which moves g at the rate of device memory.
+//
+// Exactness. The int32 sums are exact; the scales are true divisions
+// (__fdiv_rn), quantization rounds half to even (rintf) from the fp32 value,
+// and the dequantization multiplies and adds are rounded each on its own
+// (__fmul_rn, __fadd_rn: no FMA contraction), as the plain version's
+// separate tensor operations round. So from the same input the int8 x, h, g
+// and g's scale equal the plain version's, and g is never rounded to bf16.
+// Ragged edges: rows past M and 16-byte units past K are zero-filled by
+// cp.async in both operands and never stored; columns of out past C
+// likewise. The wrapper gives one workspace (geglu_int8_workspace bytes) for
+// x_q, xs, g, pmax, g_q and gs.
+//
+// Left for later: quantizing g inside the out kernel's staging (one fp32
+// read of g, no g_q round trip: ~21 MB less traffic a call at the main
+// shapes), wgmma with TMA, and a persistent grid whose next tile's loads
+// overlap this tile's epilogue (one walking the proj tiles with the next
+// tile's first k tiles in flight gained nothing measurable here).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "block_gemm.cuh"
+#include "flash_sm90.cuh"
+
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 16;            // bytes added to each int8 row
-constexpr int FPAD = 8;            // floats added to each row of g
-constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90
+using namespace block_gemm;
+using namespace flash_sm90;
+using bf16 = __nv_bfloat16;
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-struct Layout {          // shared-memory carve-up, byte offsets (128-aligned)
-  int gf, gq, xq, xs, gs, total;
-  __host__ __device__ Layout(int tm, int C, int F) {
-    int off = 0;
-    gf = off; off += round_up(tm * (F + FPAD) * 4, 128);   // fp32 g; first the bf16 x tile
-    gq = off; off += round_up(tm * (F + PAD), 128);        // int8 g
-    xq = off; off += round_up(tm * (C + PAD), 128);        // int8 x
-    xs = off; off += round_up(tm * 4, 128);                // per-row scale of x
-    gs = off; off += round_up(tm * 4, 128);                // per-row scale of g
-    total = off;
-  }
+using Proj = BlockGemmS8<128, 128, 128, 4, 2, 3>;   // tiles of h: 64 g columns
+struct Out : BlockGemmS8<128, 160, 128, 4, 2, 4> {      // tiles of out
+  static constexpr int MIN_BLOCKS = 1;                   // resident blocks an SM (launch bounds)
 };
+struct OutThin : BlockGemmS8<64, 160, 128, 4, 2, 3> {   // ... where Out's grid is thin
+  static constexpr int MIN_BLOCKS = 2;
+};
+constexpr int PROJ_MIN_BLOCKS = 2;
+constexpr int GCOLS = Proj::BN / 2;                      // g columns a proj tile
+constexpr int GRP = Proj::NT / 2 * 8;                    // g columns a proj warp
+constexpr int RWARPS = 8;                                // warps a block of the row passes
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -68,41 +108,15 @@ __device__ __forceinline__ float row_scale(float absmax) {
   return __fadd_rn(__fdiv_rn(absmax, 127.f), 1e-8f);
 }
 
-__device__ __forceinline__ int8_t quantize(float v, float sc) {
+__device__ __forceinline__ uint32_t quantize(float v, float sc) {
   const float q = fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.f), 127.f);
-  return static_cast<int8_t>(static_cast<int>(q));
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
 }
 
-// c[16x8] += A[16x32] . B[32x8], int8 operands, int32 sums
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows [0,16), columns [0,32) of an int8 tile with row stride lda
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const int8_t* A, int lda, int lane) {
-  const int8_t* p = A + (lane >> 2) * lda + (lane & 3) * 4;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 16);
-}
-
-// acc = A[16, K] . W[n0:n0+8, 0:K]^T; A int8 in shared memory, W int8 [*, K] global
-__device__ __forceinline__ void tile_s8(int (&acc)[4], const int8_t* A, int lda,
-                                        const int8_t* __restrict__ w, int n0, int K, int lane) {
-  const int8_t* wr = w + (long)(n0 + (lane >> 2)) * K + (lane & 3) * 4;
-#pragma unroll 4
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    uint32_t a[4];
-    load_a(a, A + k0, lda, lane);
-    mma_s8(acc, a, __ldg(reinterpret_cast<const unsigned int*>(wr + k0)),
-           __ldg(reinterpret_cast<const unsigned int*>(wr + k0 + 16)));
-  }
+// four values quantized and packed, the first in the low byte
+__device__ __forceinline__ uint32_t quantize4(float v0, float v1, float v2, float v3, float sc) {
+  return quantize(v0, sc) | quantize(v1, sc) << 8 | quantize(v2, sc) << 16
+         | quantize(v3, sc) << 24;
 }
 
 // (acc * row scale) * column scale + bias, each rounded on its own
@@ -110,103 +124,401 @@ __device__ __forceinline__ float dequant(int acc, float rs, float cs, float bias
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), bias);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-geglu_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
-                  const float* __restrict__ s1, const float* __restrict__ b1,
-                  const int8_t* __restrict__ w2, const float* __restrict__ s2,
-                  const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                  int M, int C, int F, int tm) {
-  const Layout L(tm, C, F);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Gf = reinterpret_cast<float*>(smem + L.gf);
-  int8_t* Gq = reinterpret_cast<int8_t*>(smem + L.gq);
-  int8_t* Xq = reinterpret_cast<int8_t*>(smem + L.xq);
-  float* Xs = reinterpret_cast<float*>(smem + L.xs);
-  float* Gs = reinterpret_cast<float*>(smem + L.gs);
-  __nv_bfloat16* Xb = reinterpret_cast<__nv_bfloat16*>(smem + L.gf);   // until g is written
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * tm;
-  const int ldx = C + PAD, ldf = F + FPAD, ldg = F + PAD;
-  const int rtiles = tm / 16;
+__device__ __forceinline__ float geglu_value(float a, float gate) {
+  return a * (gate * 0.5f * (1.f + erff(gate * 0.70710678118654752f)));
+}
 
-  // x tile (rows past M are zero: their scale is 1e-8 and their values 0)
-  const int chunks = C / 8;
-  for (int i = tid; i < tm * chunks; i += NTHREADS) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (m0 + r < M) val = *reinterpret_cast<const uint4*>(x + (long)(m0 + r) * C + c);
-    *reinterpret_cast<uint4*>(Xb + r * C + c) = val;
-  }
-  __syncthreads();
-  for (int r = warp; r < tm; r += NWARPS) {
-    float mx = 0.f;
-    for (int c = lane; c < C; c += 32) mx = fmaxf(mx, fabsf(__bfloat162float(Xb[r * C + c])));
-    const float sc = row_scale(warp_max(mx));
-    if (lane == 0) Xs[r] = sc;
-    for (int c = lane; c < C; c += 32) Xq[r * ldx + c] = quantize(__bfloat162float(Xb[r * C + c]), sc);
-  }
-  __syncthreads();
+// Programmatic dependent launch (sm_90): the three kernels after the first
+// are launched so that the card may set each up while its predecessor on the
+// stream ends (launch_after); each waits for its predecessor's results before
+// it reads them (without the launch attribute the wait does nothing). No
+// kernel lets its successor start early: blocks placed early crowd onto the
+// SMs that free up first.
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
-  // g [tm, F]: for each 16x8 tile, the a- and the gate-columns side by side
-  const int g_r = lane >> 2, g_c = (lane & 3) * 2;
-  const int ftiles = F / 8;
-  for (int t = warp; t < rtiles * ftiles; t += NWARPS) {
-    const int rt = t / ftiles, n0 = (t % ftiles) * 8;
-    int acc_a[4] = {0, 0, 0, 0}, acc_g[4] = {0, 0, 0, 0};
-    tile_s8(acc_a, Xq + rt * 16 * ldx, ldx, w1, n0, C, lane);
-    tile_s8(acc_g, Xq + rt * 16 * ldx, ldx, w1, F + n0, C, lane);
+// The scratch carved out of the caller's workspace, byte offsets (256-aligned)
+struct Workspace {
+  size_t xq, xs, g, pmax, gq, gs, total;
+  Workspace(int M, int C, int F) {
+    size_t off = 0;
+    auto take = [&off](size_t bytes) {
+      const size_t at = off;
+      off += (bytes + 255) / 256 * 256;
+      return at;
+    };
+    xq = take((size_t)M * C);                  // x_q [M, C] int8
+    xs = take((size_t)M * 4);                  // xs [M] f32
+    g = take((size_t)M * F * 4);               // g [M, F] f32
+    pmax = take((size_t)M * (F / GRP) * 4);    // max|g| a row a proj warp [M, F / GRP] f32
+    gq = take((size_t)M * F);                  // g_q [M, F] int8
+    gs = take((size_t)M * 4);                  // gs [M] f32
+    total = off;
+  }
+};
+
+// eight bf16 values of a 16-byte unit quantized, packed in 8 bytes
+__device__ __forceinline__ uint2 quantize8(const uint4& v, float sc) {
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+  float f[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rt * 16 + g_r + (i >> 1) * 8, c = n0 + g_c + (i & 1);
-      const float a = dequant(acc_a[i], Xs[r], s1[c], b1[c]);
-      const float gt = dequant(acc_g[i], Xs[r], s1[F + c], b1[F + c]);
-      Gf[r * ldf + c] = a * (gt * 0.5f * (1.f + erff(gt * 0.70710678118654752f)));
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < tm; r += NWARPS) {
-    float mx = 0.f;
-    for (int c = lane; c < F; c += 32) mx = fmaxf(mx, fabsf(Gf[r * ldf + c]));
-    const float sc = row_scale(warp_max(mx));
-    if (lane == 0) Gs[r] = sc;
-    for (int c = lane; c < F; c += 32) Gq[r * ldg + c] = quantize(Gf[r * ldf + c], sc);
-  }
-  __syncthreads();
+  for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(e[i]);
+  return make_uint2(quantize4(f[0], f[1], f[2], f[3], sc), quantize4(f[4], f[5], f[6], f[7], sc));
+}
 
-  // out [tm, C] = g_q . W2_q^T, dequantized
-  const int ctiles = C / 8;
-  for (int t = warp; t < rtiles * ctiles; t += NWARPS) {
-    const int rt = t / ctiles, n0 = (t % ctiles) * 8;
-    int acc[4] = {0, 0, 0, 0};
-    tile_s8(acc, Gq + rt * 16 * ldg, ldg, w2, n0, F, lane);
+__device__ __forceinline__ float absmax8(const uint4& v, float mx) {
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rt * 16 + g_r + (i >> 1) * 8, c = n0 + g_c + (i & 1);
-      if (m0 + r < M)
-        out[(long)(m0 + r) * C + c] = __float2bfloat16(dequant(acc[i], Gs[r], s2[c], b2[c]));
-    }
+  for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(__bfloat162float(e[i])));
+  return mx;
+}
+
+// grid ceil(M / RWARPS), a warp a row: xs[r] = max|x[r]| / 127 + 1e-8,
+// x_q[r] = quant(x[r], xs[r]). A lane holds its first XU 16-byte units of
+// the row in registers (all of it up to C = 32 * 8 * XU) and reads the rest
+// twice.
+constexpr int XU = 5;
+__global__ void __launch_bounds__(RWARPS * 32)
+geglu_int8_quant_x_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
+                          float* __restrict__ xs, int M, int C) {
+  const int lane = threadIdx.x % 32, r = blockIdx.x * RWARPS + threadIdx.x / 32;
+  if (r >= M) return;                    // the whole warp
+  const uint4* src = reinterpret_cast<const uint4*>(x + (long)r * C);
+  const int units = C / 8;               // 8 values a 16-byte unit
+  uint4 v[XU];
+  float mx = 0.f;
+#pragma unroll
+  for (int i = 0; i < XU; ++i)
+    if (lane + 32 * i < units) v[i] = src[lane + 32 * i];
+#pragma unroll
+  for (int i = 0; i < XU; ++i)
+    if (lane + 32 * i < units) mx = absmax8(v[i], mx);
+  for (int u = lane + 32 * XU; u < units; u += 32) mx = absmax8(src[u], mx);
+  const float sc = row_scale(warp_max(mx));
+  if (lane == 0) xs[r] = sc;
+  uint2* dst = reinterpret_cast<uint2*>(xq + (long)r * C);
+#pragma unroll
+  for (int i = 0; i < XU; ++i)
+    if (lane + 32 * i < units) dst[lane + 32 * i] = quantize8(v[i], sc);
+  for (int u = lane + 32 * XU; u < units; u += 32) dst[u] = quantize8(src[u], sc);
+}
+
+// grid (F / GCOLS, ceil(M / BM)): g[m0:m0+BM, j0:j0+GCOLS] in fp32 for
+// j0 = GCOLS * blockIdx.x, and pmax[row][j0 / GRP + wn] = max|g| of the row
+// over warp column wn's GRP columns
+__global__ void __launch_bounds__(Proj::NTHREADS, PROJ_MIN_BLOCKS)
+geglu_int8_proj_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                       const int8_t* __restrict__ w1, const float* __restrict__ s1,
+                       const float* __restrict__ b1, float* __restrict__ g,
+                       float* __restrict__ pmax, int M, int C, int F) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * GCOLS, m0 = blockIdx.y * Proj::BM;
+  const int c = Proj::col_of(tid);
+  Proj::ARows a;
+#pragma unroll
+  for (int i = 0; i < Proj::A_LOADS; ++i) {
+    const int r = m0 + Proj::row_of(tid, i);
+    a.ok[i] = r < M;
+    a.src[i] = xq + (long)(a.ok[i] ? r : 0) * C + c;
   }
+  // B row r of the tile: group r / GRP of W1_q's a-half (even groups) or
+  // gate-half (odd), column j0 + (r / (2 GRP)) * GRP + r % GRP of g
+  Proj::BRows b;
+#pragma unroll
+  for (int i = 0; i < Proj::B_LOADS; ++i) {
+    const int r = Proj::row_of(tid, i);
+    const int col = j0 + r / (2 * GRP) * GRP + r % GRP;
+    b.ok[i] = true;
+    b.src[i] = w1 + (long)((r / GRP) % 2 ? F + col : col) * C + c;
+  }
+  wait_for_predecessor();                // x_q, xs
+  int acc[Proj::MT][Proj::NT][4];
+  Proj::mainloop(acc, smem, a, b, C, tid);
+
+  // n8 tile nt < NT/2 of a warp holds a at g columns wn*GRP + nt*8 + (0..7),
+  // tile nt + NT/2 the gate at the same columns
+  const int lane = tid % 32, warp = tid / 32;
+  const int wm = warp / Proj::WN, wn = warp % Proj::WN, q = lane / 4, t = lane % 4;
+  constexpr int HALF = Proj::NT / 2;
+  int row[Proj::MT][2];
+  float rs[Proj::MT][2], mx[Proj::MT][2];
+#pragma unroll
+  for (int mt = 0; mt < Proj::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[mt][h] = m0 + wm * Proj::MT * 16 + mt * 16 + q + 8 * h;
+      rs[mt][h] = row[mt][h] < M ? xs[row[mt][h]] : 0.f;
+      mx[mt][h] = 0.f;
+    }
+#pragma unroll
+  for (int nt = 0; nt < HALF; ++nt) {
+    const int col = j0 + wn * GRP + nt * 8 + 2 * t;
+    const float sa0 = s1[col], sa1 = s1[col + 1], ba0 = b1[col], ba1 = b1[col + 1];
+    const float sg0 = s1[F + col], sg1 = s1[F + col + 1];
+    const float bg0 = b1[F + col], bg1 = b1[F + col + 1];
+#pragma unroll
+    for (int mt = 0; mt < Proj::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float r_s = rs[mt][h];
+        const float g0 = geglu_value(dequant(acc[mt][nt][2 * h], r_s, sa0, ba0),
+                                     dequant(acc[mt][nt + HALF][2 * h], r_s, sg0, bg0));
+        const float g1 = geglu_value(dequant(acc[mt][nt][2 * h + 1], r_s, sa1, ba1),
+                                     dequant(acc[mt][nt + HALF][2 * h + 1], r_s, sg1, bg1));
+        mx[mt][h] = fmaxf(mx[mt][h], fmaxf(fabsf(g0), fabsf(g1)));
+        if (row[mt][h] < M)
+          *reinterpret_cast<float2*>(g + (long)row[mt][h] * F + col) = make_float2(g0, g1);
+      }
+  }
+  const int np = F / GRP;
+#pragma unroll
+  for (int mt = 0; mt < Proj::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m = quad_max(mx[mt][h]);   // the quad's four lanes share the row
+      if (t == 0 && row[mt][h] < M) pmax[(long)row[mt][h] * np + j0 / GRP + wn] = m;
+    }
+}
+
+// grid ceil(M / RWARPS), a warp a row: gs[r] from the row's partial maxima,
+// g_q[r] = quant(g[r], gs[r])
+__global__ void __launch_bounds__(RWARPS * 32)
+geglu_int8_quant_g_kernel(const float* __restrict__ g, const float* __restrict__ pmax,
+                          int8_t* __restrict__ gq, float* __restrict__ gs, int M, int F) {
+  wait_for_predecessor();                // g, pmax
+  const int lane = threadIdx.x % 32, r = blockIdx.x * RWARPS + threadIdx.x / 32;
+  if (r >= M) return;                    // the whole warp
+  const int np = F / GRP;
+  float mx = 0.f;
+  for (int p = lane; p < np; p += 32) mx = fmaxf(mx, pmax[(long)r * np + p]);
+  const float sc = row_scale(warp_max(mx));
+  if (lane == 0) gs[r] = sc;
+  const float4* src = reinterpret_cast<const float4*>(g + (long)r * F);
+  uint2* dst = reinterpret_cast<uint2*>(gq + (long)r * F);
+  for (int u = lane; u < F / 8; u += 32) {   // 8 values: two 16-byte reads, one 8-byte write
+    const float4 v0 = src[2 * u], v1 = src[2 * u + 1];
+    dst[u] = make_uint2(quantize4(v0.x, v0.y, v0.z, v0.w, sc),
+                        quantize4(v1.x, v1.y, v1.z, v1.w, sc));
+  }
+}
+
+// grid (ceil(C / BN), ceil(M / BM)): out[m0:m0+BM, n0:n0+BN] for n0 = BN * blockIdx.x
+template <class G>
+__global__ void __launch_bounds__(G::NTHREADS, G::MIN_BLOCKS)
+geglu_int8_out_kernel(const int8_t* __restrict__ gq, const float* __restrict__ gs,
+                      const int8_t* __restrict__ w2, const float* __restrict__ s2,
+                      const float* __restrict__ b2, bf16* __restrict__ out, int M, int C,
+                      int F) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * G::BN, m0 = blockIdx.y * G::BM;
+  const int c = G::col_of(tid);
+  typename G::ARows a;
+#pragma unroll
+  for (int i = 0; i < G::A_LOADS; ++i) {
+    const int r = m0 + G::row_of(tid, i);
+    a.ok[i] = r < M;
+    a.src[i] = gq + (long)(a.ok[i] ? r : 0) * F + c;
+  }
+  typename G::BRows b;
+#pragma unroll
+  for (int i = 0; i < G::B_LOADS; ++i) {
+    const int r = n0 + G::row_of(tid, i);
+    b.ok[i] = r < C;
+    b.src[i] = w2 + (long)(b.ok[i] ? r : 0) * F + c;
+  }
+  wait_for_predecessor();                // g_q, gs
+  int acc[G::MT][G::NT][4];
+  G::mainloop(acc, smem, a, b, F, tid);
+
+  using T = Staging<G, G::BN>;
+  bf16* Ts = reinterpret_cast<bf16*>(smem_raw);
+  const int lane = tid % 32, warp = tid / 32;
+  const int wm = warp / G::WN, wn = warp % G::WN, q = lane / 4, t = lane % 4;
+  float rs[G::MT][2];
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm * G::MT * 16 + mt * 16 + q + 8 * h;
+      rs[mt][h] = r < M ? gs[r] : 0.f;
+    }
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt) {
+    const int col = wn * G::NT * 8 + nt * 8 + 2 * t;
+    const bool ok = n0 + col < C;        // C even: col + 1 too
+    const float cs0 = ok ? s2[n0 + col] : 0.f, cs1 = ok ? s2[n0 + col + 1] : 0.f;
+    const float bb0 = ok ? b2[n0 + col] : 0.f, bb1 = ok ? b2[n0 + col + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        T::put(Ts, wm * G::MT * 16 + mt * 16 + q + 8 * h, col,
+               dequant(acc[mt][nt][2 * h], rs[mt][h], cs0, bb0),
+               dequant(acc[mt][nt][2 * h + 1], rs[mt][h], cs1, bb1));
+  }
+  __syncthreads();
+  T::store(out, C, m0, M, n0, C, Ts, tid);
+}
+
+// What the launches need to know of the card, found once: the products'
+// shared-memory limits set (they take more than 48 KB), and its SMs.
+struct Card {
+  cudaError_t err;
+  int sms;
+};
+
+const Card& card() {
+  static const Card c = [] {
+    Card k{cudaSuccess, 0};
+    int device = 0;
+    k.err = cudaFuncSetAttribute(geglu_int8_proj_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Proj::SMEM);
+    if (k.err == cudaSuccess)
+      k.err = cudaFuncSetAttribute(geglu_int8_out_kernel<Out>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, Out::SMEM);
+    if (k.err == cudaSuccess)
+      k.err = cudaFuncSetAttribute(geglu_int8_out_kernel<OutThin>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, OutThin::SMEM);
+    if (k.err == cudaSuccess) k.err = cudaGetDevice(&device);
+    if (k.err == cudaSuccess)
+      k.err = cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, device);
+    return k;
+  }();
+  return c;
+}
+
+bool shapes_ok(int M, int C, int F) {
+  return M > 0 && C > 0 && C % 16 == 0 && F > 0 && F % GCOLS == 0;
+}
+
+dim3 rows_grid(int M) { return dim3((M + RWARPS - 1) / RWARPS); }
+dim3 proj_grid(int M, int F) { return dim3(F / GCOLS, (M + Proj::BM - 1) / Proj::BM); }
+
+template <class G>
+dim3 out_grid(int M, int C) {
+  return dim3((C + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
+}
+
+// The out kernel takes 64-row tiles, two blocks an SM, where its 128-row
+// grid would leave more than half the SMs idle: at C=320 M=4096 and C=640
+// M=2048, the serving stack's cond-only steps.
+bool out_thin(int M, int C) {
+  const dim3 grid = out_grid<Out>(M, C);
+  return 2 * (int)(grid.x * grid.y) <= card().sms;
+}
+
+// A launch that may overlap its predecessor's end
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                         cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+template <class G>
+cudaError_t launch_out(const int8_t* gq, const float* gs, const void* w2, const void* s2,
+                       const void* b2, void* out, int M, int C, int F, cudaStream_t s) {
+  return launch_after(geglu_int8_out_kernel<G>, out_grid<G>(M, C), G::NTHREADS, G::SMEM, s,
+                      gq, gs, static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
+                      static_cast<const float*>(b2), static_cast<bf16*>(out), M, C, F);
+}
+
+// info[0..6]: registers a thread, shared memory a block (bytes), rows and
+// columns a tile, resident blocks an SM, blocks in the grid, local memory a
+// thread (bytes)
+template <class Kernel>
+cudaError_t describe_one(Kernel kernel, int threads, int smem, int rows, int cols, dim3 grid,
+                         int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  info[0] = attr.numRegs;
+  info[1] = smem;
+  info[2] = rows;
+  info[3] = cols;
+  info[4] = blocks;
+  info[5] = (int)(grid.x * grid.y);
+  info[6] = (int)attr.localSizeBytes;
+  return err;
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted.
+// The bytes of the workspace geglu_int8_fwd takes at these shapes, into *bytes.
+extern "C" int geglu_int8_workspace(int M, int C, int F, long long* bytes) {
+  if (!shapes_ok(M, C, F)) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)Workspace(M, C, F).total;
+  return 0;
+}
+
+// Returns a cudaError_t code: 0 when all four launches were accepted. The
+// kernels run on `stream` back to back; `workspace` holds
+// geglu_int8_workspace bytes, 256-byte aligned.
 extern "C" int geglu_int8_fwd(const void* x, const void* w1, const void* s1, const void* b1,
                               const void* w2, const void* s2, const void* b2, void* out,
-                              int M, int C, int F, void* stream) {
-  if (M <= 0 || C <= 0 || C % 32 != 0 || F <= 0 || F % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  int tm = 32;
-  if (Layout(tm, C, F).total > MAX_SMEM) tm = 16;
-  const Layout L(tm, C, F);
-  if (L.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(geglu_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+                              void* workspace, int M, int C, int F, void* stream) {
+  if (!shapes_ok(M, C, F)) return (int)cudaErrorInvalidValue;
+  if (card().err != cudaSuccess) return (int)card().err;
+  const Workspace W(M, C, F);
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  int8_t* xq = reinterpret_cast<int8_t*>(ws + W.xq);
+  float* xs = reinterpret_cast<float*>(ws + W.xs);
+  float* g = reinterpret_cast<float*>(ws + W.g);
+  float* pmax = reinterpret_cast<float*>(ws + W.pmax);
+  int8_t* gq = reinterpret_cast<int8_t*>(ws + W.gq);
+  float* gs = reinterpret_cast<float*>(ws + W.gs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  geglu_int8_quant_x_kernel<<<rows_grid(M), RWARPS * 32, 0, s>>>(
+      static_cast<const bf16*>(x), xq, xs, M, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = launch_after(geglu_int8_proj_kernel, proj_grid(M, F), Proj::NTHREADS, Proj::SMEM, s,
+                     xq, xs, static_cast<const int8_t*>(w1), static_cast<const float*>(s1),
+                     static_cast<const float*>(b1), g, pmax, M, C, F);
   if (err != cudaSuccess) return (int)err;
-  geglu_int8_kernel<<<(M + tm - 1) / tm, NTHREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w1),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), M, C, F, tm);
-  return (int)cudaGetLastError();
+  err = launch_after(geglu_int8_quant_g_kernel, rows_grid(M), RWARPS * 32, 0, s, g, pmax, gq,
+                     gs, M, F);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(out_thin(M, C) ? launch_out<OutThin>(gq, gs, w2, s2, b2, out, M, C, F, s)
+                              : launch_out<Out>(gq, gs, w2, s2, b2, out, M, C, F, s));
+}
+
+// Fills info[7k..7k+6] for kernel k of the call in launch order (quant_x,
+// proj, quant_g, out) at these shapes: registers a thread, shared memory a
+// block (bytes), rows and columns a tile (the proj tile's columns are h's:
+// half a, half the gate; a row pass's are a row's), resident blocks an SM,
+// blocks in the grid, local memory a thread (bytes).
+extern "C" int geglu_int8_describe(int M, int C, int F, int* info) {
+  if (!shapes_ok(M, C, F)) return (int)cudaErrorInvalidValue;
+  if (card().err != cudaSuccess) return (int)card().err;
+  cudaError_t err =
+      describe_one(geglu_int8_quant_x_kernel, RWARPS * 32, 0, RWARPS, C, rows_grid(M), info);
+  if (err != cudaSuccess) return (int)err;
+  err = describe_one(geglu_int8_proj_kernel, Proj::NTHREADS, Proj::SMEM, Proj::BM, Proj::BN,
+                     proj_grid(M, F), info + 7);
+  if (err != cudaSuccess) return (int)err;
+  err = describe_one(geglu_int8_quant_g_kernel, RWARPS * 32, 0, RWARPS, F, rows_grid(M),
+                     info + 14);
+  if (err != cudaSuccess) return (int)err;
+  if (out_thin(M, C))
+    return (int)describe_one(geglu_int8_out_kernel<OutThin>, OutThin::NTHREADS, OutThin::SMEM,
+                             OutThin::BM, OutThin::BN, out_grid<OutThin>(M, C), info + 21);
+  return (int)describe_one(geglu_int8_out_kernel<Out>, Out::NTHREADS, Out::SMEM, Out::BM,
+                           Out::BN, out_grid<Out>(M, C), info + 21);
 }

@@ -12,7 +12,9 @@ CUDA tensors launching its kernel or raising:
     package's `_geglu_bwd` does (its backward is XLA, not a kernel);
   * `geglu_int8` (CUDA: csrc/geglu_int8.cu; replaces `_geglu_i8_kernel`),
     the w8a8 variant of the `quant="int8"` serving path, forward only,
-    plain version `geglu_int8_reference`.
+    plain version `geglu_int8_reference`. One C call runs four kernels, x
+    quantized, x_q.W1_q^T -> g in fp32, g quantized, g_q.W2_q^T -> out, in
+    one workspace that the wrapper allocates; it counts one launch.
 
 Weights are in PyTorch's layout: w1 [2F, C], w2 [C, F].
 """
@@ -20,6 +22,7 @@ Weights are in PyTorch's layout: w1 [2F, C], w2 [C, F].
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -135,7 +138,10 @@ def geglu_int8_reference(x, w1_q, w1_s, b1, w2_q, w2_s, b2):
 def geglu_int8(x, w1_q, w1_s, b1, w2_q, w2_s, b2):
     """w8a8 fused GEGLU forward: x [..., C]; (w1_q int8 [2F, C], w1_s f32
     [2F]) and (w2_q int8 [C, F], w2_s f32 [C]) from `quant.quantize_weight`;
-    b1 [2F]; b2 [C]. Forward only (rounding has no gradient)."""
+    b1 [2F]; b2 [C]. Forward only (rounding has no gradient). On the card one
+    C call runs four kernels (x quantized, x_q.W1_q^T -> fp32 g and its
+    per-row partial maxima, g quantized, g_q.W2_q^T -> out) in a workspace
+    that the wrapper allocates; it counts one launch."""
     if x.device.type == "cpu":
         return geglu_int8_reference(x, w1_q, w1_s, b1, w2_q, w2_s, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1_s, b1, w2_s, b2)):
@@ -148,23 +154,45 @@ def geglu_int8(x, w1_q, w1_s, b1, w2_q, w2_s, b2):
             or w2_s.shape != (c,) or f2 % 2):
         raise ValueError(f"int8 geglu kernel: shapes x{tuple(shape)} w1{tuple(w1_q.shape)} "
                          f"w2{tuple(w2_q.shape)}")
-    if c % 32 or f % 32 or c > 640 or f > 2560:
-        raise ValueError(f"int8 geglu kernel: needs C and F multiples of 32, C <= 640 and "
-                         f"F <= 2560 (C={c}, F={f})")
+    if c % 16 or f % 64:
+        raise ValueError(f"int8 geglu kernel: needs C % 16 == 0 and F % 64 == 0 (C={c}, F={f})")
     m = x.numel() // c
     (x2,) = cuda_build.kernel_operands("int8 geglu kernel", x.reshape(m, c))
     w1_q, w2_q = cuda_build.kernel_operands("int8 geglu kernel", w1_q, w2_q, dtype=torch.int8)
     w1_s, b1, w2_s, b2 = (t.to(device=x.device, dtype=torch.float32).contiguous()
                           for t in (w1_s, b1, w2_s, b2))
+    work = torch.empty(_int8_workspace_bytes(m, c, f), dtype=torch.uint8, device=x2.device)
     out = torch.empty_like(x2)
-    fn = cuda_build.function("geglu_int8", "geglu_int8_fwd",
-                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    cuda_build.check(fn(x2.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
-                        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(), m, c, f,
-                        torch.cuda.current_stream(x.device).cuda_stream),
-                     "geglu_int8_fwd")
+    geglu_int8_kernel_call(x2, w1_q, w1_s, b1, w2_q, w2_s, b2, work, out)
     geglu_int8.launches += 1
     return out.reshape(shape)
+
+
+def geglu_int8_kernel_call(x2, w1_q, w1_s, b1, w2_q, w2_s, b2, work, out):
+    """The int8 kernels' C call on operands as `geglu_int8` validates them
+    (x2 [M, C] bf16; float32 scales and biases; `work`, a uint8 workspace of
+    `_int8_workspace_bytes(M, C, F)`, and out [M, C] allocated). Not counted:
+    the wrapper counts its calls."""
+    m, c = x2.shape
+    fn = cuda_build.function("geglu_int8", "geglu_int8_fwd",
+                             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    cuda_build.check(fn(x2.data_ptr(), w1_q.data_ptr(), w1_s.data_ptr(), b1.data_ptr(),
+                        w2_q.data_ptr(), w2_s.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                        work.data_ptr(), m, c, w2_q.shape[1],
+                        torch.cuda.current_stream(x2.device).cuda_stream),
+                     "geglu_int8_fwd")
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_workspace_bytes(m, c, f) -> int:
+    """The bytes of scratch `geglu_int8_fwd` takes at these shapes (x_q, g in
+    fp32, g's partial row maxima, g_q and the two row scales), as the C side
+    lays them out; asked of it once a shape."""
+    fn = cuda_build.function("geglu_int8", "geglu_int8_workspace",
+                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    nbytes = ctypes.c_longlong()
+    cuda_build.check(fn(m, c, f, ctypes.addressof(nbytes)), "geglu_int8_workspace")
+    return nbytes.value
 
 
 geglu_int8.launches = 0

@@ -49,7 +49,11 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "geglu_proj_kernel": "geglu_fwd",        # x.W1^T -> g
                "geglu_out_kernel": "geglu_fwd",         # g.W2^T -> out
                "fused_cross_int8_kernel": "fused_cross_attention_int8",
-               "geglu_int8_kernel": "geglu_int8",
+               # B6's four kernels; no name contains a B3 kernel's name
+               "geglu_int8_quant_x_kernel": "geglu_int8",   # x -> x_q, xs
+               "geglu_int8_proj_kernel": "geglu_int8",      # x_q.W1_q^T -> fp32 g, row maxima
+               "geglu_int8_quant_g_kernel": "geglu_int8",   # g -> g_q, gs
+               "geglu_int8_out_kernel": "geglu_int8",       # g_q.W2_q^T -> out
                "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",
                "conv3x3_halo_kernel": "conv3x3_halo",
                "conv3x3_im2col_kernel": "conv3x3_im2col",

@@ -14,12 +14,13 @@ Phases, in order (any failure exits non-zero without the final line):
      of the flash kernels changed in the SASS;
   2. log the four flash kernels' resources at D=40 and 80 (registers,
      shared memory, rows a block, blocks an SM; the three forwards and the
-     backward's main kernel), the GEGLU's two kernels' at C=320 and 640
-     and the fused cross-attention's two at its four shapes (also their
-     grids); hold each kernel against its plain PyTorch
-     version on the card, in bf16, at the paths' shapes (the GEGLU and the
-     fused cross-attention also untimed at ragged shapes, with their launch
-     counts checked a call; the
+     backward's main kernel), the GEGLU's two kernels' at C=320 and 640,
+     the fused cross-attention's two and the int8 GEGLU's four at their
+     four shapes (also their grids); hold each kernel against its plain
+     PyTorch version on the card, in bf16, at the paths' shapes (the GEGLU,
+     the fused cross-attention and the int8 GEGLU also untimed at ragged
+     shapes, with their launch counts checked a call, the int8 GEGLU also
+     where every row's max|g| lies in the last 64 columns; the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
      tests' and ragged ones; the flash variants and exp2 forms each against
@@ -34,8 +35,10 @@ Phases, in order (any failure exits non-zero without the final line):
      for flash attention forward and backward, F.conv2d for the two plain
      convs); beside the fused GroupNorm-SiLU-conv, which no single call
      computes, the port's own unfused pair (group_norm + conv2d), beside
-     the GEGLU the port's unfused feed-forward on cuBLAS, and beside the
-     fused cross-attention its unfused chain (cuBLAS, SDPA, cuBLAS); beside the
+     the GEGLU the port's unfused feed-forward on cuBLAS, beside the
+     fused cross-attention its unfused chain (cuBLAS, SDPA, cuBLAS), beside
+     the int8 GEGLU the bf16 GEGLU kernel at its shape and the port's int8
+     chain on cuBLASLt (torch._int_mm); beside the
      no-max wrapper's call, its kernel alone (kmax made beforehand); the
      backward timed as its C call (pre-pass, kernel and dQ epilogue), its
      wrapper's call beside;
@@ -645,26 +648,79 @@ def _case_cross_int8(gen, n, c, b):
     return f"fused_cross_attention_int8 C={c} N={n} B={b}", err, mag, 2e-2, ok, res, ""
 
 
-def _case_geglu_int8(gen, m, c):
+def _case_geglu_int8(gen, m, c, timed=True, peak_last=False):
+    """B6 (one C call: four kernels) against its plain version, on m rows of
+    width c; its launch count must rise by one a call. `kernel_ms` is the
+    wrapper's call, `kernel_only_ms` its C call alone on allocated operands,
+    as B2's. No single PyTorch call
+    computes it (library_ms None). Beside it, timed only and called by
+    nothing in the port: `bf16_ms`, B3 (geglu_fwd) at the same shape on the
+    bf16 weights, what quant="int8" has to beat; `unfused_ms`, the port's own
+    int8 chain on cuBLASLt in eager PyTorch (quantize_acts -> torch._int_mm
+    -> dequantize -> a * gelu(gate) -> quantize_acts -> torch._int_mm ->
+    dequantize), whose distance from the plain version is logged. With
+    peak_last, W1's a-half rows of the last 64 g columns are 30x larger, so
+    that every row's max|g| lies in the last proj tile (a scale of g taken
+    per tile would clip there)."""
     import torch
     from adaprompt_tpu_torch.ops import geglu as G
+    from adaprompt_tpu_torch.ops.layers import gelu
+    from adaprompt_tpu_torch.ops.quant import quantize_acts, quantize_weight
     f = 4 * c
+    bf = torch.bfloat16
     u = lambda *shape, fan: ((torch.rand(*shape, device="cuda", generator=gen) * 2 - 1)
                              / math.sqrt(fan))
-    x = torch.randn(m, c, device="cuda", generator=gen).to(torch.bfloat16)
-    args = (x, *_int8_weights(gen, 2 * f, c), u(2 * f, fan=c), *_int8_weights(gen, c, f),
-            u(c, fan=f))
+    x = torch.randn(m, c, device="cuda", generator=gen).to(bf)
+    w1 = u(2 * f, c, fan=c).to(bf)
+    if peak_last:
+        w1[f - 64:f] *= 30
+    b1 = u(2 * f, fan=c)
+    w2, b2 = u(c, f, fan=f).to(bf), u(c, fan=f)
+    (w1_q, w1_s), (w2_q, w2_s) = quantize_weight(w1), quantize_weight(w2)
+    args = (x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    before = G.geglu_int8.launches
     out = G.geglu_int8(*args)
+    if G.geglu_int8.launches != before + 1:
+        raise AssertionError(f"geglu_int8 counted {G.geglu_int8.launches - before} launches "
+                             "for one call")
     ref = G.geglu_int8_reference(*args)
     err, mag, ok = _compare(out, ref, 2e-2)
-    res = {"kernel_ms": time_ms(lambda: G.geglu_int8(*args), 10),
-           "plain_ms": time_ms(lambda: G.geglu_int8_reference(*args), 3),
-           "library_ms": None}
+    nan = float("nan")
+    res = {"kernel_ms": nan, "kernel_only_ms": nan, "plain_ms": nan, "library_ms": None,
+           "bf16_ms": nan, "unfused_ms": nan}
+    detail = ""
+    if timed:
+        def unfused():
+            x_q, xs = quantize_acts(x)
+            h = torch._int_mm(x_q, w1_q.t()).float() * xs * w1_s + b1
+            a, gate = h.chunk(2, dim=-1)
+            g_q, gs = quantize_acts(a * gelu(gate))
+            return (torch._int_mm(g_q, w2_q.t()).float() * gs * w2_s + b2).to(bf)
+
+        unfused_err = (unfused().float() - ref.float()).abs().max().item() / mag
+        work = torch.empty(G._int8_workspace_bytes(m, c, f), dtype=torch.uint8, device="cuda")
+        out2 = torch.empty_like(x)
+        res.update(kernel_ms=time_ms(lambda: G.geglu_int8(*args), 10),
+                   kernel_only_ms=time_ms(lambda: G.geglu_int8_kernel_call(*args, work, out2), 20),
+                   plain_ms=time_ms(lambda: G.geglu_int8_reference(*args), 3),
+                   bf16_ms=time_ms(lambda: G.geglu_fwd(x, w1, b1, w2, b2), 10),
+                   unfused_ms=time_ms(unfused, 10))
+        detail = (f"kernel_only_ms={res['kernel_only_ms']:.4f} bf16_ms={res['bf16_ms']:.4f} "
+                  f"unfused_ms={res['unfused_ms']:.4f} unfused rel err {unfused_err:.2e}")
     # 24*M*C^2 int8 operations; x in and out (bf16), the int8 weights (3*C*F
     # bytes), their f32 scales and the biases
     nbytes = 2 * m * c * 2 + 3 * c * f + 2 * (2 * f + c) * 4
     res.update(_bound(0, nbytes, exps=m * f, int8_ops=6 * m * c * f))
-    return f"geglu_int8 C={c} M={m}", err, mag, 2e-2, ok, res, ""
+    tag = " max|g| in the last 64 columns" if peak_last else ""
+    return f"geglu_int8 C={c} M={m}{tag}", err, mag, 2e-2, ok, res, detail
+
+
+# B6's ragged cases (M, C), checked untimed: rows across the 128-row tile
+# edge (and fewer than a tile), C = 32 and 64 (F = 128 and 256: two and four
+# 64-column proj tiles, the a/gate interleave), C = 1280 (no cap on C or F),
+# C = 640 at the UNet's row count
+GEGLU_INT8_RAGGED = ((50, 320), (33, 640), (96, 32), (8, 64), (4096, 640), (127, 320),
+                     (129, 320), (257, 320), (70, 1280))
 
 
 def _conv_inputs(gen, b, h, w, c, o, gn_shift=0.0):
@@ -768,6 +824,10 @@ def flash_resources():
                     log(head + f"{info[2]} query rows a block, {info[3]} blocks an SM")
 
 
+GEGLU_INT8_KERNELS = ("geglu_int8_quant_x_kernel", "geglu_int8_proj_kernel",
+                      "geglu_int8_quant_g_kernel", "geglu_int8_out_kernel")
+
+
 def geglu_resources():
     """Log B3's two kernels' resources at the UNet's two fused widths, from
     the runtime: registers a thread, shared memory a block, the tile, resident
@@ -778,17 +838,32 @@ def geglu_resources():
     for m, c in ((UNET_BATCH * 4096, 320), (UNET_BATCH * 1024, 640)):
         info = (ctypes.c_int * 14)()
         cuda_build.check(fn(m, c, 4 * c, ctypes.addressof(info)), "geglu_describe")
-        _log_two_kernels("geglu_fwd", ("geglu_proj_kernel", "geglu_out_kernel"), f"C={c} M={m}",
+        _log_kernels("geglu_fwd", ("geglu_proj_kernel", "geglu_out_kernel"), f"C={c} M={m}",
                          info)
 
 
-def _log_two_kernels(wrapper, names, shape, info):
-    """One line per kernel of a two-kernel C call from its describe entry's
-    info[0..13] (seven values a kernel)."""
-    for name, i in zip(names, (info[:7], info[7:])):
+def _log_kernels(wrapper, names, shape, info):
+    """One line per kernel of a C call that launches several from its
+    describe entry's info (seven values a kernel, in the order of names)."""
+    for k, name in enumerate(names):
+        i = info[7 * k:7 * k + 7]
         log(f"kernel {wrapper} {name} {shape}: {i[0]} registers a thread, {i[1]} B shared "
             f"memory a block, {i[2]} x {i[3]} tile, {i[4]} blocks an SM, {i[5]} blocks in the "
             f"grid, {i[6]} B local memory a thread")
+
+
+def geglu_int8_resources():
+    """Log B6's four kernels' resources at its four serving shapes, from the
+    runtime: registers a thread, shared memory a block, the tile, resident
+    blocks an SM, blocks in the grid, local memory a thread."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("geglu_int8", "geglu_int8_describe",
+                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for m, c in ((4 * 2048, 320), (2 * 2048, 320), (4 * 1024, 640), (2 * 1024, 640)):
+        info = (ctypes.c_int * 28)()
+        cuda_build.check(fn(m, c, 4 * c, ctypes.addressof(info)), "geglu_int8_describe")
+        _log_kernels("geglu_int8", GEGLU_INT8_KERNELS, f"C={c} M={m}", info)
 
 
 def cross_resources():
@@ -803,7 +878,7 @@ def cross_resources():
                     (2, 1024, 640)):
         info = (ctypes.c_int * 14)()
         cuda_build.check(fn(b, n, c, 8, ctypes.addressof(info)), "fused_cross_describe")
-        _log_two_kernels("fused_cross_attention", ("cross_q_attn_kernel", "cross_out_kernel"),
+        _log_kernels("fused_cross_attention", ("cross_q_attn_kernel", "cross_out_kernel"),
                          f"C={c} N={n} B={b}", info)
 
 
@@ -814,6 +889,7 @@ def phase_kernels():
     flash_resources()
     geglu_resources()
     cross_resources()
+    geglu_int8_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -868,6 +944,13 @@ def phase_kernels():
                       lambda s=(h, c, o): _case_gn_conv(gen, 4, *s, 0.0)))
     for m_, c_ in GEGLU_RAGGED:
         cases.append(("geglu_fwd", (), lambda a=(m_, c_): _case_geglu(gen, *a, timed=False)))
+    for m_, c_ in GEGLU_INT8_RAGGED:
+        cases.append(("geglu_int8", (), lambda a=(m_, c_): _case_geglu_int8(gen, *a,
+                                                                            timed=False)))
+    cases.append(("geglu_int8", (), lambda: _case_geglu_int8(gen, 2048, 320, timed=False,
+                                                             peak_last=True)))
+    cases.append(("geglu_int8", (), lambda: _case_geglu_int8(gen, 1000, 640, timed=False,
+                                                             peak_last=True)))
     for b_, n_, c_, h_ in CROSS_RAGGED:
         cases.append(("fused_cross_attention", (), lambda a=(n_, c_, b_, h_): _case_cross(
             gen, *a, timed=False)))
@@ -1365,7 +1448,7 @@ def phase_serve():
         rates[path].append(len(PROMPTS) / seconds)
         log(f"phase 7 {path}: {len(PROMPTS)} prompts 512x512 dpmpp-{SERVE_STEPS} FastConfig() "
             f"bf16 in {seconds:.3f} s -> {rates[path][-1]:.4f} img/s; peak memory "
-            f"{peak:.2f} GiB; image std {imgs.std():.2f}; launches {nz(launches[path])}")
+            f"{peak:.3f} GiB; image std {imgs.std():.2f}; launches {nz(launches[path])}")
         if (imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8
                 or not imgs.std() > 0):
             raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
@@ -1545,8 +1628,8 @@ def kernels_line(results, launches_by_path):
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
-        for extra in ("unfused_ms", "affine_ms", "operands_ms", "kv_ms", "kernel_only_ms",
-                      "wrapper_ms"):
+        for extra in ("unfused_ms", "bf16_ms", "affine_ms", "operands_ms", "kv_ms",
+                      "kernel_only_ms", "wrapper_ms"):
             if extra in rs[0]:
                 out[-1][extra] = mean(extra)
         if name in EXP2_PATHS:

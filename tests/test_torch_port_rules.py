@@ -15,7 +15,7 @@ import adaprompt_tpu_torch
 from adaprompt_tpu_torch import pipeline as tpipe
 from adaprompt_tpu_torch.ops import attention as tattn, conv_halo as tch, geglu as tgeglu
 from adaprompt_tpu_torch.ops import kernel_wrappers
-from adaprompt_tpu_torch.ops.quant import quantize_weight
+from adaprompt_tpu_torch.ops.quant import int8_matmul, quantize_acts, quantize_weight
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLASH_VARIANTS = [tattn.FlashVariant(exp2=True), tattn.FlashVariant(ilv=True),
@@ -359,6 +359,52 @@ def test_fused_cross_source_structure():
         assert f"\n{kernel}(" in src
 
 
+def test_int8_geglu_source_structure():
+    """B6 is built on the int8 sibling of the block-GEMM main loop
+    (BlockGemmS8 of block_gemm.cuh, which keeps the bf16 BlockGemm and
+    Staging that B2 and B3 share); its library's name hashes both headers;
+    its C call, its workspace size and its describe function are there, and
+    no `geglu_int8_kernel` is left for the profile to file."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "geglu_int8.cu").read_text()
+    assert '#include "block_gemm.cuh"' in src
+    assert "\ngeglu_int8_kernel(" not in src
+    assert sorted(p.name for p in cuda_build.source_files("geglu_int8")) == [
+        "block_gemm.cuh", "flash_sm90.cuh", "geglu_int8.cu"]
+    for fn in ("geglu_int8_fwd", "geglu_int8_workspace", "geglu_int8_describe"):
+        assert f'extern "C" int {fn}(' in src
+    for kernel in ("geglu_int8_quant_x_kernel", "geglu_int8_proj_kernel",
+                   "geglu_int8_quant_g_kernel", "geglu_int8_out_kernel"):
+        assert f"\n{kernel}(" in src
+    header = (cuda_build.CSRC / "block_gemm.cuh").read_text()
+    for struct in ("struct BlockGemmS8", "struct BlockGemm ", "struct Staging"):
+        assert struct in header
+    assert "m16n8k32.row.col.s32.s8.s8.s32" in header
+
+
+@pytest.mark.parametrize("c,f", [(1280, 5120), (320, 1280), (48, 64)])
+def test_int8_geglu_wrapper_takes_any_width_it_can(c, f):
+    """Off the CPU the int8 wrapper passes C=1280 (F=5120) on to the kernels,
+    where the old shared-memory layout capped C at 640 and F at 2560: on meta
+    tensors it raises TypeError ("CUDA") before the C call."""
+    meta = lambda *s, dtype=torch.float32: torch.empty(*s, device="meta", dtype=dtype)
+    args = (meta(70, c, dtype=torch.bfloat16), meta(2 * f, c, dtype=torch.int8), meta(2 * f),
+            meta(2 * f), meta(c, f, dtype=torch.int8), meta(c), meta(c))
+    with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
+        tgeglu.geglu_int8(*args)
+
+
+@pytest.mark.parametrize("c,f", [(72, 288), (320, 1312)])
+def test_int8_geglu_wrapper_refuses_shapes_it_cannot_take(c, f):
+    """Off the CPU the int8 wrapper names a width that the kernels cannot take
+    (C not a multiple of 16, F not a multiple of 64) before the C call."""
+    meta = lambda *s, dtype=torch.float32: torch.empty(*s, device="meta", dtype=dtype)
+    args = (meta(70, c, dtype=torch.bfloat16), meta(2 * f, c, dtype=torch.int8), meta(2 * f),
+            meta(2 * f), meta(c, f, dtype=torch.int8), meta(c), meta(c))
+    with torch.no_grad(), pytest.raises(ValueError, match=f"C={c}, F={f}"):
+        tgeglu.geglu_int8(*args)
+
+
 @pytest.mark.parametrize("shape", [dict(c=72), dict(keys=81), dict(c=320, heads=1),
                                    dict(c=336, heads=2)])
 def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
@@ -382,7 +428,13 @@ def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
     ("void (anonymous namespace)::geglu_proj_kernel(__nv_bfloat16 const*, int, int, int)",
      "geglu_fwd"),
     ("_ZN12_GLOBAL__N_116geglu_out_kernelEPK13__nv_bfloat16S2_PKfPS0_iii", "geglu_fwd"),
-    ("_ZN12_GLOBAL__N_117geglu_int8_kernelEPK13__nv_bfloat16PKaPKfS6_S4_S6_S6_PS0_iii",
+    ("_ZN12_GLOBAL__N_125geglu_int8_quant_x_kernelEPK13__nv_bfloat16PaPfii", "geglu_int8"),
+    ("void (anonymous namespace)::geglu_int8_proj_kernel(signed char const*, float const*, "
+     "signed char const*, float const*, float const*, float*, float*, int, int, int)",
+     "geglu_int8"),
+    ("_ZN12_GLOBAL__N_125geglu_int8_quant_g_kernelEPKfS1_PaPfii", "geglu_int8"),
+    ("void (anonymous namespace)::geglu_int8_out_kernel(signed char const*, float const*, "
+     "signed char const*, float const*, float const*, __nv_bfloat16*, int, int, int)",
      "geglu_int8"),
     ("flash_fwd_kernel<5, false>", "flash_attention_fwd"),
     ("void (anonymous namespace)::cross_q_attn_kernel<48>(__nv_bfloat16 const*, int, float)",
@@ -393,8 +445,9 @@ def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
      "fused_cross_attention_int8")])
 def test_profile_step_classes_kernels_by_name(name, label):
     """The profile's kernel classes: both of B3's kernels count as its
-    wrapper's, as both of B2's count as B2's; the int8 GEGLU and the int8
-    cross-attention kernels as their own."""
+    wrapper's, as both of B2's count as B2's, and all four of B6's (whose
+    names contain no B3 kernel's name) as B6's; the int8 cross-attention
+    kernel as its own."""
     from adaprompt_tpu_torch.profile_step import kernel_class
     assert kernel_class(name) == label
 
@@ -621,21 +674,66 @@ def test_int8_fused_cross_kernel_ragged_shapes(b, n, c, h):
     assert tattn.fused_cross_attention_int8.launches == before + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,c", [(50, 320), (33, 640), (96, 32), (8, 64), (4096, 640)])
-def test_int8_geglu_kernel_ragged_shapes(m, c):
-    """Ragged row tiles at both shared-memory tilings (32 rows up to C=320,
-    16 rows at C=640); bf16 against the plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(m + c)
+def _int8_geglu_card_args(m, c, seed, peak_last=False):
+    """x [m, c] bf16 and B6's weights (F = 4c) on the card; with peak_last
+    W1's a-half rows of the last 64 g columns are 30x larger, so that every
+    row's max|g| lies in the last proj tile."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
     f = 4 * c
-    args = _int8_geglu_args(rn(m, c).bfloat16(), rn(2 * f, c) / c ** 0.5, rn(2 * f) / 8,
-                            rn(c, f) / f ** 0.5, rn(c) / 8)
+    w1 = rn(2 * f, c) / c ** 0.5
+    if peak_last:
+        w1[f - 64:f] *= 30
+    return _int8_geglu_args(rn(m, c).bfloat16(), w1, rn(2 * f) / 8, rn(c, f) / f ** 0.5,
+                            rn(c) / 8)
+
+
+def _int8_geglu_call_near_plain(args):
     before = tgeglu.geglu_int8.launches
     _assert_near(tgeglu.geglu_int8(*args), tgeglu.geglu_int8_reference(*args), 2e-2)
     assert tgeglu.geglu_int8.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(50, 320), (33, 640), (96, 32), (8, 64), (4096, 640),
+                                 (127, 320), (129, 320), (257, 320), (70, 1280)])
+def test_int8_geglu_kernel_ragged_shapes(m, c):
+    """Ragged 128-row tiles (fewer rows than a tile, one past it, two past
+    it), C = 32 and 64 (F = 128 and 256: two and four 64-column proj tiles,
+    where a wrong a/gate group would show), a K of C = 320 that ends in half
+    a 128-byte stage, C = 1280 (no cap on C or F); bf16 against the plain
+    version, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _int8_geglu_call_near_plain(_int8_geglu_card_args(m, c, m + c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(2048, 320), (1000, 640)])
+def test_int8_geglu_kernel_row_max_in_last_columns(m, c):
+    """Every row's max|g| lies in the last 64 g columns only: g's scale has
+    to come from all F columns (a per-tile scale, or one that missed the
+    last tile's partial maxima, would clip or mis-scale g there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args = _int8_geglu_card_args(m, c, m + c, peak_last=True)
+    x_q, xs = quantize_acts(args[0])
+    h = int8_matmul(x_q, args[1]) * xs * args[2] + args[3]
+    a, gate = h.chunk(2, dim=-1)
+    g = (a * torch.nn.functional.gelu(gate)).abs()
+    assert (g[:, -64:].amax(dim=1) > g[:, :-64].amax(dim=1)).all()
+    _int8_geglu_call_near_plain(args)
+
+
+@pytest.mark.cuda
+def test_int8_geglu_kernel_two_calls_in_a_row():
+    """Two calls in a row on other inputs and shapes (the scratch carries
+    nothing over: each is within the bound of its own plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _int8_geglu_call_near_plain(_int8_geglu_card_args(300, 320, 1, peak_last=True))
+    _int8_geglu_call_near_plain(_int8_geglu_card_args(300, 320, 2))
+    _int8_geglu_call_near_plain(_int8_geglu_card_args(1000, 640, 3))
 
 
 @pytest.mark.cuda
