@@ -4,7 +4,8 @@
 // plus the padded shared-memory row stride that keeps ldmatrix free of bank
 // conflicts; and the tile steps of a flash forward on them (staging q and a
 // K/V tile, Q's fragments, S = Q.K^T, the key bias and the ragged edge,
-// O += P.V, the epilogue), which the two-chain and the no-max kernels share.
+// O += P.V, the epilogue), which the two-chain and the no-max kernels share;
+// and the staging of one head's K/V that the fused cross-attention kernels share.
 // Header-only; each kernel source that includes it is built on its own
 // (ops/cuda_build.py hashes this header into the library's name).
 //
@@ -169,6 +170,35 @@ __device__ __forceinline__ void stage_kv(__nv_bfloat16* Kst, __nv_bfloat16* Vst,
       const bool ok = k0 + i < Sk;
       cp_async_4(smem_addr(Bst + i), biasb + (ok ? k0 + i : 0), ok);
     }
+}
+
+// One head's K and V of a batch row for the fused cross-attention kernels
+// (csrc/fused_cross_attention.cu, csrc/fused_cross_attention_int8.cu), all SKP
+// keys at once: kb, vb -> Ks, Vs ([SKP][KROW]), rows C apart; keys past S and
+// columns past hd are zero. With hd % 8 == 0 by cp.async (the caller
+// commits), else by plain loads.
+template <int SKP, int HDP, int KROW, int NTHREADS>
+__device__ __forceinline__ void stage_head_kv(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
+                                              const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                              int S, int C, int hd, int tid) {
+  if (hd % 8 == 0) {
+    constexpr int UNITS = HDP / 8;
+    for (int i = tid; i < SKP * UNITS; i += NTHREADS) {
+      const int s = i / UNITS, c = (i % UNITS) * 8;
+      const bool ok = s < S && c < hd;
+      const long off = ok ? (long)s * C + c : 0;
+      cp_async_16(smem_addr(Ks + s * KROW + c), kb + off, ok);
+      cp_async_16(smem_addr(Vs + s * KROW + c), vb + off, ok);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = tid; i < SKP * HDP; i += NTHREADS) {
+      const int s = i / HDP, d = i % HDP;
+      const bool ok = s < S && d < hd;
+      Ks[s * KROW + d] = ok ? kb[(long)s * C + d] : zero;
+      Vs[s * KROW + d] = ok ? vb[(long)s * C + d] : zero;
+    }
+  }
 }
 
 // The A fragments of the warp's rows [row0, row0 + 16*MT) of Qs, by ldmatrix.

@@ -81,32 +81,6 @@ struct QAttn {
 using Out = BlockGemm<128, 160, 64, 4, 2, 4>;            // tiles of out
 constexpr int OUT_MIN_BLOCKS = 1;
 
-// K_h, V_h of one batch row -> Ks, Vs ([SKP][KROW]); keys past S and columns
-// past hd are zero. With hd % 8 == 0 by cp.async (the caller commits), else
-// by plain loads.
-template <int HDP, int KROW, int NTHREADS>
-__device__ __forceinline__ void stage_head_kv(bf16* Ks, bf16* Vs, const bf16* kb,
-                                              const bf16* vb, int S, int C, int hd, int tid) {
-  if (hd % 8 == 0) {
-    constexpr int UNITS = HDP / 8;
-    for (int i = tid; i < SKP * UNITS; i += NTHREADS) {
-      const int s = i / UNITS, c = (i % UNITS) * 8;
-      const bool ok = s < S && c < hd;
-      const long off = ok ? (long)s * C + c : 0;
-      cp_async_16(smem_addr(Ks + s * KROW + c), kb + off, ok);
-      cp_async_16(smem_addr(Vs + s * KROW + c), vb + off, ok);
-    }
-  } else {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int i = tid; i < SKP * HDP; i += NTHREADS) {
-      const int s = i / HDP, d = i % HDP;
-      const bool ok = s < S && d < hd;
-      Ks[s * KROW + d] = ok ? kb[(long)s * C + d] : zero;
-      Vs[s * KROW + d] = ok ? vb[(long)s * C + d] : zero;
-    }
-  }
-}
-
 // grid (H, ceil(N / BM), B): o[b, n0:n0+BM, h*hd:(h+1)*hd]
 template <int HDP>
 __global__ void __launch_bounds__(QAttn<HDP>::Gemm::NTHREADS, QAttn<HDP>::MIN_BLOCKS)
@@ -126,8 +100,8 @@ cross_q_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
 
   // K_h and V_h first, in their own commit group: the main loop's first wait
   // lands them, its barriers publish them
-  stage_head_kv<HDP, KROW, G::NTHREADS>(Ks, Vs, k + (long)b * S * C + h * hd,
-                                        v + (long)b * S * C + h * hd, S, C, hd, tid);
+  stage_head_kv<SKP, HDP, KROW, G::NTHREADS>(Ks, Vs, k + (long)b * S * C + h * hd,
+                                             v + (long)b * S * C + h * hd, S, C, hd, tid);
   cp_async_commit();
 
   const bf16* xb = x + (long)b * N * C;

@@ -48,7 +48,9 @@
 // Both product grids put the column tiles of one row tile next to each other
 // in launch order, so x_q's and g_q's rows are re-read while still in L2. The
 // last three kernels are launched as programmatic dependents of the one
-// before, which hides most of the gap between two launches.
+// before, which hides most of the gap between two launches. The row passes'
+// bodies, the out kernel's and the launch are int8_rows.cuh's, which the
+// int8 cross-attention (csrc/fused_cross_attention_int8.cu) shares.
 //
 // What bounds it on the card (tools/geglu_int8_tiles.py times each kernel):
 // the proj kernel's epilogue (exact erff, two conversions and the dequant
@@ -79,11 +81,13 @@
 
 #include "block_gemm.cuh"
 #include "flash_sm90.cuh"
+#include "int8_rows.cuh"
 
 namespace {
 
 using namespace block_gemm;
 using namespace flash_sm90;
+using namespace int8_rows;
 using bf16 = __nv_bfloat16;
 
 using Proj = BlockGemmS8<128, 128, 128, 4, 2, 3>;   // tiles of h: 64 g columns
@@ -96,46 +100,9 @@ struct OutThin : BlockGemmS8<64, 160, 128, 4, 2, 3> {   // ... where Out's grid 
 constexpr int PROJ_MIN_BLOCKS = 2;
 constexpr int GCOLS = Proj::BN / 2;                      // g columns a proj tile
 constexpr int GRP = Proj::NT / 2 * 8;                    // g columns a proj warp
-constexpr int RWARPS = 8;                                // warps a block of the row passes
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_scale(float absmax) {
-  return __fadd_rn(__fdiv_rn(absmax, 127.f), 1e-8f);
-}
-
-__device__ __forceinline__ uint32_t quantize(float v, float sc) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.f), 127.f);
-  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
-}
-
-// four values quantized and packed, the first in the low byte
-__device__ __forceinline__ uint32_t quantize4(float v0, float v1, float v2, float v3, float sc) {
-  return quantize(v0, sc) | quantize(v1, sc) << 8 | quantize(v2, sc) << 16
-         | quantize(v3, sc) << 24;
-}
-
-// (acc * row scale) * column scale + bias, each rounded on its own
-__device__ __forceinline__ float dequant(int acc, float rs, float cs, float bias) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), bias);
-}
 
 __device__ __forceinline__ float geglu_value(float a, float gate) {
   return a * (gate * 0.5f * (1.f + erff(gate * 0.70710678118654752f)));
-}
-
-// Programmatic dependent launch (sm_90): the three kernels after the first
-// are launched so that the card may set each up while its predecessor on the
-// stream ends (launch_after); each waits for its predecessor's results before
-// it reads them (without the launch attribute the wait does nothing). No
-// kernel lets its successor start early: blocks placed early crowd onto the
-// SMs that free up first.
-__device__ __forceinline__ void wait_for_predecessor() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // The scratch carved out of the caller's workspace, byte offsets (256-aligned)
@@ -158,50 +125,12 @@ struct Workspace {
   }
 };
 
-// eight bf16 values of a 16-byte unit quantized, packed in 8 bytes
-__device__ __forceinline__ uint2 quantize8(const uint4& v, float sc) {
-  const bf16* e = reinterpret_cast<const bf16*>(&v);
-  float f[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(e[i]);
-  return make_uint2(quantize4(f[0], f[1], f[2], f[3], sc), quantize4(f[4], f[5], f[6], f[7], sc));
-}
-
-__device__ __forceinline__ float absmax8(const uint4& v, float mx) {
-  const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(__bfloat162float(e[i])));
-  return mx;
-}
-
 // grid ceil(M / RWARPS), a warp a row: xs[r] = max|x[r]| / 127 + 1e-8,
-// x_q[r] = quant(x[r], xs[r]). A lane holds its first XU 16-byte units of
-// the row in registers (all of it up to C = 32 * 8 * XU) and reads the rest
-// twice.
-constexpr int XU = 5;
+// x_q[r] = quant(x[r], xs[r])
 __global__ void __launch_bounds__(RWARPS * 32)
 geglu_int8_quant_x_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
                           float* __restrict__ xs, int M, int C) {
-  const int lane = threadIdx.x % 32, r = blockIdx.x * RWARPS + threadIdx.x / 32;
-  if (r >= M) return;                    // the whole warp
-  const uint4* src = reinterpret_cast<const uint4*>(x + (long)r * C);
-  const int units = C / 8;               // 8 values a 16-byte unit
-  uint4 v[XU];
-  float mx = 0.f;
-#pragma unroll
-  for (int i = 0; i < XU; ++i)
-    if (lane + 32 * i < units) v[i] = src[lane + 32 * i];
-#pragma unroll
-  for (int i = 0; i < XU; ++i)
-    if (lane + 32 * i < units) mx = absmax8(v[i], mx);
-  for (int u = lane + 32 * XU; u < units; u += 32) mx = absmax8(src[u], mx);
-  const float sc = row_scale(warp_max(mx));
-  if (lane == 0) xs[r] = sc;
-  uint2* dst = reinterpret_cast<uint2*>(xq + (long)r * C);
-#pragma unroll
-  for (int i = 0; i < XU; ++i)
-    if (lane + 32 * i < units) dst[lane + 32 * i] = quantize8(v[i], sc);
-  for (int u = lane + 32 * XU; u < units; u += 32) dst[u] = quantize8(src[u], sc);
+  quant_x_rows(x, xq, xs, M, C);
 }
 
 // grid (F / GCOLS, ceil(M / BM)): g[m0:m0+BM, j0:j0+GCOLS] in fp32 for
@@ -289,20 +218,7 @@ __global__ void __launch_bounds__(RWARPS * 32)
 geglu_int8_quant_g_kernel(const float* __restrict__ g, const float* __restrict__ pmax,
                           int8_t* __restrict__ gq, float* __restrict__ gs, int M, int F) {
   wait_for_predecessor();                // g, pmax
-  const int lane = threadIdx.x % 32, r = blockIdx.x * RWARPS + threadIdx.x / 32;
-  if (r >= M) return;                    // the whole warp
-  const int np = F / GRP;
-  float mx = 0.f;
-  for (int p = lane; p < np; p += 32) mx = fmaxf(mx, pmax[(long)r * np + p]);
-  const float sc = row_scale(warp_max(mx));
-  if (lane == 0) gs[r] = sc;
-  const float4* src = reinterpret_cast<const float4*>(g + (long)r * F);
-  uint2* dst = reinterpret_cast<uint2*>(gq + (long)r * F);
-  for (int u = lane; u < F / 8; u += 32) {   // 8 values: two 16-byte reads, one 8-byte write
-    const float4 v0 = src[2 * u], v1 = src[2 * u + 1];
-    dst[u] = make_uint2(quantize4(v0.x, v0.y, v0.z, v0.w, sc),
-                        quantize4(v1.x, v1.y, v1.z, v1.w, sc));
-  }
+  quant_partial_rows(g, pmax, F / GRP, gq, gs, M, F);
 }
 
 // grid (ceil(C / BN), ceil(M / BM)): out[m0:m0+BM, n0:n0+BN] for n0 = BN * blockIdx.x
@@ -312,57 +228,7 @@ geglu_int8_out_kernel(const int8_t* __restrict__ gq, const float* __restrict__ g
                       const int8_t* __restrict__ w2, const float* __restrict__ s2,
                       const float* __restrict__ b2, bf16* __restrict__ out, int M, int C,
                       int F) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * G::BN, m0 = blockIdx.y * G::BM;
-  const int c = G::col_of(tid);
-  typename G::ARows a;
-#pragma unroll
-  for (int i = 0; i < G::A_LOADS; ++i) {
-    const int r = m0 + G::row_of(tid, i);
-    a.ok[i] = r < M;
-    a.src[i] = gq + (long)(a.ok[i] ? r : 0) * F + c;
-  }
-  typename G::BRows b;
-#pragma unroll
-  for (int i = 0; i < G::B_LOADS; ++i) {
-    const int r = n0 + G::row_of(tid, i);
-    b.ok[i] = r < C;
-    b.src[i] = w2 + (long)(b.ok[i] ? r : 0) * F + c;
-  }
-  wait_for_predecessor();                // g_q, gs
-  int acc[G::MT][G::NT][4];
-  G::mainloop(acc, smem, a, b, F, tid);
-
-  using T = Staging<G, G::BN>;
-  bf16* Ts = reinterpret_cast<bf16*>(smem_raw);
-  const int lane = tid % 32, warp = tid / 32;
-  const int wm = warp / G::WN, wn = warp % G::WN, q = lane / 4, t = lane % 4;
-  float rs[G::MT][2];
-#pragma unroll
-  for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + wm * G::MT * 16 + mt * 16 + q + 8 * h;
-      rs[mt][h] = r < M ? gs[r] : 0.f;
-    }
-#pragma unroll
-  for (int nt = 0; nt < G::NT; ++nt) {
-    const int col = wn * G::NT * 8 + nt * 8 + 2 * t;
-    const bool ok = n0 + col < C;        // C even: col + 1 too
-    const float cs0 = ok ? s2[n0 + col] : 0.f, cs1 = ok ? s2[n0 + col + 1] : 0.f;
-    const float bb0 = ok ? b2[n0 + col] : 0.f, bb1 = ok ? b2[n0 + col + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        T::put(Ts, wm * G::MT * 16 + mt * 16 + q + 8 * h, col,
-               dequant(acc[mt][nt][2 * h], rs[mt][h], cs0, bb0),
-               dequant(acc[mt][nt][2 * h + 1], rs[mt][h], cs1, bb1));
-  }
-  __syncthreads();
-  T::store(out, C, m0, M, n0, C, Ts, tid);
+  out_tile<G>(gq, gs, w2, s2, b2, out, M, C, F);
 }
 
 // What the launches need to know of the card, found once: the products'
@@ -396,7 +262,6 @@ bool shapes_ok(int M, int C, int F) {
   return M > 0 && C > 0 && C % 16 == 0 && F > 0 && F % GCOLS == 0;
 }
 
-dim3 rows_grid(int M) { return dim3((M + RWARPS - 1) / RWARPS); }
 dim3 proj_grid(int M, int F) { return dim3(F / GCOLS, (M + Proj::BM - 1) / Proj::BM); }
 
 template <class G>
@@ -412,50 +277,12 @@ bool out_thin(int M, int C) {
   return 2 * (int)(grid.x * grid.y) <= card().sms;
 }
 
-// A launch that may overlap its predecessor's end
-template <typename... Params, typename... Args>
-cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                         cudaStream_t s, Args... args) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
-}
-
 template <class G>
 cudaError_t launch_out(const int8_t* gq, const float* gs, const void* w2, const void* s2,
                        const void* b2, void* out, int M, int C, int F, cudaStream_t s) {
   return launch_after(geglu_int8_out_kernel<G>, out_grid<G>(M, C), G::NTHREADS, G::SMEM, s,
                       gq, gs, static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
                       static_cast<const float*>(b2), static_cast<bf16*>(out), M, C, F);
-}
-
-// info[0..6]: registers a thread, shared memory a block (bytes), rows and
-// columns a tile, resident blocks an SM, blocks in the grid, local memory a
-// thread (bytes)
-template <class Kernel>
-cudaError_t describe_one(Kernel kernel, int threads, int smem, int rows, int cols, dim3 grid,
-                         int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  info[0] = attr.numRegs;
-  info[1] = smem;
-  info[2] = rows;
-  info[3] = cols;
-  info[4] = blocks;
-  info[5] = (int)(grid.x * grid.y);
-  info[6] = (int)attr.localSizeBytes;
-  return err;
 }
 
 }  // namespace

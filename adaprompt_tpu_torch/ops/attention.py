@@ -21,8 +21,9 @@ launch count on its wrapper:
     precomputed K/V and out-projection in one C call of two kernels, forward
     only (CUDA: csrc/fused_cross_attention.cu; replaces `_fused_cross_kernel`);
   * `fused_cross_attention_int8` — its w8a8 variant for the `quant="int8"`
-    serving path, with int8 q- and out-projections, forward only (CUDA:
-    csrc/fused_cross_attention_int8.cu; replaces `_fused_cross_i8_kernel`);
+    serving path, with int8 q- and out-projections, forward only, in one C
+    call of four kernels (CUDA: csrc/fused_cross_attention_int8.cu; replaces
+    `_fused_cross_i8_kernel`);
   * `flash_attention_int8` — flash attention with per-token int8 Q and K,
     forward only, wired into no model as in the JAX package (CUDA:
     csrc/flash_attention_int8.cu; replaces `_fwd_kernel_i8`);
@@ -49,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -566,12 +568,44 @@ def fused_cross_attention_int8_reference(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, sc
     return (int8_matmul(o_q, wo_q) * os_ * wo_s + bo.float()).to(x.dtype)
 
 
+def fused_cross_int8_kernel_call(x, wq_q, wq_s, k, v, wo_q, wo_s, bo32, work, out, scale,
+                                 num_heads):
+    """The int8 kernels' C call on operands as `fused_cross_attention_int8`
+    validates them (float32 scales and bo32; `work`, a uint8 workspace of
+    `_cross_int8_workspace_bytes(B, N, C, H)`, and out allocated): the x pass,
+    the q-attention kernel (fp32 o and its per-head row maxima), the o pass
+    and the out-projection kernel. Not counted: the wrapper counts its
+    calls."""
+    b, n, c = x.shape
+    fn = cuda_build.function("fused_cross_attention_int8", "fused_cross_attention_int8_fwd",
+                             [_P] * 10 + [_I] * 5 + [_F, _P])
+    cuda_build.check(fn(x.data_ptr(), wq_q.data_ptr(), wq_s.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), bo32.data_ptr(),
+                        out.data_ptr(), work.data_ptr(), b, n, c, num_heads, k.shape[1],
+                        float(scale), torch.cuda.current_stream(x.device).cuda_stream),
+                     "fused_cross_attention_int8_fwd")
+
+
+@functools.lru_cache(maxsize=None)
+def _cross_int8_workspace_bytes(b, n, c, h) -> int:
+    """The bytes of scratch `fused_cross_attention_int8_fwd` takes at these
+    shapes (x_q, o in fp32, o's per-head row maxima, o_q and the two row
+    scales), as the C side lays them out; asked of it once a shape."""
+    fn = cuda_build.function("fused_cross_attention_int8", "fused_cross_int8_workspace",
+                             [_I] * 4 + [_P])
+    nbytes = ctypes.c_longlong()
+    cuda_build.check(fn(b, n, c, h, ctypes.addressof(nbytes)), "fused_cross_int8_workspace")
+    return nbytes.value
+
+
 def fused_cross_attention_int8(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale, num_heads):
     """x [B, N, C] (pre-normed); (wq_q, wq_s) and (wo_q, wo_s) the int8
     [C, C] ([out, in]) weights and float32 [C] scales of
     `quant.quantize_weight`; k/v [B, S, H, hd] (from precompute_cross_kv);
     bo [C]. Returns [B, N, C]: the attention output after the
-    out-projection (add the residual outside). Forward only."""
+    out-projection (add the residual outside). Forward only. On the card one
+    C call runs four kernels in a workspace that the wrapper allocates; it
+    counts one launch."""
     if x.device.type == "cpu":
         return fused_cross_attention_int8_reference(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale,
                                                     num_heads)
@@ -586,22 +620,21 @@ def fused_cross_attention_int8(x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale, num_h
             or k.shape != (b, s, num_heads, hd) or v.shape != k.shape):
         raise ValueError(f"int8 fused cross kernel: shapes x{tuple(x.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} wq{tuple(wq_q.shape)} with {num_heads} heads")
-    if c % 32 or c > 1280 or hd % 8:
-        raise ValueError(f"int8 fused cross kernel: C={c} must be a multiple of 32, <= 1280, "
-                         f"with a head dim ({hd}) a multiple of 8")
+    if c % 16:
+        raise ValueError(f"int8 fused cross kernel: C={c} must be a multiple of 16")
+    if hd > _CROSS_MAX_HD or s > _CROSS_MAX_KEYS:
+        raise ValueError(f"int8 fused cross kernel: head dim {hd} and {s} keys; the kernels take "
+                         f"head dims up to {_CROSS_MAX_HD} and up to {_CROSS_MAX_KEYS} keys")
     x, k, v = cuda_build.kernel_operands("int8 fused cross kernel", x, k, v)
     wq_q, wo_q = cuda_build.kernel_operands("int8 fused cross kernel", wq_q, wo_q,
                                             dtype=torch.int8)
     wq_s, wo_s, bo32 = (t.to(device=x.device, dtype=torch.float32).contiguous()
                         for t in (wq_s, wo_s, bo))
+    work = torch.empty(_cross_int8_workspace_bytes(b, n, c, num_heads), dtype=torch.uint8,
+                       device=x.device)
     out = torch.empty_like(x)
-    fn = cuda_build.function("fused_cross_attention_int8", "fused_cross_attention_int8_fwd",
-                             [_P] * 9 + [_I] * 5 + [_F, _P])
-    cuda_build.check(fn(x.data_ptr(), wq_q.data_ptr(), wq_s.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(), bo32.data_ptr(),
-                        out.data_ptr(), b, n, c, num_heads, s, float(scale),
-                        torch.cuda.current_stream(x.device).cuda_stream),
-                     "fused_cross_attention_int8_fwd")
+    fused_cross_int8_kernel_call(x, wq_q, wq_s, k, v, wo_q, wo_s, bo32, work, out, scale,
+                                 num_heads)
     fused_cross_attention_int8.launches += 1
     return out
 

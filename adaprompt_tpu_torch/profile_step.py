@@ -48,7 +48,11 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "cross_out_kernel": "fused_cross_attention",      # o.Wo^T -> out
                "geglu_proj_kernel": "geglu_fwd",        # x.W1^T -> g
                "geglu_out_kernel": "geglu_fwd",         # g.W2^T -> out
-               "fused_cross_int8_kernel": "fused_cross_attention_int8",
+               # B5's four kernels; no name contains a B2 or B6 kernel's name
+               "cross_int8_quant_x_kernel": "fused_cross_attention_int8",   # x -> x_q, xs
+               "cross_int8_q_attn_kernel": "fused_cross_attention_int8",    # -> fp32 o, row maxima
+               "cross_int8_quant_o_kernel": "fused_cross_attention_int8",   # o -> o_q, os
+               "cross_int8_out_kernel": "fused_cross_attention_int8",       # o_q.Wo_q^T -> out
                # B6's four kernels; no name contains a B3 kernel's name
                "geglu_int8_quant_x_kernel": "geglu_int8",   # x -> x_q, xs
                "geglu_int8_proj_kernel": "geglu_int8",      # x_q.W1_q^T -> fp32 g, row maxima

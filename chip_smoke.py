@@ -15,12 +15,14 @@ Phases, in order (any failure exits non-zero without the final line):
   2. log the four flash kernels' resources at D=40 and 80 (registers,
      shared memory, rows a block, blocks an SM; the three forwards and the
      backward's main kernel), the GEGLU's two kernels' at C=320 and 640,
-     the fused cross-attention's two and the int8 GEGLU's four at their
-     four shapes (also their grids); hold each kernel against its plain
-     PyTorch version on the card, in bf16, at the paths' shapes (the GEGLU,
-     the fused cross-attention and the int8 GEGLU also untimed at ragged
-     shapes, with their launch counts checked a call, the int8 GEGLU also
-     where every row's max|g| lies in the last 64 columns; the
+     the fused cross-attention's two and the int8 GEGLU's and the int8
+     cross-attention's four each at their four shapes (also their grids);
+     hold each kernel against its plain PyTorch version on the card, in
+     bf16, at the paths' shapes (the GEGLU, the fused cross-attention and
+     both int8 kernels also untimed at ragged shapes, with their launch
+     counts checked a call, the int8 GEGLU also where every row's max|g|
+     lies in the last 64 columns, the int8 cross-attention where every
+     row's max|o| lies in the last head; the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
      tests' and ragged ones; the flash variants and exp2 forms each against
@@ -37,7 +39,7 @@ Phases, in order (any failure exits non-zero without the final line):
      computes, the port's own unfused pair (group_norm + conv2d), beside
      the GEGLU the port's unfused feed-forward on cuBLAS, beside the
      fused cross-attention its unfused chain (cuBLAS, SDPA, cuBLAS), beside
-     the int8 GEGLU the bf16 GEGLU kernel at its shape and the port's int8
+     each int8 kernel its bf16 counterpart at its shape and the port's int8
      chain on cuBLASLt (torch._int_mm); beside the
      no-max wrapper's call, its kernel alone (kmax made beforehand); the
      backward timed as its C call (pre-pass, kernel and dQ epilogue), its
@@ -616,36 +618,85 @@ GEGLU_RAGGED = ((50, 320), (33, 640), (96, 16), (127, 320), (129, 320), (257, 32
                 (200, 48), (4096, 640))
 
 
-def _int8_weights(gen, n, k):
+def _case_cross_int8(gen, n, c, b, timed=True, h=8, peak_last=False):
+    """B5 (one C call: four kernels) against its plain version; its launch
+    count must rise by one a call. `kernel_ms` is the wrapper's call,
+    `kernel_only_ms` its C call alone on allocated operands, as B2's. No
+    single PyTorch call computes it (library_ms None). Beside it, timed only
+    and called by nothing in the port: `bf16_ms`, B2's C call at the same
+    shape on the weights before quantization, what quant="int8" has to beat;
+    `unfused_ms`, the port's own int8 chain in eager PyTorch (quantize_acts ->
+    torch._int_mm -> dequantize to bf16 -> SDPA over the 77 keys ->
+    quantize_acts -> torch._int_mm -> dequantize + bo), whose distance from
+    the plain version is logged. With peak_last, V of the last head is 30x
+    larger, so that every row's max|o| lies in the last head (a scale of o
+    taken per head would clip or mis-scale there)."""
     import torch
-    from adaprompt_tpu_torch.ops.quant import quantize_weight
-    w = (torch.rand(n, k, device="cuda", generator=gen) * 2 - 1) / math.sqrt(k)
-    return quantize_weight(w.to(torch.bfloat16))
-
-
-def _case_cross_int8(gen, n, c, b):
-    import torch
+    import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
-    h, s = 8, 77
+    from adaprompt_tpu_torch.ops.quant import quantize_acts, quantize_weight
+    s = 77
+    hd = c // h
     bf = torch.bfloat16
     x = torch.randn(b, n, c, device="cuda", generator=gen).to(bf)
-    k = torch.randn(b, s, h, c // h, device="cuda", generator=gen).to(bf)
-    v = torch.randn(b, s, h, c // h, device="cuda", generator=gen).to(bf)
+    w = lambda: ((torch.rand(c, c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)).to(bf)
+    wq, wo = w(), w()
+    k = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(bf)
+    v = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(bf)
+    if peak_last:
+        v[:, :, -1] *= 30
     bo = (torch.rand(c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)
-    args = (x, *_int8_weights(gen, c, c), k, v, *_int8_weights(gen, c, c), bo,
-            (c // h) ** -0.5, h)
+    scale = hd ** -0.5
+    (wq_q, wq_s), (wo_q, wo_s) = quantize_weight(wq), quantize_weight(wo)
+    args = (x, wq_q, wq_s, k, v, wo_q, wo_s, bo, scale, h)
+    before = A.fused_cross_attention_int8.launches
     out = A.fused_cross_attention_int8(*args)
+    if A.fused_cross_attention_int8.launches != before + 1:
+        raise AssertionError(f"fused_cross_attention_int8 counted "
+                             f"{A.fused_cross_attention_int8.launches - before} launches for one call")
     ref = A.fused_cross_attention_int8_reference(*args)
     err, mag, ok = _compare(out, ref, 2e-2)
-    res = {"kernel_ms": time_ms(lambda: A.fused_cross_attention_int8(*args), 10),
-           "plain_ms": time_ms(lambda: A.fused_cross_attention_int8_reference(*args), 3),
-           "library_ms": None}
+
+    def unfused():
+        """The eager int8 chain: out [B, N, C] and the head concat o [B*N, C]."""
+        x_q, xs = quantize_acts(x.view(b * n, c))
+        q = (torch._int_mm(x_q, wq_q.t()).float() * xs * wq_s).to(bf)
+        o = F.scaled_dot_product_attention(q.view(b, n, h, hd).transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), scale=scale)
+        o = o.transpose(1, 2).reshape(b * n, c)
+        o_q, os_ = quantize_acts(o)
+        return (torch._int_mm(o_q, wo_q.t()).float() * os_ * wo_s + bo).to(bf).view(b, n, c), o
+
+    chain, o = unfused()
+    detail = f"unfused rel err {(chain.float() - ref.float()).abs().max().item() / mag:.2e}"
+    if peak_last:
+        head_max = o.view(b * n, h, hd).abs().amax(-1)
+        last = bool((head_max[:, -1] > head_max[:, :-1].amax(-1)).all())
+        detail += f"; every row's max|o| in the last head: {last}"
+        ok = ok and last
+    nan = float("nan")
+    res = {"kernel_ms": nan, "kernel_only_ms": nan, "plain_ms": nan, "library_ms": None,
+           "bf16_ms": nan, "unfused_ms": nan}
+    if timed:
+        work = torch.empty(A._cross_int8_workspace_bytes(b, n, c, h), dtype=torch.uint8,
+                           device="cuda")
+        out2, o16, out16 = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+        res.update(kernel_ms=time_ms(lambda: A.fused_cross_attention_int8(*args), 10),
+                   kernel_only_ms=time_ms(lambda: A.fused_cross_int8_kernel_call(
+                       x, wq_q, wq_s, k, v, wo_q, wo_s, bo, work, out2, scale, h), 20),
+                   plain_ms=time_ms(lambda: A.fused_cross_attention_int8_reference(*args), 3),
+                   bf16_ms=time_ms(lambda: A.fused_cross_kernel_call(
+                       x, wq, k, v, wo, bo, o16, out16, scale, h), 20),
+                   unfused_ms=time_ms(unfused, 10))
+        detail = (f"kernel_only_ms={res['kernel_only_ms']:.4f} bf16_ms={res['bf16_ms']:.4f} "
+                  f"unfused_ms={res['unfused_ms']:.4f} {detail}")
     # int8: the two C x C projections; bf16: the attention over S keys.
     # Bytes: x in and out (bf16), the int8 weights, their f32 scales and bo, k and v
     nbytes = 2 * b * n * c * 2 + 2 * c * c + 3 * c * 4 + 2 * b * s * c * 2
     res.update(_bound(b * n * 4 * s * c, nbytes, exps=b * h * n * s,
                       int8_ops=b * n * 4 * c * c))
-    return f"fused_cross_attention_int8 C={c} N={n} B={b}", err, mag, 2e-2, ok, res, ""
+    tag = " max|o| in the last head" if peak_last else ""
+    return f"fused_cross_attention_int8 C={c} N={n} B={b} H={h}{tag}", err, mag, 2e-2, ok, res, detail
 
 
 def _case_geglu_int8(gen, m, c, timed=True, peak_last=False):
@@ -866,6 +917,24 @@ def geglu_int8_resources():
         _log_kernels("geglu_int8", GEGLU_INT8_KERNELS, f"C={c} M={m}", info)
 
 
+CROSS_INT8_KERNELS = ("cross_int8_quant_x_kernel", "cross_int8_q_attn_kernel",
+                      "cross_int8_quant_o_kernel", "cross_int8_out_kernel")
+
+
+def cross_int8_resources():
+    """Log B5's four kernels' resources at its four serving shapes, from the
+    runtime: registers a thread, shared memory a block, the tile, resident
+    blocks an SM, blocks in the grid, local memory a thread."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("fused_cross_attention_int8", "fused_cross_int8_describe",
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for b, n, c in ((4, 4096, 320), (4, 1024, 640), (2, 4096, 320), (2, 1024, 640)):
+        info = (ctypes.c_int * 28)()
+        cuda_build.check(fn(b, n, c, 8, ctypes.addressof(info)), "fused_cross_int8_describe")
+        _log_kernels("fused_cross_attention_int8", CROSS_INT8_KERNELS, f"C={c} N={n} B={b}", info)
+
+
 def cross_resources():
     """Log B2's two kernels' resources at its four main-path shapes, from the
     runtime: registers a thread, shared memory a block, the tile, resident
@@ -890,6 +959,7 @@ def phase_kernels():
     geglu_resources()
     cross_resources()
     geglu_int8_resources()
+    cross_int8_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -954,6 +1024,12 @@ def phase_kernels():
     for b_, n_, c_, h_ in CROSS_RAGGED:
         cases.append(("fused_cross_attention", (), lambda a=(n_, c_, b_, h_): _case_cross(
             gen, *a, timed=False)))
+        cases.append(("fused_cross_attention_int8", (), lambda a=(n_, c_, b_), h=h_: (
+            _case_cross_int8(gen, *a, timed=False, h=h))))
+    cases.append(("fused_cross_attention_int8", (), lambda: _case_cross_int8(
+        gen, 4096, 320, 2, timed=False, peak_last=True)))
+    cases.append(("fused_cross_attention_int8", (), lambda: _case_cross_int8(
+        gen, 1000, 640, 1, timed=False, peak_last=True)))
     # the two plain convs run on no path (wired nowhere, as in the JAX package)
     for fn_name in ("conv3x3_halo", "conv3x3_im2col"):
         for shape in ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),

@@ -5,6 +5,7 @@ compared with their plain versions on the card (marker `cuda`)."""
 
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -362,15 +363,16 @@ def test_fused_cross_source_structure():
 def test_int8_geglu_source_structure():
     """B6 is built on the int8 sibling of the block-GEMM main loop
     (BlockGemmS8 of block_gemm.cuh, which keeps the bf16 BlockGemm and
-    Staging that B2 and B3 share); its library's name hashes both headers;
-    its C call, its workspace size and its describe function are there, and
-    no `geglu_int8_kernel` is left for the profile to file."""
+    Staging that B2 and B3 share) and on the row passes and out-projection
+    it shares with B5 (int8_rows.cuh); its library's name hashes the three
+    headers; its C call, its workspace size and its describe function are
+    there, and no `geglu_int8_kernel` is left for the profile to file."""
     from adaprompt_tpu_torch.ops import cuda_build
     src = (cuda_build.CSRC / "geglu_int8.cu").read_text()
-    assert '#include "block_gemm.cuh"' in src
+    assert '#include "block_gemm.cuh"' in src and '#include "int8_rows.cuh"' in src
     assert "\ngeglu_int8_kernel(" not in src
     assert sorted(p.name for p in cuda_build.source_files("geglu_int8")) == [
-        "block_gemm.cuh", "flash_sm90.cuh", "geglu_int8.cu"]
+        "block_gemm.cuh", "flash_sm90.cuh", "geglu_int8.cu", "int8_rows.cuh"]
     for fn in ("geglu_int8_fwd", "geglu_int8_workspace", "geglu_int8_describe"):
         assert f'extern "C" int {fn}(' in src
     for kernel in ("geglu_int8_quant_x_kernel", "geglu_int8_proj_kernel",
@@ -380,6 +382,57 @@ def test_int8_geglu_source_structure():
     for struct in ("struct BlockGemmS8", "struct BlockGemm ", "struct Staging"):
         assert struct in header
     assert "m16n8k32.row.col.s32.s8.s8.s32" in header
+
+
+def test_int8_fused_cross_source_structure():
+    """B5 is four kernels on BlockGemmS8 and the row passes and
+    out-projection it shares with B6 (int8_rows.cuh), not on WMMA; its
+    library's name hashes exactly the headers it includes; its C call, its
+    workspace size and its describe function are there, and no
+    `fused_cross_int8_kernel` is left for the profile to file."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "fused_cross_attention_int8.cu").read_text()
+    assert '#include "block_gemm.cuh"' in src and '#include "int8_rows.cuh"' in src
+    assert "BlockGemmS8<" in src
+    assert "wmma::" not in src and "<mma.h>" not in src
+    assert "\nfused_cross_int8_kernel(" not in src
+    assert sorted(p.name for p in cuda_build.source_files("fused_cross_attention_int8")) == [
+        "block_gemm.cuh", "flash_sm90.cuh", "fused_cross_attention_int8.cu", "int8_rows.cuh"]
+    for fn in ("fused_cross_attention_int8_fwd", "fused_cross_int8_workspace",
+               "fused_cross_int8_describe"):
+        assert f'extern "C" int {fn}(' in src
+    for kernel in ("cross_int8_quant_x_kernel", "cross_int8_q_attn_kernel",
+                   "cross_int8_quant_o_kernel", "cross_int8_out_kernel"):
+        assert f"\n{kernel}(" in src
+    header = (cuda_build.CSRC / "int8_rows.cuh").read_text()
+    assert "__global__ void" not in header
+    for body in ("quant_x_rows", "quant_partial_rows", "out_tile", "launch_after"):
+        assert f" {body}(" in header and re.search(rf"\b{body}(<[^>]*>)?\(", src), body
+
+
+@pytest.mark.parametrize("shape", [dict(c=72), dict(keys=81), dict(c=336, heads=2)])
+def test_int8_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
+    """Off the CPU the int8 wrapper names a shape that the kernels cannot
+    take (C not a multiple of 16, more than 80 keys, a head dim over 160)
+    before it reaches the C call; head dims 12 (not a multiple of 8) and 160
+    pass on to it, where meta tensors raise TypeError ("CUDA")."""
+    meta = lambda *s, dtype=torch.float32: torch.empty(*s, device="meta", dtype=dtype)
+
+    def args(c, heads, keys):
+        hd = c // heads
+        return (meta(2, 10, c, dtype=torch.bfloat16), meta(c, c, dtype=torch.int8), meta(c),
+                meta(2, keys, heads, hd, dtype=torch.bfloat16),
+                meta(2, keys, heads, hd, dtype=torch.bfloat16), meta(c, c, dtype=torch.int8),
+                meta(c), meta(c), hd ** -0.5, heads)
+
+    c, heads, keys = shape.get("c", 64), shape.get("heads", 2), shape.get("keys", 77)
+    hd = c // heads
+    with torch.no_grad(), pytest.raises(
+            ValueError, match=f"C={c}" if c % 16 else f"head dim {hd} and {keys} keys"):
+        tattn.fused_cross_attention_int8(*args(c, heads, keys))
+    for ok in ((96, 8, 77), (320, 2, 77)):       # hd = 12 and 160
+        with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
+            tattn.fused_cross_attention_int8(*args(*ok))
 
 
 @pytest.mark.parametrize("c,f", [(1280, 5120), (320, 1280), (48, 64)])
@@ -424,6 +477,19 @@ def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
         tattn.fused_cross_attention(*ok)
 
 
+# B5's four kernels as the profiler names them (the out kernel is templated
+# on its tile, as B6's)
+_B5_KERNEL_NAMES = [
+    "_ZN12_GLOBAL__N_125cross_int8_quant_x_kernelEPK13__nv_bfloat16PaPfii",
+    "void (anonymous namespace)::cross_int8_q_attn_kernel<48>(signed char const*, float const*, "
+    "signed char const*, float const*, __nv_bfloat16 const*, __nv_bfloat16 const*, float*, "
+    "float*, int, int, int, int, float)",
+    "_ZN12_GLOBAL__N_125cross_int8_quant_o_kernelEPKfS1_PaPfiii",
+    "void (anonymous namespace)::cross_int8_out_kernel<(anonymous namespace)::Out>(signed char "
+    "const*, float const*, signed char const*, float const*, float const*, __nv_bfloat16*, int, "
+    "int)"]
+
+
 @pytest.mark.parametrize("name,label", [
     ("void (anonymous namespace)::geglu_proj_kernel(__nv_bfloat16 const*, int, int, int)",
      "geglu_fwd"),
@@ -441,15 +507,23 @@ def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
      "fused_cross_attention"),
     ("_ZN12_GLOBAL__N_116cross_out_kernelEPK13__nv_bfloat16S2_PKfPS0_ii",
      "fused_cross_attention"),
-    ("_ZN12_GLOBAL__N_123fused_cross_int8_kernelEPK13__nv_bfloat16PKaPKfS2_S2_S4_S6_S6_PS0_iiiiif",
-     "fused_cross_attention_int8")])
+] + [(name, "fused_cross_attention_int8") for name in _B5_KERNEL_NAMES])
 def test_profile_step_classes_kernels_by_name(name, label):
     """The profile's kernel classes: both of B3's kernels count as its
-    wrapper's, as both of B2's count as B2's, and all four of B6's (whose
-    names contain no B3 kernel's name) as B6's; the int8 cross-attention
-    kernel as its own."""
+    wrapper's, as both of B2's count as B2's, all four of B6's (whose names
+    contain no B3 kernel's name) as B6's and all four of B5's as B5's."""
     from adaprompt_tpu_torch.profile_step import kernel_class
     assert kernel_class(name) == label
+
+
+@pytest.mark.parametrize("name", _B5_KERNEL_NAMES)
+def test_profile_step_files_no_int8_cross_kernel_under_b2_or_b6(name):
+    """No kernel of B5 is filed as one of B2 (whose kernel names differ
+    from B5's by "int8_") or B6 (whose row passes and out kernel share B5's
+    device code under other names)."""
+    from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
+    assert kernel_class(name) not in ("fused_cross_attention", "geglu_int8")
+    assert len([key for key in OUR_KERNELS if key in name]) == 1
 
 
 @pytest.mark.parametrize("exp2", [False, True])
@@ -655,23 +729,71 @@ def test_autograd_through_the_kernels_on_the_card():
             _assert_near(got, ref, 3e-2)
 
 
+def _int8_cross_card_args(b, n, c, h, seed, peak_last=False):
+    """x [b, n, c] bf16, B5's int8 weights and 77-key K/V (h heads) on the
+    card; with peak_last V of the last head is 30x larger, so that every
+    row's max|o| lies in the last head."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    v = rn(b, 77, h, c // h)
+    if peak_last:
+        v[:, :, -1] *= 30
+    return _int8_cross_args(rn(b, n, c).bfloat16(), rn(c, c) / c ** 0.5,
+                            rn(b, 77, h, c // h).bfloat16(), v.bfloat16(),
+                            rn(c, c) / c ** 0.5, rn(c) / 8) + ((c // h) ** -0.5, h)
+
+
+def _int8_cross_call_near_plain(args):
+    before = tattn.fused_cross_attention_int8.launches
+    _assert_near(tattn.fused_cross_attention_int8(*args),
+                 tattn.fused_cross_attention_int8_reference(*args), 2e-2)
+    assert tattn.fused_cross_attention_int8.launches == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,c,h", [(2, 100, 64, 2), (1, 512, 320, 8), (3, 33, 640, 8),
-                                     (1, 70, 1280, 8)])
+                                     (1, 70, 1280, 8), (4, 127, 320, 8), (4, 129, 320, 8),
+                                     (2, 100, 96, 8), (2, 100, 64, 1), (3, 300, 640, 8),
+                                     (2, 65, 64, 8)])
 def test_int8_fused_cross_kernel_ragged_shapes(b, n, c, h):
-    """Ragged row tiles, padded head dims and keys; bf16 against the plain
-    version (x and o quantized per row, int8 projections)."""
+    """The bf16 kernel's ragged set: rows across the q-attention kernel's
+    128- and 64-row tiles (N = 33, 65, 127, 129), head dims 8, 12 (not a
+    multiple of 8: 2-byte K/V loads, o's columns one at a time), 32, 64 (one
+    head) and 160, K = C of 64, 96 and 320 bytes (a ragged last ring stage),
+    B = 3; bf16 against the plain version (x and o quantized per row, int8
+    projections), one launch counted a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(n + c)
-    rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
-    args = _int8_cross_args(rn(b, n, c).bfloat16(), rn(c, c) / c ** 0.5,
-                            rn(b, 77, h, c // h).bfloat16(), rn(b, 77, h, c // h).bfloat16(),
-                            rn(c, c) / c ** 0.5, rn(c) / 8)
-    before = tattn.fused_cross_attention_int8.launches
-    _assert_near(tattn.fused_cross_attention_int8(*args, (c // h) ** -0.5, h),
-                 tattn.fused_cross_attention_int8_reference(*args, (c // h) ** -0.5, h), 2e-2)
-    assert tattn.fused_cross_attention_int8.launches == before + 1
+    _int8_cross_call_near_plain(_int8_cross_card_args(b, n, c, h, n + c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(2, 4096, 320), (1, 1000, 640)])
+def test_int8_fused_cross_kernel_row_max_in_last_head(b, n, c):
+    """Every row's max|o| lies in the last head only: o's scale has to come
+    from all H heads' partial maxima (a per-head scale, or one that missed
+    the last head's, would clip or mis-scale o there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args = _int8_cross_card_args(b, n, c, 8, n + c, peak_last=True)
+    x, wq_q, wq_s, k, v = args[:5]
+    x_q, xs = quantize_acts(x)
+    q = (int8_matmul(x_q, wq_q) * xs * wq_s).to(x.dtype).reshape(b, n, 8, c // 8)
+    p = torch.softmax(torch.einsum("bnhd,bshd->bhns", q.float(), k.float()) * args[8], dim=-1)
+    o = torch.einsum("bhns,bshd->bnhd", p.to(x.dtype).float(), v.float()).abs().amax(-1)
+    assert (o[..., -1] > o[..., :-1].amax(-1)).all()
+    _int8_cross_call_near_plain(args)
+
+
+@pytest.mark.cuda
+def test_int8_fused_cross_kernel_two_calls_in_a_row():
+    """Two calls in a row on other inputs and shapes (the workspace carries
+    nothing over: each is within the bound of its own plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _int8_cross_call_near_plain(_int8_cross_card_args(2, 300, 320, 8, 1, peak_last=True))
+    _int8_cross_call_near_plain(_int8_cross_card_args(2, 300, 320, 8, 2))
+    _int8_cross_call_near_plain(_int8_cross_card_args(1, 1000, 640, 8, 3))
 
 
 def _int8_geglu_card_args(m, c, seed, peak_last=False):

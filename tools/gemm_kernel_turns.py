@@ -1,8 +1,9 @@
 """Time the block-GEMM kernels of the tree it is run from: B3 (geglu_fwd),
-B2 (fused_cross_attention) and B6 (geglu_int8) at their main-path shapes,
-through that tree's own chip_smoke.py cases, with B2's and B3's resource
-lines. Run from the root of each of two trees in one chip call, in turns,
-to compare them on one card:
+B2 (fused_cross_attention), B6 (geglu_int8) and B5
+(fused_cross_attention_int8) at their main-path shapes, through that tree's
+own chip_smoke.py cases, with the resource lines that tree logs. Run from
+the root of each of two trees in one chip call, in turns, to compare them on
+one card:
 
     python3 tools/gemm_kernel_turns.py                  # this tree
     (cd other_tree && python3 ../tools/gemm_kernel_turns.py)
@@ -25,6 +26,8 @@ def main():
     print(chip_smoke.card_line(), flush=True)
     chip_smoke.geglu_resources()
     chip_smoke.cross_resources()
+    if hasattr(chip_smoke, "cross_int8_resources"):
+        chip_smoke.cross_int8_resources()
     gen = torch.Generator(device="cuda").manual_seed(0)
     b = chip_smoke.UNET_BATCH
     cases = [lambda: chip_smoke._case_geglu(gen, b * 4096, 320),
@@ -34,6 +37,8 @@ def main():
               for a in ((4096, 320), (1024, 640), (4096, 320, 2), (1024, 640, 2))]
     cases += [lambda a=a: chip_smoke._case_geglu_int8(gen, *a)
               for a in ((4 * 2048, 320), (2 * 2048, 320), (4 * 1024, 640), (2 * 1024, 640))]
+    cases += [lambda a=a: chip_smoke._case_cross_int8(gen, *a)
+              for a in ((4096, 320, 4), (1024, 640, 4), (4096, 320, 2), (1024, 640, 2))]
     for case in cases:
         label, err, mag, tol, ok, res, _ = case()
         extra = f" kernel_only_ms={res['kernel_only_ms']:.4f}" if "kernel_only_ms" in res else ""
