@@ -25,7 +25,8 @@ launch count on its wrapper:
     call of four kernels (CUDA: csrc/fused_cross_attention_int8.cu; replaces
     `_fused_cross_i8_kernel`);
   * `flash_attention_int8` — flash attention with per-token int8 Q and K,
-    forward only, wired into no model as in the JAX package (CUDA:
+    forward only, wired into no model as in the JAX package; one C call of
+    three kernels makes the int8 operands on the card and attends (CUDA:
     csrc/flash_attention_int8.cu; replaces `_fwd_kernel_i8`);
   * `fused_self_attention` — q-projection, attention over all N keys of a
     packed K|V and out-projection in one kernel, forward only, wired into no
@@ -681,9 +682,71 @@ def flash_attention_int8_reference(q, k, v, key_bias=None, scale=None):
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def int8_flash_kernel_call(q, k, v, bias, work, out, scale, keep_q=False):
+    """The int8-QK kernels' C call on operands as `flash_attention_int8`
+    validates them (bias float32 [B, Sk] or None; `work`, a uint8 workspace of
+    `_int8_flash_layout(...)[0]` bytes, and out [B, Sq, H, D] allocated): the
+    key pass (the key mean, k_q, k_s) and the attention kernel, which
+    quantizes its own q rows. With keep_q the kernel also keeps its q_q and
+    q_s in the workspace (`int8_flash_workspace`). Not counted: the wrapper
+    counts its calls."""
+    b, sq, h, d = q.shape
+    fn = cuda_build.function("flash_attention_int8", "flash_attention_int8_fwd",
+                             [_P] * 6 + [_I] * 5 + [_F, _I, _P])
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                        work.data_ptr(), b, sq, k.shape[1], h, d, float(scale), int(keep_q),
+                        torch.cuda.current_stream(q.device).cuda_stream),
+                     "flash_attention_int8_fwd")
+
+
+def int8_flash_key_pass(k, work, sq):
+    """The key pass of the C call alone (its two kernels) on a workspace of a
+    call with sq queries: the key mean, k_q and k_s. Not counted."""
+    b, sk, h, d = k.shape
+    fn = cuda_build.function("flash_attention_int8", "flash_attention_int8_keys",
+                             [_P] * 2 + [_I] * 5 + [_P])
+    cuda_build.check(fn(k.data_ptr(), work.data_ptr(), b, sq, sk, h, d,
+                        torch.cuda.current_stream(k.device).cuda_stream),
+                     "flash_attention_int8_keys")
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_flash_layout(b, sq, sk, h, d) -> tuple:
+    """The workspace of `flash_attention_int8_fwd` at these shapes, as the C
+    side lays it out: its bytes, then the byte offsets of k_q, k_s, the key
+    mean, the partial key sums, q_q and q_s; asked of it once a shape."""
+    fn = cuda_build.function("flash_attention_int8", "flash_attention_int8_workspace",
+                             [_I] * 5 + [_P])
+    layout = (ctypes.c_longlong * 7)()
+    cuda_build.check(fn(b, sq, sk, h, d, ctypes.addressof(layout)),
+                     "flash_attention_int8_workspace")
+    return tuple(layout)
+
+
+def int8_flash_workspace(work, b, sq, sk, h, d) -> dict:
+    """Views of what a C call at these shapes left in `work`: "k_q" [B*H, Sk,
+    DQ] int8 (DQ = D rounded up to 16, zero past D), "k_s" [B*H, Sk],
+    "k_mean" [B*H, D] bf16 and, after a call with keep_q, "q_q" [B*H, Sq, DQ]
+    and "q_s" [B*H, Sq]; heads folded into the batch as in
+    `int8_qk_operands`."""
+    _, kq, ks, mean, _, qq, qs = _int8_flash_layout(b, sq, sk, h, d)
+    dq = (d + 15) // 16 * 16
+
+    def view(off, dtype, *shape):
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        return work[off:off + n].view(dtype).view(*shape)
+
+    return {"k_q": view(kq, torch.int8, b * h, sk, dq), "k_s": view(ks, torch.float32, b * h, sk),
+            "k_mean": view(mean, torch.bfloat16, b * h, d),
+            "q_q": view(qq, torch.int8, b * h, sq, dq), "q_s": view(qs, torch.float32, b * h, sq)}
+
+
 def flash_attention_int8(q, k, v, key_bias=None, scale=None):
     """Forward-only flash attention with int8 q.k^T: q/k/v [B, S, H, D],
-    optional [B, Sk] key bias; returns [B, Sq, H, D]. No lse, no gradient."""
+    optional [B, Sk] key bias; returns [B, Sq, H, D]. No lse, no gradient. On
+    the card one C call makes the int8 operands and runs the attention in a
+    workspace that the wrapper allocates; it counts one launch."""
     if q.device.type == "cpu":
         return flash_attention_int8_reference(q, k, v, key_bias, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -699,22 +762,17 @@ def flash_attention_int8(q, k, v, key_bias=None, scale=None):
     if d % 8 or d > 128:
         raise ValueError(f"int8 flash kernel: head dim {d} must be a multiple of 8, <= 128")
     q, k, v = cuda_build.kernel_operands("int8 flash kernel", q, k, v)
-    q_q, q_s, k_qt, k_s, vf = int8_qk_operands(q, k, v)
     bias = None
     if key_bias is not None:
         bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
         if bias.shape != (b, sk):
             raise ValueError(f"int8 flash kernel: key_bias {tuple(bias.shape)} != {(b, sk)}")
-    out = torch.empty((b * h, sq, d), device=q.device, dtype=q.dtype)
-    fn = cuda_build.function("flash_attention_int8", "flash_attention_int8_fwd",
-                             [_P] * 7 + [_I] * 5 + [_F, _P])
-    cuda_build.check(fn(q_q.data_ptr(), q_s.data_ptr(), k_qt.data_ptr(), k_s.data_ptr(),
-                        vf.data_ptr(), bias.data_ptr() if bias is not None else None,
-                        out.data_ptr(), b, sq, sk, h, d, float(scale),
-                        torch.cuda.current_stream(q.device).cuda_stream),
-                     "flash_attention_int8_fwd")
+    work = torch.empty(_int8_flash_layout(b, sq, sk, h, d)[0], dtype=torch.uint8,
+                       device=q.device)
+    out = torch.empty_like(q)
+    int8_flash_kernel_call(q, k, v, bias, work, out, scale)
     flash_attention_int8.launches += 1
-    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    return out
 
 
 flash_attention_int8.launches = 0

@@ -64,6 +64,9 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "flash_fwd_ilv_kernel": "flash_attention_fwd_ilv",
                "flash_fwd_nomax_kernel": "flash_attention_fwd_nomax",
                "nomax_key_max_kernel": "flash_attention_fwd_nomax",     # its pre-pass over K
+               # B10's three kernels: its key pass and its attention kernel
+               "flash_int8_key_sum_kernel": "flash_attention_int8",     # partial key sums
+               "flash_int8_key_quant_kernel": "flash_attention_int8",   # key mean, k_q, k_s
                "flash_fwd_int8_kernel": "flash_attention_int8",
                "fused_self_kernel": "fused_self_attention"}
 

@@ -14,7 +14,8 @@ Phases, in order (any failure exits non-zero without the final line):
      of the flash kernels changed in the SASS;
   2. log the four flash kernels' resources at D=40 and 80 (registers,
      shared memory, rows a block, blocks an SM; the three forwards and the
-     backward's main kernel), the GEGLU's two kernels' at C=320 and 640,
+     backward's main kernel) and the int8-QK flash attention's three
+     kernels', the GEGLU's two kernels' at C=320 and 640,
      the fused cross-attention's two and the int8 GEGLU's and the int8
      cross-attention's four each at their four shapes (also their grids);
      hold each kernel against its plain PyTorch version on the card, in
@@ -25,7 +26,8 @@ Phases, in order (any failure exits non-zero without the final line):
      row's max|o| lies in the last head; the
      kernels that no path runs, the two plain 3x3 convs, the int8-QK flash
      attention and the fused self-attention, at the UNet's shapes or the JAX
-     tests' and ragged ones; the flash variants and exp2 forms each against
+     tests' and ragged ones, the int8-QK call's own int8 operands also
+     against the plain version's; the flash variants and exp2 forms each against
      its own plain version, plus the no-max kernel's underflow guard; each
      flash forward and the backward in both forms also at Sq != Sk with both
      ragged, head dims 8 to 128, one key tile, a key tile masked whole and a
@@ -162,6 +164,24 @@ def time_ms(fn, iters, warmup=2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, warmup=2):
+    """Like time_ms, for calls whose host work outlasts their device work:
+    the calls are queued behind a ~5 ms spin of the card (torch.cuda._sleep),
+    so that the events time the device alone."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -417,11 +437,46 @@ def _case_flash_bwd(gen, s, d, with_bias, exp2=False, b=UNET_BATCH, h=8, timed=T
             f"bias={masked or with_bias}", err, mag, FLASH_BWD_TOL, ok, res, detail)
 
 
+def int8_operands_check(q, k, v, work):
+    """B10's operands as one C call left them in `work` (a call with keep_q)
+    against `int8_qk_operands` on the same card tensors: q_q and q_s equal bit
+    for bit; the key mean's bf16 columns counted where they differ from
+    k.mean(1) (its fp32 sum runs in another order: a mean near a bf16
+    rounding tie may move by an ulp, and with it a key's row maximum); k_q
+    within one level everywhere, k_q and k_s equal in every head whose key
+    mean agrees; the pad columns [D, DQ) zero. Returns (ok, detail)."""
+    import torch
+    from adaprompt_tpu_torch.ops import attention as A
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    got = A.int8_flash_workspace(work, b, sq, sk, h, d)
+    q_q, q_s, k_qt, k_s, _ = A.int8_qk_operands(q, k, v)
+    k_q, k_s = k_qt.transpose(1, 2), k_s[:, 0]
+    mean_diff = got["k_mean"] != k.mean(dim=1).reshape(b * h, d)
+    cols = int(mean_diff.sum())
+    same = ~mean_diff.any(dim=1)                         # heads whose mean agrees
+    dk = (got["k_q"][..., :d].int() - k_q.int()).abs()
+    ok_q = (torch.equal(got["q_q"][..., :d], q_q) and torch.equal(got["q_s"], q_s[..., 0])
+            and not got["q_q"][..., d:].any())
+    ok_k = (int(dk.max()) <= 1 and not dk[same].any()
+            and torch.equal(got["k_s"][same], k_s[same]) and not got["k_q"][..., d:].any())
+    detail = (f"operands: q_q/q_s bit-equal {ok_q}, k_q/k_s {'as stated' if ok_k else 'WRONG'} "
+              f"(max level diff {int(dk.max())}), key-mean columns that differ {cols} of "
+              f"{b * h * d}")
+    return ok_q and ok_k, detail
+
+
 def _case_flash_int8(gen, s, d, with_bias, b=UNET_BATCH, h=8, sk=None, timed=True):
-    """The int8-QK flash kernel against its plain version. Both make their
-    int8 operands with the same PyTorch code on the same tensors on the card
-    (`int8_qk_operands`: deterministic), so they are fed equal operands. Its
-    distance from exact bf16 attention is logged, unbounded."""
+    """B10 (one C call: the key pass's two kernels and the attention kernel)
+    against its plain version, which makes its int8 operands in PyTorch
+    (`int8_qk_operands`); its launch count must rise by one a call, and the
+    operands the call made must agree with the plain version's
+    (`int8_operands_check`). Its distance from exact bf16 attention is
+    logged, unbounded. `kernel_ms` is the wrapper's call, `kernel_only_ms`
+    its C call alone on allocated operands, `prepass_ms` the key pass alone
+    (its two kernels; `device_ms`: its host work outlasts it);
+    beside them, timed only: `b1_ms`, B1's forward (wrapper) at the same
+    shape, and SDPA as the library call."""
     import torch
     import torch.nn.functional as F
     from adaprompt_tpu_torch.ops import attention as A
@@ -433,28 +488,44 @@ def _case_flash_int8(gen, s, d, with_bias, b=UNET_BATCH, h=8, sk=None, timed=Tru
         keep = torch.rand(b, sk, device="cuda", generator=gen) < 0.7
         bias = (keep.float() - 1.0) * (-A.NEG_BIG)
     scale = d ** -0.5
+    before = A.flash_attention_int8.launches
     out = A.flash_attention_int8(q, k, v, bias, scale)
+    if A.flash_attention_int8.launches != before + 1:
+        raise AssertionError(f"flash_attention_int8 counted "
+                             f"{A.flash_attention_int8.launches - before} launches for one call")
     ref = A.flash_attention_int8_reference(q, k, v, bias, scale)
     err, mag, ok = _compare(out, ref, 2e-2)
     exact = A.attention_reference(q, k, v, bias, scale)[0]
     detail = f"vs exact bf16 attention {(out.float() - exact.float()).abs().max().item():.2e}"
     del ref, exact
+    work = torch.empty(A._int8_flash_layout(b, s, sk, h, d)[0], dtype=torch.uint8, device="cuda")
+    out_c = torch.empty_like(q)
+    A.int8_flash_kernel_call(q, k, v, bias, work, out_c, scale, keep_q=True)
+    ops_ok, ops_detail = int8_operands_check(q, k, v, work)
+    ok = ok and ops_ok and torch.equal(out_c, out)
+    detail += f"; {ops_detail}; C call equals the wrapper's bits {torch.equal(out_c, out)}"
     nan = float("nan")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
-    res = {"kernel_ms": time_ms(lambda: A.flash_attention_int8(q, k, v, bias, scale), 10)
-           if timed else nan,
-           "operands_ms": time_ms(lambda: A.int8_qk_operands(q, k, v), 10) if timed else nan,
-           "plain_ms": time_ms(lambda: A.flash_attention_int8_reference(q, k, v, bias, scale), 3)
-           if timed else nan,
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, attn_mask=mask, scale=scale), 10) if timed else nan}
+    res = {"kernel_ms": nan, "kernel_only_ms": nan, "prepass_ms": nan, "plain_ms": nan,
+           "library_ms": nan, "b1_ms": nan}
+    if timed:
+        res.update(
+            kernel_ms=time_ms(lambda: A.flash_attention_int8(q, k, v, bias, scale), 10),
+            kernel_only_ms=time_ms(lambda: A.int8_flash_kernel_call(q, k, v, bias, work, out_c,
+                                                                    scale), 20),
+            prepass_ms=device_ms(lambda: A.int8_flash_key_pass(k, work, s), 20),
+            plain_ms=time_ms(lambda: A.flash_attention_int8_reference(q, k, v, bias, scale), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale), 10),
+            b1_ms=time_ms(lambda: A.flash_attention_fwd(q, k, v, bias, scale), 10))
+        detail += (f" kernel_only_ms={res['kernel_only_ms']:.4f} prepass_ms={res['prepass_ms']:.4f}"
+                   f" b1_ms={res['b1_ms']:.4f} ({res['kernel_ms'] / res['b1_ms']:.2f}x B1)")
     # q.k^T as int8 operations, p.v as bf16 flops; the function's inputs
     # (q, k, v bf16, the bias) read once and the output written once
     nbytes = 2 * b * (s + sk) * h * d * 2 + (b * sk * 4 if with_bias else 0)
     res.update(_bound(2 * b * h * s * sk * d, nbytes, exps=b * h * s * sk,
                       int8_ops=2 * b * h * s * sk * d))
-    detail += f" operands_ms={res['operands_ms']:.4f} (in kernel_ms)"
     return (f"flash_attention_int8 D={d} Sq={s} Sk={sk} B={b} H={h} bias={with_bias}", err, mag,
             2e-2, ok, res, detail)
 
@@ -875,6 +946,28 @@ def flash_resources():
                     log(head + f"{info[2]} query rows a block, {info[3]} blocks an SM")
 
 
+FLASH_INT8_KERNELS = ("flash_int8_key_sum_kernel", "flash_int8_key_quant_kernel",
+                      "flash_fwd_int8_kernel")
+
+
+def int8_flash_resources():
+    """Log B10's three kernels' resources at the UNet's head dims, from the
+    runtime: registers a thread, shared memory a block, rows a block (keys
+    for the key pass), resident blocks an SM, local memory a thread."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("flash_attention_int8", "flash_attention_int8_describe",
+                             [ctypes.c_int, ctypes.c_void_p])
+    for d in (40, 80):
+        info = (ctypes.c_int * 15)()
+        cuda_build.check(fn(d, ctypes.addressof(info)), "flash_attention_int8_describe")
+        for k, name in enumerate(FLASH_INT8_KERNELS):
+            i = info[5 * k:5 * k + 5]
+            log(f"kernel flash_attention_int8 {name} D={d}: {i[0]} registers a thread, {i[1]} B "
+                f"shared memory a block, {i[2]} {'keys' if k < 2 else 'query rows'} a block, "
+                f"{i[3]} blocks an SM, {i[4]} B local memory a thread")
+
+
 GEGLU_INT8_KERNELS = ("geglu_int8_quant_x_kernel", "geglu_int8_proj_kernel",
                       "geglu_int8_quant_g_kernel", "geglu_int8_out_kernel")
 
@@ -956,6 +1049,7 @@ def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_resources()
+    int8_flash_resources()
     geglu_resources()
     cross_resources()
     geglu_int8_resources()
@@ -1704,7 +1798,7 @@ def kernels_line(results, launches_by_path):
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
-        for extra in ("unfused_ms", "bf16_ms", "affine_ms", "operands_ms", "kv_ms",
+        for extra in ("unfused_ms", "bf16_ms", "affine_ms", "prepass_ms", "b1_ms", "kv_ms",
                       "kernel_only_ms", "wrapper_ms"):
             if extra in rs[0]:
                 out[-1][extra] = mean(extra)

@@ -410,6 +410,58 @@ def test_int8_fused_cross_source_structure():
         assert f" {body}(" in header and re.search(rf"\b{body}(<[^>]*>)?\(", src), body
 
 
+def test_int8_flash_source_structure():
+    """B10 is B1's register-resident forward on the Hopper helpers of
+    flash_sm90.cuh, with q.k^T on the int8 mma.sync and its int8 operands made
+    by its own kernels: no WMMA, no score or P buffer in shared memory (Ss,
+    Ps), no byte transposes of K; its library's name hashes exactly the
+    headers it includes; its C call, its workspace layout, its key pass and
+    its describe function are there, with its three kernels."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "flash_attention_int8.cu").read_text()
+    assert '#include "flash_sm90.cuh"' in src and '#include "int8_rows.cuh"' in src
+    assert "wmma::" not in src and "<mma.h>" not in src
+    assert not re.search(r"\b(Ss|Ps|Os)\b", src)
+    assert "m16n8k16.row.col.s32.s8.s8.s32" in src and "mma_s8_16832(" in src
+    assert sorted(p.name for p in cuda_build.source_files("flash_attention_int8")) == [
+        "block_gemm.cuh", "flash_attention_int8.cu", "flash_sm90.cuh", "int8_rows.cuh"]
+    for fn in ("flash_attention_int8_fwd", "flash_attention_int8_workspace",
+               "flash_attention_int8_keys", "flash_attention_int8_describe"):
+        assert f'extern "C" int {fn}(' in src
+    for kernel in ("flash_int8_key_sum_kernel", "flash_int8_key_quant_kernel",
+                   "flash_fwd_int8_kernel"):
+        assert f"\n{kernel}(" in src
+    for step in ("add_key_bias<", "mask_keys_past<", "pv_product<", "store_rows<", "ldmatrix_x4("):
+        assert step in src, step
+    for body in ("row_scale", "quantize8", "wait_for_predecessor", "launch_after"):
+        assert f"int8_rows::{body}" in src, body
+
+
+def test_int8_flash_wrapper_makes_no_operand_in_pytorch(monkeypatch):
+    """Off the CPU the int8 wrapper hands q, k, v as they are to its one C
+    call (no `int8_qk_operands`, no fold or transpose copy) and counts one
+    launch; the C call gets a workspace of the size the C side states and
+    writes a contiguous [B, Sq, H, D] output."""
+    calls = []
+    monkeypatch.setattr(tattn, "int8_qk_operands",
+                        lambda *a: pytest.fail("the wrapper made the operands in PyTorch"))
+    monkeypatch.setattr(tattn, "_int8_flash_layout", lambda *shape: (4096,) + (0,) * 6)
+    monkeypatch.setattr(tattn.cuda_build, "kernel_operands", lambda what, *t, **kw: list(t))
+    monkeypatch.setattr(tattn, "int8_flash_kernel_call",
+                        lambda *a, **kw: calls.append((a, kw)))
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(*s, device="meta", dtype=dtype)
+    q, k, v = meta(2, 70, 3, 16), meta(2, 90, 3, 16), meta(2, 90, 3, 16)
+    before = tattn.flash_attention_int8.launches
+    with torch.no_grad():
+        out = tattn.flash_attention_int8(q, k, v, meta(2, 90, dtype=torch.float64), 0.25)
+    assert tattn.flash_attention_int8.launches == before + 1 and len(calls) == 1
+    (cq, ck, cv, cbias, work, cout, scale), kw = calls[0]
+    assert cq.shape == q.shape and ck.shape == k.shape and cv.shape == v.shape
+    assert cbias.dtype == torch.float32 and cbias.shape == (2, 90)
+    assert work.numel() == 4096 and work.dtype == torch.uint8
+    assert cout is out and out.shape == q.shape and scale == 0.25 and not kw
+
+
 @pytest.mark.parametrize("shape", [dict(c=72), dict(keys=81), dict(c=336, heads=2)])
 def test_int8_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
     """Off the CPU the int8 wrapper names a shape that the kernels cannot
@@ -490,6 +542,16 @@ _B5_KERNEL_NAMES = [
     "int)"]
 
 
+# B10's three kernels as the profiler names them (each templated on D / 8)
+_B10_KERNEL_NAMES = [
+    "void (anonymous namespace)::flash_int8_key_sum_kernel<5>(__nv_bfloat16 const*, float*, "
+    "int, int)",
+    "_ZN12_GLOBAL__N_127flash_int8_key_quant_kernelILi10EEEvPK13__nv_bfloat16PKfPaPfPS1_iif",
+    "void (anonymous namespace)::flash_fwd_int8_kernel<5>(__nv_bfloat16 const*, signed char "
+    "const*, float const*, __nv_bfloat16 const*, float const*, __nv_bfloat16*, signed char*, "
+    "float*, int, int, int, float)"]
+
+
 @pytest.mark.parametrize("name,label", [
     ("void (anonymous namespace)::geglu_proj_kernel(__nv_bfloat16 const*, int, int, int)",
      "geglu_fwd"),
@@ -507,11 +569,13 @@ _B5_KERNEL_NAMES = [
      "fused_cross_attention"),
     ("_ZN12_GLOBAL__N_116cross_out_kernelEPK13__nv_bfloat16S2_PKfPS0_ii",
      "fused_cross_attention"),
-] + [(name, "fused_cross_attention_int8") for name in _B5_KERNEL_NAMES])
+] + [(name, "fused_cross_attention_int8") for name in _B5_KERNEL_NAMES]
+   + [(name, "flash_attention_int8") for name in _B10_KERNEL_NAMES])
 def test_profile_step_classes_kernels_by_name(name, label):
     """The profile's kernel classes: both of B3's kernels count as its
     wrapper's, as both of B2's count as B2's, all four of B6's (whose names
-    contain no B3 kernel's name) as B6's and all four of B5's as B5's."""
+    contain no B3 kernel's name) as B6's, all four of B5's as B5's and all
+    three of B10's (whose names contain no B1 kernel's name) as B10's."""
     from adaprompt_tpu_torch.profile_step import kernel_class
     assert kernel_class(name) == label
 
@@ -523,6 +587,15 @@ def test_profile_step_files_no_int8_cross_kernel_under_b2_or_b6(name):
     device code under other names)."""
     from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
     assert kernel_class(name) not in ("fused_cross_attention", "geglu_int8")
+    assert len([key for key in OUR_KERNELS if key in name]) == 1
+
+
+@pytest.mark.parametrize("name", _B10_KERNEL_NAMES)
+def test_profile_step_files_no_int8_flash_kernel_under_b1(name):
+    """No kernel of B10 is filed as B1's forward (`flash_fwd_kernel`) or as
+    the no-max kernel's key pre-pass: exactly one key of the table names it."""
+    from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
+    assert kernel_class(name) not in ("flash_attention_fwd", "flash_attention_fwd_nomax")
     assert len([key for key in OUR_KERNELS if key in name]) == 1
 
 
@@ -1051,20 +1124,11 @@ def test_flash_backward_kernel_call_prepass(b, sq, sk, h, d, exp2):
     _assert_near(grads[0], dq, 1e-2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,sk,h,d,biased", [(1, 300, 203, 3, 64, True),
-                                                (2, 100, 1000, 2, 128, False),
-                                                (2, 512, 512, 8, 40, True),
-                                                (1, 1024, 1024, 8, 80, False),
-                                                (2, 64, 64, 2, 16, False)])
-def test_int8_flash_kernel_ragged_shapes(b, sq, sk, h, d, biased):
-    """The int8-QK kernel against its plain version, both from the operands
-    the same PyTorch code makes on the card: head dims padded to the int8
-    depth (64 -> 64, 128, 40 -> 64, 80 -> 96, 16 -> 32), a key count off a
-    multiple of 4 (byte loads), ragged tiles."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+def _int8_flash_card_args(b, sq, sk, h, d, biased, masked=None, seed=0):
+    """q, k (off centre), v [B, S, H, D] bf16 on the card and, when biased, a
+    key bias that drops ~40% of the keys; masked="tile" drops every key of
+    batch 0's first 64-key tile, masked="row" every key of the last batch."""
+    g = torch.Generator(device="cuda").manual_seed(seed or sq + sk + d)
     q = torch.randn(b, sq, h, d, device="cuda", generator=g).bfloat16()
     k = (torch.randn(b, sk, h, d, device="cuda", generator=g) + 0.7).bfloat16()
     v = torch.randn(b, sk, h, d, device="cuda", generator=g).bfloat16()
@@ -1072,10 +1136,76 @@ def test_int8_flash_kernel_ragged_shapes(b, sq, sk, h, d, biased):
     if biased:
         bias = torch.where(torch.rand(b, sk, device="cuda", generator=g) < 0.6, 0.0,
                            tattn.NEG_BIG)
+        if masked == "tile":
+            bias[0, :64] = tattn.NEG_BIG
+        elif masked == "row":
+            bias[-1] = tattn.NEG_BIG
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,biased,masked", [
+    (1, 300, 203, 3, 64, True, None), (2, 100, 1000, 2, 128, False, None),
+    (2, 512, 512, 8, 40, True, None), (1, 1024, 1024, 8, 80, False, None),
+    (2, 64, 64, 2, 16, False, None), (2, 129, 65, 2, 8, True, None),
+    (1, 1, 63, 3, 24, False, None), (2, 333, 300, 2, 40, True, "tile"),
+    (2, 257, 190, 2, 80, True, "row"), (2, 129, 1, 2, 128, True, None),
+    (1, 1, 203, 2, 40, True, None), (2, 70, 65, 3, 80, False, None)])
+def test_int8_flash_kernel_ragged_shapes(b, sq, sk, h, d, biased, masked):
+    """The int8-QK call (its key pass and attention kernel) against its plain
+    version, which makes its operands in PyTorch: head dims 8 to 128 (int8
+    depths DQ 16, 32, 48, 64, 80, 128: the k16 tail at 16, 48 and 80), Sk of
+    1, 63, 65, 190, 203 and 1000 (ragged key tiles and key-pass chunks), Sq
+    of 1 and 129 (ragged query tiles), a key tile masked whole, a row masked
+    whole; one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    q, k, v, bias = _int8_flash_card_args(b, sq, sk, h, d, biased, masked)
     before = tattn.flash_attention_int8.launches
     out = tattn.flash_attention_int8(q, k, v, bias)
     assert tattn.flash_attention_int8.launches == before + 1 and out.shape == q.shape
+    assert out.is_contiguous()
     _assert_near(out, tattn.flash_attention_int8_reference(q, k, v, bias), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d", [(4, 1024, 4096, 8, 40), (2, 300, 1024, 8, 80),
+                                         (1, 129, 203, 3, 24), (2, 70, 65, 2, 128)])
+def test_int8_flash_prepass_matches_operands(b, sq, sk, h, d):
+    """The operands one C call made on the card, read back from its workspace
+    (a call with keep_q), against `int8_qk_operands` on the same card
+    tensors: q_q and q_s bit-equal; k_q within one level, and k_q and k_s
+    equal in every head whose bf16 key mean agrees with k.mean(1); the pad
+    columns [D, DQ) zero (chip_smoke.int8_operands_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    q, k, v, _ = _int8_flash_card_args(b, sq, sk, h, d, False)
+    work = torch.empty(tattn._int8_flash_layout(b, sq, sk, h, d)[0], dtype=torch.uint8,
+                       device="cuda")
+    out = torch.empty_like(q)
+    tattn.int8_flash_kernel_call(q, k, v, None, work, out, d ** -0.5, keep_q=True)
+    torch.cuda.synchronize()
+    ok, detail = chip_smoke.int8_operands_check(q, k, v, work)
+    assert ok, detail
+    assert torch.equal(out, tattn.flash_attention_int8(q, k, v))
+
+
+@pytest.mark.cuda
+def test_int8_flash_two_calls_give_equal_bits():
+    """The key pass sums in a fixed order (no atomics): two calls in a row on
+    the same inputs give equal bits, also with another call between them on
+    other shapes (the workspace carries nothing over)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args = _int8_flash_card_args(2, 1000, 1500, 8, 40, True)
+    first = tattn.flash_attention_int8(*args)
+    assert torch.equal(tattn.flash_attention_int8(*args), first)
+    other = _int8_flash_card_args(1, 300, 203, 3, 80, True)
+    _assert_near(tattn.flash_attention_int8(*other), tattn.flash_attention_int8_reference(*other),
+                 2e-2)
+    assert torch.equal(tattn.flash_attention_int8(*args), first)
 
 
 @pytest.mark.cuda
