@@ -10,15 +10,22 @@ CUDA tensors launches its kernel or raises:
     outside the kernel (`gn_affine`) and folded into a per-(batch, channel)
     affine; inside, seg = float(x)*a + b, seg*sigmoid(seg) in float32 rounded
     to the activation dtype, zero outside the image, nine tap products with
-    float32 accumulation. Plain version `gn_silu_conv3x3_halo_reference`,
-    which repeats that arithmetic; it is not `layers.group_norm` + `conv2d`,
-    which normalizes in the activation dtype and so rounds elsewhere.
-  * `conv3x3_halo` (replaces `conv3x3_halo`): the conv alone, nine tap
-    products. Plain version `conv3x3_halo_reference`.
-  * `conv3x3_im2col` (replaces `conv3x3_im2col`): the same conv as one
-    product of depth 9*chunk over patches built on chip. Plain version
-    `conv3x3_im2col_reference`, written as that [B*H*W, 9C] x [9C, O] product.
-All three are forward only, as the JAX functions are (no custom_vjp).
+    float32 accumulation (still the first, WMMA kernel). Plain version
+    `gn_silu_conv3x3_halo_reference`, which repeats that arithmetic; it is
+    not `layers.group_norm` + `conv2d`, which normalizes in the activation
+    dtype and so rounds elsewhere.
+  * `conv3x3_halo` (replaces `conv3x3_halo`): the conv alone as an implicit
+    GEMM on mma.sync; per channel chunk a tile's halo is staged once and its
+    nine taps are nine shifted windows of it. Plain version
+    `conv3x3_halo_reference`.
+  * `conv3x3_im2col` (replaces `conv3x3_im2col`): the same implicit GEMM with
+    each k tile's patch rows (one tap, a chunk of channels) gathered straight
+    from x into a cp.async ring. Plain version `conv3x3_im2col_reference`,
+    written as the [B*H*W, 9C] x [9C, O] product.
+All three are forward only, as the JAX functions are (no custom_vjp). For
+the last two, `conv_plan` splits the channel chunks where the tiles alone
+would leave SMs idle, and the wrapper pads C and O that are not multiples of
+8 with zeros (the kernels copy 16 bytes at a time).
 
 Weights are the port's OIHW. The kernels read them taps-outermost,
 [9, C, O] (`pack_conv_weight`; read as [9C, O] it is the im2col weight): a
@@ -33,6 +40,8 @@ shapes pay on an H100 is to be measured (PERF.md).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -122,8 +131,9 @@ def _refuse_gradients(what, *tensors):
         raise RuntimeError(f"{what}: forward only (as the JAX package's)")
 
 
-def _launch(what, fn_name, x, affine, weight, bias, packed):
-    """Checks shared by the three wrappers, then the launch; returns out."""
+def _operands(what, x, weight, bias, packed):
+    """Checks shared by the three wrappers: x, the packed weight as kernel
+    operands, the float32 bias, and (B, H, W, C, O)."""
     _refuse_gradients(what, x, weight, bias)
     if x.ndim != 4 or weight.ndim != 4 or weight.shape[1:] != (x.shape[3], 3, 3):
         raise ValueError(f"{what}: shapes x{tuple(x.shape)} weight{tuple(weight.shape)}")
@@ -135,17 +145,82 @@ def _launch(what, fn_name, x, affine, weight, bias, packed):
         raise ValueError(f"{what}: packed weight {tuple(packed.shape)}, bias {tuple(bias.shape)}")
     x, packed = cuda_build.kernel_operands(what, x, packed)
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    out = torch.empty((b, h, w, o), device=x.device, dtype=x.dtype)
-    pointers = [x.data_ptr()]
-    if affine is not None:
-        (affine,) = cuda_build.kernel_operands(what, affine, dtype=torch.float32)
-        pointers.append(affine.data_ptr())
-    pointers += [packed.data_ptr(), bias.data_ptr(), out.data_ptr()]
-    fn = cuda_build.function("conv_halo", fn_name, [ctypes.c_void_p] * len(pointers)
-                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    cuda_build.check(fn(*pointers, b, h, w, c, o,
-                        torch.cuda.current_stream(x.device).cuda_stream), fn_name)
-    return out
+    return x, packed, bias, (b, h, w, c, o)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# B8's and B9's tile (csrc/conv_halo.cu MmaTile): output pixels, output
+# channels, the halo form's rows and columns; input channels a k chunk
+TILE_PIXELS, TILE_CHANNELS, HALO_ROWS, HALO_COLS, CHUNK = 128, 160, 8, 16, 32
+MAX_SPLITS = 4
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How B8 or B9 covers a shape: the channel chunks in `splits` parts, and
+    the kernel's grid (channel tiles, pixel tiles, splits)."""
+    splits: int
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def conv_plan(form: str, b: int, h: int, w: int, c: int, o: int,
+              sms: int = H100_SMS) -> ConvPlan:
+    """B8's (`form` "halo") or B9's ("im2col") tiles, and as many k splits
+    (at most 4, at most one a channel chunk) as make up to two blocks an SM:
+    1 at SD-1.5's (64, 320, 320) at B=4 (256 tiles), 2 at (32, 640, 640)
+    (128), 4 at (16, 1280, 1280) (64)."""
+    if form == "im2col":
+        tiles = -(-b * h * w // TILE_PIXELS)
+    elif form == "halo":
+        tiles = b * -(-h // HALO_ROWS) * -(-w // HALO_COLS)
+    else:
+        raise ValueError(f"conv_plan: form {form!r}")
+    cols = -(-o // TILE_CHANNELS)
+    splits = max(1, min(MAX_SPLITS, 2 * sms // (cols * tiles), -(-c // CHUNK)))
+    return ConvPlan(splits, (cols, tiles, splits))
+
+
+def _round8(n):
+    return -(-n // 8) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _launch_mma(what, form, x, weight, bias, packed):
+    """B8 or B9: C and O not multiples of 8 are padded with zeros (x's
+    channels, the packed weight's rows and columns, the bias), the plan
+    launched (with several splits on an fp32 workspace for their sums), the
+    padded output columns dropped."""
+    x, packed, bias, (b, h, w, c, o) = _operands(what, x, weight, bias, packed)
+    cp, op = _round8(c), _round8(o)
+    if cp != c:
+        x = F.pad(x, (0, cp - c))
+    if (cp, op) != (c, o):
+        packed = F.pad(packed, (0, op - o, 0, cp - c))
+        bias = F.pad(bias, (0, op - o))
+    out = torch.empty((b, h, w, op), device=x.device, dtype=x.dtype)
+    plan = conv_plan(form, b, h, w, cp, op, _sm_count(x.device.index))
+    part = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, b * h * w, op), device=x.device, dtype=torch.float32)
+    fn_name = f"conv3x3_{form}_fwd"
+    fn = cuda_build.function("conv_halo", fn_name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p])
+    cuda_build.check(fn(x.data_ptr(), packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                        None if part is None else part.data_ptr(), b, h, w, cp, op, plan.splits,
+                        _stream(x)), fn_name)
+    return out if op == o else out[..., :o].contiguous()
 
 
 def gn_silu_conv3x3_halo(x, gn_scale, gn_bias, weight, bias, *, num_groups: int = 32,
@@ -160,7 +235,13 @@ def gn_silu_conv3x3_halo(x, gn_scale, gn_bias, weight, bias, *, num_groups: int 
     _refuse_gradients(what, x, gn_scale, gn_bias, weight, bias)
     cuda_build.kernel_operands(what, x)            # a bf16 CUDA tensor, before any arithmetic
     affine = gn_affine(x, gn_scale, gn_bias, num_groups, eps)
-    out = _launch(what, "gn_silu_conv3x3_halo_fwd", x, affine, weight, bias, packed)
+    x, packed, bias, (b, h, w, c, o) = _operands(what, x, weight, bias, packed)
+    (affine,) = cuda_build.kernel_operands(what, affine, dtype=torch.float32)
+    out = torch.empty((b, h, w, o), device=x.device, dtype=x.dtype)
+    fn = cuda_build.function("conv_halo", "gn_silu_conv3x3_halo_fwd", [ctypes.c_void_p] * 5
+                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    cuda_build.check(fn(x.data_ptr(), affine.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+                        out.data_ptr(), b, h, w, c, o, _stream(x)), "gn_silu_conv3x3_halo_fwd")
     gn_silu_conv3x3_halo.launches += 1
     return out
 
@@ -173,7 +254,7 @@ def conv3x3_halo(x, weight, bias, *, packed: torch.Tensor | None = None):
     weight OIHW; bias [O]. -> [B, H, W, O]."""
     if x.device.type == "cpu":
         return conv3x3_halo_reference(x, weight, bias)
-    out = _launch("conv3x3_halo kernel", "conv3x3_halo_fwd", x, None, weight, bias, packed)
+    out = _launch_mma("conv3x3_halo kernel", "halo", x, weight, bias, packed)
     conv3x3_halo.launches += 1
     return out
 
@@ -182,11 +263,12 @@ conv3x3_halo.launches = 0
 
 
 def conv3x3_im2col(x, weight, bias, *, packed: torch.Tensor | None = None):
-    """The same conv as one product of depth 9*chunk over patches built in
-    shared memory. Arguments as `conv3x3_halo`."""
+    """The same conv with each k tile's patch rows (one tap, a chunk of
+    channels) gathered from x into shared memory. Arguments as
+    `conv3x3_halo`."""
     if x.device.type == "cpu":
         return conv3x3_im2col_reference(x, weight, bias)
-    out = _launch("conv3x3_im2col kernel", "conv3x3_im2col_fwd", x, None, weight, bias, packed)
+    out = _launch_mma("conv3x3_im2col kernel", "im2col", x, weight, bias, packed)
     conv3x3_im2col.launches += 1
     return out
 

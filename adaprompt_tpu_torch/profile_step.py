@@ -58,9 +58,11 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "geglu_int8_proj_kernel": "geglu_int8",      # x_q.W1_q^T -> fp32 g, row maxima
                "geglu_int8_quant_g_kernel": "geglu_int8",   # g -> g_q, gs
                "geglu_int8_out_kernel": "geglu_int8",       # g_q.W2_q^T -> out
-               "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",
-               "conv3x3_halo_kernel": "conv3x3_halo",
-               "conv3x3_im2col_kernel": "conv3x3_im2col",
+               "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",    # B7, WMMA
+               "conv3x3_halo_mma_kernel": "conv3x3_halo",               # B8
+               "conv3x3_halo_sum_kernel": "conv3x3_halo",               # its k splits' sum
+               "conv3x3_im2col_mma_kernel": "conv3x3_im2col",           # B9
+               "conv3x3_im2col_sum_kernel": "conv3x3_im2col",
                "flash_fwd_ilv_kernel": "flash_attention_fwd_ilv",
                "flash_fwd_nomax_kernel": "flash_attention_fwd_nomax",
                "nomax_key_max_kernel": "flash_attention_fwd_nomax",     # its pre-pass over K

@@ -17,7 +17,9 @@ Phases, in order (any failure exits non-zero without the final line):
      backward's main kernel) and the int8-QK flash attention's three
      kernels', the GEGLU's two kernels' at C=320 and 640,
      the fused cross-attention's two and the int8 GEGLU's and the int8
-     cross-attention's four each at their four shapes (also their grids);
+     cross-attention's four each at their four shapes (also their grids),
+     the two plain 3x3 convs' kernels at their four shapes, each with the k
+     splits conv_plan picks (their grids checked against the plan's);
      hold each kernel against its plain PyTorch version on the card, in
      bf16, at the paths' shapes (the GEGLU, the fused cross-attention and
      both int8 kernels also untimed at ragged shapes, with their launch
@@ -37,7 +39,8 @@ Phases, in order (any failure exits non-zero without the final line):
      kernel, plain version and, where one PyTorch call computes the same
      function, that call as the yardstick (F.scaled_dot_product_attention
      for flash attention forward and backward, F.conv2d for the two plain
-     convs); beside the fused GroupNorm-SiLU-conv, which no single call
+     convs, each of which is also timed beside the other form); beside the
+     fused GroupNorm-SiLU-conv, which no single call
      computes, the port's own unfused pair (group_norm + conv2d), beside
      the GEGLU the port's unfused feed-forward on cuBLAS, beside the
      fused cross-attention its unfused chain (cuBLAS, SDPA, cuBLAS), beside
@@ -862,22 +865,67 @@ def _conv_bound(b, h, w, c, o, extra_bytes=0):
                   2 * b * h * w * (c + o) + 2 * 9 * c * o + 4 * o + extra_bytes)
 
 
+CONV_FORMS = ("conv3x3_halo", "conv3x3_im2col")
+CONV_KERNELS = ("conv3x3_halo_mma_kernel", "conv3x3_im2col_mma_kernel")    # their main kernels
+# B8's and B9's phase-2 shapes: SD-1.5's three ResBlock widths at B=4, and a
+# ragged one (C=200 ends a k chunk inside a tap, W=37 no tile's multiple)
+CONV_SHAPES = ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),
+               (3, 23, 37, 200, 72))
+
+
 def _case_conv(gen, fn_name, b, h, w, c, o):
     """conv3x3_halo or conv3x3_im2col against its plain version; library:
-    F.conv2d (cuDNN) on the same bf16 NHWC tensors."""
+    F.conv2d (cuDNN) on the same bf16 NHWC tensors. The other form is timed
+    on the same tensors too (`other_ms`), and the detail gives the kernel's
+    time over F.conv2d's and over the other form's, and its k splits
+    (conv_plan)."""
     import torch
     from adaprompt_tpu_torch.ops import conv_halo as CH
     from adaprompt_tpu_torch.ops.layers import conv2d
     x, weight, bias, _, _ = _conv_inputs(gen, b, h, w, c, o)
     fn, ref = getattr(CH, fn_name), getattr(CH, fn_name + "_reference")
+    other_name = CONV_FORMS[1 - CONV_FORMS.index(fn_name)]
+    other = getattr(CH, other_name)
     packed = CH.pack_conv_weight(weight)
     err, mag, ok = _compare(fn(x, weight, bias, packed=packed), ref(x, weight, bias), CONV_TOL)
     bias16 = bias.to(torch.bfloat16)
     res = {"kernel_ms": time_ms(lambda: fn(x, weight, bias, packed=packed), 10),
            "plain_ms": time_ms(lambda: ref(x, weight, bias), 3),
-           "library_ms": time_ms(lambda: conv2d(x, weight, bias16), 10)}
+           "library_ms": time_ms(lambda: conv2d(x, weight, bias16), 10),
+           "other_ms": time_ms(lambda: other(x, weight, bias, packed=packed), 10)}
     res.update(_conv_bound(b, h, w, c, o))
-    return f"{fn_name} H={h} W={w} C={c} O={o} B={b}", err, mag, CONV_TOL, ok, res, ""
+    plan = CH.conv_plan(fn_name.split("_")[1], b, h, w, c, o)
+    detail = (f"{plan.splits} split(s), {plan.blocks} blocks; "
+              f"{res['kernel_ms'] / res['library_ms']:.2f}x F.conv2d, "
+              f"{res['kernel_ms'] / res['other_ms']:.2f}x {other_name} "
+              f"({res['other_ms']:.4f} ms); "
+              f"{18 * b * h * w * c * o / res['kernel_ms'] / 1e9:.0f} TFLOP/s")
+    return f"{fn_name} H={h} W={w} C={c} O={o} B={b}", err, mag, CONV_TOL, ok, res, detail
+
+
+def conv_resources():
+    """Log B8's and B9's main kernels' resources at the three SD-1.5 shapes
+    at B=4 and the ragged one, each with the k splits conv_plan picks there,
+    from the runtime: registers a thread, shared memory a block, the tile,
+    resident blocks an SM, blocks in the grid (checked against the plan's),
+    local memory a thread."""
+    import ctypes
+    import torch
+    from adaprompt_tpu_torch.ops import conv_halo as CH, cuda_build
+    fn = cuda_build.function("conv_halo", "conv_halo_describe",
+                             [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, w, c, o in CONV_SHAPES:
+        halo, i2c = (CH.conv_plan(f, b, h, w, c, o, sms) for f in ("halo", "im2col"))
+        info = (ctypes.c_int * 14)()
+        cuda_build.check(fn(b, h, w, c, o, halo.splits, i2c.splits, ctypes.addressof(info)),
+                         "conv_halo_describe")
+        _log_kernels("conv3x3_halo/im2col", CONV_KERNELS, f"H={h} W={w} C={c} O={o} B={b} "
+                     f"(splits {halo.splits} / {i2c.splits})", info)
+        if (info[5], info[12]) != (halo.blocks, i2c.blocks):
+            raise AssertionError(f"conv grids {info[5]}, {info[12]} != the plans' "
+                                 f"{halo.blocks}, {i2c.blocks}")
+
 
 
 def _case_gn_conv(gen, b, h, c, o, gn_shift):
@@ -1054,6 +1102,7 @@ def phase_kernels():
     cross_resources()
     geglu_int8_resources()
     cross_int8_resources()
+    conv_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -1125,9 +1174,8 @@ def phase_kernels():
     cases.append(("fused_cross_attention_int8", (), lambda: _case_cross_int8(
         gen, 1000, 640, 1, timed=False, peak_last=True)))
     # the two plain convs run on no path (wired nowhere, as in the JAX package)
-    for fn_name in ("conv3x3_halo", "conv3x3_im2col"):
-        for shape in ((4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280),
-                      (3, 23, 37, 200, 72)):
+    for fn_name in CONV_FORMS:
+        for shape in CONV_SHAPES:
             cases.append((fn_name, (), lambda f=fn_name, s=shape: _case_conv(gen, f, *s)))
     # the flash variants at the UNet's three self-attention shapes, with and
     # without key bias: the two-chain and no-max forwards and the exp2 forms

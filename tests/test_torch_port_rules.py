@@ -3,6 +3,7 @@ entry points default to CUDA and raise without it, and a kernel wrapper
 takes its plain version only for CPU tensors. The kernels themselves are
 compared with their plain versions on the card (marker `cuda`)."""
 
+import dataclasses
 import math
 import os
 import re
@@ -437,6 +438,33 @@ def test_int8_flash_source_structure():
         assert f"int8_rows::{body}" in src, body
 
 
+def test_conv_source_structure():
+    """B8 and B9 are implicit GEMMs on the Hopper helpers of flash_sm90.cuh
+    (cp.async, ldmatrix plain and transposed, mma.sync), with no WMMA and
+    no patch tile; WMMA stays only in B7's kernel; the library's name hashes
+    the one header the source includes; the four C functions and the new
+    kernels are there."""
+    from adaprompt_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "conv_halo.cu").read_text()
+    mma_part = src[src.index("// B8 and B9 on mma.sync"):src.index("// B7 on WMMA")]
+    for helper in ("cp_async_16(", "ldmatrix_x4(", "ldmatrix_x4_trans(", "mma_bf16_16816("):
+        assert helper in mma_part, helper
+    assert "wmma::" not in mma_part and "PS_ELEMS" not in src
+    assert min(m.start() for m in re.finditer(r"wmma::", src)) > src.index("// B7 on WMMA")
+    for kernel in ("conv3x3_halo_mma_kernel", "conv3x3_im2col_mma_kernel"):
+        body = src[src.index(f"\n{kernel}("):]
+        body = body[:body.index("\n}\n")]
+        assert "cp_async_16(" in body and "tile_product<T>(" in body, kernel
+        assert "wmma" not in body, kernel
+    assert re.findall(r'^#include "([^"]+)"', src, re.M) == ["flash_sm90.cuh"]
+    assert [p.name for p in cuda_build.source_files("conv_halo")] == [
+        "conv_halo.cu", "flash_sm90.cuh"]
+    for fn in ("conv3x3_halo_fwd", "conv3x3_im2col_fwd", "gn_silu_conv3x3_halo_fwd",
+               "conv_halo_describe"):
+        assert f'extern "C" int {fn}(' in src
+    assert "conv3x3_halo_kernel<true><<<" in src
+
+
 def test_int8_flash_wrapper_makes_no_operand_in_pytorch(monkeypatch):
     """Off the CPU the int8 wrapper hands q, k, v as they are to its one C
     call (no `int8_qk_operands`, no fold or transpose copy) and counts one
@@ -596,6 +624,33 @@ def test_profile_step_files_no_int8_flash_kernel_under_b1(name):
     the no-max kernel's key pre-pass: exactly one key of the table names it."""
     from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
     assert kernel_class(name) not in ("flash_attention_fwd", "flash_attention_fwd_nomax")
+    assert len([key for key in OUR_KERNELS if key in name]) == 1
+
+
+# B8's and B9's kernels (each a main kernel and its k splits' sum) as the
+# profiler names them, and B7's, which shares their source
+_CONV_KERNEL_NAMES = [
+    ("void (anonymous namespace)::conv3x3_halo_mma_kernel(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int)", "conv3x3_halo"),
+    ("_ZN12_GLOBAL__N_123conv3x3_halo_sum_kernelEPKfS1_P13__nv_bfloat16lii", "conv3x3_halo"),
+    ("void (anonymous namespace)::conv3x3_im2col_mma_kernel(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int)", "conv3x3_im2col"),
+    ("_ZN12_GLOBAL__N_125conv3x3_im2col_mma_kernelEPK13__nv_bfloat16S2_PKfPS0_Pfiiiii",
+     "conv3x3_im2col"),
+    ("void (anonymous namespace)::conv3x3_im2col_sum_kernel(float const*, float const*, "
+     "__nv_bfloat16*, long, int, int)", "conv3x3_im2col"),
+    ("void (anonymous namespace)::conv3x3_halo_kernel<true>(__nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, int)",
+     "gn_silu_conv3x3_halo")]
+
+
+@pytest.mark.parametrize("name,label", _CONV_KERNEL_NAMES)
+def test_profile_step_files_conv_kernels_under_their_wrappers(name, label):
+    """B8's and B9's kernels count as their wrappers' and never as cuDNN's
+    convolutions (whose class takes any other name with "conv" in it); B7's
+    stays its own: exactly one key of the table names each."""
+    from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
+    assert kernel_class(name) == label != "convolution (cuDNN)"
     assert len([key for key in OUR_KERNELS if key in name]) == 1
 
 
@@ -963,7 +1018,46 @@ def _card_case(seed, b, h, w, c, o, gn_shift):
 
 
 RAGGED = [(2, 8, 8, 32, 32), (1, 13, 21, 40, 20), (3, 7, 33, 96, 72), (1, 9, 17, 36, 10),
-          (2, 12, 12, 64, 48), (1, 16, 16, 1280, 64), (1, 5, 40, 8, 136)]
+          (2, 12, 12, 64, 48), (1, 16, 16, 1280, 64), (1, 5, 40, 8, 136),
+          (3, 23, 37, 200, 72), (1, 16, 16, 1280, 1280)]
+
+
+_SD_CONVS = [(4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280)]
+
+
+@pytest.mark.parametrize("form", ["halo", "im2col"])
+@pytest.mark.parametrize("b,h,w,c,o", _SD_CONVS + RAGGED)
+def test_conv_plan_covers_every_output_once(form, b, h, w, c, o):
+    """conv_plan's grid covers each output pixel and channel exactly once and
+    leaves no block without an output or without a channel chunk; at the SD
+    shapes it makes at least 120 blocks (1, 2 and 4 splits)."""
+    import numpy as np
+    plan = tch.conv_plan(form, b, h, w, c, o)
+    cols, tiles, splits = plan.grid
+    assert splits == plan.splits
+    assert (cols - 1) * tch.TILE_CHANNELS < o <= cols * tch.TILE_CHANNELS
+    assert 1 <= splits <= min(tch.MAX_SPLITS, -(-c // tch.CHUNK))
+    seen = np.zeros((b, h, w), np.int64)
+    if form == "im2col":
+        flat = seen.reshape(-1)
+        for t in range(tiles):
+            block = flat[t * tch.TILE_PIXELS:(t + 1) * tch.TILE_PIXELS]
+            assert block.size
+            block += 1
+    else:
+        th, tw = tch.HALO_ROWS, tch.HALO_COLS
+        assert th * tw == tch.TILE_PIXELS
+        tiles_w = -(-w // tw)
+        per_image = -(-h // th) * tiles_w
+        assert tiles == b * per_image
+        for t in range(tiles):
+            y0, x0 = (t % per_image) // tiles_w * th, (t % per_image) % tiles_w * tw
+            block = seen[t // per_image, y0:y0 + th, x0:x0 + tw]
+            assert block.size
+            block += 1
+    assert (seen == 1).all()
+    if (b, h, w, c, o) in _SD_CONVS:
+        assert plan.blocks >= 120 and splits == (1, 2, 4)[_SD_CONVS.index((b, h, w, c, o))]
 
 
 @pytest.mark.cuda
@@ -981,6 +1075,48 @@ def test_conv_kernels_ragged_shapes(fn, b, h, w, c, o):
     assert wrapper.launches == before + 1
     _assert_near(out, getattr(tch, fn + "_reference")(x, wt, bias), 2e-2)
     _assert_near(wrapper(x, wt, bias, packed=tch.pack_conv_weight(wt)), out, 0.0)
+
+
+def _forced_plan(monkeypatch, splits):
+    """Every B8 and B9 wrapper call takes this many k splits."""
+    plan = tch.conv_plan
+    monkeypatch.setattr(tch, "conv_plan", lambda *a: dataclasses.replace(plan(*a), splits=splits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["conv3x3_halo", "conv3x3_im2col"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("b,h,w,c,o", [s for s in RAGGED if s[3] >= 128])
+def test_conv_kernels_every_split_on_ragged_shapes(monkeypatch, fn, splits, b, h, w, c, o):
+    """B8 and B9 at each count of k splits, not only the one conv_plan picks
+    (channel chunks in unequal parts at 3 splits of C = 200's 7), one launch
+    counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _forced_plan(monkeypatch, splits)
+    x, wt, bias, _, _ = _card_case(h + w + c + o, b, h, w, c, o, 0.0)
+    wrapper = getattr(tch, fn)
+    before = wrapper.launches
+    out = wrapper(x, wt, bias)
+    assert wrapper.launches == before + 1
+    _assert_near(out, getattr(tch, f"{fn}_reference")(x, wt, bias), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["conv3x3_halo", "conv3x3_im2col"])
+def test_conv_kernels_two_calls_give_equal_bits(fn):
+    """The k splits are summed in a fixed order (no atomics): two calls on the
+    same inputs give equal bits, at (1, 16, 16, 1280, 1280) (4 splits) and a
+    ragged shape, also with a call on other shapes between them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    wrapper = getattr(tch, fn)
+    cases = [_card_case(7, 1, 16, 16, 1280, 1280, 0.0)[:3],
+             _card_case(8, 3, 23, 37, 200, 72, 0.0)[:3]]
+    first = [wrapper(*args) for args in cases]
+    for args, out in zip(cases, first):
+        assert torch.equal(wrapper(*args), out)
+    assert torch.equal(wrapper(*cases[0]), first[0])
 
 
 @pytest.mark.cuda
