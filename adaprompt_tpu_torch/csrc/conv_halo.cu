@@ -11,15 +11,14 @@
 //     chunk's halo is in flight while this one's nine taps run), and the
 //     nine taps are nine shifted ldmatrix windows of that one tile.
 //   * gn_silu_conv3x3_halo_fwd (B7; replaces conv_halo.py::
-//     gn_silu_conv3x3_halo): conv3x3(SiLU(GroupNorm(x))) + bias, the
-//     GroupNorm folded into a per-(batch, channel) affine a, b that the caller
-//     computes. Still the first, WMMA form (below).
+//     gn_silu_conv3x3_halo): conv3x3(SiLU(GroupNorm(x))) + bias, on B8's
+//     loop, with the GroupNorm's statistics taken by a kernel of the same call.
 //
-// Layouts: x [B, H, W, C] bf16; gn_ab [B, 2, C] f32 (a then b); w [9, C, O]
-// bf16, taps outermost (tap = 3*dy + dx), which read as [9C, O] is the
-// im2col weight, row k = tap*C + c; bias [O] f32; out [B, H, W, O] bf16.
-// Products accumulate in f32, the bias is added in f32, the result is rounded
-// to bf16 once.
+// Layouts: x [B, H, W, C] bf16; w [9, C, O] bf16, taps outermost (tap =
+// 3*dy + dx), which read as [9C, O] is the im2col weight, row k = tap*C + c;
+// bias [O] f32; out [B, H, W, O] bf16; B7's gs, gb [C] f32 and its affine
+// [B, 2, C] f32 (a then b) in its workspace. Products accumulate in f32, the
+// bias is added in f32, the result is rounded to bf16 once.
 //
 // What bounds them: 18*B*H*W*C*O flops against 2*B*H*W*(C+O) + 18*C*O bytes:
 // at the SD-1.5 shapes hundreds of flops a byte, so the tensor cores bound
@@ -46,32 +45,54 @@
 // pads other widths with zeros). Left for later: wgmma with TMA, a
 // persistent grid whose next tile's loads overlap this tile's epilogue.
 //
-// B7, the fused producer (its first, WMMA form): seg = float(x)*a+b,
-// seg*sigmoid(seg) in f32, ROUNDED TO bf16, and exactly 0 outside the image
-// (SAME padding pads the activated tensor; padding x itself would put
-// silu(b) != 0 on the border). A block computes an 8-row x 16-column x
-// 64-channel output tile, one warp per row (one 16-pixel WMMA row fragment,
-// four 16x16 f32 accumulators in registers), looping over the input channels
-// in chunks of 32: the (8+2) x (16+2) x 32 halo tile of x is staged into
-// shared memory with predicated loads that write zeros off the image and,
-// fused, with the affine and SiLU applied on the way; the chunk's [9, 32, 64]
-// weight slice is staged beside it; the nine taps are nine shifted reads.
+// B7, the fused producer: seg = float(x)*a + b, seg*sigmoid(seg) in f32,
+// ROUNDED TO bf16, and exactly 0 outside the image (SAME padding pads the
+// activated tensor; padding x itself would put silu(b) != 0 on the border),
+// with a = rsqrt(var + eps)*gs and b = gb - (mean*rsqrt(var + eps))*gs per
+// (batch, channel), the JAX function's order. Three kernels in one call:
+//   * gn_silu_conv3x3_stats_kernel: one block per (batch, group) takes the
+//     group's f32 sum, the mean, then the sum of squared deviations about
+//     that mean in a second pass over x (which L2 serves), and writes the
+//     group's a and b. Each thread sums its pieces in order, the block adds
+//     the threads' sums in a fixed tree: two calls give equal bits. Bound by
+//     bytes: x read once, ~3 us at the SD-1.5 shapes. A group is 10 to 30
+//     channels there, 20 to 60 bytes of each pixel: the block reads them as
+//     the widest aligned pieces (2 to 16 bytes), a thread always the same
+//     piece of its pixels. Slabs of pixels over several blocks would read
+//     16-byte units but need a combine across blocks between the two passes;
+//     128 blocks of (batch, group) already fill the card at B=4.
+//   * gn_silu_conv3x3_mma_kernel: B8's loop (halo_conv<true>), where each
+//     chunk's landed halo gets one pass in shared memory before its first tap
+//     reads it: for each in-image pixel and each channel below C, the affine,
+//     SiLU (__expf and __fdividef, ~1e-7 relative: the result is rounded to
+//     bf16 next; IEEE expf and division, or a round-to-nearest reciprocal,
+//     cost 4-8 % of the call) and the bf16 rounding, in place. Off-image
+//     pixels and channels past C keep the copies' zeros. A thread takes the
+//     same 8 channels of every pixel it transforms (at most 3 a chunk) and
+//     reads their a and b from L1 at each: held across its pixels they
+//     pushed the accumulators into local memory (128 B of spills, 5-9 %
+//     slower). The pass over chunk j + 1's halo runs during chunk j's tap
+//     PASS_TAP, once that halo has landed, so it needs no barrier of its own
+//     (the step's barrier orders it before the taps that read it); at the
+//     chunk's own tap 0, behind one more barrier, it runs as fast (within
+//     1 %, tools/gn_conv_tiles.py). The producer runs once per staged
+//     element, O/160 times per pixel of x.
+//   * gn_silu_conv3x3_sum_kernel: the k splits' fixed-order sum, as B8's.
+// Left for later: wgmma with TMA and a persistent grid, as for B8, and the
+// statistics kernel's launch overlapping the conv's prologue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "flash_sm90.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// B8 and B9 on mma.sync
+// The product loop of B7, B8 and B9 on mma.sync
 
 using flash_sm90::cp_async_16;
 using flash_sm90::cp_async_commit;
@@ -88,6 +109,10 @@ constexpr int KROW = padded_row(BK);    // stride of an A row / a halo pixel (el
 constexpr int STAGES = 4;               // k tiles in flight (B9's A and both forms' weight)
 constexpr int MIN_BLOCKS = 2;           // resident blocks an SM (launch bounds)
 constexpr int MAX_SPLITS = 4;           // k splits (the wrapper's plan picks)
+// B7: the tap of chunk j during which chunk j + 1's halo is transformed (its
+// copies land by tap STAGES - 1)
+constexpr int PASS_TAP = 8;
+static_assert(PASS_TAP >= STAGES - 1 && PASS_TAP < 9, "PASS_TAP");
 
 // A block's tile: BM output pixels x BN output channels on WM x WN warps,
 // each 16*MT pixels x 8*NT channels.
@@ -234,7 +259,7 @@ struct PixelRows {
   __device__ __forceinline__ long operator()(int r) const { return m0 + r < M ? m0 + r : -1; }
 };
 
-// B8's tile row r: output pixel (y0 + r / HTW, x0 + r % HTW) of image b.
+// B8's and B7's tile row r: output pixel (y0 + r / HTW, x0 + r % HTW) of image b.
 struct HaloRows {
   int b, y0, x0, H, W;
   __device__ __forceinline__ long operator()(int r) const {
@@ -320,14 +345,52 @@ conv3x3_im2col_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
                 PixelRows{m0, M}, tid);
 }
 
-// grid (ceil(O / BN), B * ceil(H / HTH) * ceil(W / HTW), splits): one
-// HTH x HTW output tile of one image over split blockIdx.z's channel chunks;
-// k tiles in the order (chunk, tap), each chunk's halo staged once for its
-// nine taps.
-__global__ void __launch_bounds__(MmaTile::NTHREADS, MIN_BLOCKS)
-conv3x3_halo_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        const float* __restrict__ bias, bf16* __restrict__ out,
-                        float* __restrict__ part, int B, int H, int W, int C, int O) {
+// B7's producer over the landed halo Xb of channels [c0, c0 + BK) of image
+// tile (y0, x0), in place: bf16(silu(float(x)*a + b)) for every in-image
+// pixel and channel below C (C a multiple of 8: a unit is all in or all
+// out); the rest keeps the zeros of the copies. Thread tid takes channel unit
+// tid % UNITS of pixels tid / UNITS, + NTHREADS / UNITS, ...; ab: this
+// image's [2, C] affine, whose 8 a and 8 b of the unit the thread reads at
+// each of its (at most 3) pixels, from L1. silu(v) = v / (1 + e^-v) with
+// __expf and a division by the MUFU reciprocal (1 + e^-v = inf gives -0).
+__device__ __forceinline__ void gn_silu_pass(bf16* Xb, const float* __restrict__ ab, int c0,
+                                             int C, int y0, int x0, int H, int W, int tid) {
+  constexpr int UNITS = BK / 8, STEP = MmaTile::NTHREADS / UNITS;
+  const int u = (tid % UNITS) * 8, c = c0 + u;
+  if (c >= C) return;
+  for (int p = tid / UNITS; p < HALO_PX; p += STEP) {
+    const int iy = y0 - 1 + p / HXW, ix = x0 - 1 + p % HXW;
+    if (iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
+    float a[8], s[8];
+    *reinterpret_cast<float4*>(a) = *reinterpret_cast<const float4*>(ab + c);
+    *reinterpret_cast<float4*>(a + 4) = *reinterpret_cast<const float4*>(ab + c + 4);
+    *reinterpret_cast<float4*>(s) = *reinterpret_cast<const float4*>(ab + C + c);
+    *reinterpret_cast<float4*>(s + 4) = *reinterpret_cast<const float4*>(ab + C + c + 4);
+    uint4* q = reinterpret_cast<uint4*>(Xb + p * KROW + u);
+    uint4 v = *q;
+    uint32_t* e = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float lo = __uint_as_float(e[k] << 16) * a[2 * k] + s[2 * k];
+      const float hi = __uint_as_float(e[k] & 0xffff0000u) * a[2 * k + 1] + s[2 * k + 1];
+      e[k] = pack_bf16(__fdividef(lo, 1.f + __expf(-lo)), __fdividef(hi, 1.f + __expf(-hi)));
+    }
+    *q = v;
+  }
+}
+
+// The halo form: grid (ceil(O / BN), B * ceil(H / HTH) * ceil(W / HTW),
+// splits): one HTH x HTW output tile of one image over split blockIdx.z's
+// channel chunks; k tiles in the order (chunk, tap), each chunk's halo
+// staged once for its nine taps. FUSED (B7): each landed halo goes through
+// gn_silu_pass with the image's affine (gn_ab [B, 2, C]) before its taps.
+template <bool FUSED>
+__device__ __forceinline__ void halo_conv(const bf16* __restrict__ x,
+                                          const float* __restrict__ gn_ab,
+                                          const bf16* __restrict__ w,
+                                          const float* __restrict__ bias, bf16* __restrict__ out,
+                                          float* __restrict__ part, int B, int H, int W, int C,
+                                          int O) {
   using T = MmaTile;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -341,12 +404,12 @@ conv3x3_halo_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int y0 = tile / tiles_w * HTH, x0 = tile % tiles_w * HTW;
   const int n0 = blockIdx.x * T::BN;
   const bf16* xb = x + (long)b * H * W * C;
+  const float* ab = FUSED ? gn_ab + (long)b * 2 * C : nullptr;
   const Chunks ch(C, blockIdx.z, gridDim.z);
 
   // Channels [c0, c0 + BK) of the halo, rows y0-1 .. y0+HTH, columns
   // x0-1 .. x0+HTW -> halo buffer `buf` ([HALO_PX][KROW]); zeros off the
-  // image and past C. The caller commits. (A fused producer, as B7's, would
-  // go over the landed buffer once before its nine taps.)
+  // image and past C. The caller commits.
   auto stage_halo = [&](int buf, int c0) {
     bf16* dst = Xs + buf * X_ELEMS;
     for (int i = tid; i < HALO_PX * UNITS; i += T::NTHREADS) {
@@ -371,13 +434,19 @@ conv3x3_halo_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   // Step s is chunk c_lo + s / 9, tap s % 9; its weight tile is in the
   // commit group of step s, the halo of the split's chunk j + 1 in the group
-  // of step 9j (STAGES <= 9: landed before step 9(j + 1) waits).
+  // of step 9j (STAGES <= 9: landed before step 9(j + 1) waits, and by step
+  // 9j + STAGES - 1).
   const int KT = 9 * ch.nc;
   stage_halo(0, ch.c_lo * BK);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < KT) load_w<T>(Ws + s * T::W_ELEMS, w, s % 9, (ch.c_lo + s / 9) * BK, n0, C, O, tid);
     cp_async_commit();
+  }
+  if constexpr (FUSED) {
+    cp_async_wait<STAGES - 2>();       // the first chunk's halo (commit group 0) has landed
+    __syncthreads();
+    gn_silu_pass(Xs, ab, ch.c_lo * BK, C, y0, x0, H, W, tid);
   }
   for (int s = 0; s < KT; ++s) {
     const int j = s / 9, tap = s - 9 * j;
@@ -389,6 +458,12 @@ conv3x3_halo_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     if (tap == 0 && j + 1 < ch.nc)     // its buffer was read last in chunk j - 1
       stage_halo((j + 1) % 2, (ch.c_lo + j + 1) * BK);
     cp_async_commit();
+    if constexpr (FUSED) {
+      // chunk j + 1's halo, landed; read first after step 9(j + 1)'s barrier
+      if (tap == PASS_TAP && j + 1 < ch.nc)
+        gn_silu_pass(Xs + (j + 1) % 2 * X_ELEMS, ab, (ch.c_lo + j + 1) * BK, C, y0, x0, H, W,
+                     tid);
+    }
     const uint32_t xo = ((j % 2) * X_ELEMS + (tap / 3 * HXW + tap % 3) * KROW) * 2;
     uint32_t a[T::MT];
 #pragma unroll
@@ -399,6 +474,22 @@ conv3x3_halo_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   __syncthreads();
   store_tile<T>(acc, smem, bias, out, part, blockIdx.z, gridDim.z, (long)B * H * W, n0, O,
                 HaloRows{b, y0, x0, H, W}, tid);
+}
+
+__global__ void __launch_bounds__(MmaTile::NTHREADS, MIN_BLOCKS)
+conv3x3_halo_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        const float* __restrict__ bias, bf16* __restrict__ out,
+                        float* __restrict__ part, int B, int H, int W, int C, int O) {
+  halo_conv<false>(x, nullptr, w, bias, out, part, B, H, W, C, O);
+}
+
+// B7's conv; gn_ab: the statistics kernel's [B, 2, C] affine
+__global__ void __launch_bounds__(MmaTile::NTHREADS, MIN_BLOCKS)
+gn_silu_conv3x3_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ gn_ab,
+                           const bf16* __restrict__ w, const float* __restrict__ bias,
+                           bf16* __restrict__ out, float* __restrict__ part, int B, int H, int W,
+                           int C, int O) {
+  halo_conv<true>(x, gn_ab, w, bias, out, part, B, H, W, C, O);
 }
 
 // out = bf16(part[0] + ... + part[splits - 1] + bias), summed in that order
@@ -422,7 +513,8 @@ __device__ __forceinline__ void split_sum(const float* __restrict__ part,
                  pack_bf16(hi.x + bb[4], hi.y + bb[5]), pack_bf16(hi.z + bb[6], hi.w + bb[7]));
 }
 
-// The sum kernel of each form (two names, so that a profile files each under its form)
+// The sum kernel of each conv (three names, so that a profile files each
+// under its wrapper)
 __global__ void conv3x3_im2col_sum_kernel(const float* __restrict__ part,
                                           const float* __restrict__ bias, bf16* __restrict__ out,
                                           long MO, int O, int splits) {
@@ -434,6 +526,97 @@ __global__ void conv3x3_halo_sum_kernel(const float* __restrict__ part,
                                         long MO, int O, int splits) {
   split_sum(part, bias, out, MO, O, splits);
 }
+
+__global__ void gn_silu_conv3x3_sum_kernel(const float* __restrict__ part,
+                                           const float* __restrict__ bias,
+                                           bf16* __restrict__ out, long MO, int O, int splits) {
+  split_sum(part, bias, out, MO, O, splits);
+}
+
+// ---------------------------------------------------------------------------
+// B7's statistics
+
+constexpr int STATS_THREADS = 1024;
+
+// The sum of v over the block, in a fixed order (a shuffle tree in each
+// warp, then the warps' sums in order); every thread returns it. red: 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int k = 0; k < blockDim.x / 32; ++k) t += red[k];
+  __syncthreads();                     // red is free again
+  return t;
+}
+
+// V bf16 as one load
+template <int V> struct Piece;
+template <> struct Piece<8> { using T = uint4; };
+template <> struct Piece<4> { using T = uint2; };
+template <> struct Piece<2> { using T = uint32_t; };
+template <> struct Piece<1> { using T = unsigned short; };
+
+// f(float(v)) for the `rep` channels at xg of each of n pixels (stride C),
+// as pieces of V channels: thread t takes piece t % U (U = rep / V) of pixels
+// t / U, + R, ... (R = blockDim / U), in that order.
+template <int V, class F>
+__device__ __forceinline__ void group_walk(const bf16* __restrict__ xg, int n, int C, int rep,
+                                           F f) {
+  const int U = rep / V, R = blockDim.x / U, t = threadIdx.x;
+  if (t >= U * R) return;
+  const bf16* x0 = xg + (t % U) * V;
+#pragma unroll 4
+  for (int p = t / U; p < n; p += R) {
+    const typename Piece<V>::T raw =
+        *reinterpret_cast<const typename Piece<V>::T*>(x0 + (long)p * C);
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(&raw);
+#pragma unroll
+    for (int e = 0; e < V; ++e) f(__uint_as_float((uint32_t)h[e] << 16));
+  }
+}
+
+// group_walk with the widest piece the group's alignment allows (the group
+// starts at channel g*rep, and C = groups*rep)
+template <class F>
+__device__ __forceinline__ void group_walk_any(const bf16* __restrict__ xg, int n, int C,
+                                               int rep, F f) {
+  if (rep % 8 == 0) group_walk<8>(xg, n, C, rep, f);
+  else if (rep % 4 == 0) group_walk<4>(xg, n, C, rep, f);
+  else if (rep % 2 == 0) group_walk<2>(xg, n, C, rep, f);
+  else group_walk<1>(xg, n, C, rep, f);
+}
+
+// grid (B * groups): block (b, g) writes a and b of the group's channels
+// into ab [B, 2, C]: the mean over the group's n = HW*rep values first, the
+// variance about it in a second pass, inv = rsqrt(var + eps), a = inv*gs,
+// b = gb - (mean*inv)*gs.
+__global__ void __launch_bounds__(STATS_THREADS)
+gn_silu_conv3x3_stats_kernel(const bf16* __restrict__ x, const float* __restrict__ gs,
+                             const float* __restrict__ gb, float* __restrict__ ab, int HW, int C,
+                             int groups, float eps) {
+  __shared__ float red[32];
+  const int b = blockIdx.x / groups, g = blockIdx.x % groups, rep = C / groups;
+  const bf16* xg = x + (long)b * HW * C + g * rep;
+  const float count = (float)HW * rep;
+  float sum = 0.f;
+  group_walk_any(xg, HW, C, rep, [&](float v) { sum += v; });
+  const float mean = block_sum(sum, red) / count;
+  float sq = 0.f;
+  group_walk_any(xg, HW, C, rep, [&](float v) { const float d = v - mean; sq += d * d; });
+  const float inv = rsqrtf(block_sum(sq, red) / count + eps);
+  const float shift = mean * inv;
+  float* abb = ab + (long)b * 2 * C;
+  for (int k = threadIdx.x; k < rep; k += blockDim.x) {
+    const int c = g * rep + k;
+    abb[c] = inv * gs[c];
+    abb[C + c] = gb[c] - shift * gs[c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches
 
 constexpr int SUM_THREADS = 256;
 
@@ -453,15 +636,34 @@ bool mma_args_ok(int B, int H, int W, int C, int O, int splits, dim3 grid) {
          && (long)B * H * W <= (long)MmaTile::BM * 65535 && grid.y <= 65535;
 }
 
-// Each kernel takes more than 48 KB of dynamic shared memory; set once.
+bool gn_args_ok(int B, int H, int W, int C, int O, int groups, int splits, dim3 grid) {
+  return mma_args_ok(B, H, W, C, O, splits, grid) && groups > 0 && C % groups == 0
+         && (long)B * groups <= 0x7fffffff;
+}
+
+// B7's workspace: the [B, 2, C] affine, then (with several splits) the
+// splits' fp32 sums, 256-byte aligned.
+struct GnWorkspace {
+  long long part, total;    // byte offset of the sums, bytes in all
+  GnWorkspace(int B, int H, int W, int C, int O, int splits) {
+    part = ((long long)B * 2 * C * 4 + 255) / 256 * 256;
+    total = part + (splits > 1 ? (long long)splits * B * H * W * O * 4 : 0);
+  }
+};
+
+// Each main kernel takes more than 48 KB of dynamic shared memory; set once.
 cudaError_t set_smem_limits() {
   static const cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(conv3x3_im2col_mma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          IM2COL_SMEM);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(conv3x3_halo_mma_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, HALO_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(conv3x3_halo_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, HALO_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gn_silu_conv3x3_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, HALO_SMEM);
+    return e;
   }();
   return err;
 }
@@ -470,7 +672,16 @@ using MmaKernel = void (*)(const bf16*, const bf16*, const float*, bf16*, float*
                            int, int);
 using SumKernel = void (*)(const float*, const float*, bf16*, long, int, int);
 
-// The main kernel over `grid` and, with several splits, the sum kernel.
+// With several splits, the sum kernel over `part`.
+int launch_sum(SumKernel sum, const float* part, const void* bias, void* out, long mo, int O,
+               int splits, cudaStream_t stream) {
+  if (splits == 1) return 0;
+  sum<<<(unsigned)((mo / 8 + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0, stream>>>(
+      part, static_cast<const float*>(bias), static_cast<bf16*>(out), mo, O, splits);
+  return (int)cudaGetLastError();
+}
+
+// B8 or B9: the main kernel over `grid` and, with several splits, the sum kernel.
 int launch_mma(MmaKernel kernel, SumKernel sum, int smem, dim3 grid, const void* x,
                const void* w, const void* bias, void* out, void* part, int B, int H, int W,
                int C, int O, cudaStream_t stream) {
@@ -481,231 +692,91 @@ int launch_mma(MmaKernel kernel, SumKernel sum, int smem, dim3 grid, const void*
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(bias),
       static_cast<bf16*>(out), static_cast<float*>(part), B, H, W, C, O);
   err = cudaGetLastError();
-  if (err != cudaSuccess || grid.z == 1) return (int)err;
-  const long mo = (long)B * H * W * O;
-  sum<<<(unsigned)((mo / 8 + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<const float*>(bias), static_cast<bf16*>(out),
-      mo, O, (int)grid.z);
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum(sum, static_cast<const float*>(part), bias, out, (long)B * H * W * O, O,
+                    (int)grid.z, stream);
+}
+
+int launch_stats(const void* x, const void* gs, const void* gb, float* ab, int B, int HW, int C,
+                 int groups, float eps, cudaStream_t stream) {
+  gn_silu_conv3x3_stats_kernel<<<B * groups, STATS_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gs), static_cast<const float*>(gb),
+      ab, HW, C, groups, eps);
   return (int)cudaGetLastError();
 }
 
-cudaError_t describe_one(MmaKernel kernel, int smem, dim3 grid, int* info) {
+// info[0..6] of `kernel` at `grid`: registers a thread, shared memory a block
+// (bytes: dynamic `smem` plus static), the tile (tile0 x tile1), resident
+// blocks an SM, blocks in the grid, local memory a thread (bytes).
+template <class K>
+cudaError_t describe_one(K kernel, int threads, int smem, int tile0, int tile1, dim3 grid,
+                         int* info) {
   cudaFuncAttributes attr;
   cudaError_t err = set_smem_limits();
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, MmaTile::NTHREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   info[0] = attr.numRegs;
-  info[1] = smem;
-  info[2] = MmaTile::BM;
-  info[3] = MmaTile::BN;
+  info[1] = smem + (int)attr.sharedSizeBytes;
+  info[2] = tile0;
+  info[3] = tile1;
   info[4] = blocks;
   info[5] = (int)(grid.x * grid.y * grid.z);
   info[6] = (int)attr.localSizeBytes;
   return err;
 }
 
-// ---------------------------------------------------------------------------
-// B7 on WMMA
-
-constexpr int TH = 8;              // output rows per block: one warp each
-constexpr int TW = 16;             // output columns per block: one WMMA row fragment
-constexpr int OT = 64;             // output channels per block
-constexpr int CK = 32;             // input channels per chunk
-constexpr int NWARPS = TH;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int XW = TW + 2;         // staged tile width, halo included
-constexpr int CKP = CK + 16;       // staged pixel stride (elements): 96 bytes, so that
-                                   // four consecutive pixels fill the 32 banks once
-constexpr int OTP = OT + 16;       // staged weight row stride: 160 bytes, likewise
-constexpr int NT = OT / 16;        // accumulator fragments per warp
-
-constexpr int XS_ELEMS = (TH + 2) * XW * CKP;
-constexpr int WS_ELEMS = 9 * CK * OTP;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-static_assert(NWARPS * 16 * OT * 4 <= WS_ELEMS * 2, "epilogue scratch aliases the weight tile");
-
-// Stage the halo tile of channels [c0, c0+CK) into Xs[(TH+2)][XW][CKP]: rows
-// y0-1 .. y0+TH, columns x0-1 .. x0+TW of image `xb`. Pixels off the image
-// and channels >= C become 0. FUSED applies a*x+b, SiLU and the bf16 rounding.
-template <bool FUSED>
-__device__ __forceinline__ void stage_x(bf16* Xs, const bf16* __restrict__ xb,
-                                        const float* __restrict__ ab, int H, int W, int C,
-                                        int y0, int x0, int c0, bool vec) {
-  constexpr int G = CK / 8;
-  for (int i = threadIdx.x; i < (TH + 2) * XW * G; i += NTHREADS) {
-    const int p = i / G, g = i % G;
-    const int iy = y0 + p / XW - 1, ix = x0 + p % XW - 1, c = c0 + g * 8;
-    __align__(16) bf16 v[8];
-    const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W && c < C;
-    if (inside) {
-      const bf16* src = xb + ((long)iy * W + ix) * C + c;
-      if (vec && c + 8 <= C) {
-        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = c + e < C ? src[e] : __float2bfloat16(0.f);
-      }
-      if (FUSED) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (c + e < C) {
-            const float seg = __bfloat162float(v[e]) * ab[c + e] + ab[C + c + e];
-            v[e] = __float2bfloat16(seg / (1.f + expf(-seg)));
-          }
-        }
-      }
-    } else {
-      *reinterpret_cast<uint4*>(v) = make_uint4(0, 0, 0, 0);
-    }
-    *reinterpret_cast<uint4*>(Xs + p * CKP + g * 8) = *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// Stage w[:, c0:c0+CK, o0:o0+OT] into Ws[9][CK][OTP] (zeros past C and O).
-__device__ __forceinline__ void stage_w(bf16* Ws, const bf16* __restrict__ w, int C, int O,
-                                        int c0, int o0, bool vec) {
-  constexpr int G = OT / 8;
-  for (int i = threadIdx.x; i < 9 * CK * G; i += NTHREADS) {
-    const int row = i / G, g = i % G;          // row = tap * CK + k
-    const int tap = row / CK, c = c0 + row % CK, o = o0 + g * 8;
-    __align__(16) bf16 v[8];
-    if (c < C && o < O) {
-      const bf16* src = w + ((long)tap * C + c) * O + o;
-      if (vec && o + 8 <= O) {
-        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = o + e < O ? src[e] : __float2bfloat16(0.f);
-      }
-    } else {
-      *reinterpret_cast<uint4*>(v) = make_uint4(0, 0, 0, 0);
-    }
-    *reinterpret_cast<uint4*>(Ws + row * OTP + g * 8) = *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// acc (this warp's output row y0+warp, 16 pixels x OT channels) + bias -> out.
-// `scratch` is NWARPS*16*OT floats that no warp still reads as anything else.
-__device__ __forceinline__ void write_out(FragC* acc, float* scratch,
-                                          const float* __restrict__ bias,
-                                          bf16* __restrict__ outb, int H, int W, int O, int y0,
-                                          int x0, int o0, bool vec) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* St = scratch + warp * 16 * OT;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    wmma::store_matrix_sync(St + j * 16, acc[j], OT, wmma::mem_row_major);
-  __syncwarp();
-  const int iy = y0 + warp;
-  if (iy >= H) return;
-  constexpr int G = OT / 8;
-  for (int i = lane; i < 16 * G; i += 32) {
-    const int px = i / G, g = i % G;
-    const int ix = x0 + px, o = o0 + g * 8;
-    if (ix >= W || o >= O) continue;
-    bf16* dst = outb + ((long)iy * W + ix) * O + o;
-    const float* s = St + px * OT + g * 8;
-    if (vec && o + 8 <= O) {
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(s[e] + bias[o + e]);
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-    } else {
-      for (int e = 0; e < 8 && o + e < O; ++e) dst[e] = __float2bfloat16(s[e] + bias[o + e]);
-    }
-  }
-}
-
-struct Tile {
-  int y0, x0, o0;
-  long b;
-};
-
-__device__ __forceinline__ Tile block_tile(int W) {
-  const int tiles_w = (W + TW - 1) / TW;
-  Tile t;
-  t.y0 = (blockIdx.x / tiles_w) * TH;
-  t.x0 = (blockIdx.x % tiles_w) * TW;
-  t.o0 = blockIdx.y * OT;
-  t.b = blockIdx.z;
-  return t;
-}
-
-// Nine tap products per chunk, each a shifted read of the staged tile.
-template <bool FUSED>
-__global__ void __launch_bounds__(NTHREADS)
-conv3x3_halo_kernel(const bf16* __restrict__ x, const float* __restrict__ gn_ab,
-                    const bf16* __restrict__ w, const float* __restrict__ bias,
-                    bf16* __restrict__ out, int H, int W, int C, int O) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = Xs + XS_ELEMS;
-  const Tile t = block_tile(W);
-  const int warp = threadIdx.x / 32;
-  const bf16* xb = x + t.b * H * W * C;
-  const float* ab = FUSED ? gn_ab + t.b * 2 * C : nullptr;
-  const bool vec_c = C % 8 == 0, vec_o = O % 8 == 0;
-
-  FragC acc[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int c0 = 0; c0 < C; c0 += CK) {
-    __syncthreads();                       // the previous chunk's reads are done
-    stage_x<FUSED>(Xs, xb, ab, H, W, C, t.y0, t.x0, c0, vec_c);
-    stage_w(Ws, w, C, O, c0, t.o0, vec_o);
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const bf16* a0 = Xs + ((warp + tap / 3) * XW + tap % 3) * CKP;
-#pragma unroll
-      for (int kk = 0; kk < CK; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, a0 + kk, CKP);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, Ws + (tap * CK + kk) * OTP + j * 16, OTP);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
-  }
-  __syncthreads();                         // every warp is done with Ws
-  write_out(acc, reinterpret_cast<float*>(Ws), bias, out + t.b * H * W * O, H, W, O, t.y0, t.x0,
-            t.o0, vec_o);
-}
-
-bool bad_shape(int B, int H, int W, int C, int O) {
-  return B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || B > 65535 || (O + OT - 1) / OT > 65535;
-}
-
-dim3 grid_of(int B, int H, int W, int O) {
-  return dim3(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (O + OT - 1) / OT, B);
-}
-
 }  // namespace
 
-// Each returns a cudaError_t code: 0 when the launch was accepted.
-extern "C" int gn_silu_conv3x3_halo_fwd(const void* x, const void* gn_ab, const void* w,
-                                        const void* bias, void* out, int B, int H, int W, int C,
-                                        int O, void* stream) {
-  if (bad_shape(B, H, W, C, O)) return (int)cudaErrorInvalidValue;
-  const int smem = (XS_ELEMS + WS_ELEMS) * 2;
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_halo_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Each returns a cudaError_t code: 0 when the launches were accepted.
+
+// The bytes of B7's workspace at this shape and split count.
+extern "C" int gn_silu_conv_workspace(int B, int H, int W, int C, int O, int groups, int splits,
+                                      long long* bytes) {
+  if (!gn_args_ok(B, H, W, C, O, groups, splits, halo_grid(B, H, W, O, splits)))
+    return (int)cudaErrorInvalidValue;
+  *bytes = GnWorkspace(B, H, W, C, O, splits).total;
+  return 0;
+}
+
+// B7: x [B, H, W, C] bf16, gs, gb [C] f32 (the GroupNorm's scale and shift),
+// the packed weight [9, C, O], bias [O] f32, out [B, H, W, O]; C and O
+// multiples of 8, C of `groups`; `work`: gn_silu_conv_workspace bytes,
+// 256-byte aligned. The statistics kernel, the conv over `splits` parts of
+// the channel chunks, and with several parts their sum, back to back on
+// `stream`.
+extern "C" int gn_silu_conv3x3_halo_fwd(const void* x, const void* gs, const void* gb,
+                                        const void* w, const void* bias, void* out, void* work,
+                                        int B, int H, int W, int C, int O, int groups, float eps,
+                                        int splits, void* stream) {
+  const dim3 grid = halo_grid(B, H, W, O, splits);
+  if (!gn_args_ok(B, H, W, C, O, groups, splits, grid) || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem_limits();
   if (err != cudaSuccess) return (int)err;
-  conv3x3_halo_kernel<true><<<grid_of(B, H, W, O), NTHREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gn_ab), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), H, W, C, O);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ab = static_cast<float*>(work);
+  float* part = reinterpret_cast<float*>(static_cast<char*>(work)
+                                         + GnWorkspace(B, H, W, C, O, splits).part);
+  int e = launch_stats(x, gs, gb, ab, B, H * W, C, groups, eps, st);
+  if (e != 0) return e;
+  gn_silu_conv3x3_mma_kernel<<<grid, MmaTile::NTHREADS, HALO_SMEM, st>>>(
+      static_cast<const bf16*>(x), ab, static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), part, B, H, W, C, O);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum(gn_silu_conv3x3_sum_kernel, part, bias, out, (long)B * H * W * O, O, splits,
+                    st);
+}
+
+// B7's statistics kernel alone: its [B, 2, C] f32 affine into `ab`.
+extern "C" int gn_silu_conv_stats(const void* x, const void* gs, const void* gb, void* ab, int B,
+                                  int H, int W, int C, int groups, float eps, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 != 0 || groups <= 0 || C % groups != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_stats(x, gs, gb, static_cast<float*>(ab), B, H * W, C, groups, eps,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // B8 and B9: x [B, H, W, C], the packed weight [9, C, O], bias [O] f32, out
@@ -742,7 +813,22 @@ extern "C" int conv_halo_describe(int B, int H, int W, int C, int O, int halo_sp
   if (!mma_args_ok(B, H, W, C, O, halo_splits, halo)
       || !mma_args_ok(B, H, W, C, O, im2col_splits, im2col))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = describe_one(conv3x3_halo_mma_kernel, HALO_SMEM, halo, info);
+  cudaError_t err = describe_one(conv3x3_halo_mma_kernel, MmaTile::NTHREADS, HALO_SMEM,
+                                 MmaTile::BM, MmaTile::BN, halo, info);
   if (err != cudaSuccess) return (int)err;
-  return (int)describe_one(conv3x3_im2col_mma_kernel, IM2COL_SMEM, im2col, info + 7);
+  return (int)describe_one(conv3x3_im2col_mma_kernel, MmaTile::NTHREADS, IM2COL_SMEM,
+                           MmaTile::BM, MmaTile::BN, im2col, info + 7);
+}
+
+// B7's twin: info[0..6] for its main kernel at `splits`, info[7..13] for its
+// statistics kernel (the "tile" there: pixels and channels a block).
+extern "C" int gn_silu_conv_describe(int B, int H, int W, int C, int O, int groups, int splits,
+                                     int* info) {
+  const dim3 grid = halo_grid(B, H, W, O, splits);
+  if (!gn_args_ok(B, H, W, C, O, groups, splits, grid)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = describe_one(gn_silu_conv3x3_mma_kernel, MmaTile::NTHREADS, HALO_SMEM,
+                                 MmaTile::BM, MmaTile::BN, grid, info);
+  if (err != cudaSuccess) return (int)err;
+  return (int)describe_one(gn_silu_conv3x3_stats_kernel, STATS_THREADS, 0, H * W, C / groups,
+                           dim3(B * groups), info + 7);
 }

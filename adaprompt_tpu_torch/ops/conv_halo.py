@@ -6,14 +6,14 @@ csrc/conv_halo.cu), each with a launch count and a plain PyTorch version
 beside it; a wrapper takes the plain version for CPU tensors only and for
 CUDA tensors launches its kernel or raises:
   * `gn_silu_conv3x3_halo` (replaces the TPU kernel of the same name):
-    conv3x3(SiLU(GroupNorm(x))) + bias. The statistics are taken in float32
-    outside the kernel (`gn_affine`) and folded into a per-(batch, channel)
-    affine; inside, seg = float(x)*a + b, seg*sigmoid(seg) in float32 rounded
-    to the activation dtype, zero outside the image, nine tap products with
-    float32 accumulation (still the first, WMMA kernel). Plain version
-    `gn_silu_conv3x3_halo_reference`, which repeats that arithmetic; it is
-    not `layers.group_norm` + `conv2d`, which normalizes in the activation
-    dtype and so rounds elsewhere.
+    conv3x3(SiLU(GroupNorm(x))) + bias. One C call: a statistics kernel
+    folds the GroupNorm into a per-(batch, channel) float32 affine (the JAX
+    function's order, `gn_affine`), then B8's implicit GEMM (below) applies
+    seg = float(x)*a + b, seg*sigmoid(seg) in float32 rounded to bf16 once
+    to each staged halo, zero outside the image, before its nine taps. Plain
+    version `gn_silu_conv3x3_halo_reference`, which repeats that arithmetic;
+    it is not `layers.group_norm` + `conv2d`, which normalizes in the
+    activation dtype and so rounds elsewhere.
   * `conv3x3_halo` (replaces `conv3x3_halo`): the conv alone as an implicit
     GEMM on mma.sync; per channel chunk a tile's halo is staged once and its
     nine taps are nine shifted windows of it. Plain version
@@ -22,10 +22,10 @@ CUDA tensors launches its kernel or raises:
     each k tile's patch rows (one tap, a chunk of channels) gathered straight
     from x into a cp.async ring. Plain version `conv3x3_im2col_reference`,
     written as the [B*H*W, 9C] x [9C, O] product.
-All three are forward only, as the JAX functions are (no custom_vjp). For
-the last two, `conv_plan` splits the channel chunks where the tiles alone
-would leave SMs idle, and the wrapper pads C and O that are not multiples of
-8 with zeros (the kernels copy 16 bytes at a time).
+All three are forward only, as the JAX functions are (no custom_vjp).
+`conv_plan` splits the channel chunks where the tiles alone would leave SMs
+idle, and the wrappers pad O (B8 and B9 also C) that is not a multiple of 8
+with zeros (the kernels copy 16 bytes at a time).
 
 Weights are the port's OIHW. The kernels read them taps-outermost,
 [9, C, O] (`pack_conv_weight`; read as [9C, O] it is the im2col weight): a
@@ -72,8 +72,9 @@ def pack_conv_weight(weight: torch.Tensor) -> torch.Tensor:
 
 def gn_affine(x, gn_scale, gn_bias, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm of NHWC x as a per-(batch, channel) affine [B, 2, C] float32:
-    a = scale * rsqrt(var + eps), b = bias - mean * a, statistics in float32
-    (variance about the mean, not E[x^2] - mean^2)."""
+    a = rsqrt(var + eps) * scale, b = bias - (mean * rsqrt(var + eps)) *
+    scale (the JAX function's order), statistics in float32 (variance about
+    the mean, not E[x^2] - mean^2)."""
     b, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
@@ -82,7 +83,7 @@ def gn_affine(x, gn_scale, gn_bias, num_groups: int = 32, eps: float = 1e-5) -> 
                                correction=0)
     inv = torch.rsqrt(var + eps)
     a = inv.repeat_interleave(rep, dim=1) * gn_scale.float()
-    shift = gn_bias.float() - mean.repeat_interleave(rep, dim=1) * a
+    shift = gn_bias.float() - (mean * inv).repeat_interleave(rep, dim=1) * gn_scale.float()
     return torch.stack([a, shift], dim=1)
 
 
@@ -223,27 +224,86 @@ def _launch_mma(what, form, x, weight, bias, packed):
     return out if op == o else out[..., :o].contiguous()
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_conv_workspace_bytes(b, h, w, c, o, groups, splits) -> int:
+    """The bytes of scratch `gn_silu_conv3x3_halo_fwd` takes at this shape
+    (the [B, 2, C] affine, then the k splits' float32 sums), as the C side
+    lays it out; asked of it once a shape."""
+    fn = cuda_build.function("conv_halo", "gn_silu_conv_workspace", [_I] * 7 + [_P])
+    nbytes = ctypes.c_longlong()
+    cuda_build.check(fn(b, h, w, c, o, groups, splits, ctypes.addressof(nbytes)),
+                     "gn_silu_conv_workspace")
+    return nbytes.value
+
+
+def gn_silu_conv_kernel_call(x, gn_scale, gn_bias, packed, bias, work, out, num_groups, eps,
+                             splits):
+    """B7's C call alone on operands the caller validated (x bf16, gn_scale,
+    gn_bias and bias float32, `packed` [9, C, O] with O a multiple of 8, `work`
+    a uint8 workspace of `_gn_conv_workspace_bytes`, out [B, H, W, O]): the
+    statistics kernel, the fused conv and, with several splits, their sum.
+    Not counted."""
+    b, h, w, c = x.shape
+    fn = cuda_build.function("conv_halo", "gn_silu_conv3x3_halo_fwd",
+                             [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P])
+    cuda_build.check(fn(x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(), packed.data_ptr(),
+                        bias.data_ptr(), out.data_ptr(), work.data_ptr(), b, h, w, c,
+                        out.shape[-1], num_groups, eps, splits, _stream(x)),
+                     "gn_silu_conv3x3_halo_fwd")
+
+
+def _gn_params(what, gn_scale, gn_bias, c, device):
+    """The GroupNorm's scale and shift as contiguous float32 [C] operands."""
+    if gn_scale.shape != (c,) or gn_bias.shape != (c,):
+        raise ValueError(f"{what}: gn_scale {tuple(gn_scale.shape)}, gn_bias "
+                         f"{tuple(gn_bias.shape)} for C={c}")
+    return [t.to(device=device, dtype=torch.float32).contiguous() for t in (gn_scale, gn_bias)]
+
+
+def gn_affine_kernel(x, gn_scale, gn_bias, num_groups: int = 32, eps: float = 1e-5):
+    """B7's statistics kernel alone on a bf16 CUDA x: `gn_affine`'s [B, 2, C]
+    float32 affine. Not counted."""
+    (x,) = cuda_build.kernel_operands("gn_affine kernel", x)
+    b, h, w, c = x.shape
+    gs, gb = _gn_params("gn_affine kernel", gn_scale, gn_bias, c, x.device)
+    ab = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    fn = cuda_build.function("conv_halo", "gn_silu_conv_stats",
+                             [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P])
+    cuda_build.check(fn(x.data_ptr(), gs.data_ptr(), gb.data_ptr(), ab.data_ptr(), b, h, w, c,
+                        num_groups, eps, _stream(x)), "gn_silu_conv_stats")
+    return ab
+
+
 def gn_silu_conv3x3_halo(x, gn_scale, gn_bias, weight, bias, *, num_groups: int = 32,
                          eps: float = 1e-5, packed: torch.Tensor | None = None):
     """conv3x3(SiLU(GroupNorm(x))) + bias, fused: x [B, H, W, C]; gn_scale,
     gn_bias [C]; weight OIHW [O, C, 3, 3]; bias [O]; `packed` =
-    `pack_conv_weight(weight)` when the caller holds it. -> [B, H, W, O]."""
+    `pack_conv_weight(weight)` when the caller holds it. -> [B, H, W, O].
+    On the card one C call takes the statistics and the conv (C must be a
+    multiple of 8 and of num_groups; O is padded to a multiple of 8)."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_halo_reference(x, gn_scale, gn_bias, weight, bias,
                                               num_groups=num_groups, eps=eps)
     what = "gn_silu_conv3x3_halo kernel"
     _refuse_gradients(what, x, gn_scale, gn_bias, weight, bias)
-    cuda_build.kernel_operands(what, x)            # a bf16 CUDA tensor, before any arithmetic
-    affine = gn_affine(x, gn_scale, gn_bias, num_groups, eps)
     x, packed, bias, (b, h, w, c, o) = _operands(what, x, weight, bias, packed)
-    (affine,) = cuda_build.kernel_operands(what, affine, dtype=torch.float32)
-    out = torch.empty((b, h, w, o), device=x.device, dtype=x.dtype)
-    fn = cuda_build.function("conv_halo", "gn_silu_conv3x3_halo_fwd", [ctypes.c_void_p] * 5
-                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    cuda_build.check(fn(x.data_ptr(), affine.data_ptr(), packed.data_ptr(), bias.data_ptr(),
-                        out.data_ptr(), b, h, w, c, o, _stream(x)), "gn_silu_conv3x3_halo_fwd")
+    if c % 8 or c % num_groups:
+        raise ValueError(f"{what}: C={c} must be a multiple of 8 and of {num_groups} groups")
+    gs, gb = _gn_params(what, gn_scale, gn_bias, c, x.device)
+    op = _round8(o)
+    if op != o:
+        packed = F.pad(packed, (0, op - o))
+        bias = F.pad(bias, (0, op - o))
+    splits = conv_plan("halo", b, h, w, c, op, _sm_count(x.device.index)).splits
+    work = torch.empty(_gn_conv_workspace_bytes(b, h, w, c, op, num_groups, splits),
+                       dtype=torch.uint8, device=x.device)
+    out = torch.empty((b, h, w, op), device=x.device, dtype=x.dtype)
+    gn_silu_conv_kernel_call(x, gs, gb, packed, bias, work, out, num_groups, eps, splits)
     gn_silu_conv3x3_halo.launches += 1
-    return out
+    return out if op == o else out[..., :o].contiguous()
 
 
 gn_silu_conv3x3_halo.launches = 0

@@ -58,7 +58,10 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "geglu_int8_proj_kernel": "geglu_int8",      # x_q.W1_q^T -> fp32 g, row maxima
                "geglu_int8_quant_g_kernel": "geglu_int8",   # g -> g_q, gs
                "geglu_int8_out_kernel": "geglu_int8",       # g_q.W2_q^T -> out
-               "conv3x3_halo_kernel<true>": "gn_silu_conv3x3_halo",    # B7, WMMA
+               # B7's three kernels; no name contains a B8 kernel's name
+               "gn_silu_conv3x3_stats_kernel": "gn_silu_conv3x3_halo",  # its [B, 2, C] affine
+               "gn_silu_conv3x3_mma_kernel": "gn_silu_conv3x3_halo",    # B8's loop, fused producer
+               "gn_silu_conv3x3_sum_kernel": "gn_silu_conv3x3_halo",    # its k splits' sum
                "conv3x3_halo_mma_kernel": "conv3x3_halo",               # B8
                "conv3x3_halo_sum_kernel": "conv3x3_halo",               # its k splits' sum
                "conv3x3_im2col_mma_kernel": "conv3x3_im2col",           # B9

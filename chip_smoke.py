@@ -18,8 +18,10 @@ Phases, in order (any failure exits non-zero without the final line):
      kernels', the GEGLU's two kernels' at C=320 and 640,
      the fused cross-attention's two and the int8 GEGLU's and the int8
      cross-attention's four each at their four shapes (also their grids),
-     the two plain 3x3 convs' kernels at their four shapes, each with the k
-     splits conv_plan picks (their grids checked against the plan's);
+     the two plain 3x3 convs' kernels at their four shapes and the fused
+     GroupNorm-SiLU-conv's conv and statistics kernels at its three, each
+     with the k splits conv_plan picks (their grids checked against the
+     plan's);
      hold each kernel against its plain PyTorch version on the card, in
      bf16, at the paths' shapes (the GEGLU, the fused cross-attention and
      both int8 kernels also untimed at ragged shapes, with their launch
@@ -41,7 +43,8 @@ Phases, in order (any failure exits non-zero without the final line):
      for flash attention forward and backward, F.conv2d for the two plain
      convs, each of which is also timed beside the other form); beside the
      fused GroupNorm-SiLU-conv, which no single call
-     computes, the port's own unfused pair (group_norm + conv2d), beside
+     computes, the port's own unfused pair (group_norm + conv2d), its C call,
+     its statistics kernel alone and the plain halo conv's C call, beside
      the GEGLU the port's unfused feed-forward on cuBLAS, beside the
      fused cross-attention its unfused chain (cuBLAS, SDPA, cuBLAS), beside
      each int8 kernel its bf16 counterpart at its shape and the port's int8
@@ -928,22 +931,66 @@ def conv_resources():
 
 
 
+GN_CONV_KERNELS = ("gn_silu_conv3x3_mma_kernel", "gn_silu_conv3x3_stats_kernel")
+# B7's shapes: the fused table's three keys at B=4 (phase 8's UNet batch)
+GN_CONV_SHAPES = ((4, 64, 320, 320), (4, 32, 320, 640), (4, 32, 960, 640))
+# every ResBlock conv of the SD-1.5 UNet at 64x64 latents (H, C, O), as
+# tests/test_torch_conv_halo.py lists them
+SD15_RESBLOCK_SHAPES = ((64, 320, 320), (32, 320, 640), (32, 640, 640), (16, 640, 1280),
+                        (16, 1280, 1280), (8, 1280, 1280), (8, 2560, 1280), (16, 2560, 1280),
+                        (16, 1920, 1280), (32, 1920, 640), (32, 1280, 640), (32, 960, 640),
+                        (64, 960, 320), (64, 640, 320))
+
+
+def gn_conv_resources():
+    """Log B7's conv and statistics kernels' resources at its three shapes,
+    with the k splits conv_plan picks there, from the runtime: registers a
+    thread, shared memory a block, the tile (the statistics: pixels and
+    channels a block), resident blocks an SM, blocks in the grid (the conv's
+    checked against the plan's), local memory a thread."""
+    import ctypes
+    import torch
+    from adaprompt_tpu_torch.ops import conv_halo as CH, cuda_build
+    fn = cuda_build.function("conv_halo", "gn_silu_conv_describe",
+                             [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, c, o in GN_CONV_SHAPES:
+        plan = CH.conv_plan("halo", b, h, h, c, o, sms)
+        info = (ctypes.c_int * 14)()
+        cuda_build.check(fn(b, h, h, c, o, 32, plan.splits, ctypes.addressof(info)),
+                         "gn_silu_conv_describe")
+        _log_kernels("gn_silu_conv3x3_halo", GN_CONV_KERNELS,
+                     f"H={h} C={c} O={o} B={b} (splits {plan.splits})", info)
+        if (info[5], info[12]) != (plan.blocks, b * 32):
+            raise AssertionError(f"B7 grids {info[5]}, {info[12]} != {plan.blocks}, {b * 32}")
+
+
 def _case_gn_conv(gen, b, h, c, o, gn_shift):
-    """The fused GroupNorm-SiLU-conv against its plain version. No single
-    PyTorch call computes it (library_ms None); `unfused_ms` is the port's
-    own unfused pair, layers.group_norm(..., "silu") + conv2d, the time the
-    kernel has to beat, and `affine_ms` the statistics pass that the
-    wrapper runs before the kernel (counted in kernel_ms). With gn_shift > 0
-    the case also shows that an unmasked border would miss the bound."""
+    """The fused GroupNorm-SiLU-conv B7 against its plain version; its launch
+    count must rise by one a call. No single PyTorch call computes it
+    (library_ms None). `kernel_ms` is the wrapper's call, `kernel_only_ms`
+    its C call alone on allocated operands (statistics, conv, splits' sum),
+    `stats_ms` the statistics kernel alone (device time, queued behind a
+    spin: its host work outlasts it), `unfused_ms` the port's own unfused
+    pair, layers.group_norm(..., "silu") + conv2d, the time to beat, and
+    `halo_ms` B8's C call on the same x, weight and bias, the product loop
+    B7 shares. With gn_shift > 0 the case also shows that an unmasked border
+    would miss the bound."""
+    import ctypes
     import torch
     import torch.nn.functional as F
-    from adaprompt_tpu_torch.ops import conv_halo as CH
+    from adaprompt_tpu_torch.ops import conv_halo as CH, cuda_build
     from adaprompt_tpu_torch.ops.layers import conv2d, group_norm
     x, weight, bias, gs, gb = _conv_inputs(gen, b, h, h, c, o, gn_shift)
     packed = CH.pack_conv_weight(weight)
     fused = lambda: CH.gn_silu_conv3x3_halo(x, gs, gb, weight, bias, packed=packed)
+    before = CH.gn_silu_conv3x3_halo.launches
+    out = fused()
+    if CH.gn_silu_conv3x3_halo.launches != before + 1:
+        raise AssertionError(f"gn_silu_conv3x3_halo counted "
+                             f"{CH.gn_silu_conv3x3_halo.launches - before} launches for one call")
     ref = CH.gn_silu_conv3x3_halo_reference(x, gs, gb, weight, bias)
-    err, mag, ok = _compare(fused(), ref, CONV_TOL)
+    err, mag, ok = _compare(out, ref, CONV_TOL)
     detail = ""
     if gn_shift:
         # what a kernel that padded x before the affine would return: silu(b) on the border
@@ -954,15 +1001,36 @@ def _case_gn_conv(gen, b, h, c, o, gn_shift):
         miss = (wrong - ref.float()).abs().max().item()
         detail = f"unmasked border would err {miss / mag:.3e}*max"
         ok = ok and miss > 2 * CONV_TOL * mag
+    plan = CH.conv_plan("halo", b, h, h, c, o)
+    work = torch.empty(CH._gn_conv_workspace_bytes(b, h, h, c, o, 32, plan.splits),
+                       dtype=torch.uint8, device="cuda")
+    out2, out8 = torch.empty_like(out), torch.empty_like(out)
+    part8 = torch.empty((plan.splits, b * h * h, o), device="cuda", dtype=torch.float32)
+    fn8 = cuda_build.function("conv_halo", "conv3x3_halo_fwd",
+                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    halo = lambda: cuda_build.check(fn8(x.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+                                        out8.data_ptr(), part8.data_ptr(), b, h, h, c, o,
+                                        plan.splits, stream), "conv3x3_halo_fwd")
     gs16, gb16, bias16 = (t.to(torch.bfloat16) for t in (gs, gb, bias))
     unfused = lambda: conv2d(group_norm(x, gs16, gb16, eps=1e-5, activation="silu"), weight, bias16)
     res = {"kernel_ms": time_ms(fused, 10),
+           "kernel_only_ms": time_ms(lambda: CH.gn_silu_conv_kernel_call(
+               x, gs, gb, packed, bias, work, out2, 32, 1e-5, plan.splits), 20),
            "plain_ms": time_ms(lambda: CH.gn_silu_conv3x3_halo_reference(x, gs, gb, weight, bias), 3),
            "library_ms": None,
            "unfused_ms": time_ms(unfused, 10),
-           "affine_ms": time_ms(lambda: CH.gn_affine(x, gs, gb), 10)}
+           "stats_ms": device_ms(lambda: CH.gn_affine_kernel(x, gs, gb), 20),
+           "halo_ms": time_ms(halo, 20)}
+    if not torch.equal(out2, out):
+        raise AssertionError("gn_silu_conv3x3_halo: the C call alone and the wrapper disagree")
     res.update(_conv_bound(b, h, h, c, o, extra_bytes=8 * c))
-    detail += f" unfused_ms={res['unfused_ms']:.4f} affine_ms={res['affine_ms']:.4f}"
+    detail += (f" {plan.splits} split(s), {plan.blocks} blocks; "
+               f"kernel_only_ms={res['kernel_only_ms']:.4f} stats_ms={res['stats_ms']:.4f} "
+               f"unfused_ms={res['unfused_ms']:.4f} halo_ms={res['halo_ms']:.4f}; "
+               f"{res['kernel_ms'] / res['unfused_ms']:.2f}x unfused, C call "
+               f"{res['kernel_only_ms'] / (res['halo_ms'] + res['stats_ms']):.2f}x B8 + stats; "
+               f"{18 * b * h * h * c * o / res['kernel_only_ms'] / 1e9:.0f} TFLOP/s")
     return (f"gn_silu_conv3x3_halo H={h} C={c} O={o} B={b} gn_shift={gn_shift:g}", err, mag,
             CONV_TOL, ok, res, detail)
 
@@ -1103,6 +1171,7 @@ def phase_kernels():
     geglu_int8_resources()
     cross_int8_resources()
     conv_resources()
+    gn_conv_resources()
     # (wrapper, the paths whose shapes these are, case): txt2img has no
     # img_mask, training masks the self-attention keys (bias); the flash
     # backward without bias is on no path and is checked all the same. The
@@ -1150,9 +1219,9 @@ def phase_kernels():
              ("gn_silu_conv3x3_halo", pers, lambda: _case_gn_conv(gen, 4, 32, 960, 640, 0.0))]
     # the other ResBlock conv shapes of the SD-1.5 UNet, which the eligibility
     # table leaves to GroupNorm + cuDNN: timed to show where fusing would pay
-    for h, c, o in ((32, 640, 640), (16, 640, 1280), (16, 1280, 1280), (8, 1280, 1280),
-                    (8, 2560, 1280), (16, 2560, 1280), (16, 1920, 1280), (32, 1920, 640),
-                    (32, 1280, 640), (64, 960, 320), (64, 640, 320)):
+    for h, c, o in SD15_RESBLOCK_SHAPES:
+        if (4, h, c, o) in GN_CONV_SHAPES:
+            continue
         cases.append(("gn_silu_conv3x3_halo", (),
                       lambda s=(h, c, o): _case_gn_conv(gen, 4, *s, 0.0)))
     for m_, c_ in GEGLU_RAGGED:
@@ -1846,8 +1915,8 @@ def kernels_line(results, launches_by_path):
             "library_ms": None if rs[0]["library_ms"] is None else mean("library_ms"),
             "exp_bound_ms": mean("exp_bound_ms"),
         })
-        for extra in ("unfused_ms", "bf16_ms", "affine_ms", "prepass_ms", "b1_ms", "kv_ms",
-                      "kernel_only_ms", "wrapper_ms"):
+        for extra in ("unfused_ms", "bf16_ms", "stats_ms", "halo_ms", "prepass_ms", "b1_ms",
+                      "kv_ms", "kernel_only_ms", "wrapper_ms"):
             if extra in rs[0]:
                 out[-1][extra] = mean(extra)
         if name in EXP2_PATHS:

@@ -106,20 +106,28 @@ def test_padding_before_the_activation_would_fail_the_bound():
     assert inner <= 1e-4 * good.abs().max().item()         # only the border differs
 
 
-def test_gn_affine_and_packing_match_jax():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep", [10, 20, 30])
+def test_gn_affine_and_packing_match_jax(rep, dtype):
     """The per-(batch, channel) affine and the taps-outermost weight are the
-    JAX function's own intermediates (conv_halo.py: gn_ab, kernel.reshape(9, c, o))."""
-    hw, c, o = 8, 64, 48
-    x, w, b, gs, gb = _inputs(3, hw, c, o, gn_shift=0.5)
-    xg = jnp.asarray(x).reshape(2, hw, hw, 32, c // 32)
+    JAX function's own intermediates (conv_halo.py: gn_ab, kernel.reshape(9,
+    c, o)), at 10, 20 and 30 channels a group (SD-1.5's C = 320, 640, 960).
+    The shift is taken in JAX's order, gb - (mean*inv)*gs, so the two differ
+    by the statistics' summation order only: 3e-6 absolute, no relative slack."""
+    hw, c, o = 8, 32 * rep, 48
+    x, w, b, gs, gb = _inputs(3 + rep, hw, c, o, gn_shift=0.5)
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    xg = xj.reshape(2, hw, hw, 32, rep)
     mean = jnp.mean(xg, axis=(1, 2, 4), dtype=jnp.float32)
-    var = jnp.mean(jnp.square(xg - mean[:, None, None, :, None]), axis=(1, 2, 4))
+    var = jnp.mean(jnp.square(xg.astype(jnp.float32) - mean[:, None, None, :, None]),
+                   axis=(1, 2, 4))
     inv = jax.lax.rsqrt(var + 1e-5)
-    a_c = jnp.repeat(inv, c // 32, axis=1) * gs[None]
-    b_c = gb[None] - jnp.repeat(mean * inv, c // 32, axis=1) * gs[None]
-    got = tch.gn_affine(torch.from_numpy(x), torch.from_numpy(gs), torch.from_numpy(gb))
+    a_c = jnp.repeat(inv, rep, axis=1) * gs[None]
+    b_c = gb[None] - jnp.repeat(mean * inv, rep, axis=1) * gs[None]
+    tx = torch.from_numpy(np.asarray(xj.astype(jnp.float32)).copy()).to(getattr(torch, dtype))
+    got = tch.gn_affine(tx, torch.from_numpy(gs), torch.from_numpy(gb))
     assert got.shape == (2, 2, c) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.stack([a_c, b_c], axis=1), atol=2e-6, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.stack([a_c, b_c], axis=1), atol=3e-6, rtol=0)
     packed = tch.pack_conv_weight(torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
     np.testing.assert_array_equal(packed.numpy(), w.reshape(9, c, o))
     assert packed.is_contiguous()
@@ -149,3 +157,13 @@ def test_fused_conv_eligible_matches_jax(monkeypatch, dtype):
     bf = torch.bfloat16
     assert not tch.fused_conv_eligible(torch.empty((2, 64, 32, 320), dtype=bf, device="meta"), 320)
     assert not tch.fused_conv_eligible(torch.empty((64, 64, 320), dtype=bf, device="meta"), 320)
+
+
+def test_chip_smoke_times_every_resblock_shape():
+    """chip_smoke.py and tools/gn_conv_tiles.py time the fused conv at the
+    same 14 ResBlock shapes as this file lists, the fused table's three among
+    them at B=4."""
+    import chip_smoke
+    assert list(chip_smoke.SD15_RESBLOCK_SHAPES) == SD15_RESBLOCK_SHAPES
+    assert {s[1:] for s in chip_smoke.GN_CONV_SHAPES} == set(tch._FUSED_TABLE)
+    assert {s[0] for s in chip_smoke.GN_CONV_SHAPES} == {4}

@@ -439,30 +439,87 @@ def test_int8_flash_source_structure():
 
 
 def test_conv_source_structure():
-    """B8 and B9 are implicit GEMMs on the Hopper helpers of flash_sm90.cuh
-    (cp.async, ldmatrix plain and transposed, mma.sync), with no WMMA and
-    no patch tile; WMMA stays only in B7's kernel; the library's name hashes
-    the one header the source includes; the four C functions and the new
-    kernels are there."""
+    """B7, B8 and B9 are implicit GEMMs on the Hopper helpers of flash_sm90.cuh
+    (cp.async, ldmatrix plain and transposed, mma.sync), with no WMMA and no
+    patch tile anywhere; B8's and B7's globals run one halo loop, B7's with
+    its producer pass over each landed halo; B7's C call launches its
+    statistics kernel, its conv and its splits' sum, with no atomics; the
+    library's name hashes the one header the source includes; the C
+    functions are there."""
     from adaprompt_tpu_torch.ops import cuda_build
     src = (cuda_build.CSRC / "conv_halo.cu").read_text()
-    mma_part = src[src.index("// B8 and B9 on mma.sync"):src.index("// B7 on WMMA")]
+    assert "wmma" not in src and "<mma.h>" not in src and "PS_ELEMS" not in src
+    assert not re.search(r"\batomic\w*\(", src)              # fixed-order sums only
     for helper in ("cp_async_16(", "ldmatrix_x4(", "ldmatrix_x4_trans(", "mma_bf16_16816("):
-        assert helper in mma_part, helper
-    assert "wmma::" not in mma_part and "PS_ELEMS" not in src
-    assert min(m.start() for m in re.finditer(r"wmma::", src)) > src.index("// B7 on WMMA")
-    for kernel in ("conv3x3_halo_mma_kernel", "conv3x3_im2col_mma_kernel"):
-        body = src[src.index(f"\n{kernel}("):]
-        body = body[:body.index("\n}\n")]
-        assert "cp_async_16(" in body and "tile_product<T>(" in body, kernel
-        assert "wmma" not in body, kernel
+        assert helper in src, helper
+
+    def body(head):
+        text = src[src.index(head):]
+        return text[:text.index("\n}\n")]
+
+    for kernel in ("\nconv3x3_im2col_mma_kernel(", "void halo_conv("):
+        assert "cp_async_16(" in body(kernel) and "tile_product<T>(" in body(kernel), kernel
+    assert "gn_silu_pass(" in body("void halo_conv(")
+    assert "halo_conv<false>(" in body("\nconv3x3_halo_mma_kernel(")
+    assert "halo_conv<true>(" in body("\ngn_silu_conv3x3_mma_kernel(")
+    assert "group_walk_any(" in body("\ngn_silu_conv3x3_stats_kernel(")
+    assert "split_sum(" in body("void gn_silu_conv3x3_sum_kernel(")
+    fwd = body('extern "C" int gn_silu_conv3x3_halo_fwd(')
+    for launch in ("launch_stats(", "gn_silu_conv3x3_mma_kernel<<<",
+                   "launch_sum(gn_silu_conv3x3_sum_kernel"):
+        assert launch in fwd, launch
+    assert "gn_silu_conv3x3_stats_kernel<<<" in body("int launch_stats(")
     assert re.findall(r'^#include "([^"]+)"', src, re.M) == ["flash_sm90.cuh"]
     assert [p.name for p in cuda_build.source_files("conv_halo")] == [
         "conv_halo.cu", "flash_sm90.cuh"]
     for fn in ("conv3x3_halo_fwd", "conv3x3_im2col_fwd", "gn_silu_conv3x3_halo_fwd",
-               "conv_halo_describe"):
+               "conv_halo_describe", "gn_silu_conv_describe", "gn_silu_conv_workspace",
+               "gn_silu_conv_stats"):
         assert f'extern "C" int {fn}(' in src
-    assert "conv3x3_halo_kernel<true><<<" in src
+
+
+@pytest.mark.parametrize("o", [20, 48])
+def test_gn_silu_conv_wrapper_makes_no_operand_in_pytorch(monkeypatch, o):
+    """Off the CPU the fused wrapper hands x as it is and gs, gb as float32 to
+    its one C call (no `gn_affine` in PyTorch) with a uint8 workspace of the
+    size the layout function states at the planned k splits; it pads O = 20
+    to 24 (the packed weight's and the bias's columns) and drops the padding
+    from what it returns, passes O = 48 as it is, counts one launch a call,
+    and refuses C not a multiple of 8, a scale of another width and inputs
+    that need a gradient before the call."""
+    calls, sizes = [], []
+    monkeypatch.setattr(tch, "gn_affine",
+                        lambda *a, **kw: pytest.fail("the wrapper made the affine in PyTorch"))
+    monkeypatch.setattr(tch.cuda_build, "kernel_operands", lambda what, *t, **kw: list(t))
+    monkeypatch.setattr(tch, "_sm_count", lambda index: tch.H100_SMS)
+    monkeypatch.setattr(tch, "_gn_conv_workspace_bytes",
+                        lambda *shape: sizes.append(shape) or 4096)
+    monkeypatch.setattr(tch, "gn_silu_conv_kernel_call", lambda *a, **kw: calls.append((a, kw)))
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(*s, device="meta", dtype=dtype)
+    x, op = meta(2, 9, 17, 64), -(-o // 8) * 8
+    args = (x, meta(64), meta(64), meta(o, 64, 3, 3), meta(o))
+    before = tch.gn_silu_conv3x3_halo.launches
+    with torch.no_grad():
+        out = tch.gn_silu_conv3x3_halo(*args, eps=1e-6)
+    assert tch.gn_silu_conv3x3_halo.launches == before + 1 and len(calls) == 1
+    (cx, gs, gb, packed, bias, work, cout, groups, eps, splits), kw = calls[0]
+    assert cx is x and not kw and groups == 32 and eps == 1e-6
+    assert gs.dtype == gb.dtype == bias.dtype == torch.float32
+    assert gs.shape == gb.shape == (64,) and bias.shape == (op,)
+    assert packed.shape == (9, 64, op) and packed.dtype == torch.bfloat16
+    assert splits == tch.conv_plan("halo", 2, 9, 17, 64, op).splits
+    assert sizes == [(2, 9, 17, 64, op, 32, splits)]
+    assert work.dtype == torch.uint8 and work.numel() == 4096
+    assert cout.shape == (2, 9, 17, op) and cout.dtype == torch.bfloat16
+    assert out.shape == (2, 9, 17, o) and (out is cout) == (o == op)
+    with torch.no_grad(), pytest.raises(ValueError, match="C=36"):
+        tch.gn_silu_conv3x3_halo(meta(2, 9, 17, 36), meta(36), meta(36), meta(o, 36, 3, 3),
+                                 meta(o), num_groups=4)
+    with torch.no_grad(), pytest.raises(ValueError, match="gn_scale"):
+        tch.gn_silu_conv3x3_halo(x, meta(32), *args[2:])
+    with pytest.raises(RuntimeError, match="forward only"):
+        tch.gn_silu_conv3x3_halo(x.clone().requires_grad_(True), *args[1:])
+    assert tch.gn_silu_conv3x3_halo.launches == before + 1 and len(calls) == 1
 
 
 def test_int8_flash_wrapper_makes_no_operand_in_pytorch(monkeypatch):
@@ -628,7 +685,8 @@ def test_profile_step_files_no_int8_flash_kernel_under_b1(name):
 
 
 # B8's and B9's kernels (each a main kernel and its k splits' sum) as the
-# profiler names them, and B7's, which shares their source
+# profiler names them, and B7's three (statistics, conv, sum), which share
+# their source
 _CONV_KERNEL_NAMES = [
     ("void (anonymous namespace)::conv3x3_halo_mma_kernel(__nv_bfloat16 const*, __nv_bfloat16 "
      "const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int)", "conv3x3_halo"),
@@ -639,8 +697,12 @@ _CONV_KERNEL_NAMES = [
      "conv3x3_im2col"),
     ("void (anonymous namespace)::conv3x3_im2col_sum_kernel(float const*, float const*, "
      "__nv_bfloat16*, long, int, int)", "conv3x3_im2col"),
-    ("void (anonymous namespace)::conv3x3_halo_kernel<true>(__nv_bfloat16 const*, float const*, "
-     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, int)",
+    ("void (anonymous namespace)::gn_silu_conv3x3_stats_kernel(__nv_bfloat16 const*, float "
+     "const*, float const*, float*, int, int, int, float)", "gn_silu_conv3x3_halo"),
+    ("void (anonymous namespace)::gn_silu_conv3x3_mma_kernel(__nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16 const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int)",
+     "gn_silu_conv3x3_halo"),
+    ("_ZN12_GLOBAL__N_126gn_silu_conv3x3_sum_kernelEPKfS1_P13__nv_bfloat16lii",
      "gn_silu_conv3x3_halo")]
 
 
@@ -648,7 +710,8 @@ _CONV_KERNEL_NAMES = [
 def test_profile_step_files_conv_kernels_under_their_wrappers(name, label):
     """B8's and B9's kernels count as their wrappers' and never as cuDNN's
     convolutions (whose class takes any other name with "conv" in it); B7's
-    stays its own: exactly one key of the table names each."""
+    three, which share B8's loop, stay its own: exactly one key of the table
+    names each."""
     from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
     assert kernel_class(name) == label != "convolution (cuDNN)"
     assert len([key for key in OUR_KERNELS if key in name]) == 1
@@ -1023,14 +1086,17 @@ RAGGED = [(2, 8, 8, 32, 32), (1, 13, 21, 40, 20), (3, 7, 33, 96, 72), (1, 9, 17,
 
 
 _SD_CONVS = [(4, 64, 64, 320, 320), (4, 32, 32, 640, 640), (4, 16, 16, 1280, 1280)]
+# B7's three (the fused table's keys) at B=4: 1, 2 and 2 k splits
+_B7_CONVS = [(4, 64, 64, 320, 320), (4, 32, 32, 320, 640), (4, 32, 32, 960, 640)]
 
 
 @pytest.mark.parametrize("form", ["halo", "im2col"])
-@pytest.mark.parametrize("b,h,w,c,o", _SD_CONVS + RAGGED)
+@pytest.mark.parametrize("b,h,w,c,o", _SD_CONVS + _B7_CONVS[1:] + RAGGED)
 def test_conv_plan_covers_every_output_once(form, b, h, w, c, o):
     """conv_plan's grid covers each output pixel and channel exactly once and
     leaves no block without an output or without a channel chunk; at the SD
-    shapes it makes at least 120 blocks (1, 2 and 4 splits)."""
+    shapes it makes at least 120 blocks (1, 2 and 4 splits), at B7's (the
+    halo form's plan) 256 (1, 2 and 2)."""
     import numpy as np
     plan = tch.conv_plan(form, b, h, w, c, o)
     cols, tiles, splits = plan.grid
@@ -1058,6 +1124,8 @@ def test_conv_plan_covers_every_output_once(form, b, h, w, c, o):
     assert (seen == 1).all()
     if (b, h, w, c, o) in _SD_CONVS:
         assert plan.blocks >= 120 and splits == (1, 2, 4)[_SD_CONVS.index((b, h, w, c, o))]
+    if form == "halo" and (b, h, w, c, o) in _B7_CONVS:
+        assert plan.blocks == 256 and splits == (1, 2, 2)[_B7_CONVS.index((b, h, w, c, o))]
 
 
 @pytest.mark.cuda
@@ -1119,10 +1187,26 @@ def test_conv_kernels_two_calls_give_equal_bits(fn):
     assert torch.equal(wrapper(*cases[0]), first[0])
 
 
+# B7's ragged cases: ragged tiles, O not a multiple of 8 (20, 10), a group
+# of 1, 3, 2, 5 and 40 channels
+GN_RAGGED = [(2, 8, 8, 32, 32), (3, 7, 33, 96, 72), (2, 12, 12, 64, 48), (1, 21, 13, 160, 40),
+             (1, 16, 16, 1280, 64), (1, 13, 21, 64, 20), (1, 9, 17, 32, 10)]
+
+
+def _unmasked_border_err(x, gs, gb, wt, bias, ref):
+    """max|out - ref| / max|ref| of a fused conv that padded x before the
+    affine (silu(b) instead of 0 outside the image)."""
+    ab = tch.gn_affine(x, gs, gb)
+    seg = (torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1)) * ab[:, 0, None, None, :]
+           + ab[:, 1, None, None, :])
+    act = (seg * torch.sigmoid(seg)).to(x.dtype).float().permute(0, 3, 1, 2)
+    wrong = torch.nn.functional.conv2d(act, wt.float(), bias).permute(0, 2, 3, 1)
+    return ((wrong - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("gn_shift", [0.0, 3.0])
-@pytest.mark.parametrize("b,h,w,c,o", [(2, 8, 8, 32, 32), (3, 7, 33, 96, 72), (2, 12, 12, 64, 48),
-                                       (1, 21, 13, 160, 40), (1, 16, 16, 1280, 64)])
+@pytest.mark.parametrize("b,h,w,c,o", GN_RAGGED)
 def test_gn_silu_conv_kernel_ragged_shapes(b, h, w, c, o, gn_shift):
     """The fused kernel on ragged tiles; gn_shift=3 makes an unmasked border
     (silu(b) instead of 0 outside the image) miss the bound."""
@@ -1132,7 +1216,68 @@ def test_gn_silu_conv_kernel_ragged_shapes(b, h, w, c, o, gn_shift):
     before = tch.gn_silu_conv3x3_halo.launches
     out = tch.gn_silu_conv3x3_halo(x, gs, gb, wt, bias)
     assert tch.gn_silu_conv3x3_halo.launches == before + 1
+    assert out.shape == (b, h, w, o) and out.is_contiguous()
     _assert_near(out, tch.gn_silu_conv3x3_halo_reference(x, gs, gb, wt, bias), 2e-2)
+    _assert_near(tch.gn_silu_conv3x3_halo(x, gs, gb, wt, bias, packed=tch.pack_conv_weight(wt)),
+                 out, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn_shift", [0.0, 3.0])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("b,h,w,c,o", [s for s in GN_RAGGED if s[3] >= 128]
+                         + [(2, 11, 19, 256, 24)])
+def test_gn_silu_conv_kernel_every_split(monkeypatch, b, h, w, c, o, splits, gn_shift):
+    """B7 at each count of k splits (each split's first chunk transformed
+    before its loop, the others during the chunk before), one launch counted
+    a call; at gn_shift=3 the border would miss the bound unmasked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _forced_plan(monkeypatch, splits)
+    x, wt, bias, gs, gb = _card_case(h + w + c + o + splits, b, h, w, c, o, gn_shift)
+    before = tch.gn_silu_conv3x3_halo.launches
+    out = tch.gn_silu_conv3x3_halo(x, gs, gb, wt, bias)
+    assert tch.gn_silu_conv3x3_halo.launches == before + 1
+    ref = tch.gn_silu_conv3x3_halo_reference(x, gs, gb, wt, bias)
+    _assert_near(out, ref, 2e-2)
+    if gn_shift:
+        assert _unmasked_border_err(x, gs, gb, wt, bias, ref) > 4e-2
+
+
+@pytest.mark.cuda
+def test_gn_silu_conv_kernel_two_calls_give_equal_bits():
+    """The statistics and the k splits are summed in a fixed order (no
+    atomics): two calls on the same inputs give equal bits, at (1, 16, 16,
+    1280, 1280) (4 splits) and a ragged shape, also with a call on other
+    shapes between them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    cases = [_card_case(7, 1, 16, 16, 1280, 1280, 0.5), _card_case(8, 3, 23, 37, 192, 72, 0.5)]
+    call = lambda x, wt, bias, gs, gb: tch.gn_silu_conv3x3_halo(x, gs, gb, wt, bias)
+    first = [call(*args) for args in cases]
+    for args, out in zip(cases, first):
+        assert torch.equal(call(*args), out)
+    assert torch.equal(call(*cases[0]), first[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", [(4, 64, 64, 320), (4, 32, 32, 640), (4, 32, 32, 960),
+                                     (1, 16, 16, 1280), (3, 7, 33, 96), (2, 8, 8, 32)])
+def test_gn_silu_conv_statistics_kernel_matches_gn_affine(b, h, w, c):
+    """B7's statistics kernel (a group of 10, 20, 30, 40, 3 and 1 channels:
+    pieces of 2, 4, 2, 16, 2 and 2 bytes) against `gn_affine` on the card,
+    each half within 1e-5 of its max; two calls give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    x, _, _, gs, gb = _card_case(b + h + c, b, h, w, c, 8, 1.0)
+    got = tch.gn_affine_kernel(x, gs, gb)
+    ref = tch.gn_affine(x, gs, gb)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (b, 2, c)
+    for k in range(2):
+        err = (got[:, k] - ref[:, k]).abs().max().item()
+        assert math.isfinite(err) and err <= 1e-5 * ref[:, k].abs().max().item(), (k, err)
+    assert torch.equal(tch.gn_affine_kernel(x, gs, gb), got)
 
 
 # -- the flash variants and the two unwired attention kernels on the card ---------------

@@ -49,7 +49,7 @@ VARIANTS = {   # name -> [(line of the committed source, its replacement)]
 SHAPES = chip_smoke.CONV_SHAPES
 KERNELS = chip_smoke.CONV_KERNELS
 DEVICE_KERNELS = ("conv3x3_halo_mma", "conv3x3_halo_sum", "conv3x3_im2col_mma",
-                  "conv3x3_im2col_sum", "conv3x3_halo_kernel", "conv3x3_im2col_kernel")
+                  "conv3x3_im2col_sum")
 
 
 def split_counts(c):
@@ -101,33 +101,27 @@ def build(names):
                 print("   ", line.strip())
         lib = ctypes.CDLL(str(root / name / "k.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
-        if name == "parent":
-            lib.conv3x3_halo_fwd.argtypes = [P] * 4 + [I] * 5 + [P]
-            lib.conv3x3_im2col_fwd.argtypes = [P] * 4 + [I] * 5 + [P]
-        else:
-            lib.conv3x3_halo_fwd.argtypes = [P] * 5 + [I] * 6 + [P]
-            lib.conv3x3_im2col_fwd.argtypes = [P] * 5 + [I] * 6 + [P]
-            lib.conv_halo_describe.argtypes = [I] * 7 + [P]
-            lib.conv_halo_describe.restype = I
+        lib.conv3x3_halo_fwd.argtypes = [P] * 5 + [I] * 6 + [P]
+        lib.conv3x3_im2col_fwd.argtypes = [P] * 5 + [I] * 6 + [P]
+        lib.conv_halo_describe.argtypes = [I] * 7 + [P]
+        lib.conv_halo_describe.restype = I
         lib.conv3x3_halo_fwd.restype = lib.conv3x3_im2col_fwd.restype = I
         libs[name] = lib
     return libs
 
 
-def call(lib, form, args, splits, parent=False):
+def call(lib, form, args, splits):
     """The C call of one form with `splits` k splits on allocated operands
     (part: the splits' fp32 workspace)."""
     x, packed, bias, out, part = args
     b, h, w, c = x.shape
     o = out.shape[-1]
-    ptrs = [t.data_ptr() for t in (x, packed, bias, out)]
+    ptrs = [t.data_ptr() for t in (x, packed, bias, out, part)]
     stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(lib, f"conv3x3_{form}_fwd")
-    head = ptrs if parent else ptrs + [part.data_ptr()]
-    tail = [] if parent else [splits]
 
     def run():
-        cuda_build.check(fn(*head, b, h, w, c, o, *tail, stream), f"conv3x3_{form}_fwd")
+        cuda_build.check(fn(*ptrs, b, h, w, c, o, splits, stream), f"conv3x3_{form}_fwd")
         return out
     return run
 
@@ -204,26 +198,21 @@ def main():
         plans = {f: CH.conv_plan(f, b, h, w, c, o) for f in ("halo", "im2col")}
         part = torch.empty((4, b * h * w, o), device="cuda", dtype=torch.float32)
         for name, lib in libs.items():
-            parent = name == "parent"
-            if not parent:
-                res = describe(lib, shape, plans["halo"].splits, plans["im2col"].splits)
-                for k, r in zip(KERNELS, res):
-                    print(f"  {name} {k}: regs={r[0]} smem={r[1]} tile={r[2]}x{r[3]} "
-                          f"blocks/SM={r[4]} grid={r[5]} lmem={r[6]}", flush=True)
+            res = describe(lib, shape, plans["halo"].splits, plans["im2col"].splits)
+            for k, r in zip(KERNELS, res):
+                print(f"  {name} {k}: regs={r[0]} smem={r[1]} tile={r[2]}x{r[3]} "
+                      f"blocks/SM={r[4]} grid={r[5]} lmem={r[6]}", flush=True)
             for form in ("halo", "im2col"):
                 out = torch.empty((b, h, w, o), device="cuda", dtype=torch.bfloat16)
                 args = (x, packed, bias.float().contiguous(), out, part)
                 planned = plans[form].splits
-                counts = [0] if parent else sorted({1, 2, 4, planned} & set(split_counts(c)))
-                for splits in counts:
-                    run = call(lib, form, args, splits, parent)
+                for splits in sorted({1, 2, 4, planned} & set(split_counts(c))):
+                    run = call(lib, form, args, splits)
                     err = rel(run(), ref)
                     ok &= err <= chip_smoke.CONV_TOL
                     ms = chip_smoke.time_ms(run, 20)
-                    tag = "parent" if parent else f"splits={splits}"
-                    dev = ""
-                    if parent or splits == planned:
-                        dev = f" device_ms={device_ms(run):.4f}" + ("" if parent else " planned")
+                    tag = f"splits={splits}"
+                    dev = f" device_ms={device_ms(run):.4f} planned" if splits == planned else ""
                     print(f"{name} {form} {tag} B={b} H={h} W={w} C={c} O={o}: rel={err:.3e} "
                           f"ms={ms:.4f} ({flops / ms / 1e9:.0f} TFLOP/s, {ms / lib_ms:.2f}x "
                           f"F.conv2d){dev}", flush=True)
