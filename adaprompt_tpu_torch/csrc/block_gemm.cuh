@@ -1,7 +1,9 @@
 // A block-GEMM main loop for Hopper (sm_90a) and its epilogue's staging
 // tile, shared by the port's two-kernel feed-forward (csrc/geglu.cu) and
-// cross-attention (csrc/fused_cross_attention.cu); and its int8 sibling
-// BlockGemmS8, the main loop of the w8a8 feed-forward (csrc/geglu_int8.cu).
+// cross- and self-attention (csrc/fused_cross_attention.cu,
+// csrc/fused_self_attention.cu); the out-projection tile of the last two;
+// and its int8 sibling BlockGemmS8, the main loop of the w8a8 feed-forward
+// (csrc/geglu_int8.cu).
 //
 // BlockGemm computes one BM x BN tile of C = A.B^T, with A [M, K] and B [N, K]
 // both K-contiguous bf16 and the sums in fp32: WM x WN warps, each holding
@@ -171,6 +173,79 @@ struct Staging {
     }
   }
 };
+
+// One Out::BM x Out::BN tile of out = bf16(o . Wo^T + bo), the
+// out-projection of the fused attention kernels: block (blockIdx.x,
+// blockIdx.y) takes columns from blockIdx.x * BN and rows from blockIdx.y *
+// BM of out [M, C]; o [M, C] and Wo [C, C] ([out, in]) bf16, bo [C] fp32.
+// A device body: each kernel source wraps it in a __global__ kernel of its
+// own name, since profile_step files kernels by name.
+template <class Out>
+__device__ __forceinline__ void bias_out_tile(const bf16* __restrict__ o,
+                                              const bf16* __restrict__ wo,
+                                              const float* __restrict__ bo,
+                                              bf16* __restrict__ out, int M, int C) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * Out::BN, m0 = blockIdx.y * Out::BM;
+  const int c = Out::col_of(tid);
+  typename Out::ARows a;
+#pragma unroll
+  for (int i = 0; i < Out::A_LOADS; ++i) {
+    const int r = m0 + Out::row_of(tid, i);
+    a.ok[i] = r < M;
+    a.src[i] = o + (long)(a.ok[i] ? r : 0) * C + c;
+  }
+  typename Out::BRows b;
+#pragma unroll
+  for (int i = 0; i < Out::B_LOADS; ++i) {
+    const int r = n0 + Out::row_of(tid, i);
+    b.ok[i] = r < C;
+    b.src[i] = wo + (long)(b.ok[i] ? r : 0) * C + c;
+  }
+  float acc[Out::MT][Out::NT][4];
+  Out::mainloop(acc, smem, a, b, C, tid);
+
+  using T = Staging<Out, Out::BN>;
+  const int lane = tid % 32, warp = tid / 32;
+  const int wm = warp / Out::WN, wn = warp % Out::WN, q = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < Out::NT; ++nt) {
+    const int col = wn * Out::NT * 8 + nt * 8 + 2 * t;
+    const bool ok = n0 + col < C;        // C even: col + 1 too
+    const float bb0 = ok ? bo[n0 + col] : 0.f, bb1 = ok ? bo[n0 + col + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < Out::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        T::put(smem, wm * Out::MT * 16 + mt * 16 + q + 8 * h, col,
+               acc[mt][nt][2 * h] + bb0, acc[mt][nt][2 * h + 1] + bb1);
+  }
+  __syncthreads();
+  T::store(out, C, m0, M, n0, C, smem, tid);
+}
+
+// The resources of a kernel on tile Gemm, launched with `smem` bytes of
+// dynamic shared memory over `grid`: info[0..6] = registers a thread, shared
+// memory a block (bytes), the tile's rows and columns, resident blocks an
+// SM, blocks in the grid, local memory a thread (bytes).
+template <class Gemm, class Kernel>
+cudaError_t describe_kernel(Kernel kernel, int smem, dim3 grid, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, Gemm::NTHREADS, smem);
+  info[0] = attr.numRegs;
+  info[1] = smem;
+  info[2] = Gemm::BM;
+  info[3] = Gemm::BN;
+  info[4] = blocks;
+  info[5] = (int)(grid.x * grid.y * grid.z);
+  info[6] = (int)attr.localSizeBytes;
+  return err;
+}
 
 // d += a . b on the int8 tensor cores: [16x32] s8 x [32x8] s8 -> [16x8] s32.
 // Fragments as m16n8k16's, each 32-bit register holding four int8 values

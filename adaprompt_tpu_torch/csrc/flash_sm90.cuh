@@ -4,8 +4,9 @@
 // plus the padded shared-memory row stride that keeps ldmatrix free of bank
 // conflicts; and the tile steps of a flash forward on them (staging q and a
 // K/V tile, Q's fragments, S = Q.K^T, the key bias and the ragged edge,
-// O += P.V, the epilogue), which the two-chain and the no-max kernels share;
-// and the staging of one head's K/V that the fused cross-attention kernels share.
+// the online-softmax step, O += P.V, the epilogue), which the two-chain, the
+// no-max and the fused self-attention kernels share; and the staging of one
+// head's K/V that the fused cross-attention kernels share.
 // Header-only; each kernel source that includes it is built on its own
 // (ops/cuda_build.py hashes this header into the library's name).
 //
@@ -272,6 +273,43 @@ __device__ __forceinline__ void mask_keys_past(float (&s)[MT][NT][4], int k0, in
   }
 }
 
+// One online-softmax step on a tile's scores s (turned into p, unnormalized):
+// rows g (e = 0, 1) and g+8 (e = 2, 3) of each m16 tile; the running max m
+// and the per-thread partial row sum l updated, O and l rescaled by alpha.
+// sc multiplies s and m in the exponent (the scale when the max is taken on
+// the raw product, 1 when s is already in log2 units).
+template <int MT, int NT, int DN>
+__device__ __forceinline__ void online_softmax(float (&s)[MT][NT][4], float (&o)[MT][DN][4],
+                                               float (&m)[MT][2], float (&l)[MT][2], float sc) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[mt][r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
+      mx = quad_max(mx);
+      const float alpha = exp2_approx((m[mt][r] - mx) * sc);     // 0 on the first tile
+      m[mt][r] = mx;
+      const float msc = mx * sc;
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = exp2_approx(fmaf(s[mt][j][e], sc, -msc));
+          s[mt][j][e] = p;
+          rsum += p;
+        }
+      l[mt][r] = l[mt][r] * alpha + rsum;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        o[mt][dn][2 * r] *= alpha;
+        o[mt][dn][2 * r + 1] *= alpha;
+      }
+    }
+}
+
 // O += P.V over the 8*NT keys of Vst: P from the score registers, rounded to
 // bf16 in pairs, as the A fragments; V's B fragments by ldmatrix.trans, over
 // D in n8 steps (an odd last step by ldmatrix.x2.trans: D=40 is not padded).
@@ -311,11 +349,12 @@ __device__ __forceinline__ void pv_product(float (&o)[MT][DN][4], const float (&
 // The epilogue: O[mt] times inv[mt][r] (rows g, g+8) rounded to bf16 into the
 // warp's own rows of the staging tile Qs (no other warp reads them), then
 // stored 16 bytes a lane to the rows before Sq of outb ([Sq][rs], the head's
-// first column).
-template <int MT, int DN, int SROW>
+// first column); with BOUNDED, the columns before `cols` only.
+template <int MT, int DN, int SROW, bool BOUNDED = false>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* outb, __nv_bfloat16* Qs,
                                            const float (&o)[MT][DN][4], const float (&inv)[MT][2],
-                                           int row0, int q0, int Sq, long rs, int lane) {
+                                           int row0, int q0, int Sq, long rs, int lane,
+                                           int cols = 0) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -330,7 +369,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* outb, __nv_bfloat16* Q
   __syncwarp();
   for (int i = lane; i < 16 * MT * DN; i += 32) {
     const int row = row0 + i / DN, c = (i % DN) * 8;
-    if (q0 + row < Sq)
+    if (q0 + row < Sq && (!BOUNDED || c < cols))
       *reinterpret_cast<uint4*>(outb + (long)(q0 + row) * rs + c) =
           *reinterpret_cast<const uint4*>(Qs + row * SROW + c);
   }

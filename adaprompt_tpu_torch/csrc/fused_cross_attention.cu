@@ -42,7 +42,8 @@
 //     2 bytes otherwise (K/V likewise go through plain loads then). No block
 //     barrier after the main loop.
 //   * cross_out_kernel: out = o . Wo^T + bo on the same main loop, with the
-//     bias epilogue of the GEGLU's out kernel.
+//     bias epilogue of the GEGLU's out kernel (block_gemm.cuh's
+//     bias_out_tile, which the fused self-attention's out kernel shares).
 // The heads' blocks of one row tile are neighbours in launch order, as are
 // the column tiles of the out kernel's row tile, so x and o are re-read from
 // the 50 MB L2 (o is 10.5 MB at C=320 N=4096 B=4). Limits: S <= 80 keys and
@@ -215,62 +216,7 @@ cross_q_attn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
 __global__ void __launch_bounds__(Out::NTHREADS, OUT_MIN_BLOCKS)
 cross_out_kernel(const bf16* __restrict__ o, const bf16* __restrict__ wo,
                  const float* __restrict__ bo, bf16* __restrict__ out, int M, int C) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * Out::BN, m0 = blockIdx.y * Out::BM;
-  const int c = Out::col_of(tid);
-  Out::ARows a;
-#pragma unroll
-  for (int i = 0; i < Out::A_LOADS; ++i) {
-    const int r = m0 + Out::row_of(tid, i);
-    a.ok[i] = r < M;
-    a.src[i] = o + (long)(a.ok[i] ? r : 0) * C + c;
-  }
-  Out::BRows b;
-#pragma unroll
-  for (int i = 0; i < Out::B_LOADS; ++i) {
-    const int r = n0 + Out::row_of(tid, i);
-    b.ok[i] = r < C;
-    b.src[i] = wo + (long)(b.ok[i] ? r : 0) * C + c;
-  }
-  float acc[Out::MT][Out::NT][4];
-  Out::mainloop(acc, smem, a, b, C, tid);
-
-  using T = Staging<Out, Out::BN>;
-  const int lane = tid % 32, warp = tid / 32;
-  const int wm = warp / Out::WN, wn = warp % Out::WN, q = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < Out::NT; ++nt) {
-    const int col = wn * Out::NT * 8 + nt * 8 + 2 * t;
-    const bool ok = n0 + col < C;        // C even: col + 1 too
-    const float bb0 = ok ? bo[n0 + col] : 0.f, bb1 = ok ? bo[n0 + col + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < Out::MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        T::put(smem, wm * Out::MT * 16 + mt * 16 + q + 8 * h, col,
-               acc[mt][nt][2 * h] + bb0, acc[mt][nt][2 * h + 1] + bb1);
-  }
-  __syncthreads();
-  T::store(out, C, m0, M, n0, C, smem, tid);
-}
-
-template <class Gemm, class Kernel>
-cudaError_t describe_one(Kernel kernel, int smem, dim3 grid, int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, Gemm::NTHREADS, smem);
-  info[0] = attr.numRegs;
-  info[1] = smem;
-  info[2] = Gemm::BM;
-  info[3] = Gemm::BN;
-  info[4] = blocks;
-  info[5] = (int)(grid.x * grid.y * grid.z);
-  info[6] = (int)attr.localSizeBytes;
-  return err;
+  bias_out_tile<Out>(o, wo, bo, out, M, C);
 }
 
 // The q-attention kernel's operands; with `info` set, describe it instead
@@ -292,7 +238,7 @@ cudaError_t q_call(const QCall& a) {
   if (err != cudaSuccess) return err;
   const dim3 grid(a.H, (a.N + Cfg::Gemm::BM - 1) / Cfg::Gemm::BM, a.B);
   if (a.info)
-    return describe_one<typename Cfg::Gemm>(cross_q_attn_kernel<HDP>, Cfg::SMEM, grid, a.info);
+    return describe_kernel<typename Cfg::Gemm>(cross_q_attn_kernel<HDP>, Cfg::SMEM, grid, a.info);
   cross_q_attn_kernel<HDP><<<grid, Cfg::Gemm::NTHREADS, Cfg::SMEM, a.stream>>>(
       a.x, a.wq, a.k, a.v, a.o, a.N, a.C, a.H, a.S, a.scale_log2);
   return cudaGetLastError();
@@ -367,5 +313,5 @@ extern "C" int fused_cross_describe(int B, int N, int C, int H, int* info) {
   if (err != cudaSuccess) return (int)err;
   err = out_smem_limit();
   if (err != cudaSuccess) return (int)err;
-  return (int)describe_one<Out>(cross_out_kernel, Out::SMEM, out_grid(B * N, C), info + 7);
+  return (int)describe_kernel<Out>(cross_out_kernel, Out::SMEM, out_grid(B * N, C), info + 7);
 }

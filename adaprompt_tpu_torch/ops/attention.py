@@ -29,9 +29,9 @@ launch count on its wrapper:
     three kernels makes the int8 operands on the card and attends (CUDA:
     csrc/flash_attention_int8.cu; replaces `_fwd_kernel_i8`);
   * `fused_self_attention` — q-projection, attention over all N keys of a
-    packed K|V and out-projection in one kernel, forward only, wired into no
-    model as in the JAX package (CUDA: csrc/fused_self_attention.cu; replaces
-    `_fused_self_kernel`).
+    packed K|V and out-projection in one C call of two kernels, forward
+    only, wired into no model as in the JAX package (CUDA:
+    csrc/fused_self_attention.cu; replaces `_fused_self_kernel`).
 `flash_attention` ties a forward kernel and the backward together as an
 autograd Function, as the JAX package's `custom_vjp` does. `FlashVariant`
 picks the forward kernel and the exp2 form of forward and backward; it takes
@@ -782,6 +782,9 @@ flash_attention_int8.launches = 0
 # Kernel 6: fused self-attention (forward only; wired into no model)
 # ---------------------------------------------------------------------------
 
+_SELF_MAX_HD = 480      # csrc/fused_self_attention.cu: q.k^T in registers up to 480 deep
+
+
 def packed_kv(x, wk, wv):
     """x . [Wk | Wv]^T rounded to x's dtype: K in columns [0, C), V in
     [C, 2C) of [B, N, 2C]. One plain product outside the kernel, as in the
@@ -808,6 +811,22 @@ def fused_self_attention_reference(x, wq, wk, wv, wo, bo, scale, num_heads, key_
     return (o.float() @ wo.float().t() + bo.float()).to(x.dtype)
 
 
+def fused_self_kernel_call(x, wq, kv, wo, bo32, bias, o, out, scale, num_heads):
+    """The fused kernel's C call on operands as `fused_self_attention`
+    validates them (kv the packed K|V, bo32 and bias float32, bias None or
+    [B, N]; o, the [B, N, C] bf16 scratch of the concatenated heads, and out
+    allocated): the q-attention kernel fills o, the out-projection kernel
+    out. Not counted: the wrapper counts its calls."""
+    b, n, c = x.shape
+    fn = cuda_build.function("fused_self_attention", "fused_self_attention_fwd",
+                             [_P] * 8 + [_I] * 4 + [_F, _P])
+    cuda_build.check(fn(x.data_ptr(), wq.data_ptr(), kv.data_ptr(), wo.data_ptr(),
+                        bo32.data_ptr(), bias.data_ptr() if bias is not None else None,
+                        o.data_ptr(), out.data_ptr(), b, n, c, num_heads, float(scale),
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "fused_self_attention_fwd")
+
+
 def fused_self_attention(x, wq, wk, wv, wo, bo, scale, num_heads, key_bias=None):
     """x [B, N, C] (pre-normed); wq, wk, wv, wo [C, C] ([out, in]); bo [C];
     optional [B, N] key bias. Returns [B, N, C]: self-attention over all N
@@ -825,6 +844,9 @@ def fused_self_attention(x, wq, wk, wv, wo, bo, scale, num_heads, key_bias=None)
     if c % 16 or hd % 8 or c > 1280:
         raise ValueError(f"fused self-attention kernel: C={c} must be a multiple of 16, <= 1280, "
                          f"with a head dim ({hd}) a multiple of 8")
+    if hd > _SELF_MAX_HD:
+        raise ValueError(f"fused self-attention kernel: head dim {hd}; the kernel takes head "
+                         f"dims up to {_SELF_MAX_HD}")
     x, wq, wk, wv, wo = cuda_build.kernel_operands("fused self-attention kernel",
                                                    x, wq, wk, wv, wo)
     kv = packed_kv(x, wk, wv).contiguous()
@@ -835,14 +857,9 @@ def fused_self_attention(x, wq, wk, wv, wo, bo, scale, num_heads, key_bias=None)
         if bias.shape != (b, n):
             raise ValueError(f"fused self-attention kernel: key_bias {tuple(bias.shape)} "
                              f"!= {(b, n)}")
+    o = torch.empty_like(x)              # the concatenated heads, between the two kernels
     out = torch.empty_like(x)
-    fn = cuda_build.function("fused_self_attention", "fused_self_attention_fwd",
-                             [_P] * 7 + [_I] * 4 + [_F, _P])
-    cuda_build.check(fn(x.data_ptr(), wq.data_ptr(), kv.data_ptr(), wo.data_ptr(),
-                        bo32.data_ptr(), bias.data_ptr() if bias is not None else None,
-                        out.data_ptr(), b, n, c, num_heads, float(scale),
-                        torch.cuda.current_stream(x.device).cuda_stream),
-                     "fused_self_attention_fwd")
+    fused_self_kernel_call(x, wq, kv, wo, bo32, bias, o, out, scale, num_heads)
     fused_self_attention.launches += 1
     return out
 

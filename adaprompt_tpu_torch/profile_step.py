@@ -73,7 +73,9 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attention_fwd",
                "flash_int8_key_sum_kernel": "flash_attention_int8",     # partial key sums
                "flash_int8_key_quant_kernel": "flash_attention_int8",   # key mean, k_q, k_s
                "flash_fwd_int8_kernel": "flash_attention_int8",
-               "fused_self_kernel": "fused_self_attention"}
+               # B11's two kernels; no name contains a B1 or B2 kernel's name
+               "self_q_attn_kernel": "fused_self_attention",    # x.Wq^T, key loop -> o
+               "self_out_kernel": "fused_self_attention"}       # o.Wo^T -> out
 
 
 def kernel_class(name: str) -> str:

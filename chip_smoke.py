@@ -536,14 +536,12 @@ def _case_flash_int8(gen, s, d, with_bias, b=UNET_BATCH, h=8, sk=None, timed=Tru
             2e-2, ok, res, detail)
 
 
-def _case_self(gen, n, c, with_bias, b=UNET_BATCH, timed=True):
-    """The fused self-attention kernel against its plain version. No single
-    PyTorch call computes it (library_ms None); `unfused_ms` is the chain the
-    port's UNet runs instead (three linears, the flash kernel, the
-    out-projection), logged beside it."""
+def self_inputs(gen, b, n, c, h, with_bias):
+    """B11's operands at [b, n, c] with h heads, on the card: x, the four
+    weights, bo (fp32), the scale hd**-0.5, h, a key bias dropping ~30 % of
+    the keys (NEG_BIG) or None."""
     import torch
     from adaprompt_tpu_torch.ops import attention as A
-    h = 8
     bf = torch.bfloat16
     x = torch.randn(b, n, c, device="cuda", generator=gen).to(bf)
     w = lambda: ((torch.rand(c, c, device="cuda", generator=gen) * 2 - 1) / math.sqrt(c)).to(bf)
@@ -553,33 +551,104 @@ def _case_self(gen, n, c, with_bias, b=UNET_BATCH, timed=True):
     if with_bias:
         keep = torch.rand(b, n, device="cuda", generator=gen) < 0.7
         bias = (keep.float() - 1.0) * (-A.NEG_BIG)
-    scale = (c // h) ** -0.5
-    args = (x, wq, wk, wv, wo, bo, scale, h, bias)
+    return x, wq, wk, wv, wo, bo, (c // h) ** -0.5, h, bias
+
+
+def mha_library(x, wq, wk, wv, wo, bo, scale, h, bias):
+    """B11's library yardstick: a function of no arguments making one
+    `F.multi_head_attention_forward` call that computes B11's function on
+    these operands (in_proj_weight = [Wq; Wk; Wv] without a bias, out_proj
+    (Wo, bo), the key bias as a float key_padding_mask, need_weights=False),
+    returning [B, N, C]. The call scales q by hd**-0.5 itself, so the scale
+    must be that. Timed only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    b, n, c = x.shape
+    if abs(scale - (c // h) ** -0.5) > 1e-12:
+        raise ValueError("multi_head_attention_forward scales by hd**-0.5 only")
+    xt = x.transpose(0, 1)
+    w_in = torch.cat([wq, wk, wv])
+    bo16 = bo.to(x.dtype)
+    mask = None if bias is None else bias.to(x.dtype)
+    return lambda: F.multi_head_attention_forward(
+        xt, xt, xt, c, h, w_in, None, None, None, False, 0.0, wo, bo16, training=False,
+        key_padding_mask=mask, need_weights=False)[0].transpose(0, 1)
+
+
+def _case_self(gen, n, c, with_bias, b=UNET_BATCH, h=8, timed=True):
+    """B11 (one C call: the q-attention and out kernels, after the K|V
+    product) against its plain version; its launch count must rise by one a
+    call, and two calls must give equal bits (and the C call alone the
+    wrapper's). `kernel_ms` is the wrapper's call (K|V product included),
+    `kernel_only_ms` its C call alone on allocated operands, `kv_ms` the K|V
+    product; `library_ms` one `F.multi_head_attention_forward` call on the
+    same operands (`mha_library`), held against the plain version (<= 2e-2 *
+    max) before it is timed; beside them, timed only: `b1_ms`, B1's forward
+    at this shape, and `unfused_ms`, the chain the port's UNet runs instead
+    (three linears, B1, the out-projection)."""
+    import torch
+    from adaprompt_tpu_torch.ops import attention as A
+    bf = torch.bfloat16
+    args = self_inputs(gen, b, n, c, h, with_bias)
+    x, wq, wk, wv, wo, bo, scale, _, bias = args
+    before = A.fused_self_attention.launches
     out = A.fused_self_attention(*args)
+    out2 = A.fused_self_attention(*args)
+    if A.fused_self_attention.launches != before + 2:
+        raise AssertionError(f"fused_self_attention counted "
+                             f"{A.fused_self_attention.launches - before} launches for two calls")
     ref = A.fused_self_attention_reference(*args)
     err, mag, ok = _compare(out, ref, 2e-2)
+    kv = A.packed_kv(x, wk, wv).contiguous()
+    o, out_c = torch.empty_like(x), torch.empty_like(x)
+    call = lambda: A.fused_self_kernel_call(x, wq, kv, wo, bo, bias, o, out_c, scale, h)
+    call()
+    same = torch.equal(out, out2) and torch.equal(out_c, out)
+    lib = mha_library(*args)
+    lib_err, _, lib_ok = _compare(lib(), ref, 2e-2)
+    ok = ok and same and lib_ok
     del ref
+    hd = c // h
 
     def unfused():
-        q, k, v = ((x @ m.t()).reshape(b, n, h, c // h) for m in (wq, wk, wv))
+        q, k, v = ((x @ m.t()).reshape(b, n, h, hd) for m in (wq, wk, wv))
         o = A.flash_attention_fwd(q, k, v, bias, scale)[0]
         return o.reshape(b, n, c) @ wo.t() + bo.to(bf)
 
     nan = float("nan")
-    res = {"kernel_ms": time_ms(lambda: A.fused_self_attention(*args), 5) if timed else nan,
-           "kv_ms": time_ms(lambda: A.packed_kv(x, wk, wv), 10) if timed else nan,
-           "plain_ms": time_ms(lambda: A.fused_self_attention_reference(*args), 2)
-           if timed else nan,
-           "library_ms": None,
-           "unfused_ms": time_ms(unfused, 5) if timed else nan}
+    res = {"kernel_ms": nan, "kernel_only_ms": nan, "kv_ms": nan, "plain_ms": nan,
+           "library_ms": nan, "b1_ms": nan, "unfused_ms": nan}
+    if timed:
+        q1, k1, v1 = (torch.randn(b, n, h, hd, device="cuda", generator=gen).to(bf)
+                      for _ in "qkv")
+        res.update(kernel_ms=time_ms(lambda: A.fused_self_attention(*args), 10),
+                   kernel_only_ms=time_ms(call, 20),
+                   kv_ms=time_ms(lambda: A.packed_kv(x, wk, wv), 10),
+                   plain_ms=time_ms(lambda: A.fused_self_attention_reference(*args), 2),
+                   library_ms=time_ms(lib, 10),
+                   b1_ms=time_ms(lambda: A.flash_attention_fwd(q1, k1, v1, bias, scale), 10),
+                   unfused_ms=time_ms(unfused, 10))
     # the flash kernel's work plus the four C x C projections; x in and out
     # once, the four weights, bo and the bias
     flops = 4 * b * n * n * c + 8 * b * n * c * c
     nbytes = 2 * b * n * c * 2 + 4 * c * c * 2 + c * 4 + (b * n * 4 if with_bias else 0)
     res.update(_bound(flops, nbytes, exps=b * h * n * n))
-    detail = f"kv_ms={res['kv_ms']:.4f} (in kernel_ms) unfused_ms={res['unfused_ms']:.4f}"
-    return (f"fused_self_attention C={c} N={n} B={b} bias={with_bias}", err, mag, 2e-2, ok,
+    detail = (f"two calls and the C call equal bit for bit {same}; library vs plain "
+              f"{lib_err / mag:.2e}*max")
+    if timed:
+        detail += (f" kernel_only_ms={res['kernel_only_ms']:.4f} kv_ms={res['kv_ms']:.4f} "
+                   f"b1_ms={res['b1_ms']:.4f} unfused_ms={res['unfused_ms']:.4f} "
+                   f"(wrapper {res['kernel_ms'] / res['unfused_ms']:.2f}x unfused, "
+                   f"{res['kernel_ms'] / res['library_ms']:.2f}x library)")
+    return (f"fused_self_attention C={c} N={n} B={b} H={h} bias={with_bias}", err, mag, 2e-2, ok,
             res, detail)
+
+
+# B11's ragged cases (B, N, C, H, key bias), checked untimed: the old kernel's
+# two (1000 rows at C=320 with a bias; 77 rows at C=1280, hd=160), and rows
+# across a row tile and a key tile at head dims 24 and 80 (N = 129, 300)
+SELF_RAGGED = ((1, 1000, 320, 8, True), (2, 77, 1280, 8, False), (2, 300, 192, 8, True),
+               (3, 129, 640, 8, False))
 
 
 def _case_cross(gen, n, c, b=UNET_BATCH, h=8, timed=True):
@@ -1160,6 +1229,22 @@ def cross_resources():
                          f"C={c} N={n} B={b}", info)
 
 
+def self_resources():
+    """Log B11's two kernels' resources at its four timed shapes (the two
+    with and without a key bias share them) and at hd=160, from the
+    runtime: registers a thread, shared memory a block, the tile, resident
+    blocks an SM, blocks in the grid, local memory a thread."""
+    import ctypes
+    from adaprompt_tpu_torch.ops import cuda_build
+    fn = cuda_build.function("fused_self_attention", "fused_self_describe",
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for b, n, c in ((UNET_BATCH, 4096, 320), (UNET_BATCH, 1024, 640), (2, 77, 1280)):
+        info = (ctypes.c_int * 14)()
+        cuda_build.check(fn(b, n, c, 8, ctypes.addressof(info)), "fused_self_describe")
+        _log_kernels("fused_self_attention", ("self_q_attn_kernel", "self_out_kernel"),
+                     f"C={c} N={n} B={b}", info)
+
+
 def phase_kernels():
     """Returns {wrapper name: [per-shape results]} for the kernels line."""
     import torch
@@ -1168,6 +1253,7 @@ def phase_kernels():
     int8_flash_resources()
     geglu_resources()
     cross_resources()
+    self_resources()
     geglu_int8_resources()
     cross_int8_resources()
     conv_resources()
@@ -1309,10 +1395,9 @@ def phase_kernels():
         for biased in (False, True):
             cases.append(("fused_self_attention", (),
                           lambda a=(n_, c_, biased): _case_self(gen, *a)))
-    cases.append(("fused_self_attention", (), lambda: _case_self(gen, 1000, 320, True, b=1,
-                                                                 timed=False)))
-    cases.append(("fused_self_attention", (), lambda: _case_self(gen, 77, 1280, False, b=2,
-                                                                 timed=False)))
+    for b_, n_, c_, h_, biased in SELF_RAGGED:
+        cases.append(("fused_self_attention", (), lambda a=(n_, c_, biased), kw=dict(
+            b=b_, h=h_): _case_self(gen, *a, timed=False, **kw)))
     results, failed = {}, []
     for name, paths, case in cases:
         label, err, mag, tol, ok, res, detail = case()

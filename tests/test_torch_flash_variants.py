@@ -1,8 +1,9 @@
 """The port's flash variants and its last two attention kernels vs the JAX
-package (CPU, float32, the port's plain versions against the Pallas kernels
-in interpret mode): the two-chain forward (`_ILV`), the no-max forward
-(`_NOMAX`), the exp2 forms of forward and backward (`_EXP2`), the int8-QK
-flash attention, the fused self-attention, `int8_linear` and
+package (CPU, float32 unless a test says bfloat16, the port's plain
+versions against the Pallas kernels in interpret mode): the two-chain
+forward (`_ILV`), the no-max forward (`_NOMAX`), the exp2 forms of forward
+and backward (`_EXP2`), the int8-QK flash attention, the fused
+self-attention (and its library yardstick), `int8_linear` and
 `int8_matmul_2operand` (tests/test_torch_flash_slice.py holds the slice as
 a whole).
 
@@ -317,6 +318,61 @@ def test_fused_self_attention_matches_pallas(with_bias):
     out_t = tattn.fused_self_attention(t(x), t(wq.T), t(wk.T), t(wv.T), t(wo.T), t(bo), scale, h,
                                        None if bias is None else t(bias))     # [out, in] weights
     assert_close(out_t, out_j, atol=3e-4)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_fused_self_attention_matches_pallas_bf16(with_bias):
+    """B11's plain version against `fused_self_attention(interpret=True)` in
+    bf16, the kernels' type, on the same bf16 operands: within 2e-2 of
+    max|JAX| (chip_smoke's bound for the kernel against the plain version).
+    The two round p at other places (JAX normalizes p before rounding it, the
+    port's online form after), so they agree to bf16 roundings only."""
+    rng = np.random.default_rng(11)
+    b, n, c, h = 2, 256, 128, 4
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    wq, wk, wv, wo = ((rng.standard_normal((c, c)) * 0.05).astype(np.float32) for _ in range(4))
+    bo = (rng.standard_normal(c) * 0.05).astype(np.float32)
+    bias = _bias(rng, b, n, 0.8) if with_bias else None
+    scale = (c // h) ** -0.5
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    out_j = jattn.fused_self_attention(*(jb(a) for a in (x, wq, wk, wv, wo)), jnp.asarray(bo),
+                                       scale, h,
+                                       key_bias=None if bias is None else jnp.asarray(bias),
+                                       interpret=True)
+    out_t = tattn.fused_self_attention(tb(x), tb(wq.T.copy()), tb(wk.T.copy()),
+                                       tb(wv.T.copy()), tb(wo.T.copy()), t(bo), scale, h,
+                                       None if bias is None else t(bias))
+    assert out_t.dtype == torch.bfloat16 and out_t.shape == (b, n, c)
+    ref = np.asarray(out_j.astype(jnp.float32))
+    err = np.abs(out_t.float().numpy() - ref).max()
+    assert err <= 2e-2 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_mha_library_call_computes_fused_self_attention(with_bias):
+    """B11's library yardstick (`chip_smoke.mha_library`: one
+    `F.multi_head_attention_forward` call) computes B11's function: in fp32
+    it equals the plain version to 1e-5 of max|plain|, with a NEG_BIG key
+    bias as its float key_padding_mask too."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    rng = np.random.default_rng(3)
+    b, n, c, h = 2, 100, 64, 4
+    x = t(rng.standard_normal((b, n, c)))
+    wq, wk, wv, wo = (t(rng.standard_normal((c, c)) / 8) for _ in range(4))
+    bo = t(rng.standard_normal(c) / 8)
+    bias = t(_bias(rng, b, n, 0.7)) if with_bias else None
+    args = (x, wq, wk, wv, wo, bo, (c // h) ** -0.5, h, bias)
+    ref = tattn.fused_self_attention_reference(*args)
+    with torch.no_grad():
+        lib = chip_smoke.mha_library(*args)()
+    assert lib.shape == ref.shape
+    assert (lib - ref).abs().max() <= 1e-5 * ref.abs().max()
+    with pytest.raises(ValueError, match="hd"):
+        chip_smoke.mha_library(*args[:6], 0.5, h, bias)
 
 
 # -- int8_linear, int8_matmul_2operand ---------------------------------------------------

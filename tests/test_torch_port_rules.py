@@ -595,6 +595,25 @@ def test_int8_geglu_wrapper_refuses_shapes_it_cannot_take(c, f):
         tgeglu.geglu_int8(*args)
 
 
+@pytest.mark.parametrize("c,heads,match", [(72, 1, "C=72"), (96, 8, "head dim \\(12\\)"),
+                                           (1296, 9, "C=1296"), (640, 1, "head dim 640"),
+                                           (1248, 2, "head dim 624")])
+def test_fused_self_wrapper_refuses_shapes_it_cannot_take(c, heads, match):
+    """Off the CPU the fused self-attention wrapper names a shape that the
+    kernels cannot take (C not a multiple of 16 or above 1280, a head dim not
+    a multiple of 8 or above 480) before the C call; head dims up to 480 pass
+    on to it."""
+    meta = lambda *s: torch.empty(*s, device="meta")
+    w = lambda n: meta(n, n)
+    with torch.no_grad(), pytest.raises(ValueError, match=match):
+        tattn.fused_self_attention(meta(2, 10, c), w(c), w(c), w(c), w(c), meta(c),
+                                   (c // heads) ** -0.5, heads)
+    for c, heads in ((1280, 8), (320, 2), (64, 8), (320, 1), (960, 2)):
+        with torch.no_grad(), pytest.raises(TypeError, match="CUDA"):
+            tattn.fused_self_attention(meta(2, 10, c), w(c), w(c), w(c), w(c), meta(c),
+                                       (c // heads) ** -0.5, heads)
+
+
 @pytest.mark.parametrize("shape", [dict(c=72), dict(keys=81), dict(c=320, heads=1),
                                    dict(c=336, heads=2)])
 def test_fused_cross_wrapper_refuses_shapes_it_cannot_take(shape):
@@ -637,6 +656,15 @@ _B10_KERNEL_NAMES = [
     "float*, int, int, int, float)"]
 
 
+# B11's two kernels as the profiler names them (the q-attention kernel
+# templated on its tile)
+_B11_KERNEL_NAMES = [
+    "void (anonymous namespace)::self_q_attn_kernel<48, 5, 48>(__nv_bfloat16 const*, "
+    "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, int, "
+    "float)",
+    "_ZN12_GLOBAL__N_115self_out_kernelEPK13__nv_bfloat16S2_PKfPS0_ii"]
+
+
 @pytest.mark.parametrize("name,label", [
     ("void (anonymous namespace)::geglu_proj_kernel(__nv_bfloat16 const*, int, int, int)",
      "geglu_fwd"),
@@ -655,7 +683,8 @@ _B10_KERNEL_NAMES = [
     ("_ZN12_GLOBAL__N_116cross_out_kernelEPK13__nv_bfloat16S2_PKfPS0_ii",
      "fused_cross_attention"),
 ] + [(name, "fused_cross_attention_int8") for name in _B5_KERNEL_NAMES]
-   + [(name, "flash_attention_int8") for name in _B10_KERNEL_NAMES])
+   + [(name, "flash_attention_int8") for name in _B10_KERNEL_NAMES]
+   + [(name, "fused_self_attention") for name in _B11_KERNEL_NAMES])
 def test_profile_step_classes_kernels_by_name(name, label):
     """The profile's kernel classes: both of B3's kernels count as its
     wrapper's, as both of B2's count as B2's, all four of B6's (whose names
@@ -681,6 +710,15 @@ def test_profile_step_files_no_int8_flash_kernel_under_b1(name):
     the no-max kernel's key pre-pass: exactly one key of the table names it."""
     from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
     assert kernel_class(name) not in ("flash_attention_fwd", "flash_attention_fwd_nomax")
+    assert len([key for key in OUR_KERNELS if key in name]) == 1
+
+
+@pytest.mark.parametrize("name", _B11_KERNEL_NAMES)
+def test_profile_step_files_no_self_attention_kernel_under_b1_or_b2(name):
+    """No kernel of B11 is filed as B1's forward or as B2's, whose q-attention
+    and out kernels B11's resemble: exactly one key of the table names it."""
+    from adaprompt_tpu_torch.profile_step import OUR_KERNELS, kernel_class
+    assert kernel_class(name) not in ("flash_attention_fwd", "fused_cross_attention")
     assert len([key for key in OUR_KERNELS if key in name]) == 1
 
 
@@ -1489,24 +1527,76 @@ def test_int8_flash_two_calls_give_equal_bits():
     assert torch.equal(tattn.flash_attention_int8(*args), first)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c,h,biased", [(2, 100, 64, 2, True), (1, 1000, 320, 8, True),
-                                            (2, 512, 640, 8, False), (1, 77, 1280, 8, False)])
-def test_fused_self_attention_kernel_ragged_shapes(b, n, c, h, biased):
-    """Row tiles of 32 (C <= 640) and 16, ragged N, padded head dims."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(n + c)
+def _self_card_args(b, n, c, h, biased):
+    g = torch.Generator(device="cuda").manual_seed(n + c + h)
     rn = lambda *s: torch.randn(*s, device="cuda", generator=g)
     w = lambda: (rn(c, c) / c ** 0.5).bfloat16()
     bias = None
     if biased:
         bias = torch.where(torch.rand(b, n, device="cuda", generator=g) < 0.6, 0.0, tattn.NEG_BIG)
-    args = (rn(b, n, c).bfloat16(), w(), w(), w(), w(), rn(c) / 8, (c // h) ** -0.5, h, bias)
+    return (rn(b, n, c).bfloat16(), w(), w(), w(), w(), rn(c) / 8, (c // h) ** -0.5, h, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,h,biased", [
+    (2, 100, 64, 2, True), (1, 1000, 320, 8, True), (2, 512, 640, 8, False),
+    (1, 77, 1280, 8, False), (2, 127, 64, 8, True), (3, 129, 192, 8, False),
+    (2, 300, 320, 8, True), (1, 50, 640, 8, True), (2, 129, 1280, 8, True),
+    (1, 300, 320, 2, False), (2, 63, 128, 1, True), (1, 1, 320, 8, False),
+    (2, 200, 1280, 16, True), (1, 333, 96, 2, True), (2, 129, 336, 2, True),
+    (1, 300, 320, 1, False), (2, 77, 1280, 4, True), (1, 100, 912, 2, True),
+    (1, 200, 400, 1, False)])
+def test_fused_self_attention_kernel_ragged_shapes(b, n, c, h, biased):
+    """Row tiles of 128 (hd <= 80) and 64 (hd 88 to 160) cut by N = 127, 129,
+    300, 333, 1000; a single partial key tile (N = 1, 50, 63, 77); head dims
+    8 to 160 (24 and 40 padded to 32 and 48 in q.k^T) and, in chunks of 80
+    columns, 168 to 456 (one head or two); one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args = _self_card_args(b, n, c, h, biased)
     before = tattn.fused_self_attention.launches
     out = tattn.fused_self_attention(*args)
     assert tattn.fused_self_attention.launches == before + 1
+    assert out.shape == args[0].shape and out.is_contiguous()
     _assert_near(out, tattn.fused_self_attention_reference(*args), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("biased", [False, True])
+def test_fused_self_attention_two_calls_give_equal_bits(biased):
+    """Nothing is summed across blocks (no atomics): two calls on the same
+    inputs give equal bits, and the C call alone gives the wrapper's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args = _self_card_args(2, 1000, 320, 8, biased)
+    x, wq, wk, wv, wo, bo, scale, h, bias = args
+    first = tattn.fused_self_attention(*args)
+    assert torch.equal(tattn.fused_self_attention(*args), first)
+    kv = tattn.packed_kv(x, wk, wv).contiguous()
+    o, out = torch.empty_like(x), torch.empty_like(x)
+    tattn.fused_self_kernel_call(x, wq, kv, wo, bo.float(), bias, o, out, scale, h)
+    assert torch.equal(out, first)
+
+
+@pytest.mark.cuda
+def test_fused_self_attention_scratch_carries_nothing():
+    """The o scratch between the two kernels carries nothing from one call
+    to the next: a call on a scratch full of NaN, and a call after one of
+    another shape, give the bits of a first call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args = _self_card_args(2, 300, 640, 8, True)
+    x, wq, wk, wv, wo, bo, scale, h, bias = args
+    first = tattn.fused_self_attention(*args)
+    other = _self_card_args(1, 129, 1280, 8, False)
+    _assert_near(tattn.fused_self_attention(*other),
+                 tattn.fused_self_attention_reference(*other), 2e-2)
+    assert torch.equal(tattn.fused_self_attention(*args), first)
+    kv = tattn.packed_kv(x, wk, wv).contiguous()
+    o = torch.full_like(x, float("nan"))
+    out = torch.full_like(x, float("nan"))
+    tattn.fused_self_kernel_call(x, wq, kv, wo, bo.float(), bias, o, out, scale, h)
+    assert torch.equal(out, first)
 
 
 @pytest.mark.cuda

@@ -8,9 +8,14 @@ one card:
     python3 tools/gemm_kernel_turns.py                  # this tree
     (cd other_tree && python3 ../tools/gemm_kernel_turns.py)
 
-Prints one line a case: `turn <tree> <label>: kernel_ms=... [kernel_only_ms=...]`.
-Needs a CUDA card.
+Prints one line a case: `turn <tree> <label>: kernel_ms=... [kernel_only_ms=...]`,
+and one line a B2 shape: `digest <tree> B2 <shape>: <sha256 of the output's
+bytes>` on inputs made from a seed, so that two trees' B2 can be held equal
+bit for bit. Needs a CUDA card.
 """
+
+import hashlib
+import math
 
 import os
 import sys
@@ -44,6 +49,26 @@ def main():
         extra = f" kernel_only_ms={res['kernel_only_ms']:.4f}" if "kernel_only_ms" in res else ""
         print(f"turn {tree} {label}: kernel_ms={res['kernel_ms']:.4f}{extra} "
               f"rel={err / mag:.3e} {'OK' if ok else 'FAIL'}", flush=True)
+    b2_digests(tree)
+
+
+def b2_digests(tree):
+    """B2's output at its four main-path shapes and chip_smoke.CROSS_RAGGED,
+    each on inputs made from a seed, as a sha256 of its bytes."""
+    from adaprompt_tpu_torch.ops import attention as A
+    bf = torch.bfloat16
+    shapes = [(4, 4096, 320, 8), (4, 1024, 640, 8), (2, 4096, 320, 8), (2, 1024, 640, 8)]
+    for b, n, c, h in shapes + list(chip_smoke.CROSS_RAGGED):
+        g = torch.Generator(device="cuda").manual_seed(b * 100003 + n * 101 + c + h)
+        w = lambda: ((torch.rand(c, c, device="cuda", generator=g) * 2 - 1)
+                     / math.sqrt(c)).to(bf)
+        x = torch.randn(b, n, c, device="cuda", generator=g).to(bf)
+        wq, wo = w(), w()
+        k, v = (torch.randn(b, 77, h, c // h, device="cuda", generator=g).to(bf) for _ in "kv")
+        bo = (torch.rand(c, device="cuda", generator=g) * 2 - 1) / math.sqrt(c)
+        out = A.fused_cross_attention(x, wq, k, v, wo, bo, (c // h) ** -0.5, h)
+        digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        print(f"digest {tree} B2 B={b} N={n} C={c} H={h}: {digest[:32]}", flush=True)
 
 
 if __name__ == "__main__":
