@@ -52,8 +52,22 @@ instead; both give the same numbers. Full-block recompute is the simpler of
 the two in PyTorch (no per-op save policy over the kernels' ctypes calls)
 and holds the least memory; it costs one more forward of each block.
 
-Not ported yet (they raise NotImplementedError): activation capture and
-conv-attention.
+Training semantics of the recon iterations, as in the JAX package:
+  * `capture_ca=True` returns, beside eps, the cross-attention activations
+    of the layers in DISTILL_LAYER_INDICES (7, 8, 12, 16-24): "q" (scaled
+    by sqrt(scale), [B, H, N, hd]), "attn" and "attnscore" ([B, H, N, 77]
+    fp32 probabilities and logits) and "outfeat" (the block's output,
+    Upsample included; after res2 in the middle block). Under block
+    recompute the captures are outputs of the checkpointed function, never
+    side effects;
+  * `conv_attn` replaces the subject tokens' score columns by a
+    convolutional attention (ops/conv_attn.py), with the JAX gating: an int
+    kernel size is forced to 1 on cross-attention layers 6-10, a dict gives
+    one size a layer.
+A cross-attention layer that captures or takes conv-attention computes its
+logits in fp32 from the compute-dtype q and k, the softmax in fp32 and P.V
+in the compute dtype (plain PyTorch: 77 keys, as in both packages'
+training); self-attention keeps the flash kernels with the key bias.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ from torch import nn
 
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
 from adaprompt_tpu_torch.ops import conv_halo, tome
+from adaprompt_tpu_torch.ops.conv_attn import replace_rows_by_conv_attn
 from adaprompt_tpu_torch.ops.attention import (NEG_BIG, FlashVariant, dot_product_attention,
                                                fused_cross_attention, fused_cross_attention_int8)
 from adaprompt_tpu_torch.ops.geglu import fused_eligible, fused_int8_eligible, geglu, geglu_int8
@@ -75,6 +90,9 @@ from adaprompt_tpu_torch.ops.layers import Conv2d, Linear, Norm, gelu, group_nor
 from adaprompt_tpu_torch.ops.quant import quantize_weight
 
 _FUSED_CROSS_MIN_Q = 512
+# the layers whose cross-attention activations feed the recon and
+# distillation regularizers
+DISTILL_LAYER_INDICES = (7, 8, 12, 16, 17, 18, 19, 20, 21, 22, 23, 24)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,23 +271,28 @@ def _resblock(p, x, emb, fused_weights=None):
 
 
 def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None, qw=None,
-                     flash_variant=FlashVariant()):
+                     flash_variant=FlashVariant(), capture=False, conv_attn=None,
+                     infeat_size=None):
     """LDM CrossAttention with separate V/K contexts (self-attention when
     ctx_v is None). self_mask [B, N] (1 = keep) masks self-attention keys;
     kv: K/V [B, S, H, hd] hoisted by precompute_cross_kv; qw: the int8
     ((wq_q, wq_s), (wo_q, wo_s)) of the quant="int8" path; flash_variant:
     the form of the flash kernels where the dispatch rule takes them (the
-    77-key cross-attention never does)."""
+    77-key cross-attention never does); conv_attn: {"subj_pos" [BS, M],
+    "kernel_size", "mix_weight"} of this layer, over the (h, w) =
+    infeat_size map. Returns (out, {"q", "attn", "attnscore"} when
+    capture, else None)."""
     b, n, c = x.shape
     hd = c // num_heads
     scale = hd ** -0.5
-    if kv is not None and n >= _FUSED_CROSS_MIN_Q:
+    if kv is not None and not capture and conv_attn is None and n >= _FUSED_CROSS_MIN_Q:
         if qw is not None:
             (wq_q, wq_s), (wo_q, wo_s) = qw
             return fused_cross_attention_int8(x, wq_q, wq_s, kv[0], kv[1], wo_q, wo_s,
-                                              p["to_out"].bias, scale, num_heads)
+                                              p["to_out"].bias, scale, num_heads), None
         return fused_cross_attention(x, p["to_q"].weight, kv[0], kv[1],
-                                     p["to_out"].weight, p["to_out"].bias, scale, num_heads)
+                                     p["to_out"].weight, p["to_out"].bias, scale,
+                                     num_heads), None
     if ctx_v is None:
         ctx_v = ctx_k = x
     q = p["to_q"](x).reshape(b, n, num_heads, hd)
@@ -281,8 +304,26 @@ def _cross_attention(p, x, ctx_v, ctx_k, num_heads, self_mask=None, kv=None, qw=
     key_bias = None
     if self_mask is not None:
         key_bias = (self_mask.float() - 1.0) * (-NEG_BIG)   # keep -> 0, drop -> -1e9
+    use_conv_attn = conv_attn is not None and conv_attn["kernel_size"] > 1
+    if capture or use_conv_attn:
+        # fp32 logits from the compute-dtype q and k (exact products, fp32 sums)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        if key_bias is not None:
+            logits = logits + key_bias[:, None, None, :]
+        if use_conv_attn:
+            logits = replace_rows_by_conv_attn(
+                logits, q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                conv_attn["subj_pos"], infeat_size, conv_attn["kernel_size"], scale,
+                conv_attn_mix_weight=conv_attn.get("mix_weight", 1.0))
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v).reshape(b, n, c)
+        cached = None
+        if capture:
+            cached = {"q": q.transpose(1, 2) * math.sqrt(scale), "attn": probs,
+                      "attnscore": logits}
+        return p["to_out"](out), cached
     out = dot_product_attention(q, k, v, key_bias=key_bias, scale=scale, variant=flash_variant)
-    return p["to_out"](out.reshape(b, n, c))
+    return p["to_out"](out.reshape(b, n, c)), None
 
 
 def _geglu_ff(p, x, qw=None):
@@ -300,10 +341,13 @@ def _geglu_ff(p, x, qw=None):
 
 
 def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None, qw=None,
-                         tome_cfg=None, flash_variant=FlashVariant()):
+                         tome_cfg=None, flash_variant=FlashVariant(), capture=False,
+                         conv_attn=None):
     """qw: this block's int8 weights {"cross", "ff"} (quant="int8");
     tome_cfg: the UNetConfig whose ToMe options apply, when ToMe is on;
-    flash_variant: the flash kernels' form in self-attention."""
+    flash_variant: the flash kernels' form in self-attention; capture and
+    conv_attn: the cross-attention's. Returns (out, the cross-attention's
+    captures or None)."""
     b, h, w, c = x.shape
     y = group_norm(x, p["norm"].weight, p["norm"].bias, eps=1e-6)
     y = p["proj_in"](y).reshape(b, h * w, c)
@@ -321,13 +365,16 @@ def _spatial_transformer(p, x, ctx_v, ctx_k, num_heads, img_mask=None, kv=None, 
                                               pick(tome_cfg.tome_mlp))
     qw = qw or {}
     ln = lambda t, norm: layer_norm(t, bp[norm].weight, bp[norm].bias)
-    y = y + u_a(_cross_attention(bp["attn1"], m_a(ln(y, "norm1")), None, None, num_heads,
-                                 self_mask=self_mask, flash_variant=flash_variant))
-    y = y + u_c(_cross_attention(bp["attn2"], m_c(ln(y, "norm2")), ctx_v, ctx_k, num_heads,
-                                 kv=kv, qw=qw.get("cross")))
+    a1, _ = _cross_attention(bp["attn1"], m_a(ln(y, "norm1")), None, None, num_heads,
+                             self_mask=self_mask, flash_variant=flash_variant)
+    y = y + u_a(a1)
+    a2, cached = _cross_attention(bp["attn2"], m_c(ln(y, "norm2")), ctx_v, ctx_k, num_heads,
+                                  kv=kv, qw=qw.get("cross"), capture=capture,
+                                  conv_attn=conv_attn, infeat_size=(h, w))
+    y = y + u_c(a2)
     y = y + u_f(_geglu_ff(bp["ff"], m_f(ln(y, "norm3")), qw=qw.get("ff")))
     y = p["proj_out"](y.reshape(b, h, w, c))
-    return x + y
+    return x + y, cached
 
 
 # ---------------------------------------------------------------------------
@@ -452,11 +499,18 @@ class UNet(nn.Module):
         fused_conv, `fused_conv_weights` from `pack_fused_conv_weights`
         (each made here when not given).
 
-        Returns eps [B, H, W, 4]; with cache_depth > 0, (eps, deep_cache):
-        the cache a full pass (cache=None) leaves for the shallow passes,
-        or the `cache` a shallow pass was given."""
-        if capture_ca or conv_attn is not None:
-            raise NotImplementedError("capture_ca and conv_attn are not ported yet")
+        capture_ca: also return the cross-attention activations of the
+        DISTILL_LAYER_INDICES layers. conv_attn: {"subj_pos" [BS, M] token
+        positions, "kernel_size" int or {layer_idx: int}, "mix_weight"}, the
+        subject-token conv-attention of the cross-attention layers (an int
+        size is forced to 1 on cross-attention layers 6-10).
+
+        Returns eps [B, H, W, 4]; with capture_ca, (eps, {"q" | "attn" |
+        "attnscore" | "outfeat": {layer_idx: tensor}}); with cache_depth >
+        0, (eps, deep_cache): the cache a full pass (cache=None) leaves for
+        the shallow passes, or the `cache` a shallow pass was given."""
+        if capture_ca and cache_depth > 0:
+            raise ValueError("deep-cache is a sampler-only fast path: no capture_ca with it")
         cfg = self.cfg if cfg is None else cfg
         _check_options(cfg)
         context = context if context.ndim == 4 else context[None]
@@ -475,11 +529,23 @@ class UNet(nn.Module):
                 fused_conv_weights = self.pack_fused_conv_weights()
         else:
             fused_conv_weights = None
-        # ToMe is sampler-only: a masked (training) forward turns it off throughout
-        tome_cfg = cfg if cfg.tome_ratio > 0 and img_mask is None else None
+        # ToMe is sampler-only: a training forward (masked, capturing or with
+        # conv-attention) turns it off throughout
+        tome_cfg = (cfg if cfg.tome_ratio > 0 and img_mask is None and not capture_ca
+                    and conv_attn is None else None)
 
         t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
         emb = self.time_embed["fc2"](silu(self.time_embed["fc1"](t_emb)))
+
+        def conv_attn_for(layer_idx):
+            if conv_attn is None:
+                return None
+            ks = conv_attn["kernel_size"]
+            if isinstance(ks, dict):
+                ks = ks.get(layer_idx, 0)
+            elif ks > 0 and self.l2ca.get(layer_idx) in (6, 7, 8, 9, 10):
+                ks = 1     # 8x8 to 32x32 maps: too small for a conv head
+            return {**conv_attn, "kernel_size": ks} if ks > 1 else None
 
         def transformer(p, h, layer_idx):
             ca = self.l2ca[layer_idx]
@@ -488,31 +554,47 @@ class UNet(nn.Module):
             return _spatial_transformer(p, h, context[i], context_k[i], cfg.num_heads,
                                         img_mask=img_mask, kv=kv,
                                         qw=int8_weights.get(layer_idx), tome_cfg=tome_cfg,
-                                        flash_variant=cfg.flash_variant)
+                                        flash_variant=cfg.flash_variant,
+                                        capture=capture_ca and layer_idx in DISTILL_LAYER_INDICES,
+                                        conv_attn=conv_attn_for(layer_idx))
 
+        # each block returns (h, its captures or None): under block recompute
+        # the captures are outputs of the checkpointed function
         def run_block(bp, h, layer_idx):
             if "conv" in bp:
-                return bp["conv"](h)
+                return bp["conv"](h), None
             if "downsample" in bp:
-                return bp["downsample"](h, stride=2, padding=1)
+                return bp["downsample"](h, stride=2, padding=1), None
             h = _resblock(bp["res"], h, emb, fused_conv_weights)
+            cached = None
             if "attn" in bp:
-                h = transformer(bp["attn"], h, layer_idx)
+                h, cached = transformer(bp["attn"], h, layer_idx)
             if "upsample" in bp:
                 h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
                 h = bp["upsample"](h)
-            return h
+            if cached is not None:
+                cached["outfeat"] = h          # after the whole block, Upsample included
+            return h, cached
 
         def run_middle(mb, h, layer_idx):
             h = _resblock(mb["res1"], h, emb, fused_conv_weights)
-            h = transformer(mb["attn"], h, layer_idx)
-            return _resblock(mb["res2"], h, emb, fused_conv_weights)
+            h, cached = transformer(mb["attn"], h, layer_idx)
+            h = _resblock(mb["res2"], h, emb, fused_conv_weights)
+            if cached is not None:
+                cached["outfeat"] = h
+            return h, cached
+
+        captures = {}
 
         def call(fn, bp, h, layer_idx):
             if remat:
-                return torch.utils.checkpoint.checkpoint(fn, bp, h, layer_idx,
-                                                         use_reentrant=False)
-            return fn(bp, h, layer_idx)
+                h, cached = torch.utils.checkpoint.checkpoint(fn, bp, h, layer_idx,
+                                                              use_reentrant=False)
+            else:
+                h, cached = fn(bp, h, layer_idx)
+            if cached is not None:
+                captures[layer_idx] = cached
+            return h
 
         n_inp, n_out = len(self.input_blocks), len(self.output_blocks)
         shallow = cache is not None and cache_depth > 0
@@ -537,4 +619,7 @@ class UNet(nn.Module):
         h = group_norm(h, self.out["norm"].weight, self.out["norm"].bias, eps=1e-5,
                        activation="silu")
         eps = self.out["conv"](h)
+        if capture_ca:
+            return eps, {key: {li: c[key] for li, c in captures.items()}
+                         for key in ("outfeat", "attn", "attnscore", "q")}
         return (eps, deep_cache) if cache_depth > 0 else eps

@@ -1,9 +1,10 @@
-"""Where the time of a txt2img generate, of Stage-1 training steps, of a
-generate through the int8 serving stack, or of a personalized generate goes
-on the card.
+"""Where the time of a txt2img generate, of Stage-1 training steps, of recon
+training steps, of a generate through the int8 serving stack, or of a
+personalized generate goes on the card.
 
     python -m adaprompt_tpu_torch.profile_step [--steps 5] [--flash exp2|ilv|nomax ...]
     python -m adaprompt_tpu_torch.profile_step --train [--flash exp2|ilv|nomax ...]
+    python -m adaprompt_tpu_torch.profile_step --recon [--flash exp2|ilv|nomax ...]
     python -m adaprompt_tpu_torch.profile_step --serve [int8|bf16] [--trace out.json]
     python -m adaprompt_tpu_torch.profile_step --personalize [on|off] [--steps 5]
 
@@ -13,7 +14,11 @@ steps under torch.profiler. --train: builds the full-width Stage-1 trainer
 (random weights, bs 4, 512x512, Prodigy with gradient accumulation 2),
 takes training steps 0 and 1 (ND 1 and 5 from seed 0) to warm up, then
 profiles steps 2 and 3 (ND 1 both; step 3 applies the accumulated update).
---flash (these two modes): the UNet's self-attention takes that form of the
+--recon: the same trainer with arc2face_distill_iter_prob=0, so every step
+is a zero-shot recon step with the fg/bg regularizers (the defaults
+fgbg_reg=True, no conv-attention); steps 0 and 1 warm up, 2 and 3 are
+profiled.
+--flash (these three modes): the UNet's self-attention takes that form of the
 flash kernels, `UNetConfig(flash_variant=FlashVariant(...))`; several names
 combine (`--flash ilv exp2`), and the device time by class then shows the
 chosen forward kernel under its own name.
@@ -98,10 +103,12 @@ def main():
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--flash", nargs="+", default=[], choices=("exp2", "ilv", "nomax"),
                     help="the flash kernels' form in the UNet's self-attention "
-                         "(the default generate and --train)")
+                         "(the default generate, --train and --recon)")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
                       help="profile two Stage-1 training steps instead of a generate")
+    mode.add_argument("--recon", action="store_true",
+                      help="profile two zero-shot recon training steps instead of a generate")
     mode.add_argument("--serve", nargs="?", const="int8", choices=("int8", "bf16"),
                       help="profile one serving-stack generate (dpmpp-20, FastConfig()), "
                            "with the int8 kernels (default) or in bf16")
@@ -116,23 +123,26 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     if args.flash and (args.serve or args.personalize):
-        raise SystemExit("profile_step: --flash goes with the default generate or --train")
+        raise SystemExit("profile_step: --flash goes with the default generate, --train or "
+                         "--recon")
     from adaprompt_tpu_torch.models.unet import UNetConfig
     from adaprompt_tpu_torch.ops.attention import FlashVariant
     flash_cfg = UNetConfig(flash_variant=FlashVariant(**{name: True for name in args.flash}))
     flash = f", flash {'+'.join(args.flash)}" if args.flash else ""
-    if args.train:
+    if args.train or args.recon:
         import tempfile
         from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                        synthetic_raw_batches)
         tmp = tempfile.TemporaryDirectory()
-        tr = AdaPromptTrainer.random_init(0, synthetic_raw_batches(0),
-                                          TrainerConfig(seed=0, out_dir=tmp.name), device="cuda",
+        cfg = TrainerConfig(seed=0, out_dir=tmp.name,
+                            arc2face_distill_iter_prob=0.0 if args.recon else 1.0)
+        tr = AdaPromptTrainer.random_init(0, synthetic_raw_batches(0), cfg, device="cuda",
                                           unet_cfg=flash_cfg)
         work = lambda: [tr.train_step(i) for i in (2, 3)]
         for i in (0, 1):                                           # build + warm up
             tr.train_step(i)
-        what = f"2 Stage-1 training steps (ND 1, bs 4){flash}"
+        what = (f"2 recon training steps (fgbg_reg, bs 4){flash}" if args.recon
+                else f"2 Stage-1 training steps (ND 1, bs 4){flash}")
     elif args.serve:
         from adaprompt_tpu_torch.pipeline import FastConfig, StableDiffusionPipeline
         pipe = StableDiffusionPipeline.random_init(

@@ -1,13 +1,69 @@
 """Training losses.
 
-Port of `adaprompt_tpu/train/losses.py::calc_recon_loss`, the loss of the
-reconstruction and Arc2Face-distillation iterations. The compositional
-losses come with the compositional slice.
+Port of `adaprompt_tpu/train/losses.py`: `calc_recon_loss`, the loss of
+the reconstruction and Arc2Face-distillation iterations, and the masked
+cosine alignment `calc_ref_cosine_loss` (with `demean`) that the fg/bg
+attention regularizers of `train/fgbg.py` use. `ortho_subtract` and
+`calc_prompt_emb_delta_loss` come with the compositional slice.
 """
 
 from __future__ import annotations
 
 import torch
+
+from adaprompt_tpu_torch.adaface.gradient import grad_scale
+
+
+def demean(x: torch.Tensor, dim=-1) -> torch.Tensor:
+    return x - x.mean(dim=dim, keepdim=True)
+
+
+def _safe_norm(x: torch.Tensor, dim=-1) -> torch.Tensor:
+    """L2 norm whose gradient is 0 (not NaN) at the zero vector: masked-out
+    rows are exactly zero."""
+    sq = (x * x).sum(dim=dim)
+    return torch.sqrt(torch.maximum(sq, sq.new_tensor(1e-24)))
+
+
+def _cosine_embedding_loss(a: torch.Tensor, b: torch.Tensor, label: int = 1) -> torch.Tensor:
+    """F.cosine_embedding_loss(reduction='none') with margin 0."""
+    cos = (a * b).sum(dim=-1) / (_safe_norm(a) * _safe_norm(b) + 1e-12)
+    if label == 1:
+        return 1.0 - cos
+    return torch.maximum(cos, torch.zeros_like(cos))
+
+
+def calc_ref_cosine_loss(delta: torch.Tensor, ref_delta: torch.Tensor, *,
+                         emb_mask: torch.Tensor | None = None,
+                         batch_mask: torch.Tensor | None = None,
+                         exponent: float = 2.0, do_demean_first: bool = False,
+                         first_n_dims_to_flatten: int = 3, ref_grad_scale: float = 0.0,
+                         aim_to_align: bool = True, margin: float = 0.0) -> torch.Tensor:
+    """Masked cosine alignment of `delta` with the grad-scaled, signed power
+    `exponent` of `ref_delta`. delta, ref_delta: [B, ..., D]; emb_mask
+    broadcastable to the first `first_n_dims_to_flatten` dims (weights,
+    zeros drop embeddings); batch_mask [B] 0/1; the per-row loss less
+    `margin`, floored at 0."""
+    b = delta.shape[0]
+    lead = tuple(delta.shape[:first_n_dims_to_flatten])
+    d = delta.reshape(b, -1, delta.shape[-1])
+    rd = ref_delta.expand(delta.shape).reshape(b, -1, delta.shape[-1])
+    if do_demean_first:
+        d, rd = demean(d), demean(rd)
+    rd = grad_scale(rd, ref_grad_scale)
+    rd_pow = rd * rd.abs() ** (exponent - 1)
+    losses = _cosine_embedding_loss(d, rd_pow, 1 if aim_to_align else -1)    # [B, N]
+    if emb_mask is not None:
+        m = emb_mask.expand(lead + (1,)).reshape(b, -1).to(losses.dtype)
+        per = (losses * m).sum(dim=-1) / (m.sum(dim=-1) + 1e-8)
+    else:
+        per = losses.mean(dim=-1)
+    if margin > 0:
+        per = torch.maximum(per - margin, torch.zeros_like(per))
+    if batch_mask is None:
+        return per.mean()
+    batch_mask = batch_mask.to(per.dtype)
+    return (per * batch_mask).sum() / torch.maximum(batch_mask.sum(), per.new_tensor(1e-8))
 
 
 def calc_recon_loss(model_output: torch.Tensor, target: torch.Tensor,

@@ -1,7 +1,11 @@
-"""Training steps: the Stage-1 Arc2Face distillation step.
+"""Training steps: the Arc2Face distillation step and the zero-shot
+reconstruction step.
 
 Port of `adaprompt_tpu/train/steps.py` (`TrainState`, `FrozenSD`,
-`frozen_params`, `make_arc2face_distill_step`). The frozen Arc2Face
+`frozen_params`, `make_arc2face_distill_step`) and of the JAX trainer's
+`apply_emb_scale` and `make_zs_recon_step` (without the background branch).
+
+Distillation (`DistillStep`). The frozen Arc2Face
 teacher denoises a chain of ND steps; the student, the frozen SD UNet
 conditioned on the AdaFace inverse prompt embeddings that the trainable
 SubjBasisGenerator makes, matches the teacher's noise predictions over the
@@ -10,9 +14,19 @@ gradient flows back through the frozen student UNet (its self-attention
 through the flash backward kernel on the card) and the frozen SD text
 encoder into the SubjBasisGenerator.
 
-A step draws all its randomness in `DistillStep.draw`, from a
-`torch.Generator`: the timesteps, the first noise, and the chain's uniform
-and normal draws. `DistillStep.loss` takes those draws as inputs.
+Reconstruction (`ReconStep`). The trainable SubjBasisGenerator's subject
+vectors, with the host-drawn embedding noise and the learnable global
+scale (`apply_emb_scale`), are spliced into the caption at the subject
+placeholder and encoded by the frozen SD text encoder; the frozen UNet
+reconstructs the noised latents under the augmentation mask, optionally
+with subject conv-attention. The loss is the fg/bg-weighted MSE and, under
+`fgbg_reg`, the fg/bg attention regularizers on the captured
+cross-attention scores (`train/fgbg.py`).
+
+A step draws all its randomness in its `draw`, from a `torch.Generator`:
+the timesteps, the first noise, the distillation chain's uniform and
+normal draws or the recon step's embedding noise. Its `loss` takes those
+draws as inputs.
 """
 
 from __future__ import annotations
@@ -23,9 +37,11 @@ import numpy as np
 import torch
 
 from adaprompt_tpu_torch.adaface import arc2face
+from adaprompt_tpu_torch.adaface.conditioner import add_noise_to_tensor, encode_spliced
 from adaprompt_tpu_torch.models.clip_text import CLIPTextModel
 from adaprompt_tpu_torch.models.unet import UNet
 from adaprompt_tpu_torch.sampling.schedule import SD15_SCHEDULE, DiffusionSchedule, q_sample
+from adaprompt_tpu_torch.train import fgbg
 from adaprompt_tpu_torch.train.arc2face_teacher import teacher_denoise_chain
 from adaprompt_tpu_torch.train.losses import calc_recon_loss
 
@@ -150,3 +166,117 @@ class DistillStep:
 
 def make_arc2face_distill_step(frozen: FrozenSD, tokenizer, subj_basis_cfg, **kw) -> DistillStep:
     return DistillStep(frozen, tokenizer, subj_basis_cfg, **kw)
+
+
+def apply_emb_scale(embs: torch.Tensor, params: dict, batch: dict, index: int) -> torch.Tensor:
+    """The learnable per-placeholder global scale sigmoid(score) + 0.5, times
+    the batch's host-drawn U(0.8, 1.4) perturbation when it has one."""
+    scores = params.get("emb_scales")
+    if scores is None:
+        return embs
+    scale = torch.sigmoid(scores[index]) + 0.5
+    pert = batch.get("emb_scale_perturb")
+    if pert is not None:
+        scale = scale * pert[index]
+    return embs * scale.to(embs.dtype)
+
+
+class ReconStep:
+    """The zero-shot reconstruction iteration (subject branch only).
+
+    step(state, fp, batch, gen) -> (state, metrics) with batch
+    {'z0' [B,h,w,4] scaled latents, 'faceid' [B,512] normalized,
+     'caption_ids' [B,77], 'subj_bi' [B], 'subj_pos' [B], 'fg_mask' and
+     'aug_mask' [B,h,w,1] | None, 'skip_weights' [N], 'emb_noise_std'
+     scalar (0 = off), 'emb_scale_perturb' [2] | None}."""
+
+    def __init__(self, frozen: FrozenSD, tokenizer, subj_basis_cfg, *, fgbg_reg: bool = False,
+                 num_ca_layers: int = 16, sched: DiffusionSchedule = SD15_SCHEDULE,
+                 compute_dtype=torch.bfloat16, fg_bg_complementary_loss_weight: float = 2e-4,
+                 fg_bg_xlayer_consist_loss_weight: float = 5e-5, conv_attn_kernel_size: int = 0):
+        self.frozen, self.tokenizer, self.subj_basis_cfg = frozen, tokenizer, subj_basis_cfg
+        self.fgbg_reg, self.num_ca_layers = fgbg_reg, num_ca_layers
+        self.sched, self.compute_dtype = sched, compute_dtype
+        self.complementary_weight = fg_bg_complementary_loss_weight
+        self.xlayer_weight = fg_bg_xlayer_consist_loss_weight
+        self.conv_attn_kernel_size = conv_attn_kernel_size
+
+    def draw(self, gen: torch.Generator, z0: torch.Tensor) -> dict:
+        """Every random draw of one step, from `gen` (on z0's device): the
+        timesteps, the noise, and the standard-normal embedding noise of the
+        subject vectors' shape [B, L, K, D]."""
+        b, dev, cfg = z0.shape[0], z0.device, self.subj_basis_cfg
+        emb_shape = (b, cfg.num_out_layers, cfg.num_out_embs_per_layer, cfg.output_dim)
+        return {
+            "t": torch.randint(0, self.sched.num_timesteps, (b,), generator=gen, device=dev),
+            "noise": torch.randn(z0.shape, generator=gen, device=dev),
+            "emb_noise": torch.randn(emb_shape, generator=gen, device=dev),
+        }
+
+    def loss(self, params: dict, fp: dict, batch: dict, draws: dict):
+        """-> (loss, {metric: scalar tensor}) with the JAX step's metric names."""
+        z0 = batch["z0"]
+        b, dt, tok = z0.shape[0], self.compute_dtype, self.tokenizer
+        k = self.subj_basis_cfg.num_out_embs_per_layer
+        with torch.no_grad():
+            _, core_id = arc2face.forward_face_embs(fp["arc2face_text"], tok, batch["faceid"],
+                                                    input_max_length=21)
+        subj_embs, _ = params["subj_basis"](tok, core_id, is_training=True)
+        std = batch.get("emb_noise_std")
+        if std is not None:
+            subj_embs = add_noise_to_tensor(subj_embs, std, noise=draws["emb_noise"])
+        subj_embs = apply_emb_scale(subj_embs, params, batch, 0)
+        # the zero-shot subject vectors repeat over the layers: splice L' = 1
+        ctx = encode_spliced(fp["text"], batch["caption_ids"],
+                             [(subj_embs[:, :1], batch["subj_bi"], batch["subj_pos"], k)],
+                             batch["skip_weights"], self.num_ca_layers)
+        t, noise = draws["t"], draws["noise"]
+        z_t = q_sample(self.sched, z0, t, noise)
+        subj_rows = batch["subj_pos"][:, None] + torch.arange(k, device=z0.device)[None]
+        conv_attn = None
+        if self.conv_attn_kernel_size > 1:
+            conv_attn = {"subj_pos": subj_rows, "kernel_size": self.conv_attn_kernel_size,
+                         "mix_weight": 1.0}
+        # the augmentation mask restricts self-attention keys to the image
+        out = fp["unet"](z_t.to(dt), t, ctx.to(dt), img_mask=batch.get("aug_mask"),
+                         capture_ca=self.fgbg_reg, conv_attn=conv_attn)
+        eps, caps = out if self.fgbg_reg else (out, None)
+        loss = calc_recon_loss(eps.float(), noise, batch.get("aug_mask"), batch.get("fg_mask"),
+                               fg_pixel_weight=1.0, bg_pixel_weight=0.1)
+        metrics = {"loss_recon": loss}
+        if self.fgbg_reg:
+            scores = {li: v.float() for li, v in caps["attnscore"].items()}
+            comple, subj_mb, bg_mf, contrast = fgbg.calc_fg_bg_complementary_loss(
+                scores, subj_rows, None, b, fg_grad_scale=0.1, fg_mask=batch.get("fg_mask"))
+            # the complementary term at 0.2 under zero-shot training
+            loss_contrast = (comple * 0.2 + subj_mb + bg_mf + contrast) * self.complementary_weight
+            fg_x, bg_x = fgbg.calc_fg_bg_xlayer_consist_loss(scores, subj_rows, None, b)
+            loss_xlayer = (fg_x * 0.2 + bg_x * 0.06) * self.xlayer_weight
+            loss = loss + loss_contrast + loss_xlayer
+            metrics.update({"loss_fg_bg_complementary": comple,
+                            "loss_subj_mb_suppress": subj_mb,
+                            "loss_bg_mf_suppress": bg_mf,
+                            "loss_fg_bg_mask_contrast": contrast,
+                            "loss_fg_xlayer_consist": fg_x,
+                            "loss_bg_xlayer_consist": bg_x})
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def __call__(self, state: TrainState, fp: dict, batch: dict, gen: torch.Generator,
+                 draws: dict | None = None):
+        draws = self.draw(gen, batch["z0"]) if draws is None else draws
+        params = trainable_parameters(state.params)
+        state.optimizer.zero_grad()
+        loss, metrics = self.loss(state.params, fp, batch, draws)
+        loss.backward()
+        # the gradients' norm before clipping
+        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+        state.optimizer.step()
+        state.step += 1
+        metrics = {name: v.detach() for name, v in metrics.items()}
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+
+def make_zs_recon_step(frozen: FrozenSD, tokenizer, subj_basis_cfg, **kw) -> ReconStep:
+    return ReconStep(frozen, tokenizer, subj_basis_cfg, **kw)

@@ -1,12 +1,23 @@
-"""Training orchestration: the host loop of Stage-1 Arc2Face distillation.
+"""Training orchestration: the host loop of Stage-1/2 training without
+compositional iterations.
 
-Port of `adaprompt_tpu/train/trainer.py` for distillation iterations. Per
-step the host draws, from `numpy.random.default_rng(cfg.seed)` and in the
-JAX package's order: the iteration type, the synthetic face ids, the
-Dirichlet clip-skip weights, the embedding-noise coin and the global-scale
-perturbation (both unused by distillation, drawn to keep the stream), and
-ND over (1, 3, 5, 7). ND > 1 keeps the first ceil(B / ND) rows (HALF_BS).
-The device draws come from a `torch.Generator` seeded with cfg.seed.
+Port of `adaprompt_tpu/train/trainer.py` for Arc2Face-distillation and
+zero-shot reconstruction iterations. Per step the host draws, from
+`numpy.random.default_rng(cfg.seed)` and in the JAX package's order: the
+iteration type (distillation with probability
+`arc2face_distill_iter_prob`, else recon), the face ids, the Dirichlet
+clip-skip weights, the embedding-noise coin and, when it comes up, the
+noise std from `emb_noise_std_range` (probabilities per iteration type in
+`emb_noise_prob`: 0.6 recon, 0 distillation), the global-scale
+perturbation, and on distillation iterations ND over (1, 3, 5, 7). ND > 1
+keeps the first ceil(B / ND) rows (HALF_BS). The device draws come from a
+`torch.Generator` seeded with cfg.seed.
+
+A recon iteration (`steps.ReconStep`) splices the subject vectors into the
+caption at its placeholder, trains the SubjBasisGenerator and the global
+scales `emb_scales` on the fg/bg-weighted reconstruction loss, under
+`fgbg_reg` with the fg/bg attention regularizers, and under
+`use_conv_attn_kernel_size` > 1 with subject conv-attention.
 
 The gradient pipeline is clip_by_global_norm(0.5) -> Prodigy with the
 warm-up + linear-decay schedule, behind MultiSteps(grad_accum)
@@ -20,12 +31,12 @@ image; a faceless image falls back to a random id from the host stream, as
 in the JAX package. Without an embedder, `synthetic_faces=True` opts in to
 random ids for every image.
 
-Not in this slice (NotImplementedError): recon iterations (activation
-capture, the fg/bg regularizers of `fgbg_reg`, the background branch),
-subject-token conv attention (`use_conv_attn_kernel_size` > 1),
-compositional iterations, EMA (`use_ema`), `distribute`, full-state resume
-and the AdamW optimizer (`optimizer_type="AdamW"`, `base_lr`). The config
-carries every field of the JAX package's, with its defaults.
+Not in this slice (NotImplementedError): the background ("y" token)
+branch of recon iterations (`bg_params`), compositional iterations, EMA
+(`use_ema`), `distribute`, full-state resume and the AdamW optimizer
+(`optimizer_type="AdamW"`, `base_lr`). The config carries every field of
+the JAX package's, with its defaults; the constructor takes the JAX
+trainer's arguments in its order.
 """
 
 from __future__ import annotations
@@ -152,11 +163,17 @@ class AdaPromptTrainer:
                    batch_iterator, cfg, synthetic_faces=True)
 
     def __init__(self, frozen: steps_mod.FrozenSD, vae, tokenizer, subj_basis_cfg, sbg,
-                 batch_iterator, cfg: TrainerConfig, face_embedder=None,
-                 synthetic_faces: bool = False):
-        # no CLIP scorer is ported, so compositional training without the
-        # explicit opt-in fails as the JAX trainer fails without a scorer
-        if cfg.composition_regs_iter_gap > 0 and not cfg.no_teacher_filter:
+                 batch_iterator, cfg: TrainerConfig, face_embedder=None, subject_spec=None,
+                 clip_scorer=None, synthetic_faces: bool = False, bg_basis_cfg=None,
+                 bg_params=None, zs_extractor=None, bg_spec=None,
+                 use_background_token_prob: float = 0.9, emb_noise_prob: dict | None = None,
+                 emb_noise_std_range: tuple = (0.02, 0.04)):
+        if bg_params is not None:
+            raise NotImplementedError("the background ('y' token) branch of recon iterations "
+                                      "(bg_params: the background SubjBasisGenerator, its CLIP "
+                                      "vision features) is not ported yet")
+        if (cfg.composition_regs_iter_gap > 0 and clip_scorer is None
+                and not cfg.no_teacher_filter):
             raise ValueError(
                 "compositional iterations (composition_regs_iter_gap="
                 f"{cfg.composition_regs_iter_gap}) with clip_scorer=None "
@@ -166,9 +183,6 @@ class AdaPromptTrainer:
                 "explicitly with TrainerConfig(no_teacher_filter=True).")
         if cfg.composition_regs_iter_gap > 0:
             raise NotImplementedError("compositional iterations are not ported yet")
-        if cfg.use_conv_attn_kernel_size > 1:
-            raise NotImplementedError("subject-token conv attention "
-                                      "(use_conv_attn_kernel_size > 1) is not ported yet")
         if cfg.use_ema:
             raise NotImplementedError("EMA of the trainable parameters (use_ema) is not "
                                       "ported yet")
@@ -178,7 +192,13 @@ class AdaPromptTrainer:
                 "identities (gen_arc2face_rand_face is a smoke-test path, "
                 "ddpm.py:1788-1880). Pass face_embedder=FaceSimilarityEvaluator"
                 "(arcface params) or opt in with synthetic_faces=True.")
-        self.face_embedder = face_embedder
+        self.face_embedder, self.clip_scorer = face_embedder, clip_scorer
+        self.bg_basis_cfg, self.bg_params, self.zs_extractor = bg_basis_cfg, bg_params, zs_extractor
+        self.use_background_token_prob = use_background_token_prob
+        # per-iteration-type embedding-noise probabilities
+        self.emb_noise_prob = emb_noise_prob or {
+            "recon_iter": 0.6, "arc2face_distill_iter": 0.0, "compos_distill_iter": 0.4}
+        self.emb_noise_std_range = emb_noise_std_range
         self.frozen, self.vae, self.tokenizer = frozen, vae, tokenizer
         self.subj_basis_cfg, self.cfg = subj_basis_cfg, cfg
         self.batch_iterator = batch_iterator
@@ -187,14 +207,18 @@ class AdaPromptTrainer:
         self.rng = np.random.default_rng(cfg.seed)
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._global_step = 0
-        self.subject_spec = cond_mod.make_placeholders(
-            tokenizer, ("z",), ("y",), num_vectors_subj=subj_basis_cfg.num_out_embs_per_layer,
-            num_vectors_bg=4)[0]
+        if subject_spec is None:
+            specs = cond_mod.make_placeholders(
+                tokenizer, ("z",), ("y",), num_vectors_subj=subj_basis_cfg.num_out_embs_per_layer,
+                num_vectors_bg=bg_basis_cfg.num_out_embs_per_layer if bg_basis_cfg else 4)
+            subject_spec, bg_spec = specs[0], bg_spec or specs[1]
+        self.subject_spec, self.bg_spec = subject_spec, bg_spec
         params = {"subj_basis": sbg,
                   # learnable per-placeholder global scale scores
                   "emb_scales": nn.Parameter(torch.zeros(2, device=self.device))}
         self.state = steps_mod.TrainState(
             params, build_optimizer(cfg, steps_mod.trainable_parameters(params)))
+        self._recon_steps = {}     # keyed by (use_bg, fgbg_reg)
         self._distill_steps = {}
         self._fp = steps_mod.frozen_params(frozen)
         os.makedirs(cfg.out_dir, exist_ok=True)
@@ -211,6 +235,19 @@ class AdaPromptTrainer:
         w = self.rng.dirichlet(base) if self.cfg.randomize_clip_skip else base / base.sum()
         return w.astype(np.float32)
 
+    def _emb_noise_std(self, iter_type: str) -> float:
+        """The embedding noise's std: U(emb_noise_std_range) with the
+        iteration type's probability, else 0 (off); the std is drawn only
+        when the coin comes up."""
+        if self.rng.random() >= self.emb_noise_prob.get(iter_type, 0.0):
+            return 0.0
+        lo, hi = self.emb_noise_std_range
+        return float(self.rng.uniform(lo, hi))
+
+    def _emb_scale_perturb(self) -> np.ndarray:
+        """U(0.8, 1.4) training perturbation of the two global scales."""
+        return self.rng.uniform(0.8, 1.4, size=(2,)).astype(np.float32)
+
     def _sample_num_denoising_steps(self) -> int:
         cand = [s for s in (1, 3, 5, 7) if s <= self.cfg.max_num_denoising_steps]
         p = np.asarray(self.cfg.num_denoising_steps_probs[:len(cand)], np.float64)
@@ -222,30 +259,40 @@ class AdaPromptTrainer:
         return _resize_mask_nearest(m, (m.shape[1] // f, m.shape[2] // f))
 
     @torch.no_grad()
-    def prepare_recon_batch(self, raw: dict) -> dict:
-        """Latents, face ids and latent-size masks of a raw batch. Each
-        image's id is its first face's embedding, or a random one when it
-        shows no face or there is no embedder. The embedding-noise coin and
-        the global-scale perturbation of the JAX package's batch are drawn
-        and dropped: distillation uses neither (the coin's probability is 0
-        there), and the draws keep the host stream in the JAX package's
-        order."""
+    def prepare_recon_batch(self, raw: dict, use_bg: bool = False,
+                            iter_type: str = "recon_iter") -> dict:
+        """Latents, face ids, the tokenized captions with the subject
+        placeholder's rows and positions (row i at position 1 where a
+        caption lacks it), latent-size masks, and the host draws: clip-skip
+        weights, the embedding-noise std of `iter_type` and the global-scale
+        perturbation. Each image's id is its first face's embedding, or a
+        random one when it shows no face or there is no embedder."""
+        if use_bg:
+            raise NotImplementedError("the background ('y' token) branch of recon iterations "
+                                      "is not ported yet")
         imgs = torch.as_tensor(np.asarray(raw["image"]), device=self.device).to(self.dtype)
         z0 = (self.vae.encode(imgs)[0] * SD_SCALE_FACTOR).float()
+        ids = np.asarray(self.tokenizer(list(raw["caption"])))
+        bi, pos = cond_mod.find_placeholder_indices(ids, self.subject_spec)
+        b = z0.shape[0]
         if self.face_embedder is not None:
             embs = [self.face_embedder.embed_image(im) for im in raw["image_unnorm"]]
             faceid = np.stack([e[:1].reshape(-1) if len(e) else
                                self.rng.standard_normal(512).astype(np.float32) for e in embs])
         else:
-            faceid = self.rng.standard_normal((z0.shape[0], 512)).astype(np.float32)
+            faceid = self.rng.standard_normal((b, 512)).astype(np.float32)
         faceid = faceid / np.linalg.norm(faceid, axis=-1, keepdims=True)
-        batch = {"z0": z0, "faceid": torch.as_tensor(faceid, device=self.device),
-                 "fg_mask": self._latent_mask(raw["fg_mask"]),
-                 "aug_mask": self._latent_mask(raw["aug_mask"]),
-                 "skip_weights": torch.as_tensor(self._skip_weights(), device=self.device)}
-        self.rng.random()                                # embedding-noise coin
-        self.rng.uniform(0.8, 1.4, size=(2,))            # global-scale perturbation
-        return batch
+        dev = self.device
+        return {"z0": z0, "faceid": torch.as_tensor(faceid, device=dev),
+                "caption_ids": torch.as_tensor(ids, device=dev).long(),
+                "subj_bi": torch.as_tensor(bi if len(bi) == b else np.arange(b), device=dev).long(),
+                "subj_pos": torch.as_tensor(pos if len(pos) == b else np.full(b, 1),
+                                            device=dev).long(),
+                "fg_mask": self._latent_mask(raw["fg_mask"]),
+                "aug_mask": self._latent_mask(raw["aug_mask"]),
+                "skip_weights": torch.as_tensor(self._skip_weights(), device=dev),
+                "emb_noise_std": torch.tensor(self._emb_noise_std(iter_type), device=dev),
+                "emb_scale_perturb": torch.as_tensor(self._emb_scale_perturb(), device=dev)}
 
     # -- the state machine --------------------------------------------------------
 
@@ -257,14 +304,31 @@ class AdaPromptTrainer:
                 allow_self_teacher=self.cfg.allow_self_teacher)
         return self._distill_steps[nd]
 
+    def _get_recon_step(self, use_bg: bool, fgbg_reg: bool) -> steps_mod.ReconStep:
+        key = (use_bg, fgbg_reg)
+        if key not in self._recon_steps:
+            self._recon_steps[key] = steps_mod.make_zs_recon_step(
+                self.frozen, self.tokenizer, self.subj_basis_cfg, fgbg_reg=fgbg_reg,
+                compute_dtype=self.dtype,
+                conv_attn_kernel_size=self.cfg.use_conv_attn_kernel_size)
+        return self._recon_steps[key]
+
     def train_step(self, step_idx: int) -> dict:
         self._global_step = step_idx
         raw = next(self.batch_iterator)
         do_distill = self.rng.random() < self.cfg.arc2face_distill_iter_prob
+        # the background token only on recon iterations, and only with a
+        # background generator (none is ported: no draw is made)
+        use_bg = (not do_distill and self.bg_params is not None
+                  and self.rng.random() < self.use_background_token_prob)
+        batch = self.prepare_recon_batch(
+            raw, use_bg=use_bg, iter_type="arc2face_distill_iter" if do_distill else "recon_iter")
         if not do_distill:
-            raise NotImplementedError("recon iterations (activation capture, the fg/bg "
-                                      "regularizers of fgbg_reg) are not ported yet")
-        batch = self.prepare_recon_batch(raw)
+            # the fg/bg attention regularizers run on recon iterations
+            step_fn = self._get_recon_step(use_bg, self.cfg.fgbg_reg)
+            self.state, metrics = step_fn(self.state, self._fp, batch, self.gen)
+            metrics["iter_type"] = "recon_bg" if use_bg else "recon"
+            return self._emit_metrics(step_idx, metrics, self._host_stats())
         nd = self._sample_num_denoising_steps()
         if nd > 1:
             # HALF_BS: multi-step distillation keeps the first ceil(B / ND) rows

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths on one NVIDIA H100: SD-1.5 txt2img,
-Stage-1 Arc2Face-distillation training, the composed serving stack
-(DPM-Solver++ 20 steps with ToMe, DeepCache and the CFG tail, quant="int8"),
-and the product path (AdaFacePipeline: photos -> ArcFace -> 16 subject
-tokens -> personalized DDIM-50, with UNetConfig.fused_conv); the first two
-also under each UNetConfig.flash_variant (two-chain, no-max, exp2).
+"""Drive the PyTorch port's paths on one NVIDIA H100: SD-1.5 txt2img,
+Stage-1 Arc2Face-distillation training, zero-shot recon training (the
+spliced prompt, activation capture, the fg/bg attention regularizers,
+subject conv-attention), the composed serving stack (DPM-Solver++ 20 steps
+with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
+(AdaFacePipeline: photos -> ArcFace -> 16 subject tokens -> personalized
+DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
+each UNetConfig.flash_variant (two-chain, no-max, exp2).
 
     python3 chip_smoke.py
 
@@ -62,7 +64,11 @@ Phases, in order (any failure exits non-zero without the final line):
      training path: flash backward, GEGLU backward, block recompute) on the
      card in bf16, by default and under FlashVariant(exp2=True), and on the
      CPU in fp32, and bound the relative error of the gradient with respect
-     to the context;
+     to the context; then the capture check: the same pass with
+     capture_ca=True and the fg/bg regularizers (box fg mask) on its
+     attention scores, card against CPU, bounding the relative error of the
+     context gradient and of each of the 12 captured score maps, with exact
+     launch counts;
   5. generate 2 prompts at 512x512 with DDIM-50 through
      StableDiffusionPipeline.generate with random weights from a seed, and
      check that each bf16 forward kernel (B1-B3) was launched 10 times per
@@ -89,7 +95,15 @@ Phases, in order (any failure exits non-zero without the final line):
      of the others; right after phase 6, training steps at ND 1 in turns
      (default, exp2, exp2, default; two steps each) with the exp2 forward
      and backward launched as often as the default's;
- 10. print the kernels' JSON line (thirteen rows), the card's name and
+ 10. recon training, right after phase 9's training turns, over phase 6's
+     frozen models: an AdaPromptTrainer with arc2face_distill_iter_prob=0
+     and fgbg_reg=True and a fresh seeded SubjBasisGenerator takes 4 recon
+     steps (two accumulated updates), then one over the same generator with
+     use_conv_attn_kernel_size=3 takes 2; check every metric of the JAX
+     step (finite), the cross-layer term and the gradient norm > 0, that the
+     SubjBasisGenerator and emb_scales moved, and the exact launch counts;
+     log s/step and peak memory;
+ 11. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -123,6 +137,11 @@ UNET_GRAD_TOL = 5e-2
 FLASH_BWD_PER_PASS = 9
 FLASH_BWD_TOL = 1e-2    # max|kernel - plain| / max|plain| per gradient (measured <= 5.1e-3)
 TRAIN_STEPS = 4         # seed 0 draws ND = 1, 5, 1, 1
+RECON_STEPS = 4         # two accumulated updates; then RECON_CONV_STEPS with conv-attention
+RECON_CONV_STEPS = 2
+RECON_METRICS = ("loss", "loss_recon", "loss_fg_bg_complementary", "loss_subj_mb_suppress",
+                 "loss_bg_mf_suppress", "loss_fg_bg_mask_contrast", "loss_fg_xlayer_consist",
+                 "loss_bg_xlayer_consist", "grad_norm")
 SERVE_STEPS = 20        # dpmpp-20 under FastConfig() (cache 3/3, CFG tail 0.3, ToMe 0.5)
 CONV_TOL = 2e-2         # the three 3x3 conv kernels: max|kernel - plain| / max|plain|
 PERSONAL_PROMPT = "portrait of a z person"
@@ -1509,11 +1528,17 @@ def phase_unet_grad():
     on the card in bf16, with the default flash kernels and under
     FlashVariant(exp2=True) (the exp2 forms of forward and backward), against
     the same weights on the CPU in fp32: the gradient with respect to the
-    context."""
+    context. Then the capture check on the same weights and inputs: the
+    pass with capture_ca=True, the fg/bg regularizers of a recon step on
+    its 12 captured score maps (a box fg mask, subject rows 5..20) added to
+    the loss at the weight that gives their context gradient the card's
+    norm of sum(eps * g)'s, card against CPU: the context gradient and each
+    score map."""
     import torch
     from adaprompt_tpu_torch.models.unet import UNet
     from adaprompt_tpu_torch.ops.attention import FlashVariant
     from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
+    from adaprompt_tpu_torch.train import fgbg
     gen = torch.Generator(device="cuda").manual_seed(3)
     unet = reset_parameters(UNet(device="cuda", dtype=torch.bfloat16), gen)
     randomize_zero_init(unet, gen)
@@ -1530,6 +1555,22 @@ def phase_unet_grad():
         (eps.float() * g.to(dev)).sum().backward()
         return c.grad.float().cpu()
 
+    fg = torch.zeros(1, 64, 64, 1)
+    fg[:, 16:48, 20:44] = 1.0
+    rows = torch.arange(5, 21)[None]
+
+    def capture_grad(model, dev, dt, eps_weight, reg_weight):
+        c = ctx.to(dev, torch.float32).requires_grad_(True)
+        eps, caps = model(x.to(dev, dt), ts.to(dev), c.to(dt)[None], img_mask=mask.to(dev),
+                          capture_ca=True)
+        scores = {li: v.float() for li, v in caps["attnscore"].items()}
+        suppress = fgbg.calc_fg_bg_complementary_loss(scores, rows.to(dev), None, 1,
+                                                      fg_grad_scale=0.1, fg_mask=fg.to(dev))[1]
+        xlayer = fgbg.calc_fg_bg_xlayer_consist_loss(scores, rows.to(dev), None, 1)[0]
+        (eps_weight * (eps.float() * g.to(dev)).sum() + reg_weight * (suppress + xlayer)).backward()
+        return (c.grad.float().cpu(), {li: v.detach().cpu() for li, v in scores.items()},
+                (suppress.item(), xlayer.item()))
+
     before = read_counts()
     t0 = time.perf_counter()
     card = context_grad(unet, "cuda", bf)
@@ -1537,6 +1578,13 @@ def phase_unet_grad():
     card_exp2 = context_grad(unet, "cuda", bf, dataclasses.replace(
         unet.cfg, flash_variant=FlashVariant(exp2=True)))
     counts = counts_since(before)
+    before = read_counts()
+    t0 = time.perf_counter()
+    reg_card, scores_card, terms_card = capture_grad(unet, "cuda", bf, 0.0, 1.0)
+    cap_s = time.perf_counter() - t0
+    cap_counts = counts_since(before)
+    reg_weight = (card.norm() / reg_card.norm()).item()
+    cap_card = card + reg_weight * reg_card
     cpu = UNet(device="cpu", dtype=torch.float32)
     cpu.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()})
     del unet
@@ -1544,6 +1592,9 @@ def phase_unet_grad():
     t0 = time.perf_counter()
     ref = context_grad(cpu, "cpu", torch.float32)
     cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cap_ref, scores_ref, terms_ref = capture_grad(cpu, "cpu", torch.float32, 1.0, reg_weight)
+    cap_cpu_s = time.perf_counter() - t0
     rel = ((card - ref).norm() / ref.norm()).item()
     rel_exp2 = ((card_exp2 - ref).norm() / ref.norm()).item()
     log(f"phase 4 unet grad: d(loss)/d(context) bf16 card vs fp32 CPU relative L2 error "
@@ -1562,6 +1613,27 @@ def phase_unet_grad():
     want["flash_attention_bwd:exp2"] = FLASH_BWD_PER_PASS
     if counts != want:
         raise AssertionError(f"UNet gradient launches {counts}, expected {want}")
+    rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()
+    rel_cap = rel_l2(cap_card, cap_ref)
+    rel_scores = {li: rel_l2(scores_card[li], scores_ref[li]) for li in scores_ref}
+    log(f"phase 4 capture: d(loss)/d(context) with the fg/bg terms (weight {reg_weight:.4e}) bf16 "
+        f"card vs fp32 CPU relative L2 error {rel_cap:.4e}; attnscore maps "
+        + ", ".join(f"{li}: {r:.4e}" for li, r in rel_scores.items())
+        + f" (bound {UNET_GRAD_TOL:g} each); suppress, xlayer card {terms_card[0]:.6f}, "
+        f"{terms_card[1]:.6f} CPU {terms_ref[0]:.6f}, {terms_ref[1]:.6f}; card {cap_s:.2f} s, "
+        f"CPU {cap_cpu_s:.1f} s; launches {nz(cap_counts)}")
+    if list(scores_card) != list(scores_ref) or len(scores_ref) != 12:
+        raise AssertionError(f"captured layers {list(scores_card)} vs {list(scores_ref)}")
+    for name, r in (("context gradient", rel_cap), *rel_scores.items()):
+        if not (math.isfinite(r) and r <= UNET_GRAD_TOL):
+            raise AssertionError(f"capture check: {name} on the card disagrees with the CPU: {r}")
+    if not (terms_ref[0] > 0 and terms_ref[1] > 0 and math.isfinite(reg_weight)):
+        raise AssertionError(f"capture check: regularizer terms {terms_ref}, weight {reg_weight}")
+    # forward, its recompute and one backward; the capturing cross-attention is plain
+    want = {n: 0 for n in cap_counts}
+    want.update(flash_attention_fwd=20, flash_attention_bwd=FLASH_BWD_PER_PASS, geglu_fwd=20)
+    if cap_counts != want:
+        raise AssertionError(f"capture check launches {cap_counts}, expected {want}")
 
 
 def phase_generate():
@@ -1719,6 +1791,7 @@ def phase_train():
     by_path = {"train": launches}
     by_path.update(phase_train_variants(tr, TRAIN_STEPS))
     tr._flush_metrics()
+    by_path.update(phase_recon(tr, tmp.name))
     tmp.cleanup()
     return by_path
 
@@ -1771,6 +1844,77 @@ def phase_train_variants(tr, first_step):
     for u in unets:
         u.cfg = base_cfg
     log(f"phase 9 s/step in turns: default {times['default']}, exp2 {times['exp2']}")
+    return by_path
+
+
+def phase_recon(tr, out_dir):
+    """Phase 10: zero-shot recon training through AdaPromptTrainer.train_step
+    over phase 6's frozen models (student UNet, SD and Arc2Face CLIP-L, VAE)
+    with a fresh SubjBasisGenerator from a seed: RECON_STEPS steps with the
+    fg/bg regularizers, then RECON_CONV_STEPS with subject conv-attention
+    (kernel size 3) over the same generator. Returns {path: launch counts}."""
+    import torch
+    from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
+    from adaprompt_tpu_torch.ops.layers import reset_parameters
+    from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
+                                                   synthetic_raw_batches)
+    t0 = time.perf_counter()
+    sbg = reset_parameters(SubjBasisGenerator(SUBJ_CONFIG, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(5))
+    cfg = TrainerConfig(seed=1, out_dir=out_dir, arc2face_distill_iter_prob=0.0, fgbg_reg=True)
+    make = lambda c: AdaPromptTrainer(tr.frozen, tr.vae, tr.tokenizer, SUBJ_CONFIG, sbg,
+                                      synthetic_raw_batches(1), c, synthetic_faces=True)
+    rt = make(cfg)
+    torch.cuda.synchronize()
+    log(f"phase 10 recon trainer: built in {time.perf_counter() - t0:.1f} s")
+    watched = {n: p.detach().clone() for n, p in sbg.named_parameters()
+               if n in ("hidden_state_layer_weights", "prompt2token_proj.layers.11.mlp.fc2.weight",
+                        "prompt2token_proj.token_embedding")}
+    watched["emb_scales"] = rt.state.params["emb_scales"].detach().clone()
+    by_path, moved = {}, None
+    for path, trainer, n_steps in (("recon", rt, RECON_STEPS), ("recon_conv", None,
+                                                                RECON_CONV_STEPS)):
+        if trainer is None:
+            trainer = make(dataclasses.replace(cfg, use_conv_attn_kernel_size=3))
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30    # every model and state held so far
+        rows, times = [], []
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = trainer.train_step(i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            rows.append({k: (float(v) if isinstance(v, torch.Tensor) else v) for k, v in m.items()})
+            if moved is None and i == cfg.grad_accum - 1:       # the first accumulated update
+                now = dict(sbg.named_parameters(), emb_scales=rt.state.params["emb_scales"])
+                moved = {n: not torch.equal(p, now[n]) for n, p in watched.items()}
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for r, sec in zip(rows, times):
+            log(f"phase 10 {path} step {r['step']}: " + " ".join(
+                f"{k}={r[k]:.6e}" for k in RECON_METRICS) + f" {sec:.3f} s")
+        log(f"phase 10 {path}: {n_steps} recon steps bs 4 512x512 bf16 fgbg_reg in "
+            f"{sum(times):.3f} s (step times {[round(sec, 3) for sec in times]}); peak memory "
+            f"{peak:.2f} GiB ({resident:.2f} GiB held before the first step); "
+            f"launches {nz(launches)}")
+        for r in rows:
+            if not (r["iter_type"] == "recon" and all(math.isfinite(r[k]) for k in RECON_METRICS)
+                    and r["loss_fg_xlayer_consist"] > 0 and r["grad_norm"] > 0):
+                raise AssertionError(f"bad recon metrics {r}")
+        # a student pass, its recompute and one backward a step; the 77-key
+        # cross-attention, capturing or under conv-attention, is plain
+        want = {n: 0 for n in launches}
+        want.update(flash_attention_fwd=20 * n_steps,
+                    flash_attention_bwd=FLASH_BWD_PER_PASS * n_steps, geglu_fwd=20 * n_steps)
+        if launches != want:
+            raise AssertionError(f"{path} launches {launches}, expected {want}")
+        by_path[path] = launches
+        trainer._flush_metrics()
+    log(f"phase 10 SubjBasisGenerator and emb_scales moved after the first update: {moved}")
+    if not all(moved.values()):
+        raise AssertionError(f"recon steps left parameters unmoved: {moved}")
     return by_path
 
 
@@ -1930,21 +2074,23 @@ def phase_personalize():
 
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
 _TRAIN_TURNS = ("train_default", "train_exp2")
+_RECON = ("recon", "recon_conv")       # phase 10
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
-                            + _TRAIN_TURNS),
+                            + _TRAIN_TURNS + _RECON),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "adaprompt_tpu/ops/attention.py:314", ("train",) + _TRAIN_TURNS),
+                            "adaprompt_tpu/ops/attention.py:314",
+                            ("train",) + _TRAIN_TURNS + _RECON),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
                               + _GEN_TURNS),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
-                  + _GEN_TURNS + _TRAIN_TURNS),
+                  + _GEN_TURNS + _TRAIN_TURNS + _RECON),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

@@ -24,8 +24,8 @@ from adaprompt_tpu_torch.ops import attention as tattn
 from adaprompt_tpu_torch.ops.attention import FlashVariant
 from adaprompt_tpu_torch.train import steps as tsteps
 from test_torch_flash_variants import VARIANTS, jax_flash
-from torch_port_helpers import (JAX_UNET, JAX_VAE, TORCH_UNET, assert_close, port_module, t,
-                                tiny_models, train_env)
+from torch_port_helpers import (JAX_UNET, JAX_VAE, TORCH_UNET, assert_close, keeping_grads,
+                                port_module, t, tiny_models, train_env)
 
 MIN_TOKENS = 16      # the tiny UNet's 64- and 16-token levels take the flash path
 
@@ -145,13 +145,13 @@ def test_distill_step_under_exp2_matches_jax(env, port_flash_rule, monkeypatch):
     `_EXP2` set and its UNets reaching the Pallas flash forward and backward:
     the loss to 1e-5 relative and every SubjBasisGenerator gradient to 1e-4
     of the leaf's largest (plus 1e-6 of the tree's)."""
-    from test_torch_train import _batch, _jax_draws, _keeping_grads
+    from test_torch_train import _batch, _jax_draws
     from adaprompt_tpu.train import trainer as jtrainer
     from adaprompt_tpu_torch.train import trainer as ttrainer
     from torch_port_helpers import named
     batch_np, key = _batch(1), jax.random.PRNGKey(11)
     trainable = {"subj_basis": env["jsp"], "emb_scales": jnp.zeros((2,), jnp.float32)}
-    jopt = _keeping_grads(jtrainer.build_optimizer(
+    jopt = keeping_grads(jtrainer.build_optimizer(
         jtrainer.TrainerConfig(grad_accum=1, max_steps=10, warm_up_steps=2)))
     with jax_flash(FlashVariant(exp2=True), MIN_TOKENS):
         step_j = jax.jit(jsteps.make_arc2face_distill_step(

@@ -3,6 +3,8 @@ float32): layers, CLIP text, UNet, VAE, and the tokenizer. Weights are the
 JAX package's init with every zero leaf re-randomized, converted by
 convert.from_jax_params."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -144,13 +146,15 @@ def test_unet_img_mask_and_context_k(models):
 
 
 def test_unet_unported_options_raise(models):
+    """What the UNet still refuses: activation capture with DeepCache (a
+    sampler-only path, as the JAX package asserts) and an unknown quant."""
     _, (tu, _, _) = models
     x = torch.zeros(1, 8, 8, 4)
-    with pytest.raises(NotImplementedError):
-        tu(x, torch.zeros(1), torch.zeros(1, 77, 64), capture_ca=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="deep-cache"):
+        tu(x, torch.zeros(1), torch.zeros(1, 77, 64), capture_ca=True, cache_depth=2)
+    with pytest.raises(ValueError, match="unknown quant"):
         tu(x, torch.zeros(1), torch.zeros(1, 77, 64),
-           conv_attn={"subj_pos": torch.zeros(1, 1, dtype=torch.long), "kernel_size": 3})
+           cfg=dataclasses.replace(tu.cfg, quant="int4"))
 
 
 def test_unet_fused_conv(models, monkeypatch):

@@ -1617,3 +1617,53 @@ def test_autograd_under_flash_variants_on_the_card():
         torch.autograd.backward(out, torch.ones_like(out))
         for a, r in zip(args, ref_in):
             _assert_near(a.grad, r.grad, 3e-2)
+
+
+@pytest.mark.cuda
+def test_unet_capture_on_the_card():
+    """A small UNet's forward and backward with capture_ca, an img_mask and
+    the fg/bg regularizers on its scores, in bf16 on the card against fp32
+    on the CPU: the context gradient and every captured score map within
+    5e-2 relative L2, with the flash kernels launched for self-attention
+    (forward, its recompute, and the backward of the 4 layers a gradient
+    reaches) and none for the capturing cross-attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from adaprompt_tpu_torch.models.unet import UNet, UNetConfig
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
+    from adaprompt_tpu_torch.train import fgbg
+    gen = torch.Generator().manual_seed(0)
+    cfg = UNetConfig(model_channels=64, num_heads=4, context_dim=64)
+    cpu = randomize_zero_init(reset_parameters(UNet(cfg), gen), gen)
+    card = UNet(cfg, device="cuda", dtype=torch.bfloat16)
+    card.load_state_dict({k: v.to(torch.bfloat16) for k, v in cpu.state_dict().items()})
+    x = torch.randn(1, 32, 32, 4, generator=gen)
+    ctx = torch.randn(1, 1, 77, 64, generator=gen)
+    mask = (torch.rand(1, 32, 32, 1, generator=gen) >= 0.3).float()
+    fg = torch.zeros(1, 32, 32, 1)
+    fg[:, 8:24, 10:22] = 1.0
+    g = torch.randn(1, 32, 32, 4, generator=gen)
+    rows = torch.arange(5, 21)[None]
+
+    def run(model, dev, dt):
+        c = ctx.to(dev).requires_grad_(True)
+        eps, caps = model(x.to(dev, dt), torch.tensor([501], device=dev), c.to(dt),
+                          img_mask=mask.to(dev), capture_ca=True)
+        scores = {li: s.float() for li, s in caps["attnscore"].items()}
+        reg = fgbg.calc_fg_bg_complementary_loss(scores, rows.to(dev), None, 1,
+                                                 fg_mask=fg.to(dev))[1]
+        reg = reg + fgbg.calc_fg_bg_xlayer_consist_loss(scores, rows.to(dev), None, 1)[0]
+        ((eps.float() * g.to(dev)).sum() + reg).backward()
+        return c.grad.float().cpu(), {li: s.detach().cpu() for li, s in scores.items()}
+
+    before = {n: w.launches for n, w in kernel_wrappers().items()}
+    grad_card, scores_card = run(card, "cuda", torch.bfloat16)
+    launched = {n: w.launches - before[n] for n, w in kernel_wrappers().items()}
+    grad_ref, scores_ref = run(cpu, "cpu", torch.float32)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    assert rel(grad_card, grad_ref) <= 5e-2
+    assert list(scores_card) == list(scores_ref) and len(scores_ref) == 12
+    for li in scores_ref:
+        assert rel(scores_card[li], scores_ref[li]) <= 5e-2, li
+    assert launched["flash_attention_fwd"] == 10 and launched["flash_attention_bwd"] == 4
+    assert launched["fused_cross_attention"] == 0

@@ -9,14 +9,13 @@ it, and handed to the port's step, so both compute on the same numbers."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
 from adaprompt_tpu.train import steps as jsteps, trainer as jtrainer
 from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
 from adaprompt_tpu_torch.train import steps as tsteps, trainer as ttrainer
-from torch_port_helpers import named, port_module, t, train_env
+from torch_port_helpers import keeping_grads, named, port_module, t, train_env
 
 LOSS_RTOL = 1e-5   # fp32, different summation orders through 2 CLIP + 2 UNets
 GRAD_TOL = 1e-5    # of the leaf's largest gradient, plus 1e-6 of the tree's (for
@@ -54,16 +53,6 @@ def _jax_draws(key, z0_shape, nd):
             "next_noises": t(np.asarray(draws["next_noises"]).reshape((nd - 1,) + z0_shape))}
 
 
-def _keeping_grads(tx):
-    """`tx` that also keeps the gradients it was given in its state, so the
-    JAX step hands them back beside the updated parameters."""
-    def update(g, state, params=None):
-        upd, inner = tx.update(g, state[0], params)
-        return upd, (inner, g)
-    return optax.GradientTransformation(
-        lambda p: (tx.init(p), jax.tree.map(jnp.zeros_like, p)), update)
-
-
 def _port_sbg(env):
     return port_module(tsbg.SubjBasisGenerator(env["tscfg"]), env["jsp"]).train()
 
@@ -77,7 +66,7 @@ def test_distill_step_matches_jax(env, nd):
     jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     trainable = {"subj_basis": env["jsp"], "emb_scales": jnp.zeros((2,), jnp.float32)}
     fp = jsteps.frozen_params(env["jfrozen"])
-    jopt = _keeping_grads(jtrainer.build_optimizer(
+    jopt = keeping_grads(jtrainer.build_optimizer(
         jtrainer.TrainerConfig(grad_accum=1, max_steps=10, warm_up_steps=2)))
     step_j = jax.jit(jsteps.make_arc2face_distill_step(
         jopt, env["jfrozen"], env["jtok"], env["jscfg"], num_denoising_steps=nd,

@@ -154,18 +154,21 @@ def test_trainer_config_matches_jax():
     (dict(), None, ValueError, "no face_embedder"),
     (dict(composition_regs_iter_gap=3, no_teacher_filter=True), True, NotImplementedError,
      "compositional iterations"),
-    (dict(use_conv_attn_kernel_size=3), True, NotImplementedError, "use_conv_attn_kernel_size"),
+    (dict(bg_params={}), True, NotImplementedError, "background"),
     (dict(use_ema=True), True, NotImplementedError, "use_ema"),
 ])
 def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
     """What the port refuses at construction: the JAX trainer's own
     ValueErrors, with its messages (compositional training without a teacher
-    filter, no face embedder), then each unported path by name."""
+    filter, no face embedder), then each unported path by name (the
+    background branch by its constructor argument bg_params)."""
+    kw = dict(kw)
+    ctor = {k: kw.pop(k) for k in ("bg_params",) if k in kw}
     cfg = dict(out_dir=str(tmp_path), **kw)
     face = _StubEmbedder() if embedder else None
     with pytest.raises(error, match=words) as port:
         ttrainer.AdaPromptTrainer(env["tfrozen"], None, env["ttok"], env["tscfg"], None, iter(()),
-                                  ttrainer.TrainerConfig(**cfg), face_embedder=face)
+                                  ttrainer.TrainerConfig(**cfg), face_embedder=face, **ctor)
     if error is ValueError:
         with pytest.raises(ValueError) as ref:
             jtrainer.AdaPromptTrainer(env["jfrozen"], None, None, env["jtok"], env["jscfg"], None,
@@ -205,9 +208,84 @@ def test_trainer_face_embedder_matches_jax(env, tmp_path):
         ttrainer.TrainerConfig(out_dir=str(tmp_path / "port"), **cfg),
         face_embedder=_StubEmbedder())
     for _, raw in raws:
-        got = ttr.prepare_recon_batch(raw)["faceid"].numpy()
+        got = ttr.prepare_recon_batch(raw, iter_type="arc2face_distill_iter")["faceid"].numpy()
         want = np.asarray(jtr.prepare_recon_batch(raw, iter_type="arc2face_distill_iter")["faceid"])
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
     assert ttr.face_embedder.calls == jtr.face_embedder.calls == 8
     np.testing.assert_array_equal(jtr.rng.random(4), ttr.rng.random(4))   # same stream after
+
+
+class _RecordingRecon:
+    """Stands in for the JAX trainer's compiled recon step: records each
+    call's batch and moves nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, use_bg, fgbg_reg):
+        def step(state, fp, batch, key):
+            self.calls.append({k: np.asarray(batch[k]) for k in (
+                "skip_weights", "emb_noise_std", "emb_scale_perturb", "caption_ids", "subj_bi",
+                "subj_pos")})
+            zero = jnp.float32(0.0)
+            return state, {"loss": zero, "loss_recon": zero, "grad_norm": zero}
+        return step
+
+
+def test_trainer_mixed_run_matches_jax(env, tmp_path):
+    """arc2face_distill_iter_prob=0.5 with conv-attention and the fg/bg
+    regularizers: the same raw batches and seed give the JAX trainer's
+    iteration types, and on each step its host draws in its order (the
+    clip-skip weights, the embedding-noise std drawn only when its coin
+    comes up, the scale perturbation, ND on distillation steps), the
+    captions' ids and subject positions; the port's recon steps train, and
+    the stream after the run is JAX's."""
+    vcfg = dict(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1)
+    vt = reset_parameters(tvae.VAE(tvae.VAEConfig(**vcfg)), torch.Generator().manual_seed(9))
+    cfg = dict(max_steps=20, grad_accum=2, max_num_denoising_steps=3, ckpt_every=100,
+               compute_dtype="float32", seed=5, metrics_flush_every=1,
+               arc2face_distill_iter_prob=0.5, use_conv_attn_kernel_size=2)
+    batches = lambda: ttrainer.synthetic_raw_batches(0, batch_size=4, size=32)
+    jtr = jtrainer.AdaPromptTrainer(
+        env["jfrozen"], jax.tree.map(jnp.asarray, module_tree(vt)), jvae.VAEConfig(**vcfg),
+        env["jtok"], env["jscfg"], env["jsp"], batches(),
+        jtrainer.TrainerConfig(out_dir=str(tmp_path / "jax"), **cfg), synthetic_faces=True)
+    jtr._distill_steps = _RecordingSteps()
+    jtr._get_recon_step = _RecordingRecon()
+    ttr = ttrainer.AdaPromptTrainer(
+        env["tfrozen"], vt, env["ttok"], env["tscfg"], _port_sbg(env), batches(),
+        ttrainer.TrainerConfig(out_dir=str(tmp_path / "port"), **cfg), synthetic_faces=True)
+    seen = []
+    real = ttr.prepare_recon_batch
+    ttr.prepare_recon_batch = lambda *a, **k: seen.append(real(*a, **k)) or seen[-1]
+    steps = 8
+    rows = [ttr.train_step(i) for i in range(steps)]
+    jtypes = []
+    for i in range(steps):
+        before = len(jtr._get_recon_step.calls)
+        jtr.train_step(i)
+        jtypes.append("recon" if len(jtr._get_recon_step.calls) > before else "arc2face_distill")
+    types = [r["iter_type"] for r in rows]
+    assert types == jtypes and set(types) == {"recon", "arc2face_distill"}, types
+    distill = [r for r in rows if r["iter_type"] == "arc2face_distill"]
+    assert [r["num_denoising_steps"] for r in distill] == [c[0] for c in jtr._distill_steps.calls]
+    recon = [b for b, ty in zip(seen, types) if ty == "recon"]
+    assert len(recon) == len(jtr._get_recon_step.calls)
+    stds = []
+    for b, c in zip(recon, jtr._get_recon_step.calls):
+        for k, v in c.items():
+            np.testing.assert_allclose(b[k].numpy(), v, rtol=1e-6, err_msg=k)
+        stds.append(float(c["emb_noise_std"]))
+    assert 0.0 in stds and any(0.02 <= s <= 0.04 for s in stds), stds   # the coin both ways
+    for b, c in zip([b for b, ty in zip(seen, types) if ty != "recon"], jtr._distill_steps.calls):
+        np.testing.assert_allclose(b["skip_weights"].numpy(), c[2], rtol=1e-6)
+        assert float(b["emb_noise_std"]) == 0.0
+    np.testing.assert_array_equal(jtr.rng.random(4), ttr.rng.random(4))   # same stream after
+    for r in rows:
+        assert np.isfinite(r["loss"] if r["iter_type"] == "recon"
+                           else r["loss_arc2face_distill"]) and r["grad_norm"] > 0
+        if r["iter_type"] == "recon":
+            assert r["loss_fg_xlayer_consist"] > 0
+    # emb_scales moved: the recon steps train it
+    assert ttr.state.params["emb_scales"].detach().abs().max() > 0

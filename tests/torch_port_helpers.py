@@ -5,6 +5,7 @@ zero_module convs above all) makes a parity test pass vacuously."""
 
 import jax
 import numpy as np
+import optax
 import torch
 
 from adaprompt_tpu.adaface import subj_basis_generator as jsbg
@@ -119,6 +120,16 @@ def _train_cfgs(eos):
     unet = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, attention_ds=(1, 2),
                 num_heads=4, context_dim=HIDDEN)
     return jt, tt, junet.UNetConfig(**unet, use_checkpoint=False), tunet.UNetConfig(**unet)
+
+
+def keeping_grads(tx):
+    """optax `tx` that also keeps the gradients it was given in its state, so
+    a JAX step hands them back beside the updated parameters."""
+    def update(g, state, params=None):
+        upd, inner = tx.update(g, state[0], params)
+        return upd, (inner, g)
+    return optax.GradientTransformation(
+        lambda p: (tx.init(p), jax.tree.map(jax.numpy.zeros_like, p)), update)
 
 
 def train_env(d):
