@@ -11,15 +11,19 @@ package:
              autograd Functions; int8 quantization; ToMe token merging;
              cuda_build compiles csrc/*.cu
   models/    CLIP text encoder, UNet (with DeepCache, ToMe, int8 and
-             fused_conv), VAE and the ArcFace IResNet trunk as nn.Modules
+             fused_conv), VAE, the ArcFace IResNet trunk and the CLIP
+             vision tower (ViT-H/14, with the fg/bg pairwise mask) as
+             nn.Modules
   sampling/  the noise schedule, DDIM and DPM-Solver++(2M) with annealed
              classifier-free guidance, the DeepCache / CFG-tail loop
-  adaface/   Arc2Face embeddings, the SubjBasisGenerator (face branch),
+  adaface/   Arc2Face embeddings, the SubjBasisGenerator (face and
+             background branches), the zero-shot CLIP image features,
              placeholders, .npz checkpoints, and wrapper.AdaFacePipeline:
              photos -> 16 subject tokens -> personalized generations
   eval/      the ArcFace face embedder and identity similarity
-  train/     Stage-1 Arc2Face distillation: losses, teacher chain, the step,
-             Prodigy, the trainer
+  train/     Stage-1 Arc2Face distillation and zero-shot recon iterations
+             (with the background token): losses, fg/bg regularizers,
+             teacher chain, the steps, Prodigy, the trainer
   utils/     the CLIP tokenizer, the ONNX initializer reader
   pipeline   StableDiffusionPipeline: txt2img on the card, and the serving
              stack (FastConfig, sampler="dpmpp", quant="int8")

@@ -3,7 +3,7 @@ reconstruction step.
 
 Port of `adaprompt_tpu/train/steps.py` (`TrainState`, `FrozenSD`,
 `frozen_params`, `make_arc2face_distill_step`) and of the JAX trainer's
-`apply_emb_scale` and `make_zs_recon_step` (without the background branch).
+`apply_emb_scale` and `make_zs_recon_step`.
 
 Distillation (`DistillStep`). The frozen Arc2Face
 teacher denoises a chain of ND steps; the student, the frozen SD UNet
@@ -17,7 +17,10 @@ encoder into the SubjBasisGenerator.
 Reconstruction (`ReconStep`). The trainable SubjBasisGenerator's subject
 vectors, with the host-drawn embedding noise and the learnable global
 scale (`apply_emb_scale`), are spliced into the caption at the subject
-placeholder and encoded by the frozen SD text encoder; the frozen UNet
+placeholder and encoded by the frozen SD text encoder; under `use_bg` the
+trainable background SubjBasisGenerator's 4 vectors a layer, made from the
+batch's zero-shot CLIP features, are spliced at the background placeholder
+of each of the 16 layers' prompts as well. The frozen UNet
 reconstructs the noised latents under the augmentation mask, optionally
 with subject conv-attention. The loss is the fg/bg-weighted MSE and, under
 `fgbg_reg`, the fg/bg attention regularizers on the captured
@@ -182,19 +185,25 @@ def apply_emb_scale(embs: torch.Tensor, params: dict, batch: dict, index: int) -
 
 
 class ReconStep:
-    """The zero-shot reconstruction iteration (subject branch only).
+    """The zero-shot reconstruction iteration.
 
     step(state, fp, batch, gen) -> (state, metrics) with batch
     {'z0' [B,h,w,4] scaled latents, 'faceid' [B,512] normalized,
      'caption_ids' [B,77], 'subj_bi' [B], 'subj_pos' [B], 'fg_mask' and
      'aug_mask' [B,h,w,1] | None, 'skip_weights' [N], 'emb_noise_std'
-     scalar (0 = off), 'emb_scale_perturb' [2] | None}."""
+     scalar (0 = off), 'emb_scale_perturb' [2] | None, and under use_bg
+     'clip_features' [B,2S,1280], 'bg_bi' [B], 'bg_pos' [B]}; the state's
+     params hold 'bg_basis' under use_bg."""
 
-    def __init__(self, frozen: FrozenSD, tokenizer, subj_basis_cfg, *, fgbg_reg: bool = False,
+    def __init__(self, frozen: FrozenSD, tokenizer, subj_basis_cfg, *, bg_basis_cfg=None,
+                 use_bg: bool = False, fgbg_reg: bool = False,
                  num_ca_layers: int = 16, sched: DiffusionSchedule = SD15_SCHEDULE,
                  compute_dtype=torch.bfloat16, fg_bg_complementary_loss_weight: float = 2e-4,
                  fg_bg_xlayer_consist_loss_weight: float = 5e-5, conv_attn_kernel_size: int = 0):
+        if use_bg and bg_basis_cfg is None:
+            raise ValueError("use_bg needs bg_basis_cfg, the background generator's config")
         self.frozen, self.tokenizer, self.subj_basis_cfg = frozen, tokenizer, subj_basis_cfg
+        self.bg_basis_cfg, self.use_bg = bg_basis_cfg, use_bg
         self.fgbg_reg, self.num_ca_layers = fgbg_reg, num_ca_layers
         self.sched, self.compute_dtype = sched, compute_dtype
         self.complementary_weight = fg_bg_complementary_loss_weight
@@ -227,9 +236,18 @@ class ReconStep:
             subj_embs = add_noise_to_tensor(subj_embs, std, noise=draws["emb_noise"])
         subj_embs = apply_emb_scale(subj_embs, params, batch, 0)
         # the zero-shot subject vectors repeat over the layers: splice L' = 1
-        ctx = encode_spliced(fp["text"], batch["caption_ids"],
-                             [(subj_embs[:, :1], batch["subj_bi"], batch["subj_pos"], k)],
-                             batch["skip_weights"], self.num_ca_layers)
+        splices = [(subj_embs[:, :1], batch["subj_bi"], batch["subj_pos"], k)]
+        bg_rows = None
+        if self.use_bg:
+            k_bg = self.bg_basis_cfg.num_out_embs_per_layer
+            bg_embs, _ = params["bg_basis"](tok, clip_features=batch["clip_features"],
+                                            is_training=True)
+            bg_embs = apply_emb_scale(bg_embs, params, batch, 1)
+            # the background vectors differ by layer: 16 prompts a caption
+            splices.append((bg_embs, batch["bg_bi"], batch["bg_pos"], k_bg))
+            bg_rows = batch["bg_pos"][:, None] + torch.arange(k_bg, device=z0.device)[None]
+        ctx = encode_spliced(fp["text"], batch["caption_ids"], splices, batch["skip_weights"],
+                             self.num_ca_layers, layerwise=self.use_bg)
         t, noise = draws["t"], draws["noise"]
         z_t = q_sample(self.sched, z0, t, noise)
         subj_rows = batch["subj_pos"][:, None] + torch.arange(k, device=z0.device)[None]
@@ -247,10 +265,10 @@ class ReconStep:
         if self.fgbg_reg:
             scores = {li: v.float() for li, v in caps["attnscore"].items()}
             comple, subj_mb, bg_mf, contrast = fgbg.calc_fg_bg_complementary_loss(
-                scores, subj_rows, None, b, fg_grad_scale=0.1, fg_mask=batch.get("fg_mask"))
+                scores, subj_rows, bg_rows, b, fg_grad_scale=0.1, fg_mask=batch.get("fg_mask"))
             # the complementary term at 0.2 under zero-shot training
             loss_contrast = (comple * 0.2 + subj_mb + bg_mf + contrast) * self.complementary_weight
-            fg_x, bg_x = fgbg.calc_fg_bg_xlayer_consist_loss(scores, subj_rows, None, b)
+            fg_x, bg_x = fgbg.calc_fg_bg_xlayer_consist_loss(scores, subj_rows, bg_rows, b)
             loss_xlayer = (fg_x * 0.2 + bg_x * 0.06) * self.xlayer_weight
             loss = loss + loss_contrast + loss_xlayer
             metrics.update({"loss_fg_bg_complementary": comple,

@@ -17,7 +17,13 @@ A recon iteration (`steps.ReconStep`) splices the subject vectors into the
 caption at its placeholder, trains the SubjBasisGenerator and the global
 scales `emb_scales` on the fg/bg-weighted reconstruction loss, under
 `fgbg_reg` with the fg/bg attention regularizers, and under
-`use_conv_attn_kernel_size` > 1 with subject conv-attention.
+`use_conv_attn_kernel_size` > 1 with subject conv-attention. With a
+background generator (`bg_params`, its config `bg_basis_cfg` and the
+zero-shot feature extractor `zs_extractor`), a recon iteration takes the
+background ("y" token) branch with probability `use_background_token_prob`:
+its captions are `caption_bg`, the CLIP features of the masked images come
+from the extractor, and the background generator trains beside the subject
+one (iteration type "recon_bg").
 
 The gradient pipeline is clip_by_global_norm(0.5) -> Prodigy with the
 warm-up + linear-decay schedule, behind MultiSteps(grad_accum)
@@ -31,8 +37,7 @@ image; a faceless image falls back to a random id from the host stream, as
 in the JAX package. Without an embedder, `synthetic_faces=True` opts in to
 random ids for every image.
 
-Not in this slice (NotImplementedError): the background ("y" token)
-branch of recon iterations (`bg_params`), compositional iterations, EMA
+Not in this slice (NotImplementedError): compositional iterations, EMA
 (`use_ema`), `distribute`, full-state resume and the AdamW optimizer
 (`optimizer_type="AdamW"`, `base_lr`). The config carries every field of
 the JAX package's, with its defaults; the constructor takes the JAX
@@ -119,10 +124,17 @@ def build_optimizer(cfg: TrainerConfig, params: list) -> GradientPipeline:
     return GradientPipeline(inner, cfg.grad_clip, max(cfg.grad_accum, 1))
 
 
+# the subject and background placeholders, each followed by K - 1 ", " so
+# that their 16 and 4 spliced rows do not overlap
+CAPTION_BG = "a photo of a z" + ", " * 15 + "person with background y" + ", " * 3
+
+
 def synthetic_raw_batches(seed: int, batch_size: int = 4, size: int = 512):
     """Raw batches with the dataset's keys, from a seed: random images, a box
-    foreground mask, an augmentation mask that pads ~29% of the width, and a
-    caption with the subject placeholder."""
+    foreground mask, an augmentation mask that pads ~29% of the width, a
+    caption with the subject placeholder, and one with the subject and the
+    background placeholders, each followed by K - 1 ", " as the dataset's
+    prompts pad them (16 subject vectors, 4 background ones)."""
     rng = np.random.default_rng(seed)
     while True:
         img = rng.integers(0, 256, (batch_size, size, size, 3), dtype=np.uint8)
@@ -131,7 +143,8 @@ def synthetic_raw_batches(seed: int, batch_size: int = 4, size: int = 512):
         aug = np.ones((batch_size, size, size), np.uint8)
         aug[:, :, :150 * size // 512] = 0
         yield {"image": img.astype(np.float32) / 127.5 - 1.0, "image_unnorm": img,
-               "fg_mask": fg, "aug_mask": aug, "caption": ["a photo of a z person"] * batch_size}
+               "fg_mask": fg, "aug_mask": aug, "caption": ["a photo of a z person"] * batch_size,
+               "caption_bg": [CAPTION_BG] * batch_size}
 
 
 class AdaPromptTrainer:
@@ -168,10 +181,9 @@ class AdaPromptTrainer:
                  bg_params=None, zs_extractor=None, bg_spec=None,
                  use_background_token_prob: float = 0.9, emb_noise_prob: dict | None = None,
                  emb_noise_std_range: tuple = (0.02, 0.04)):
-        if bg_params is not None:
-            raise NotImplementedError("the background ('y' token) branch of recon iterations "
-                                      "(bg_params: the background SubjBasisGenerator, its CLIP "
-                                      "vision features) is not ported yet")
+        if bg_params is not None and (bg_basis_cfg is None or zs_extractor is None):
+            raise ValueError("bg_params (the background SubjBasisGenerator) needs its config "
+                             "bg_basis_cfg and a zs_extractor for the CLIP image features")
         if (cfg.composition_regs_iter_gap > 0 and clip_scorer is None
                 and not cfg.no_teacher_filter):
             raise ValueError(
@@ -207,15 +219,17 @@ class AdaPromptTrainer:
         self.rng = np.random.default_rng(cfg.seed)
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._global_step = 0
-        if subject_spec is None:
+        if subject_spec is None or (bg_params is not None and bg_spec is None):
             specs = cond_mod.make_placeholders(
                 tokenizer, ("z",), ("y",), num_vectors_subj=subj_basis_cfg.num_out_embs_per_layer,
                 num_vectors_bg=bg_basis_cfg.num_out_embs_per_layer if bg_basis_cfg else 4)
-            subject_spec, bg_spec = specs[0], bg_spec or specs[1]
+            subject_spec, bg_spec = subject_spec or specs[0], bg_spec or specs[1]
         self.subject_spec, self.bg_spec = subject_spec, bg_spec
         params = {"subj_basis": sbg,
                   # learnable per-placeholder global scale scores
                   "emb_scales": nn.Parameter(torch.zeros(2, device=self.device))}
+        if bg_params is not None:
+            params["bg_basis"] = bg_params
         self.state = steps_mod.TrainState(
             params, build_optimizer(cfg, steps_mod.trainable_parameters(params)))
         self._recon_steps = {}     # keyed by (use_bg, fgbg_reg)
@@ -266,13 +280,13 @@ class AdaPromptTrainer:
         caption lacks it), latent-size masks, and the host draws: clip-skip
         weights, the embedding-noise std of `iter_type` and the global-scale
         perturbation. Each image's id is its first face's embedding, or a
-        random one when it shows no face or there is no embedder."""
-        if use_bg:
-            raise NotImplementedError("the background ('y' token) branch of recon iterations "
-                                      "is not ported yet")
+        random one when it shows no face or there is no embedder. Under
+        `use_bg` the captions are `caption_bg`, and the batch also holds the
+        background placeholder's rows and positions (same fallback) and the
+        zero-shot CLIP features of the fg- and bg-masked images."""
         imgs = torch.as_tensor(np.asarray(raw["image"]), device=self.device).to(self.dtype)
         z0 = (self.vae.encode(imgs)[0] * SD_SCALE_FACTOR).float()
-        ids = np.asarray(self.tokenizer(list(raw["caption"])))
+        ids = np.asarray(self.tokenizer(list(raw["caption_bg"] if use_bg else raw["caption"])))
         bi, pos = cond_mod.find_placeholder_indices(ids, self.subject_spec)
         b = z0.shape[0]
         if self.face_embedder is not None:
@@ -283,7 +297,7 @@ class AdaPromptTrainer:
             faceid = self.rng.standard_normal((b, 512)).astype(np.float32)
         faceid = faceid / np.linalg.norm(faceid, axis=-1, keepdims=True)
         dev = self.device
-        return {"z0": z0, "faceid": torch.as_tensor(faceid, device=dev),
+        batch = {"z0": z0, "faceid": torch.as_tensor(faceid, device=dev),
                 "caption_ids": torch.as_tensor(ids, device=dev).long(),
                 "subj_bi": torch.as_tensor(bi if len(bi) == b else np.arange(b), device=dev).long(),
                 "subj_pos": torch.as_tensor(pos if len(pos) == b else np.full(b, 1),
@@ -293,6 +307,17 @@ class AdaPromptTrainer:
                 "skip_weights": torch.as_tensor(self._skip_weights(), device=dev),
                 "emb_noise_std": torch.tensor(self._emb_noise_std(iter_type), device=dev),
                 "emb_scale_perturb": torch.as_tensor(self._emb_scale_perturb(), device=dev)}
+        if use_bg:
+            bg_bi, bg_pos = cond_mod.find_placeholder_indices(ids, self.bg_spec)
+            clip_feats, _, _ = self.zs_extractor(raw["image_unnorm"], fg_masks=raw.get("fg_mask"),
+                                                 is_face=True)
+            batch.update({
+                "clip_features": clip_feats.to(dev),
+                "bg_bi": torch.as_tensor(bg_bi if len(bg_bi) == b else np.arange(b),
+                                         device=dev).long(),
+                "bg_pos": torch.as_tensor(bg_pos if len(bg_pos) == b else np.full(b, 1),
+                                          device=dev).long()})
+        return batch
 
     # -- the state machine --------------------------------------------------------
 
@@ -308,7 +333,8 @@ class AdaPromptTrainer:
         key = (use_bg, fgbg_reg)
         if key not in self._recon_steps:
             self._recon_steps[key] = steps_mod.make_zs_recon_step(
-                self.frozen, self.tokenizer, self.subj_basis_cfg, fgbg_reg=fgbg_reg,
+                self.frozen, self.tokenizer, self.subj_basis_cfg, bg_basis_cfg=self.bg_basis_cfg,
+                use_bg=use_bg, fgbg_reg=fgbg_reg,
                 compute_dtype=self.dtype,
                 conv_attn_kernel_size=self.cfg.use_conv_attn_kernel_size)
         return self._recon_steps[key]
@@ -318,7 +344,7 @@ class AdaPromptTrainer:
         raw = next(self.batch_iterator)
         do_distill = self.rng.random() < self.cfg.arc2face_distill_iter_prob
         # the background token only on recon iterations, and only with a
-        # background generator (none is ported: no draw is made)
+        # background generator (no draw is made without one)
         use_bg = (not do_distill and self.bg_params is not None
                   and self.rng.random() < self.use_background_token_prob)
         batch = self.prepare_recon_batch(
@@ -397,8 +423,10 @@ class AdaPromptTrainer:
         self._flush_metrics()
         path = os.path.join(self.cfg.out_dir, f"embeddings_gs-{step}.npz")
         params = self.state.params
-        trees = {"subj_basis": ckpt_mod.module_tree(params["subj_basis"]),
-                 "emb_scales": {"scores": params["emb_scales"].detach().float().cpu().numpy()}}
+        trees = {"subj_basis": ckpt_mod.module_tree(params["subj_basis"])}
+        if "bg_basis" in params:
+            trees["bg_basis"] = ckpt_mod.module_tree(params["bg_basis"])
+        trees["emb_scales"] = {"scores": params["emb_scales"].detach().float().cpu().numpy()}
         ckpt_mod.save_checkpoint(path, trees,
                                  meta={"step": step, "placeholder": self.subject_spec.string})
         return path
@@ -409,6 +437,8 @@ class AdaPromptTrainer:
         trees, meta = ckpt_mod.load_checkpoint(path)
         params = self.state.params
         ckpt_mod.load_module_tree(params["subj_basis"], trees["subj_basis"])
+        if "bg_basis" in trees and "bg_basis" in params:
+            ckpt_mod.load_module_tree(params["bg_basis"], trees["bg_basis"])
         if "emb_scales" in trees:
             with torch.no_grad():
                 params["emb_scales"].copy_(torch.as_tensor(trees["emb_scales"]["scores"]))

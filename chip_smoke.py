@@ -2,7 +2,9 @@
 """Drive the PyTorch port's paths on one NVIDIA H100: SD-1.5 txt2img,
 Stage-1 Arc2Face-distillation training, zero-shot recon training (the
 spliced prompt, activation capture, the fg/bg attention regularizers,
-subject conv-attention), the composed serving stack (DPM-Solver++ 20 steps
+subject conv-attention, and the background "y" token's branch: the CLIP
+ViT-H/14 vision tower's masked zero-shot features through the background
+SubjBasisGenerator), the composed serving stack (DPM-Solver++ 20 steps
 with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
 (AdaFacePipeline: photos -> ArcFace -> 16 subject tokens -> personalized
 DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
@@ -68,7 +70,10 @@ Phases, in order (any failure exits non-zero without the final line):
      capture_ca=True and the fg/bg regularizers (box fg mask) on its
      attention scores, card against CPU, bounding the relative error of the
      context gradient and of each of the 12 captured score maps, with exact
-     launch counts;
+     launch counts; then the vision-tower check: one seeded 224x224 image
+     with a box fg mask through the full-width CLIP ViT-H/14 encode in fp32
+     on the card and on the CPU, bounding the relative L2 error of its
+     second-to-last hidden states and of pooled (no kernel launched);
   5. generate 2 prompts at 512x512 with DDIM-50 through
      StableDiffusionPipeline.generate with random weights from a seed, and
      check that each bf16 forward kernel (B1-B3) was launched 10 times per
@@ -99,10 +104,15 @@ Phases, in order (any failure exits non-zero without the final line):
      frozen models: an AdaPromptTrainer with arc2face_distill_iter_prob=0
      and fgbg_reg=True and a fresh seeded SubjBasisGenerator takes 4 recon
      steps (two accumulated updates), then one over the same generator with
-     use_conv_attn_kernel_size=3 takes 2; check every metric of the JAX
-     step (finite), the cross-layer term and the gradient norm > 0, that the
-     SubjBasisGenerator and emb_scales moved, and the exact launch counts;
-     log s/step and peak memory;
+     use_conv_attn_kernel_size=3 takes 2, then one with a full-width CLIP
+     ViT-H/14 behind a ZeroShotFeatureExtractor and a seeded background
+     SubjBasisGenerator (514 feature rows) and use_background_token_prob=1
+     takes 4 "recon_bg" steps (background vectors spliced per layer);
+     check every metric of the JAX step (finite), the cross-layer terms
+     (the background one under recon_bg) and the gradient norm > 0, that the
+     generators and emb_scales moved, and the exact launch counts (none
+     inside the extractor's calls); log s/step, the extractor's time a call
+     and peak memory;
  11. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
@@ -139,6 +149,8 @@ FLASH_BWD_TOL = 1e-2    # max|kernel - plain| / max|plain| per gradient (measure
 TRAIN_STEPS = 4         # seed 0 draws ND = 1, 5, 1, 1
 RECON_STEPS = 4         # two accumulated updates; then RECON_CONV_STEPS with conv-attention
 RECON_CONV_STEPS = 2
+RECON_BG_STEPS = 4      # two accumulated updates, every step "recon_bg"
+VISION_TOL = 1e-4       # ViT-H/14 fp32 card (TF32 off) vs fp32 CPU, relative L2
 RECON_METRICS = ("loss", "loss_recon", "loss_fg_bg_complementary", "loss_subj_mb_suppress",
                  "loss_bg_mf_suppress", "loss_fg_bg_mask_contrast", "loss_fg_xlayer_consist",
                  "loss_bg_xlayer_consist", "grad_norm")
@@ -1636,6 +1648,67 @@ def phase_unet_grad():
         raise AssertionError(f"capture check launches {cap_counts}, expected {want}")
 
 
+def vision_tower_check(seed: int = 7) -> dict:
+    """One seeded 224x224 photo with a box fg mask through the full-width
+    CLIP ViT-H/14 encode (fp32, random weights from `seed`) on the card and,
+    with the same weights and input, on the CPU: the relative L2 errors of
+    the second-to-last hidden states (what the zero-shot features read) and
+    of pooled, the kernel launches of the card's pass (its attention takes
+    the full pairwise mask and is plain), and the times."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.models.clip_vision import (CLIP_VIT_H14_VISION, CLIPVisionModel,
+                                                        preprocess)
+    cfg = CLIP_VIT_H14_VISION
+    card = CLIPVisionModel.random_init(seed, cfg, device="cuda")
+    n_params = sum(p.numel() for p in card.parameters())
+    rng = np.random.default_rng(seed)
+    photo = rng.integers(0, 256, (1, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    mask = torch.zeros(1, cfg.image_size, cfg.image_size, 1)
+    mask[:, 56:168, 70:154] = 1.0
+    x = preprocess(photo, cfg.image_size, device="cuda")
+    before = read_counts()
+    with torch.no_grad():
+        card.encode(x, attn_mask=mask.cuda())              # first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = card.encode(x, attn_mask=mask.cuda(), output_hidden_states=True)
+        got = (out["hidden_states"][-2].cpu(), out["pooled"].cpu())
+    card_s = time.perf_counter() - t0
+    launches = counts_since(before)
+    cpu = CLIPVisionModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    del card, out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu.encode(x.cpu(), attn_mask=mask, output_hidden_states=True)
+    cpu_s = time.perf_counter() - t0
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    return {"hidden_states[-2]": rel(got[0], ref["hidden_states"][-2]),
+            "pooled": rel(got[1], ref["pooled"]), "launches": nz(launches),
+            "params_M": n_params / 1e6, "card_s": card_s, "cpu_s": cpu_s,
+            "hidden_max": ref["hidden_states"][-2].abs().max().item()}
+
+
+def phase_vision_check():
+    """Phase 4, the vision-tower check: vision_tower_check within VISION_TOL."""
+    t0 = time.perf_counter()
+    r = vision_tower_check()
+    log(f"phase 4 vision: CLIP ViT-H/14 ({r['params_M']:.1f} M parameters) fp32 card vs fp32 "
+        f"CPU, 224x224 with a box fg mask: relative L2 error of hidden_states[-2] "
+        f"{r['hidden_states[-2]']:.4e}, pooled {r['pooled']:.4e} (bound {VISION_TOL:g} each); "
+        f"|hidden_states[-2]| max {r['hidden_max']:.3e}; card {r['card_s']:.3f} s (second "
+        f"call), CPU {r['cpu_s']:.1f} s, the check {time.perf_counter() - t0:.1f} s all told; "
+        f"launches {r['launches']}")
+    for name in ("hidden_states[-2]", "pooled"):
+        if not (math.isfinite(r[name]) and r[name] <= VISION_TOL):
+            raise AssertionError(f"vision tower {name} on the card disagrees with the CPU: "
+                                 f"{r[name]}")
+    if r["launches"]:
+        raise AssertionError(f"the vision tower launched kernels: {r['launches']}")
+
+
 def phase_generate():
     """The txt2img path through the public entry point, then (phase 9) the
     same pipeline under each flash variant; returns {path: launch counts} of
@@ -1847,12 +1920,59 @@ def phase_train_variants(tr, first_step):
     return by_path
 
 
+def _recon_turn(path, trainer, n_steps, after_update=None):
+    """n_steps recon steps of `trainer` with the launch counts set to 0 just
+    before: checks each step's metrics (finite, the cross-layer terms and the
+    gradient norm > 0; under recon_bg the background term too) and the exact
+    launches, logs them with s/step and peak memory. Calls after_update()
+    after the first accumulated update. Returns the launch counts."""
+    import torch
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30    # every model and state held so far
+    rows, times = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer.train_step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        rows.append({k: (float(v) if isinstance(v, torch.Tensor) else v) for k, v in m.items()})
+        if after_update is not None and i == trainer.cfg.grad_accum - 1:
+            after_update()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r, sec in zip(rows, times):
+        log(f"phase 10 {path} step {r['step']}: " + " ".join(
+            f"{k}={r[k]:.6e}" for k in RECON_METRICS) + f" {sec:.3f} s")
+    log(f"phase 10 {path}: {n_steps} recon steps bs 4 512x512 bf16 fgbg_reg in "
+        f"{sum(times):.3f} s (step times {[round(sec, 3) for sec in times]}); peak memory "
+        f"{peak:.2f} GiB ({resident:.2f} GiB held before the first step); "
+        f"launches {nz(launches)}")
+    iter_type = "recon_bg" if path == "recon_bg" else "recon"
+    for r in rows:
+        if not (r["iter_type"] == iter_type and all(math.isfinite(r[k]) for k in RECON_METRICS)
+                and r["loss_fg_xlayer_consist"] > 0 and r["grad_norm"] > 0
+                and (iter_type == "recon" or r["loss_bg_xlayer_consist"] > 0)):
+            raise AssertionError(f"bad {path} metrics {r}")
+    # a student pass, its recompute and one backward a step; the 77-key
+    # cross-attention, capturing or under conv-attention, is plain
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=20 * n_steps,
+                flash_attention_bwd=FLASH_BWD_PER_PASS * n_steps, geglu_fwd=20 * n_steps)
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+    trainer._flush_metrics()
+    return launches
+
+
 def phase_recon(tr, out_dir):
     """Phase 10: zero-shot recon training through AdaPromptTrainer.train_step
     over phase 6's frozen models (student UNet, SD and Arc2Face CLIP-L, VAE)
     with a fresh SubjBasisGenerator from a seed: RECON_STEPS steps with the
     fg/bg regularizers, then RECON_CONV_STEPS with subject conv-attention
-    (kernel size 3) over the same generator. Returns {path: launch counts}."""
+    (kernel size 3) over the same generator, then RECON_BG_STEPS with the
+    background token (phase_recon_bg). Returns {path: launch counts}."""
     import torch
     from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
     from adaprompt_tpu_torch.ops.layers import reset_parameters
@@ -1871,51 +1991,101 @@ def phase_recon(tr, out_dir):
                if n in ("hidden_state_layer_weights", "prompt2token_proj.layers.11.mlp.fc2.weight",
                         "prompt2token_proj.token_embedding")}
     watched["emb_scales"] = rt.state.params["emb_scales"].detach().clone()
-    by_path, moved = {}, None
-    for path, trainer, n_steps in (("recon", rt, RECON_STEPS), ("recon_conv", None,
-                                                                RECON_CONV_STEPS)):
-        if trainer is None:
-            trainer = make(dataclasses.replace(cfg, use_conv_attn_kernel_size=3))
-        zero_counts()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated() / 2 ** 30    # every model and state held so far
-        rows, times = [], []
-        for i in range(n_steps):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            m = trainer.train_step(i)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
-            rows.append({k: (float(v) if isinstance(v, torch.Tensor) else v) for k, v in m.items()})
-            if moved is None and i == cfg.grad_accum - 1:       # the first accumulated update
-                now = dict(sbg.named_parameters(), emb_scales=rt.state.params["emb_scales"])
-                moved = {n: not torch.equal(p, now[n]) for n, p in watched.items()}
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        for r, sec in zip(rows, times):
-            log(f"phase 10 {path} step {r['step']}: " + " ".join(
-                f"{k}={r[k]:.6e}" for k in RECON_METRICS) + f" {sec:.3f} s")
-        log(f"phase 10 {path}: {n_steps} recon steps bs 4 512x512 bf16 fgbg_reg in "
-            f"{sum(times):.3f} s (step times {[round(sec, 3) for sec in times]}); peak memory "
-            f"{peak:.2f} GiB ({resident:.2f} GiB held before the first step); "
-            f"launches {nz(launches)}")
-        for r in rows:
-            if not (r["iter_type"] == "recon" and all(math.isfinite(r[k]) for k in RECON_METRICS)
-                    and r["loss_fg_xlayer_consist"] > 0 and r["grad_norm"] > 0):
-                raise AssertionError(f"bad recon metrics {r}")
-        # a student pass, its recompute and one backward a step; the 77-key
-        # cross-attention, capturing or under conv-attention, is plain
-        want = {n: 0 for n in launches}
-        want.update(flash_attention_fwd=20 * n_steps,
-                    flash_attention_bwd=FLASH_BWD_PER_PASS * n_steps, geglu_fwd=20 * n_steps)
-        if launches != want:
-            raise AssertionError(f"{path} launches {launches}, expected {want}")
-        by_path[path] = launches
-        trainer._flush_metrics()
+    moved = {}
+
+    def check_moved():
+        now = dict(sbg.named_parameters(), emb_scales=rt.state.params["emb_scales"])
+        moved.update({n: not torch.equal(p, now[n]) for n, p in watched.items()})
+
+    by_path = {"recon": _recon_turn("recon", rt, RECON_STEPS, check_moved)}
+    conv = make(dataclasses.replace(cfg, use_conv_attn_kernel_size=3))
+    by_path["recon_conv"] = _recon_turn("recon_conv", conv, RECON_CONV_STEPS)
     log(f"phase 10 SubjBasisGenerator and emb_scales moved after the first update: {moved}")
-    if not all(moved.values()):
+    if not (moved and all(moved.values())):
         raise AssertionError(f"recon steps left parameters unmoved: {moved}")
+    del rt, conv
+    by_path["recon_bg"] = phase_recon_bg(tr, sbg, out_dir)
     return by_path
+
+
+class _TimedExtractor:
+    """A zero-shot feature extractor whose calls are timed (synchronized
+    before and after) and whose kernel launches are counted."""
+
+    def __init__(self, ext):
+        self.ext, self.calls = ext, []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = self.ext(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append((time.perf_counter() - t0, nz(counts_since(before))))
+        return out
+
+
+def phase_recon_bg(tr, sbg, out_dir):
+    """Phase 10, recon_bg: a trainer over the same frozen models and subject
+    generator with the background branch: a full-width CLIP ViT-H/14 (fp32,
+    random weights from a seed) behind a ZeroShotFeatureExtractor, a seeded
+    background SubjBasisGenerator over its [B, 2 x 257, 1280] features, and
+    use_background_token_prob=1, so that each of RECON_BG_STEPS steps is a
+    "recon_bg" step; checks its metrics and launches (none inside the
+    extractor) and that both generators and emb_scales[1] moved. Returns
+    the launch counts."""
+    import torch
+    from adaprompt_tpu_torch.adaface.subj_basis_generator import (SUBJ_CONFIG, SubjBasisConfig,
+                                                                  SubjBasisGenerator)
+    from adaprompt_tpu_torch.adaface.zs_features import ZeroShotFeatureExtractor
+    from adaprompt_tpu_torch.models.clip_vision import CLIP_VIT_H14_VISION, CLIPVisionModel
+    from adaprompt_tpu_torch.ops.layers import reset_parameters
+    from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
+                                                   synthetic_raw_batches)
+    t0 = time.perf_counter()
+    vision = CLIPVisionModel.random_init(8, CLIP_VIT_H14_VISION, device="cuda")
+    # the zero-shot features concatenate the fg and the bg pass: 2 x 257 rows
+    bg_cfg = SubjBasisConfig(placeholder_is_bg=True, num_out_embs_per_layer=4,
+                             num_id_vecs_bg=2 * CLIP_VIT_H14_VISION.seq_len)
+    bg = reset_parameters(SubjBasisGenerator(bg_cfg, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(9))
+    ext = _TimedExtractor(ZeroShotFeatureExtractor(vision))
+    cfg = TrainerConfig(seed=2, out_dir=out_dir, arc2face_distill_iter_prob=0.0, fgbg_reg=True)
+    bt = AdaPromptTrainer(tr.frozen, tr.vae, tr.tokenizer, SUBJ_CONFIG, sbg,
+                          synthetic_raw_batches(2), cfg, synthetic_faces=True,
+                          bg_basis_cfg=bg_cfg, bg_params=bg, zs_extractor=ext,
+                          use_background_token_prob=1.0)
+    torch.cuda.synchronize()
+    log(f"phase 10 recon_bg trainer: built in {time.perf_counter() - t0:.1f} s; CLIP ViT-H/14 "
+        f"{sum(p.numel() for p in vision.parameters()) / 1e6:.1f} M parameters (fp32), "
+        f"background generator {sum(p.numel() for p in bg.parameters()) / 1e6:.2f} M")
+    watched = {("bg_basis", n): p.detach().clone() for n, p in bg.named_parameters()
+               if n in ("bg_proj_in.weight", "latent_queries", "pos_embs",
+                        "prompt_translator.to_v.weight")}
+    watched[("subj_basis", "hidden_state_layer_weights")] = \
+        sbg.hidden_state_layer_weights.detach().clone()
+    watched[("emb_scales", "1")] = bt.state.params["emb_scales"][1].detach().clone()
+    moved = {}
+
+    def check_moved():
+        now = {("bg_basis", n): p for n, p in bg.named_parameters()}
+        now[("subj_basis", "hidden_state_layer_weights")] = sbg.hidden_state_layer_weights
+        now[("emb_scales", "1")] = bt.state.params["emb_scales"][1]
+        moved.update({".".join(k): not torch.equal(p, now[k]) for k, p in watched.items()})
+
+    launches = _recon_turn("recon_bg", bt, RECON_BG_STEPS, check_moved)
+    times = [round(sec, 4) for sec, _ in ext.calls]
+    log(f"phase 10 recon_bg extractor: {len(ext.calls)} calls (4 images 512x512 -> 224, fg and "
+        f"bg ViT-H/14 passes; the first also the zero image's) in {times} s; launches inside "
+        f"{[c for _, c in ext.calls]}")
+    log(f"phase 10 recon_bg generators and emb_scales[1] moved after the first update: {moved}; "
+        f"the part {time.perf_counter() - t0:.1f} s all told")
+    if len(ext.calls) != RECON_BG_STEPS or any(c for _, c in ext.calls):
+        raise AssertionError(f"extractor calls {ext.calls}: expected {RECON_BG_STEPS}, "
+                             "launching no kernel")
+    if not (moved and all(moved.values())):
+        raise AssertionError(f"recon_bg steps left parameters unmoved: {moved}")
+    return launches
 
 
 def serve_launches(fast, steps):
@@ -2074,7 +2244,7 @@ def phase_personalize():
 
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
 _TRAIN_TURNS = ("train_default", "train_exp2")
-_RECON = ("recon", "recon_conv")       # phase 10
+_RECON = ("recon", "recon_conv", "recon_bg")       # phase 10
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
@@ -2192,6 +2362,7 @@ def main() -> int:
     results = phase_kernels()
     phase_unet_check()
     phase_unet_grad()
+    phase_vision_check()
     launches = phase_generate()
     launches.update(phase_train())
     launches.update(phase_serve())

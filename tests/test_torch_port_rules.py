@@ -69,9 +69,11 @@ def _profile_step_main():
 def _entry_points():
     from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
     from adaprompt_tpu_torch.models.arcface import ArcFace
+    from adaprompt_tpu_torch.models.clip_vision import CLIPVisionModel
     from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                    synthetic_raw_batches)
     return {"AdaFacePipeline": lambda: AdaFacePipeline.random_init(0),
+            "CLIPVisionModel": lambda: CLIPVisionModel.random_init(0),
             "AdaPromptTrainer": lambda: AdaPromptTrainer.random_init(
                 0, synthetic_raw_batches(0), TrainerConfig(seed=0)),
             "ArcFace": lambda: ArcFace.random_init(0),
@@ -79,7 +81,7 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
-                                  "profile_step"])
+                                  "CLIPVisionModel", "profile_step"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""
@@ -1667,3 +1669,23 @@ def test_unet_capture_on_the_card():
         assert rel(scores_card[li], scores_ref[li]) <= 5e-2, li
     assert launched["flash_attention_fwd"] == 10 and launched["flash_attention_bwd"] == 4
     assert launched["fused_cross_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_vision_tower_on_the_card():
+    """The full-width CLIP ViT-H/14 (fp32, TF32 off) on the card against the
+    same weights on the CPU, one seeded 224x224 photo with a box fg mask:
+    the second-to-last hidden states and pooled within 1e-4 relative L2, no
+    kernel launched (chip_smoke.vision_tower_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        r = chip_smoke.vision_tower_check()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert r["hidden_states[-2]"] <= 1e-4 and r["pooled"] <= 1e-4, r
+    assert r["launches"] == {}

@@ -154,21 +154,19 @@ def test_trainer_config_matches_jax():
     (dict(), None, ValueError, "no face_embedder"),
     (dict(composition_regs_iter_gap=3, no_teacher_filter=True), True, NotImplementedError,
      "compositional iterations"),
-    (dict(bg_params={}), True, NotImplementedError, "background"),
+    (dict(optimizer_type="AdamW"), True, NotImplementedError, "AdamW"),
     (dict(use_ema=True), True, NotImplementedError, "use_ema"),
 ])
 def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
     """What the port refuses at construction: the JAX trainer's own
     ValueErrors, with its messages (compositional training without a teacher
-    filter, no face embedder), then each unported path by name (the
-    background branch by its constructor argument bg_params)."""
-    kw = dict(kw)
-    ctor = {k: kw.pop(k) for k in ("bg_params",) if k in kw}
+    filter, no face embedder), then each unported path by name (the AdamW
+    optimizer by its config field optimizer_type)."""
     cfg = dict(out_dir=str(tmp_path), **kw)
     face = _StubEmbedder() if embedder else None
     with pytest.raises(error, match=words) as port:
         ttrainer.AdaPromptTrainer(env["tfrozen"], None, env["ttok"], env["tscfg"], None, iter(()),
-                                  ttrainer.TrainerConfig(**cfg), face_embedder=face, **ctor)
+                                  ttrainer.TrainerConfig(**cfg), face_embedder=face)
     if error is ValueError:
         with pytest.raises(ValueError) as ref:
             jtrainer.AdaPromptTrainer(env["jfrozen"], None, None, env["jtok"], env["jscfg"], None,
