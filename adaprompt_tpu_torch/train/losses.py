@@ -1,10 +1,12 @@
 """Training losses.
 
 Port of `adaprompt_tpu/train/losses.py`: `calc_recon_loss`, the loss of
-the reconstruction and Arc2Face-distillation iterations, and the masked
-cosine alignment `calc_ref_cosine_loss` (with `demean`) that the fg/bg
-attention regularizers of `train/fgbg.py` use. `ortho_subtract` and
-`calc_prompt_emb_delta_loss` come with the compositional slice.
+the reconstruction and Arc2Face-distillation iterations; the masked cosine
+alignment `calc_ref_cosine_loss` (with `demean`) that the fg/bg attention
+regularizers of `train/fgbg.py` and the compositional losses use;
+`ortho_subtract`, which removes from `a` its projection onto `b`; and
+`calc_prompt_emb_delta_loss`, the compositional iterations' alignment of
+(subj_comp - subj_single) with (cls_comp - cls_single) in prompt space.
 """
 
 from __future__ import annotations
@@ -12,6 +14,18 @@ from __future__ import annotations
 import torch
 
 from adaprompt_tpu_torch.adaface.gradient import grad_scale
+
+
+def ortho_subtract(a: torch.Tensor, b: torch.Tensor, on_last_n_dims: int = 1) -> torch.Tensor:
+    """a - b * (<a, b> / <b, b>) over the last n dims (broadcasting allowed)."""
+    if on_last_n_dims > 1:
+        a, b = torch.broadcast_tensors(a, b)
+        shape = a.shape
+        a = a.reshape(*a.shape[:-on_last_n_dims], -1)
+        b = b.reshape(*b.shape[:-on_last_n_dims], -1)
+    w = (a * b).sum(dim=-1) / ((b * b).sum(dim=-1) + 1e-6)
+    res = a - b * w[..., None]
+    return res.reshape(shape) if on_last_n_dims > 1 else res
 
 
 def demean(x: torch.Tensor, dim=-1) -> torch.Tensor:
@@ -64,6 +78,23 @@ def calc_ref_cosine_loss(delta: torch.Tensor, ref_delta: torch.Tensor, *,
         return per.mean()
     batch_mask = batch_mask.to(per.dtype)
     return (per * batch_mask).sum() / torch.maximum(batch_mask.sum(), per.new_tensor(1e-8))
+
+
+def calc_prompt_emb_delta_loss(static_embeddings: torch.Tensor,
+                               prompt_emb_mask: torch.Tensor | None,
+                               cls_delta_grad_scale: float = 0.05) -> torch.Tensor:
+    """static_embeddings [4B', L, 77, D] stacked as (subj_single, subj_comp,
+    cls_single, cls_comp); prompt_emb_mask [4B', 77, 1] (BOS excluded here)."""
+    ss, sc, cs, cc = static_embeddings.chunk(4, dim=0)
+    weighted = None
+    if prompt_emb_mask is not None:
+        mask = torch.cat([torch.zeros_like(prompt_emb_mask[:, :1]), prompt_emb_mask[:, 1:]], dim=1)
+        m_ss, m_sc, _, _ = mask.chunk(4, dim=0)
+        weighted = ((m_ss + m_sc) ** 2 / 4.0)[:, None]               # [B', 1, 77, 1]
+    return calc_ref_cosine_loss(ortho_subtract(sc, ss), ortho_subtract(cc, cs),
+                                emb_mask=weighted, do_demean_first=True,
+                                first_n_dims_to_flatten=3, ref_grad_scale=cls_delta_grad_scale,
+                                aim_to_align=True)
 
 
 def calc_recon_loss(model_output: torch.Tensor, target: torch.Tensor,

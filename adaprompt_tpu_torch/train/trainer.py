@@ -1,17 +1,16 @@
-"""Training orchestration: the host loop of Stage-1/2 training without
-compositional iterations.
+"""Training orchestration: the host loop of Stage-1 and Stage-2 training.
 
-Port of `adaprompt_tpu/train/trainer.py` for Arc2Face-distillation and
-zero-shot reconstruction iterations. Per step the host draws, from
-`numpy.random.default_rng(cfg.seed)` and in the JAX package's order: the
-iteration type (distillation with probability
-`arc2face_distill_iter_prob`, else recon), the face ids, the Dirichlet
-clip-skip weights, the embedding-noise coin and, when it comes up, the
-noise std from `emb_noise_std_range` (probabilities per iteration type in
-`emb_noise_prob`: 0.6 recon, 0 distillation), the global-scale
-perturbation, and on distillation iterations ND over (1, 3, 5, 7). ND > 1
-keeps the first ceil(B / ND) rows (HALF_BS). The device draws come from a
-`torch.Generator` seeded with cfg.seed.
+Port of `adaprompt_tpu/train/trainer.py`. Per step the host draws, from
+`numpy.random.default_rng(cfg.seed)` and in the JAX package's order: on
+every `composition_regs_iter_gap`-th step (step > 0) a compositional
+iteration and nothing else; otherwise the iteration type (distillation with
+probability `arc2face_distill_iter_prob`, else recon), the face ids, the
+Dirichlet clip-skip weights, the embedding-noise coin and, when it comes
+up, the noise std from `emb_noise_std_range` (probabilities per iteration
+type in `emb_noise_prob`: 0.6 recon, 0 distillation, 0.4 compositional),
+the global-scale perturbation, and on distillation iterations ND over (1,
+3, 5, 7). ND > 1 keeps the first ceil(B / ND) rows (HALF_BS). The device
+draws come from a `torch.Generator` seeded with cfg.seed.
 
 A recon iteration (`steps.ReconStep`) splices the subject vectors into the
 caption at its placeholder, trains the SubjBasisGenerator and the global
@@ -25,6 +24,24 @@ its captions are `caption_bg`, the CLIP features of the masked images come
 from the extractor, and the background generator trains beside the subject
 one (iteration type "recon_bg").
 
+A compositional iteration (`TrainerConfig.stage2()`) takes the first
+sample's 4-type prompts (`subj_prompt_single`, `subj_prompt_comp`,
+`cls_prompt_single`, `cls_prompt_comp`; the first composition of each);
+the subject-single row gets a 0.9 frozen / 0.1 live blend of the subject
+vectors, the frozen copy of the SubjBasisGenerator taken at construction.
+A fresh iteration (no cached x_recon for the batch's `subject_name`) draws
+`num_candidate_teachers` candidates (the foreground pasted on noise, t in
+[800, 1000)); the CLIP teacher filter (`clip_scorer`, an
+`eval/clip_scorer.py` CLIPScorer) denoises and decodes them and keeps the
+best teachable one, or skips the iteration ("compos_distill_skipped").
+A reuse iteration takes the cached x_recon at t in [400, 700) and is
+filtered on its second row. The step (`compos_step.ComposStep`) trains on
+the mix-prompt distillation, prompt-delta, cross-layer and elastic fg/bg
+preservation losses; its q BatchNorm statistics feed the running
+`ca_q_bn_stats`, saved in checkpoints. Without a scorer the trainer
+refuses compositional iterations unless `no_teacher_filter=True`, which
+treats every iteration as teachable and says so in the metrics.
+
 The gradient pipeline is clip_by_global_norm(0.5) -> Prodigy with the
 warm-up + linear-decay schedule, behind MultiSteps(grad_accum)
 (`prodigy.GradientPipeline`). Metrics go to metrics.jsonl, fetched from
@@ -37,15 +54,15 @@ image; a faceless image falls back to a random id from the host stream, as
 in the JAX package. Without an embedder, `synthetic_faces=True` opts in to
 random ids for every image.
 
-Not in this slice (NotImplementedError): compositional iterations, EMA
-(`use_ema`), `distribute`, full-state resume and the AdamW optimizer
-(`optimizer_type="AdamW"`, `base_lr`). The config carries every field of
-the JAX package's, with its defaults; the constructor takes the JAX
-trainer's arguments in its order.
+Not ported (NotImplementedError): EMA (`use_ema`), `distribute`,
+full-state resume and the AdamW optimizer (`optimizer_type="AdamW"`,
+`base_lr`). The config carries every field of the JAX package's, with its
+defaults; the constructor takes the JAX trainer's arguments in its order.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -55,14 +72,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from adaprompt_tpu_torch.adaface import arc2face
 from adaprompt_tpu_torch.adaface import checkpoint as ckpt_mod
 from adaprompt_tpu_torch.adaface import conditioner as cond_mod
+from adaprompt_tpu_torch.adaface.cls_delta import distribute_embedding_layerwise
 from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
 from adaprompt_tpu_torch.models.clip_text import CLIPTextModel
 from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, UNet
 from adaprompt_tpu_torch.models.vae import SD_SCALE_FACTOR, VAE, _resize_mask_nearest
 from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
+from adaprompt_tpu_torch.train import compos_step as cs
 from adaprompt_tpu_torch.train import steps as steps_mod
+from adaprompt_tpu_torch.train.compos import select_teachable_candidate
 from adaprompt_tpu_torch.train.lr_schedules import prodigy_lr_schedule
 from adaprompt_tpu_torch.train.prodigy import GradientPipeline, Prodigy
 
@@ -127,6 +148,13 @@ def build_optimizer(cfg: TrainerConfig, params: list) -> GradientPipeline:
 # the subject and background placeholders, each followed by K - 1 ", " so
 # that their 16 and 4 spliced rows do not overlap
 CAPTION_BG = "a photo of a z" + ", " * 15 + "person with background y" + ", " * 3
+# the 4-type prompts of the compositional iterations, as the dataset builds
+# them: the subject "z" and the class "person" each followed by K - 1 ", ",
+# so that the class word sits at the subject's position; compositions
+# "|"-joined
+SUBJ_STRING, CLS_STRING = "z" + ", " * 15, "person" + ", " * 15
+COMPOSITIONS = ("in the park", "smiling in the park")
+SUBJECT_NAME = "synthetic_subject"
 
 
 def synthetic_raw_batches(seed: int, batch_size: int = 4, size: int = 512):
@@ -134,7 +162,8 @@ def synthetic_raw_batches(seed: int, batch_size: int = 4, size: int = 512):
     foreground mask, an augmentation mask that pads ~29% of the width, a
     caption with the subject placeholder, and one with the subject and the
     background placeholders, each followed by K - 1 ", " as the dataset's
-    prompts pad them (16 subject vectors, 4 background ones)."""
+    prompts pad them (16 subject vectors, 4 background ones); the 4-type
+    prompts of the compositional iterations and one subject name."""
     rng = np.random.default_rng(seed)
     while True:
         img = rng.integers(0, 256, (batch_size, size, size, 3), dtype=np.uint8)
@@ -142,13 +171,20 @@ def synthetic_raw_batches(seed: int, batch_size: int = 4, size: int = 512):
         fg[:, size // 4:3 * size // 4, 5 * size // 16:11 * size // 16] = 1
         aug = np.ones((batch_size, size, size), np.uint8)
         aug[:, :, :150 * size // 512] = 0
+        single = lambda word: f"a photo of a {word}"
+        comp = lambda word: "|".join(f"{single(word)} {c}" for c in COMPOSITIONS)
         yield {"image": img.astype(np.float32) / 127.5 - 1.0, "image_unnorm": img,
                "fg_mask": fg, "aug_mask": aug, "caption": ["a photo of a z person"] * batch_size,
-               "caption_bg": [CAPTION_BG] * batch_size}
+               "caption_bg": [CAPTION_BG] * batch_size,
+               "subj_prompt_single": [single(SUBJ_STRING)] * batch_size,
+               "subj_prompt_comp": [comp(SUBJ_STRING)] * batch_size,
+               "cls_prompt_single": [single(CLS_STRING)] * batch_size,
+               "cls_prompt_comp": [comp(CLS_STRING)] * batch_size,
+               "subject_name": [SUBJECT_NAME] * batch_size}
 
 
 class AdaPromptTrainer:
-    """Host loop of distillation iterations: batch prep, the step, logging."""
+    """Host loop: the iteration-type state machine, batch prep, the steps, logging."""
 
     @classmethod
     def random_init(cls, seed: int, batch_iterator, cfg: TrainerConfig, *, device=None,
@@ -193,8 +229,6 @@ class AdaPromptTrainer:
                 "reference's CLIP teacher filter keeps only ~30-40% "
                 "(ddpm.py:3649-3664). Pass a clip_scorer, or opt in "
                 "explicitly with TrainerConfig(no_teacher_filter=True).")
-        if cfg.composition_regs_iter_gap > 0:
-            raise NotImplementedError("compositional iterations are not ported yet")
         if cfg.use_ema:
             raise NotImplementedError("EMA of the trainable parameters (use_ema) is not "
                                       "ported yet")
@@ -232,6 +266,17 @@ class AdaPromptTrainer:
             params["bg_basis"] = bg_params
         self.state = steps_mod.TrainState(
             params, build_optimizer(cfg, steps_mod.trainable_parameters(params)))
+        # the compositional iterations' frozen snapshot of the generator, for
+        # the 0.9 frozen / 0.1 live blend of the subj-single row
+        self._frozen_sbg = (copy.deepcopy(sbg).requires_grad_(False)
+                            if cfg.composition_regs_iter_gap > 0 else None)
+        # teachable-fraction counters of the teacher filter
+        self._num_filter_iters = self._num_teachable_iters = 0
+        self._num_reuse_filter_iters = self._num_reuse_teachable_iters = 0
+        # running statistics of the affine-free q BatchNorms {layer: {mean, var}}
+        self.ca_q_bn_stats: dict = {}
+        self._compos_phase = self._filter_phase = None
+        self._cached_inits = cs.CachedInits(1000)
         self._recon_steps = {}     # keyed by (use_bg, fgbg_reg)
         self._distill_steps = {}
         self._fp = steps_mod.frozen_params(frozen)
@@ -261,6 +306,11 @@ class AdaPromptTrainer:
     def _emb_scale_perturb(self) -> np.ndarray:
         """U(0.8, 1.4) training perturbation of the two global scales."""
         return self.rng.uniform(0.8, 1.4, size=(2,)).astype(np.float32)
+
+    @property
+    def training_percent(self) -> float:
+        """Progress in [0, 1]; drives the compositional mix-scale anneal."""
+        return min(self._global_step / max(self.cfg.max_steps, 1), 1.0)
 
     def _sample_num_denoising_steps(self) -> int:
         cand = [s for s in (1, 3, 5, 7) if s <= self.cfg.max_num_denoising_steps]
@@ -339,9 +389,204 @@ class AdaPromptTrainer:
                 conv_attn_kernel_size=self.cfg.use_conv_attn_kernel_size)
         return self._recon_steps[key]
 
+    # -- compositional distillation iterations --------------------------------------
+
+    def _mp_compos(self) -> dict:
+        """The frozen models of the compositional phases."""
+        return {**self._fp, "vae": self.vae, "frozen_sbg": self._frozen_sbg}
+
+    def _compos_context(self, params: dict, mp: dict, batch: dict, draws: dict | None) -> dict:
+        """The 4-type contexts: the live subject vectors (with the embedding
+        noise when the batch has a std, and the global scale) spliced into
+        the subj-comp row, their 0.9 frozen / 0.1 live blend into the
+        subj-single row, every layer's prompt encoded, and the class word
+        spread over the K aligned slots of the cls rows. Without
+        'emb_noise_std' in the batch (the filter) no noise is added."""
+        tok, k = self.tokenizer, self.subj_basis_cfg.num_out_embs_per_layer
+        with torch.no_grad():
+            _, core_id = arc2face.forward_face_embs(mp["arc2face_text"], tok, batch["faceid"],
+                                                    input_max_length=21)
+            frozen_embs, _ = mp["frozen_sbg"](tok, core_id, is_training=True)
+        subj_embs, _ = params["subj_basis"](tok, core_id, is_training=True)
+        std = batch.get("emb_noise_std")
+        if std is not None:
+            subj_embs = cond_mod.add_noise_to_tensor(subj_embs, std, noise=draws["emb_noise"])
+        subj_embs = steps_mod.apply_emb_scale(subj_embs, params, batch, 0)
+        subj_single = frozen_embs * 0.9 + subj_embs * 0.1
+        rows, pos4 = batch["subj_rows"], batch["subj_pos4"]
+        ctx4 = cond_mod.encode_spliced(
+            mp["text"], batch["ids4"], [(subj_single[:, :1], rows[:1], pos4[:1], k),
+                                        (subj_embs[:, :1], rows[1:2], pos4[1:2], k)],
+            batch["skip_weights"], 16, layerwise=True)
+        ctx4 = distribute_embedding_layerwise(ctx4, [2, 3], batch["cls_pos"], k)
+        mask = (batch["ids4"] != tok.eos_id).float()[..., None]
+        return {"ctx4": ctx4, "static_embs": ctx4.transpose(0, 1), "prompt_emb_mask": mask,
+                "subj_pos": batch.get("subj_pos_host"), "bg_pos": None}
+
+    def _ensure_compos(self):
+        if self._compos_phase is None:
+            cfg = self.subj_basis_cfg
+            self._compos_phase = cs.ComposStep(
+                self._compos_context, (1, cfg.num_out_layers, cfg.num_out_embs_per_layer,
+                                       cfg.output_dim), compute_dtype=self.dtype)
+
+    @torch.no_grad()
+    def prepare_compos_batch(self, raw: dict) -> dict | None:
+        """The 4-type prompt batch of the first sample: its latents, face id,
+        latent-size fg mask, the tokenized prompts with the subject rows and
+        positions, the clip-skip weights; None when the placeholder is not
+        in the two subject prompts. The class word is expected at the
+        subject's position (aligned templates)."""
+        sfx = "_fp" if "subj_prompt_single_fp" in raw else ""
+        prompts = [raw[f"subj_prompt_single{sfx}"][0],
+                   raw[f"subj_prompt_comp{sfx}"][0].split("|")[0],
+                   raw[f"cls_prompt_single{sfx}"][0],
+                   raw[f"cls_prompt_comp{sfx}"][0].split("|")[0]]
+        ids4 = np.asarray(self.tokenizer(prompts))
+        bi, pos = cond_mod.find_placeholder_indices(ids4, self.subject_spec)
+        if len(bi) < 2 or list(bi[:2]) != [0, 1]:
+            return None
+        dev = self.device
+        imgs = torch.as_tensor(np.asarray(raw["image"][:1]), device=dev).to(self.dtype)
+        z0 = (self.vae.encode(imgs)[0] * SD_SCALE_FACTOR).float()
+        if self.face_embedder is not None:
+            e = self.face_embedder.embed_image(raw["image_unnorm"][0])
+            faceid = e[:1] if len(e) else self.rng.standard_normal((1, 512)).astype(np.float32)
+        else:
+            faceid = self.rng.standard_normal((1, 512)).astype(np.float32)
+        faceid = faceid / np.linalg.norm(faceid, axis=-1, keepdims=True)
+        pos2 = torch.as_tensor(pos[:2], device=dev).long()
+        return {"z0": z0, "ids4": torch.as_tensor(ids4, device=dev).long(),
+                "subj_rows": torch.as_tensor(bi[:2], device=dev).long(), "subj_pos4": pos2,
+                "cls_pos": pos2,
+                "subj_pos_host": [int(pos[0]) + i for i in range(self.subject_spec.num_vectors)],
+                "faceid": torch.as_tensor(faceid, device=dev),
+                "fg_mask": self._latent_mask(raw["fg_mask"][:1]),
+                "skip_weights": torch.as_tensor(self._skip_weights(), device=dev),
+                "subject_name": raw["subject_name"][0], "cls_comp_prompt": prompts[3]}
+
+    def _teacher_filter(self, cbatch: dict, x_start_cand, t_cand, noise_cand):
+        """The CLIP teacher filter over N candidates x_start_cand, t_cand,
+        noise_cand ([N, h, w, 4], [N], [N, h, w, 4]): the (subj_comp x N,
+        cls_comp x N) batch denoised once by one conditional pass (no
+        gradient, no unconditional pass), decoded, and scored against the
+        class comp prompt; losses 0.5 - similarity. -> (is_teachable, the
+        best candidate, filter metrics); without a scorer (the
+        no_teacher_filter opt-in) every candidate is teachable."""
+        if self.clip_scorer is None:
+            return True, 0, {"teacher_filter_disabled": 1.0}
+        if self._filter_phase is None:
+            self._filter_phase = cs.make_filter_phase(compute_dtype=self.dtype)
+        abatch = {k: cbatch[k] for k in ("faceid", "ids4", "subj_rows", "subj_pos4", "cls_pos",
+                                         "skip_weights")}
+        mp = self._mp_compos()
+        with torch.no_grad():
+            ctx4 = self._compos_context(self.state.params, mp, abatch, None)["ctx4"]
+        n = x_start_cand.shape[0]
+        ctx2 = torch.cat([ctx4[:, 1:2].expand(-1, n, -1, -1),
+                          ctx4[:, 3:4].expand(-1, n, -1, -1)], dim=1)
+        _, imgs = self._filter_phase(mp, ctx2, ctx2, torch.cat([x_start_cand] * 2),
+                                     torch.cat([t_cand] * 2), torch.cat([noise_cand] * 2))
+        sims = self.clip_scorer.txt_to_img_similarity([cbatch["cls_comp_prompt"]] * (2 * n), imgs,
+                                                      reduction="diag")
+        losses = 0.5 - sims.float().cpu().numpy().reshape(-1)
+        loss_subj, loss_mix = losses[:n], losses[n:]
+        teachable, best = select_teachable_candidate(loss_subj, loss_mix)
+        return teachable, best, {"loss_clip_subj_comp": float(loss_subj.mean()),
+                                 "loss_clip_cls_comp": float(loss_mix.mean())}
+
+    def _log_teachable(self, metrics: dict, teachable: bool, reuse: bool):
+        """The teachable-fraction counters, and the colour of the next sample
+        grid: 1 fresh teachable, 2 not teachable, 3 reuse teachable."""
+        self._last_teach_color = 3 if (teachable and reuse) else 1 if teachable else 2
+        self._num_filter_iters += 1
+        self._num_teachable_iters += int(teachable)
+        metrics["teachable"] = float(teachable)
+        metrics["teachable_frac"] = self._num_teachable_iters / max(self._num_filter_iters, 1)
+        if reuse:
+            self._num_reuse_filter_iters += 1
+            self._num_reuse_teachable_iters += int(teachable)
+            metrics["reuse_teachable_frac"] = (self._num_reuse_teachable_iters
+                                               / max(self._num_reuse_filter_iters, 1))
+
+    def _compos_step(self, cbatch: dict) -> dict:
+        self._ensure_compos()
+        name, dev = cbatch["subject_name"], self.device
+        fresh = not self._cached_inits.has(name)
+        if not fresh:
+            # reuse: the cached x_recon at a mid-range t, filtered on its second row
+            x_np, t_np = self._cached_inits.take(name, self.rng)
+            x_start = torch.as_tensor(x_np, device=dev)
+            t = torch.as_tensor(t_np, device=dev).long()
+            noise = torch.randn(x_start.shape, generator=self.gen, device=dev)
+            teachable, _, fmetrics = self._teacher_filter(cbatch, x_start[1:2], t[1:2],
+                                                          noise[1:2])
+        else:
+            # fresh: N candidate (x_start, t, noise) triples; the winner's is tiled 4x
+            n_cand = self.cfg.num_candidate_teachers
+            fg_np = cbatch["fg_mask"].cpu().numpy()
+            cands = []
+            for _ in range(n_cand):
+                scale = cs.pick_fg_rand_scale(fg_np, self.rng)
+                xc, _, _ = cs.init_x_with_fg_from_training_image(
+                    cbatch["z0"], cbatch["fg_mask"], cbatch["fg_mask"], scale, gen=self.gen)
+                cands.append(xc)
+            x_cand = torch.cat(cands)
+            t_cand = torch.as_tensor(self.rng.integers(800, 1000, size=(n_cand,)),
+                                     device=dev).long()
+            noise_cand = torch.randn(x_cand.shape, generator=self.gen, device=dev)
+            teachable, best, fmetrics = self._teacher_filter(cbatch, x_cand, t_cand, noise_cand)
+            if teachable:
+                x_start = x_cand[best:best + 1].repeat(4, 1, 1, 1)
+                t = t_cand[best:best + 1].repeat(4)
+                noise = noise_cand[best:best + 1].repeat(4, 1, 1, 1)
+        if not teachable:
+            out = {"iter_type": "compos_distill_skipped", **fmetrics}
+            self._log_teachable(out, False, reuse=not fresh)
+            return out
+        batch = {"x_start": x_start, "t": t, "noise": noise,
+                 "training_percent": torch.tensor(self.training_percent, device=dev),
+                 "fg_mask": cbatch["fg_mask"], "faceid": cbatch["faceid"], "ids4": cbatch["ids4"],
+                 "subj_rows": cbatch["subj_rows"], "subj_pos4": cbatch["subj_pos4"],
+                 "cls_pos": cbatch["cls_pos"], "subj_pos_host": tuple(cbatch["subj_pos_host"]),
+                 "skip_weights": cbatch["skip_weights"],
+                 # the host draws in the JAX trainer's order: the noise coin
+                 # (and std), the scale perturbation, the outfeat-LayerNorm coin
+                 "emb_noise_std": torch.tensor(self._emb_noise_std("compos_distill_iter"),
+                                               device=dev),
+                 "emb_scale_perturb": torch.as_tensor(self._emb_scale_perturb(), device=dev),
+                 "normalize_outfeat": torch.tensor(float(self.rng.random() < 0.5), device=dev)}
+        self.state, metrics, x_recon = self._compos_phase(self.state, self._mp_compos(), batch,
+                                                          self.gen)
+        # only fresh iterations refill the cache; a reuse iteration consumed its entry
+        if fresh:
+            self._cached_inits.put(name, x_recon.cpu().numpy(), t.cpu().numpy())
+        self._update_q_bn_stats(metrics.pop("q_bn_stats"))
+        metrics.update(fmetrics)
+        metrics["iter_type"] = "compos_distill"
+        if self.clip_scorer is not None:
+            self._log_teachable(metrics, True, reuse=not fresh)
+        return metrics
+
+    def _update_q_bn_stats(self, batch_stats: dict, momentum: float = 0.1):
+        """Fold a step's q BatchNorm batch statistics into the running mean
+        and variance with torch's default momentum (the first sets them)."""
+        for li, (m, v) in batch_stats.items():
+            ent = self.ca_q_bn_stats.get(li)
+            if ent is None:
+                self.ca_q_bn_stats[li] = {"mean": m, "var": v}
+            else:
+                ent["mean"] = (1 - momentum) * ent["mean"] + momentum * m
+                ent["var"] = (1 - momentum) * ent["var"] + momentum * v
+
     def train_step(self, step_idx: int) -> dict:
         self._global_step = step_idx
         raw = next(self.batch_iterator)
+        gap = self.cfg.composition_regs_iter_gap
+        if gap > 0 and step_idx % gap == 0 and step_idx > 0:
+            cbatch = self.prepare_compos_batch(raw)
+            if cbatch is not None:
+                return self._emit_metrics(step_idx, self._compos_step(cbatch))
         do_distill = self.rng.random() < self.cfg.arc2face_distill_iter_prob
         # the background token only on recon iterations, and only with a
         # background generator (no draw is made without one)
@@ -427,16 +672,26 @@ class AdaPromptTrainer:
         if "bg_basis" in params:
             trees["bg_basis"] = ckpt_mod.module_tree(params["bg_basis"])
         trees["emb_scales"] = {"scores": params["emb_scales"].detach().float().cpu().numpy()}
+        if self.ca_q_bn_stats:
+            trees["ca_q_bns"] = {str(li): {k: v.float().cpu().numpy() for k, v in ent.items()}
+                                 for li, ent in self.ca_q_bn_stats.items()}
         ckpt_mod.save_checkpoint(path, trees,
                                  meta={"step": step, "placeholder": self.subject_spec.string})
         return path
 
     def load_checkpoint(self, path: str) -> dict:
-        """Load the trainable parameters; the optimizer starts afresh, as in
-        the JAX package."""
+        """Load the trainable parameters and the q BatchNorm running
+        statistics; the frozen blend copy of the generator becomes the loaded
+        weights, and the optimizer starts afresh, as in the JAX package."""
         trees, meta = ckpt_mod.load_checkpoint(path)
         params = self.state.params
         ckpt_mod.load_module_tree(params["subj_basis"], trees["subj_basis"])
+        if self._frozen_sbg is not None:
+            ckpt_mod.load_module_tree(self._frozen_sbg, trees["subj_basis"])
+        if "ca_q_bns" in trees:
+            self.ca_q_bn_stats = {int(li): {k: torch.as_tensor(a, device=self.device)
+                                            for k, a in ent.items()}
+                                  for li, ent in trees["ca_q_bns"].items()}
         if "bg_basis" in trees and "bg_basis" in params:
             ckpt_mod.load_module_tree(params["bg_basis"], trees["bg_basis"])
         if "emb_scales" in trees:

@@ -4,7 +4,8 @@ Stage-1 Arc2Face-distillation training, zero-shot recon training (the
 spliced prompt, activation capture, the fg/bg attention regularizers,
 subject conv-attention, and the background "y" token's branch: the CLIP
 ViT-H/14 vision tower's masked zero-shot features through the background
-SubjBasisGenerator), the composed serving stack (DPM-Solver++ 20 steps
+SubjBasisGenerator), Stage-2 compositional training (the CLIP teacher
+filter, mix-prompt distillation, elastic fg/bg preservation), the composed serving stack (DPM-Solver++ 20 steps
 with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
 (AdaFacePipeline: photos -> ArcFace -> 16 subject tokens -> personalized
 DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
@@ -113,7 +114,20 @@ Phases, in order (any failure exits non-zero without the final line):
      generators and emb_scales moved, and the exact launch counts (none
      inside the extractor's calls); log s/step, the extractor's time a call
      and peak memory;
- 11. print the kernels' JSON line (thirteen rows), the card's name and
+ 11. Stage-2 compositional training, right after phase 10, over phase 6's
+     frozen models and a fresh seeded SubjBasisGenerator: (a) a trainer with
+     TrainerConfig.stage2(grad_accum=2) and a CLIPScorer at ViT-B/32's
+     published widths (random weights from a seed) takes train_step(3), a
+     fresh compositional iteration whose CLIP teacher filter denoises and
+     decodes 2 candidates' comp pairs (UNet batch 4, VAE decode of 4) and
+     scores them; either decision is accepted, with the launch counts it
+     implies (none inside the scorer); (b) a second trainer with
+     no_teacher_filter=True takes train_step(3) (fresh) and train_step(6)
+     (reuse: the cached x_recon at t in [400, 700)); checks every metric
+     of the JAX phase (finite), grad_norm > 0, teacher_filter_disabled,
+     that the generator moved, the 12 layers of ca_q_bn_stats and the
+     exact launch counts; logs s/step, the filter's time and peak memory;
+ 12. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -150,6 +164,9 @@ TRAIN_STEPS = 4         # seed 0 draws ND = 1, 5, 1, 1
 RECON_STEPS = 4         # two accumulated updates; then RECON_CONV_STEPS with conv-attention
 RECON_CONV_STEPS = 2
 RECON_BG_STEPS = 4      # two accumulated updates, every step "recon_bg"
+COMPOS_STEPS = (3, 6)   # Stage-2 gap 3: a fresh compositional iteration, then its reuse
+COMPOS_METRICS = ("loss_compos", "loss_mix_prompt_distill", "loss_prompt_emb_delta",
+                  "loss_fg_xlayer_consist", "loss_bg_xlayer_consist", "loss_comp_fg_bg_preserve")
 VISION_TOL = 1e-4       # ViT-H/14 fp32 card (TF32 off) vs fp32 CPU, relative L2
 RECON_METRICS = ("loss", "loss_recon", "loss_fg_bg_complementary", "loss_subj_mb_suppress",
                  "loss_bg_mf_suppress", "loss_fg_bg_mask_contrast", "loss_fg_xlayer_consist",
@@ -1289,9 +1306,10 @@ def phase_kernels():
     cross_int8_resources()
     conv_resources()
     gn_conv_resources()
-    # (wrapper, the paths whose shapes these are, case): txt2img has no
-    # img_mask, training masks the self-attention keys (bias); the flash
-    # backward without bias is on no path and is checked all the same. The
+    # (wrapper, the paths whose shapes these are, case): txt2img and the
+    # compositional iterations have no img_mask, recon and distillation
+    # training mask the self-attention keys (bias); the flash backward
+    # without bias is the compositional step's (batch 4, as here). The
     # serving stack merges the 64x64 level's 4096 tokens to 2048 (ToMe 0.5)
     # for self-attention and the feed-forward, never for cross-attention,
     # and runs batch 4 in the CFG steps and batch 2 in the cond-only tail.
@@ -1301,16 +1319,18 @@ def phase_kernels():
     # whose three shapes are the keys of conv_halo._FUSED_TABLE
     pers = ("personalize",)
     gen_ = gen_ + pers
-    both = gen_ + train
+    compos = ("compos_filter", "compos")
+    both = gen_ + train + compos
     from adaprompt_tpu_torch.ops.attention import FlashVariant as V
-    cases = [("flash_attention_fwd", gen_, lambda: _case_flash(gen, 4096, 40, False)),
+    cases = [("flash_attention_fwd", gen_ + compos, lambda: _case_flash(gen, 4096, 40, False)),
              ("flash_attention_fwd", train, lambda: _case_flash(gen, 4096, 40, True)),
-             ("flash_attention_fwd", gen_ + serve, lambda: _case_flash(gen, 1024, 80, False)),
+             ("flash_attention_fwd", gen_ + serve + compos,
+              lambda: _case_flash(gen, 1024, 80, False)),
              ("flash_attention_fwd", train, lambda: _case_flash(gen, 1024, 80, True)),
              ("flash_attention_fwd", serve, lambda: _case_flash(gen, 2048, 40, False)),
-             ("flash_attention_bwd", (), lambda: _case_flash_bwd(gen, 4096, 40, False)),
+             ("flash_attention_bwd", ("compos",), lambda: _case_flash_bwd(gen, 4096, 40, False)),
              ("flash_attention_bwd", train, lambda: _case_flash_bwd(gen, 4096, 40, True)),
-             ("flash_attention_bwd", (), lambda: _case_flash_bwd(gen, 1024, 80, False)),
+             ("flash_attention_bwd", ("compos",), lambda: _case_flash_bwd(gen, 1024, 80, False)),
              ("flash_attention_bwd", train, lambda: _case_flash_bwd(gen, 1024, 80, True)),
              ("fused_cross_attention", gen_ + ("serve_bf16",),
               lambda: _case_cross(gen, 4096, 320)),
@@ -1865,6 +1885,7 @@ def phase_train():
     by_path.update(phase_train_variants(tr, TRAIN_STEPS))
     tr._flush_metrics()
     by_path.update(phase_recon(tr, tmp.name))
+    by_path.update(phase_compos(tr, tmp.name))
     tmp.cleanup()
     return by_path
 
@@ -2008,18 +2029,19 @@ def phase_recon(tr, out_dir):
     return by_path
 
 
-class _TimedExtractor:
-    """A zero-shot feature extractor whose calls are timed (synchronized
-    before and after) and whose kernel launches are counted."""
+class _Timed:
+    """Wraps a callable (a zero-shot feature extractor, a teacher filter, a
+    scorer): each call is timed (synchronized before and after) and the
+    kernels launched inside it are counted."""
 
-    def __init__(self, ext):
-        self.ext, self.calls = ext, []
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
 
     def __call__(self, *args, **kwargs):
         import torch
         torch.cuda.synchronize()
         before, t0 = read_counts(), time.perf_counter()
-        out = self.ext(*args, **kwargs)
+        out = self.fn(*args, **kwargs)
         torch.cuda.synchronize()
         self.calls.append((time.perf_counter() - t0, nz(counts_since(before))))
         return out
@@ -2049,7 +2071,7 @@ def phase_recon_bg(tr, sbg, out_dir):
                              num_id_vecs_bg=2 * CLIP_VIT_H14_VISION.seq_len)
     bg = reset_parameters(SubjBasisGenerator(bg_cfg, device="cuda"),
                           torch.Generator(device="cuda").manual_seed(9))
-    ext = _TimedExtractor(ZeroShotFeatureExtractor(vision))
+    ext = _Timed(ZeroShotFeatureExtractor(vision))
     cfg = TrainerConfig(seed=2, out_dir=out_dir, arc2face_distill_iter_prob=0.0, fgbg_reg=True)
     bt = AdaPromptTrainer(tr.frozen, tr.vae, tr.tokenizer, SUBJ_CONFIG, sbg,
                           synthetic_raw_batches(2), cfg, synthetic_faces=True,
@@ -2242,25 +2264,160 @@ def phase_personalize():
     return launches
 
 
+def _step_timed(trainer, step_idx):
+    import torch
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = trainer.train_step(step_idx)
+    torch.cuda.synchronize()
+    row = {k: (float(v) if isinstance(v, torch.Tensor) else v) for k, v in m.items()}
+    return row, time.perf_counter() - t1
+
+
+def phase_compos(tr, out_dir):
+    """Phase 11: Stage-2 compositional iterations through
+    AdaPromptTrainer.train_step over phase 6's frozen models and a fresh
+    seeded SubjBasisGenerator. (a) the CLIP teacher filter: a trainer with
+    a ViT-B/32 CLIPScorer (random weights) takes train_step(3); (b) a
+    trainer with no_teacher_filter=True takes train_step(3) (fresh) and
+    train_step(6) (reuse). Returns {path: launch counts}."""
+    import torch
+    from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
+    from adaprompt_tpu_torch.eval.clip_scorer import CLIPScorer
+    from adaprompt_tpu_torch.ops.layers import reset_parameters
+    from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
+                                                   synthetic_raw_batches)
+    t0 = time.perf_counter()
+    sbg = reset_parameters(SubjBasisGenerator(SUBJ_CONFIG, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(11))
+    scorer = CLIPScorer.random_init(12, tr.tokenizer, device="cuda")
+    scorer_calls = _Timed(scorer.txt_to_img_similarity)
+    scorer.txt_to_img_similarity = scorer_calls
+    make = lambda cfg, scorer: AdaPromptTrainer(
+        tr.frozen, tr.vae, tr.tokenizer, SUBJ_CONFIG, sbg, synthetic_raw_batches(3), cfg,
+        synthetic_faces=True, clip_scorer=scorer)
+    ft = make(TrainerConfig.stage2(grad_accum=2, seed=3, out_dir=out_dir), scorer)
+    filter_calls = _Timed(ft._teacher_filter)
+    ft._teacher_filter = filter_calls
+    torch.cuda.synchronize()
+    log(f"phase 11 filter trainer: built in {time.perf_counter() - t0:.1f} s; CLIPScorer ViT-B/32 "
+        f"{sum(p.numel() for p in scorer.parameters()) / 1e6:.1f} M parameters (fp32)")
+
+    # (a) the filter: one fresh compositional iteration
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    row, sec = _step_timed(ft, COMPOS_STEPS[0])
+    launches_filter = read_counts()
+    ft._flush_metrics()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (f_sec, f_launch), = filter_calls.calls
+    (s_sec, s_launch), = scorer_calls.calls
+    teachable = row["iter_type"] == "compos_distill"
+    log(f"phase 11 compos_filter step {COMPOS_STEPS[0]}: {row['iter_type']} "
+        f"loss_clip_subj_comp={row['loss_clip_subj_comp']:.6e} "
+        f"loss_clip_cls_comp={row['loss_clip_cls_comp']:.6e} teachable={row['teachable']} "
+        f"teachable_frac={row['teachable_frac']} in {sec:.3f} s (the filter {f_sec:.3f} s: 2 "
+        f"candidates, UNet batch 4 + VAE decode of 4 at 512x512, the scorer {s_sec:.3f} s); "
+        f"peak memory {peak:.2f} GiB; launches {nz(launches_filter)}; inside the filter "
+        f"{f_launch}, inside the scorer {s_launch}")
+    if not all(math.isfinite(row[k]) for k in ("loss_clip_subj_comp", "loss_clip_cls_comp")):
+        raise AssertionError(f"bad filter metrics {row}")
+    if row["teachable"] != float(teachable) or row["teachable_frac"] != float(teachable):
+        raise AssertionError(f"the filter's decision and its counters disagree: {row}")
+    want = {n: 0 for n in launches_filter}
+    want.update(flash_attention_fwd=10, geglu_fwd=10)          # one conditional UNet pass
+    if f_launch != nz(want) or s_launch:
+        raise AssertionError(f"filter launches {f_launch}, scorer {s_launch}: expected "
+                             f"{nz(want)} and none")
+    if teachable:                        # the with-gradient step followed
+        want.update(flash_attention_fwd=30, geglu_fwd=30, flash_attention_bwd=FLASH_BWD_PER_PASS)
+    if launches_filter != want:
+        raise AssertionError(f"compos_filter launches {launches_filter}, expected {want}")
+    del ft, filter_calls
+
+    # (b) the train phase: a fresh iteration, then its reuse
+    tt = make(TrainerConfig.stage2(grad_accum=2, seed=4, out_dir=out_dir, no_teacher_filter=True),
+              None)
+    tt._ensure_compos()
+    ts_seen = []
+    real_phase = tt._compos_phase
+
+    def phase(state, mp, batch, gen):
+        ts_seen.append(batch["t"].tolist())
+        return real_phase(state, mp, batch, gen)
+
+    tt._compos_phase = phase
+    watched = {n: p.detach().clone() for n, p in sbg.named_parameters()
+               if n in ("hidden_state_layer_weights", "prompt2token_proj.layers.11.mlp.fc2.weight",
+                        "prompt2token_proj.token_embedding")}
+    watched["emb_scales"] = tt.state.params["emb_scales"].detach().clone()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    rows, times = [], []
+    for i in COMPOS_STEPS:
+        r, sec = _step_timed(tt, i)
+        rows.append(r)
+        times.append(sec)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    now = dict(sbg.named_parameters(), emb_scales=tt.state.params["emb_scales"])
+    moved = {n: not torch.equal(p, now[n]) for n, p in watched.items()}
+    for r, sec, ts in zip(rows, times, ts_seen):
+        log(f"phase 11 compos step {r['step']}: t={ts} " + " ".join(
+            f"{k}={r[k]:.6e}" for k in COMPOS_METRICS + ("grad_norm",)) + f" {sec:.3f} s")
+    bn = tt.ca_q_bn_stats
+    log(f"phase 11 compos: {len(COMPOS_STEPS)} compositional steps (UNet batch 4, 512x512, bf16, "
+        f"fresh then reuse) in {sum(times):.3f} s (step times {[round(x, 3) for x in times]}); "
+        f"peak memory {peak:.2f} GiB ({resident:.2f} GiB held before the first step); "
+        f"generator and emb_scales moved after the update: {moved}; ca_q_bn_stats layers "
+        f"{sorted(bn)}; launches {nz(launches)}; the phase {time.perf_counter() - t0:.1f} s "
+        f"all told")
+    for r in rows:
+        if not (r["iter_type"] == "compos_distill" and r["teacher_filter_disabled"] == 1.0
+                and all(math.isfinite(r[k]) for k in COMPOS_METRICS) and r["grad_norm"] > 0
+                and r["loss_fg_xlayer_consist"] > 0 and r["loss_comp_fg_bg_preserve"] > 0):
+            raise AssertionError(f"bad compos metrics {r}")
+    fresh_t, reuse_t = ts_seen
+    if not (len(set(fresh_t)) == 1 and 800 <= fresh_t[0] < 1000
+            and all(400 <= x < 700 for x in reuse_t)):
+        raise AssertionError(f"t of the fresh {fresh_t} and the reuse {reuse_t} iteration")
+    if not all(moved.values()):
+        raise AssertionError(f"compos steps left parameters unmoved: {moved}")
+    if sorted(bn) != [7, 8, 12, 16, 17, 18, 19, 20, 21, 22, 23, 24] or not all(
+            torch.isfinite(v).all() for ent in bn.values() for v in ent.values()):
+        raise AssertionError(f"ca_q_bn_stats layers {sorted(bn)}")
+    # a student pass (no key bias), its recompute and one backward a step
+    n = len(COMPOS_STEPS)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention_fwd=20 * n, flash_attention_bwd=FLASH_BWD_PER_PASS * n,
+                geglu_fwd=20 * n)
+    if launches != want:
+        raise AssertionError(f"compos launches {launches}, expected {want}")
+    tt._flush_metrics()
+    return {"compos_filter": launches_filter, "compos": launches}
+
+
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
 _TRAIN_TURNS = ("train_default", "train_exp2")
 _RECON = ("recon", "recon_conv", "recon_bg")       # phase 10
+_COMPOS = ("compos_filter", "compos")               # phase 11
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
-                            + _TRAIN_TURNS + _RECON),
+                            + _TRAIN_TURNS + _RECON + _COMPOS),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
-                            ("train",) + _TRAIN_TURNS + _RECON),
+                            ("train",) + _TRAIN_TURNS + _RECON + ("compos",)),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
                               + _GEN_TURNS),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
-                  + _GEN_TURNS + _TRAIN_TURNS + _RECON),
+                  + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

@@ -68,6 +68,7 @@ def _profile_step_main():
 
 def _entry_points():
     from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.eval.clip_scorer import CLIPScorer
     from adaprompt_tpu_torch.models.arcface import ArcFace
     from adaprompt_tpu_torch.models.clip_vision import CLIPVisionModel
     from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
@@ -77,11 +78,12 @@ def _entry_points():
             "AdaPromptTrainer": lambda: AdaPromptTrainer.random_init(
                 0, synthetic_raw_batches(0), TrainerConfig(seed=0)),
             "ArcFace": lambda: ArcFace.random_init(0),
+            "CLIPScorer": lambda: CLIPScorer.random_init(0),
             "profile_step": _profile_step_main}
 
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
-                                  "CLIPVisionModel", "profile_step"])
+                                  "CLIPVisionModel", "profile_step", "CLIPScorer"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""
@@ -104,6 +106,35 @@ def test_port_calls_no_library_attention_nor_compile():
                                                 "cublas", "cudnn.h", "cutlass/gemm/device")
                          if word in text]
     assert not hits, hits
+
+
+STAGE2_MODULES = ("adaprompt_tpu_torch.adaface.cls_delta", "adaprompt_tpu_torch.train.compos",
+                  "adaprompt_tpu_torch.train.elastic", "adaprompt_tpu_torch.train.compos_step",
+                  "adaprompt_tpu_torch.eval.clip_scorer")
+
+
+def test_stage2_modules_fall_under_the_rules():
+    """The compositional slice's modules are among those the two rules above
+    walk: each is found by the package walk, imported alone in a fresh
+    interpreter it brings in neither jax nor the JAX package, and its source
+    calls no library attention and no torch.compile."""
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(STAGE2_MODULES) <= walked
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in STAGE2_MODULES)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'adaprompt_tpu')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    for m in STAGE2_MODULES:
+        text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
+        assert not [w for w in ("scaled_dot_product_attention", "torch.compile", "import jax",
+                                "adaprompt_tpu.") if w in text], m
 
 
 def _int8_cross_args(x, wq, k, v, wo, bo):
@@ -1689,3 +1720,47 @@ def test_vision_tower_on_the_card():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert r["hidden_states[-2]"] <= 1e-4 and r["pooled"] <= 1e-4, r
     assert r["launches"] == {}
+
+
+@pytest.mark.cuda
+def test_compos_phase_on_the_card():
+    """The compositional phase (train/compos_step.ComposStep) on a small UNet
+    in bf16 on the card (tools/compos_card_error.py's case, seed 0), over one
+    trainable 4-type context with separate V/K mixes, capture, the
+    mix-prompt, cross-layer and elastic preservation losses; no img_mask, so
+    B1 and B4 run without key bias.
+    Against fp32 on the CPU: the loss within 1e-2 relative, x_recon within
+    1e-2 relative L2, the context gradient within 1e-1 relative L2 (the
+    delta losses amplify bf16 rounding: the tool's bf16 runs of this seed,
+    on the CPU, on the card, on the card with plain kernels, read
+    4.1e-2-6.2e-2), the q BatchNorm statistics' 12 layers.
+    From the card's one forward, its backward through B4 against one
+    through B4's plain version: the context gradient within 5e-3, the
+    gradients of the flash layers' q and k weights within 2.5e-2 and of
+    their v weights within 1.5e-2 relative L2 (the tool read <= 1.9e-2 and
+    <= 7.9e-3 over four seeds); a planted 5 % fault of B4's dq must break
+    the q bound (3 % read 3.3e-2-3.4e-2).
+    Launches: the flash forwards and their recompute, the backwards, no
+    fused cross-attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import compos_card_error as cce
+    unet, ctx, batch = cce.compos_case(0)
+    card = cce.bf16_copy(unet, "cuda")
+    before = {n: w.launches for n, w in kernel_wrappers().items()}
+    got = cce.run_phase(card, ctx, batch, "cuda", torch.bfloat16,
+                        [{}, cce.PLAIN["b4"], cce.faulty("b4_dq", 0.05)])
+    launched = {n: w.launches - before[n] for n, w in kernel_wrappers().items()}
+    ref = cce.run_phase(unet, ctx, batch, "cpu", torch.float32)
+    vs_ref = cce.readings(got, ref)
+    assert vs_ref["loss"] <= 1e-2 and vs_ref["x_recon"] <= 1e-2, vs_ref
+    assert vs_ref["ctx_grad"] <= 1e-1, vs_ref
+    assert sorted(got[3]) == sorted(ref[3]) and len(ref[3]) == 12
+    b4 = cce.readings(got, got, 0, 1)
+    assert b4["ctx_grad"] <= 5e-3, b4
+    assert b4["q_grad"] <= 2.5e-2 and b4["k_grad"] <= 2.5e-2 and b4["v_grad"] <= 1.5e-2, b4
+    planted = cce.readings(got, got, 2, 1)
+    assert planted["q_grad"] > 2.5e-2, planted
+    assert launched["flash_attention_fwd"] > 0 and launched["flash_attention_bwd"] > 0
+    assert launched["fused_cross_attention"] == 0

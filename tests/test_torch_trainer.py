@@ -152,8 +152,8 @@ def test_trainer_config_matches_jax():
 @pytest.mark.parametrize("kw,embedder,error,words", [
     (dict(composition_regs_iter_gap=3), None, ValueError, "no_teacher_filter=True"),
     (dict(), None, ValueError, "no face_embedder"),
-    (dict(composition_regs_iter_gap=3, no_teacher_filter=True), True, NotImplementedError,
-     "compositional iterations"),
+    (dict(composition_regs_iter_gap=3, no_teacher_filter=True, use_ema=True), True,
+     NotImplementedError, "use_ema"),
     (dict(optimizer_type="AdamW"), True, NotImplementedError, "AdamW"),
     (dict(use_ema=True), True, NotImplementedError, "use_ema"),
 ])
@@ -161,7 +161,8 @@ def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
     """What the port refuses at construction: the JAX trainer's own
     ValueErrors, with its messages (compositional training without a teacher
     filter, no face embedder), then each unported path by name (the AdamW
-    optimizer by its config field optimizer_type)."""
+    optimizer by its config field optimizer_type; EMA, also under the
+    compositional iterations, which are ported)."""
     cfg = dict(out_dir=str(tmp_path), **kw)
     face = _StubEmbedder() if embedder else None
     with pytest.raises(error, match=words) as port:
