@@ -7,6 +7,13 @@ dicts and lists of numpy arrays in the JAX package's layout; `module_tree`
 and `load_module_tree` go between such a tree and a module's parameters
 (the inverse of `convert.from_jax_params`). Loading the reference's
 `.pt` checkpoints is not ported yet.
+
+The trainer's full state (`AdaPromptTrainer.save_full_state`) is one flat
+.npz too: module trees in the JAX layout through `_flatten`, and tensors
+keyed by qualified name (`tensor_entries`); the optimizer's state, which
+has no counterpart in optax's leaf order, under the port's own keys
+(`optimizer_entries`: 'optstate/acc/<name>', 'optstate/<slot>/<name>',
+'optstate/<scalar>').
 """
 
 from __future__ import annotations
@@ -17,6 +24,79 @@ import numpy as np
 import torch
 
 from adaprompt_tpu_torch import convert
+
+
+def _flatten(tree, prefix=""):
+    """A nested dict/list tree as {'<prefix><path>': numpy array}, the path
+    '/'-joined."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = _numpy(tree)
+    return out
+
+
+def _numpy(a) -> np.ndarray:
+    """A host copy; bfloat16, which numpy lacks, as float32 (lossless)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    return np.asarray(a)
+
+
+def group(flat: dict, prefix: str) -> dict:
+    """The entries under `prefix`, the prefix taken off their keys."""
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def tensor_entries(prefix: str, tensors: dict) -> dict:
+    """{name: tensor} as {'<prefix><name>': numpy array}."""
+    return {prefix + name: _numpy(t) for name, t in tensors.items()}
+
+
+@torch.no_grad()
+def load_tensor_entries(prefix: str, tensors: dict, flat: dict):
+    """Copy the entries under `prefix` into the tensors of the same names,
+    in place (each keeps its device and dtype); every name must be there."""
+    for name, t in tensors.items():
+        t.copy_(torch.as_tensor(flat[prefix + name]))
+
+
+def optimizer_entries(pipe, names: list) -> tuple[dict, dict]:
+    """A `prodigy.GradientPipeline`'s state: its accumulator and its inner
+    optimizer's per-parameter slots by the parameters' qualified `names`
+    (in the pipeline's order), the inner optimizer's scalar tensors, and
+    (meta) its type, update count and the pipeline's micro-step."""
+    inner = pipe.inner
+    flat = tensor_entries("optstate/acc/", dict(zip(names, pipe.acc)))
+    for name, p in zip(names, pipe.params):
+        for slot, t in inner.state[p].items():
+            flat[f"optstate/{slot}/{name}"] = _numpy(t)
+    flat.update(tensor_entries("optstate/", {a: getattr(inner, a) for a in inner.SCALARS}))
+    meta = {"type": type(inner).__name__, "count": inner.count, "mini_step": pipe.mini_step}
+    return flat, meta
+
+
+@torch.no_grad()
+def load_optimizer_entries(pipe, names: list, flat: dict, meta: dict):
+    """Restore what `optimizer_entries` saved, in place, onto a pipeline of
+    the same type over parameters of the same names."""
+    inner = pipe.inner
+    if meta["type"] != type(inner).__name__:
+        raise ValueError(f"the state holds a {meta['type']} optimizer, the trainer builds "
+                         f"a {type(inner).__name__}")
+    load_tensor_entries("optstate/acc/", dict(zip(names, pipe.acc)), flat)
+    for name, p in zip(names, pipe.params):
+        load_tensor_entries("optstate/", {f"{slot}/{name}": t
+                                          for slot, t in inner.state[p].items()}, flat)
+    for a in inner.SCALARS:
+        setattr(inner, a, torch.as_tensor(flat["optstate/" + a]).to(getattr(inner, a).device))
+    inner.count, pipe.mini_step = int(meta["count"]), int(meta["mini_step"])
 
 
 def _unflatten(flat: dict):
@@ -44,8 +124,13 @@ def module_tree(module: torch.nn.Module) -> dict:
     """A module's parameters as a JAX-layout tree of float32 numpy arrays:
     linear weights become [in, out] kernels, conv weights HWIO kernels, 1-D
     norm weights `scale`; other leaves keep their names."""
+    return named_tree(module.named_parameters())
+
+
+def named_tree(named) -> dict:
+    """`module_tree` of (parameter name, tensor) pairs."""
     flat = {}
-    for name, p in module.named_parameters():
+    for name, p in named:
         head, _, leaf = name.rpartition(".")
         a = p.detach().float().cpu().numpy()
         if leaf == "weight":

@@ -1,14 +1,16 @@
 """Placeholder tokens and the spliced prompt conditioning.
 
-Port of `adaprompt_tpu/adaface/conditioner.py` without `PromptConditioner`:
-the host side (`PlaceholderSpec`, `make_placeholders`,
-`find_placeholder_indices`) and the device path of training,
+Port of `adaprompt_tpu/adaface/conditioner.py`: the host side
+(`PlaceholderSpec`, `make_placeholders`, `find_placeholder_indices`), the
+device path of training and sampling,
 
     token-embed -> splice subject vectors at the placeholders -> one CLIP
     encode over the L layers' prompts with the clip-skip weights
     -> [L, B, 77, D]
 
-plus the training-time embedding noise (`add_noise_to_tensor`,
+(`encode_spliced` on token ids and given placeholder rows, and
+`PromptConditioner` on prompts, which finds the placeholders itself), plus
+the training-time embedding noise (`add_noise_to_tensor`,
 `add_noise_to_embedding`), whose gaussian draw comes from a
 `torch.Generator` or is given as `noise`.
 """
@@ -104,6 +106,52 @@ def encode_spliced(text, ids: torch.Tensor, subj_splices: list, skip_weights,
     enc = text.encode(ids.repeat(L, 1), inputs_embeds=lb,
                       hidden_state_layer_weights=skip_weights)
     return enc.reshape(L, b, *enc.shape[1:])
+
+
+class PromptConditioner:
+    """Prompts and {placeholder string: subject embeddings [M, L', K, D]}
+    -> the context [L, B, 77, D] of the text encoder `text` (a
+    CLIPTextModel). L = num_ca_layers when `layerwise`, which by default is
+    whether any embeddings differ by layer (L' > 1), else 1. A placeholder
+    absent from every prompt is skipped; one row of embeddings serves every
+    prompt that holds the placeholder, and fewer rows than such prompts are
+    tiled."""
+
+    def __init__(self, text, tokenizer: CLIPTokenizer, placeholders: list,
+                 num_ca_layers: int = 16):
+        self.text, self.tokenizer = text, tokenizer
+        self.placeholders = {p.string: p for p in placeholders}
+        self.num_ca_layers = num_ca_layers
+
+    def tokenize(self, prompts) -> np.ndarray:
+        return self.tokenizer(prompts, max_length=self.text.cfg.max_positions)
+
+    def __call__(self, prompts, subj_embs_by_placeholder: dict | None = None,
+                 skip_weights=(1.0, 1.0), layerwise: bool | None = None) -> torch.Tensor:
+        ids_np = self.tokenize(prompts)
+        b = ids_np.shape[0]
+        subj_embs_by_placeholder = subj_embs_by_placeholder or {}
+        if layerwise is None:
+            layerwise = any(e.shape[1] > 1 for e in subj_embs_by_placeholder.values())
+        L = self.num_ca_layers if layerwise else 1
+        dev = self.text.token_embedding.device
+        ids = torch.as_tensor(ids_np, device=dev).long()
+        token_embs = self.text.token_embedding[ids]
+        token_embs = token_embs[None].expand(L, *token_embs.shape)
+        for name, embs in subj_embs_by_placeholder.items():
+            spec = self.placeholders[name]
+            bi, pos = find_placeholder_indices(ids_np, spec)
+            if len(bi) == 0:
+                continue
+            if embs.shape[0] == 1 and len(bi) > 1:
+                embs = embs.expand(len(bi), *embs.shape[1:])
+            elif embs.shape[0] < len(bi):
+                embs = embs.repeat(len(bi) // embs.shape[0], 1, 1, 1)
+            token_embs = splice_subject_embeddings(token_embs, embs, bi, pos, spec.num_vectors)
+        lb = token_embs.reshape(L * b, *token_embs.shape[2:])
+        sw = torch.as_tensor(np.asarray(skip_weights, np.float32), device=dev)
+        enc = self.text.encode(ids.repeat(L, 1), inputs_embeds=lb, hidden_state_layer_weights=sw)
+        return enc.reshape(L, b, *enc.shape[1:])
 
 
 def _gaussian(shape, like: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:

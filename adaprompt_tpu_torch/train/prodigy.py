@@ -1,4 +1,4 @@
-"""Prodigy (D-adapted Adam), and the gradient pipeline of training.
+"""Prodigy (D-adapted Adam), AdamW, and the gradient pipeline of training.
 
 Port of `adaprompt_tpu/train/prodigy.py::prodigy` with optax's semantics,
 as a `torch.optim.Optimizer`:
@@ -16,10 +16,16 @@ as a `torch.optim.Optimizer`:
 float32 tensor on the parameters' device, so a step never waits on the host.
 A parameter without a gradient counts as a zero gradient, as in a JAX tree.
 
+`AdamW` is `optax.adamw(lr, b1, b2, eps, eps_root=0, weight_decay)` written
+out: m <- (1-b1) g + b1 m, v <- (1-b2) g^2 + b2 v, the count incremented,
+u = m_hat / (sqrt(v_hat) + eps) with m_hat = m / (1 - b1^count) (v alike),
+u + weight_decay * p, then p <- p - lr(k) u with k the updates before this
+one; the decay applies to every parameter.
+
 `GradientPipeline` is the trainer's optax chain: `clip_by_global_norm` ->
-Prodigy, behind `MultiSteps(every_k)`, which averages k micro-batch
-gradients (optax's running mean, acc + (g - acc)/(n + 1)) and steps the
-inner optimizer on every k-th call.
+Prodigy or AdamW, behind `MultiSteps(every_k)`, which averages k
+micro-batch gradients (optax's running mean, acc + (g - acc)/(n + 1)) and
+steps the inner optimizer on every k-th call.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ import torch
 
 
 class Prodigy(torch.optim.Optimizer):
+    # the state outside the per-parameter slots, besides the update count
+    SCALARS = ("d", "d_max", "d_numerator")
+
     def __init__(self, params, lr: Union[float, Callable] = 1.0, betas=(0.9, 0.999),
                  beta3: float | None = None, eps: float = 1e-8, weight_decay: float = 0.0,
                  use_bias_correction: bool = False, safeguard_warmup: bool = False,
@@ -105,10 +114,45 @@ class Prodigy(torch.optim.Optimizer):
         self.count = k + 1
 
 
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw's update; `lr` is a float or a schedule (update count ->
+    learning rate). Moments in the parameters' dtype, scalars in float32."""
+    SCALARS = ()
+
+    def __init__(self, params, lr: Union[float, Callable] = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-4):
+        super().__init__(params, dict(betas=betas, eps=eps, weight_decay=weight_decay))
+        self.lr = lr
+        self.count = 0
+        for p in self.params():
+            self.state[p] = {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+
+    def params(self) -> list:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        group = self.param_groups[0]
+        (b1, b2), eps, wd = group["betas"], group["eps"], group["weight_decay"]
+        f32 = np.float32
+        k = self.count
+        n = f32(k + 1)
+        bc1, bc2 = f32(1.0) - f32(b1) ** n, f32(1.0) - f32(b2) ** n
+        lr = f32(self.lr(k) if callable(self.lr) else self.lr)
+        for p in self.params():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            st = self.state[p]
+            m = st["exp_avg"].mul_(b1).add_(g * (1 - b1))
+            v = st["exp_avg_sq"].mul_(b2).add_(g * g * (1 - b2))
+            upd = (m / float(bc1)) / ((v / float(bc2)).sqrt() + eps) + wd * p
+            p.add_(upd * float(-lr))
+        self.count = k + 1
+
+
 class GradientPipeline:
     """clip_by_global_norm(max_norm) -> `inner`, behind MultiSteps(every_k)."""
 
-    def __init__(self, inner: Prodigy, max_norm: float, every_k: int = 1):
+    def __init__(self, inner: Prodigy | AdamW, max_norm: float, every_k: int = 1):
         self.inner, self.max_norm, self.every_k = inner, max_norm, every_k
         self.params = inner.params()
         self.acc = [torch.zeros_like(p) for p in self.params]

@@ -1,9 +1,9 @@
-"""Training steps: the Arc2Face distillation step and the zero-shot
-reconstruction step.
+"""Training steps: the Arc2Face distillation step, the zero-shot
+reconstruction step and the static (textual-inversion) one.
 
 Port of `adaprompt_tpu/train/steps.py` (`TrainState`, `FrozenSD`,
 `frozen_params`, `make_arc2face_distill_step`) and of the JAX trainer's
-`apply_emb_scale` and `make_zs_recon_step`.
+`apply_emb_scale`, `make_zs_recon_step` and `make_static_recon_step`.
 
 Distillation (`DistillStep`). The frozen Arc2Face
 teacher denoises a chain of ND steps; the student, the frozen SD UNet
@@ -25,6 +25,12 @@ reconstructs the noised latents under the augmentation mask, optionally
 with subject conv-attention. The loss is the fg/bg-weighted MSE and, under
 `fgbg_reg`, the fg/bg attention regularizers on the captured
 cross-attention scores (`train/fgbg.py`).
+
+Static reconstruction (`StaticReconStep`, the legacy textual-inversion
+mode of the JAX trainer's `make_static_recon_step`). A trainable
+StaticLayerwiseEmbedding's [L, K, D] embeddings, the same for every sample,
+are spliced per layer at the subject placeholder; the rest is the recon
+step's UNet pass and fg/bg-weighted MSE, without regularizers.
 
 A step draws all its randomness in its `draw`, from a `torch.Generator`:
 the timesteps, the first noise, the distillation chain's uniform and
@@ -49,12 +55,22 @@ from adaprompt_tpu_torch.train.arc2face_teacher import teacher_denoise_chain
 from adaprompt_tpu_torch.train.losses import calc_recon_loss
 
 
+def named_trainable(params: dict) -> list:
+    """(qualified name, tensor) of a {name: module or parameter} dict, in
+    order: '<name>.<parameter>' for a module's parameters, '<name>' for a
+    bare tensor."""
+    out = []
+    for name, v in params.items():
+        if isinstance(v, torch.nn.Module):
+            out.extend((f"{name}.{n}", p) for n, p in v.named_parameters())
+        else:
+            out.append((name, v))
+    return out
+
+
 def trainable_parameters(params: dict) -> list:
     """The parameters of a {name: module or parameter} dict, in order."""
-    out = []
-    for v in params.values():
-        out.extend(v.parameters() if isinstance(v, torch.nn.Module) else [v])
-    return out
+    return [p for _, p in named_trainable(params)]
 
 
 @dataclasses.dataclass
@@ -298,3 +314,41 @@ class ReconStep:
 
 def make_zs_recon_step(frozen: FrozenSD, tokenizer, subj_basis_cfg, **kw) -> ReconStep:
     return ReconStep(frozen, tokenizer, subj_basis_cfg, **kw)
+
+
+class StaticReconStep(ReconStep):
+    """The legacy textual-inversion recon iteration: the trainable
+    StaticLayerwiseEmbedding's [L, K, D] embeddings (no face image, no
+    SubjBasisGenerator), tiled over the batch and spliced per layer at the
+    subject placeholder; the frozen UNet reconstructs the noised latents
+    under the augmentation mask, trained on the fg/bg-weighted MSE.
+
+    step(state, fp, batch, gen) -> (state, metrics) with the state's params
+    {'static_emb': StaticLayerwiseEmbedding} and batch {'z0', 'caption_ids',
+    'subj_bi', 'subj_pos', 'fg_mask', 'aug_mask', 'skip_weights'}."""
+
+    def __init__(self, frozen: FrozenSD, static_cfg, *, num_ca_layers: int = 16,
+                 sched: DiffusionSchedule = SD15_SCHEDULE, compute_dtype=torch.bfloat16):
+        self.frozen, self.static_cfg, self.num_ca_layers = frozen, static_cfg, num_ca_layers
+        self.sched, self.compute_dtype = sched, compute_dtype
+
+    def draw(self, gen: torch.Generator, z0: torch.Tensor) -> dict:
+        """The timesteps and the noise, from `gen` (on z0's device)."""
+        b, dev = z0.shape[0], z0.device
+        return {"t": torch.randint(0, self.sched.num_timesteps, (b,), generator=gen, device=dev),
+                "noise": torch.randn(z0.shape, generator=gen, device=dev)}
+
+    def loss(self, params: dict, fp: dict, batch: dict, draws: dict):
+        z0 = batch["z0"]
+        embs = params["static_emb"]()                                   # [L, K, D]
+        subj_embs = embs[None].expand(z0.shape[0], *embs.shape)         # [B, L, K, D]
+        ctx = encode_spliced(fp["text"], batch["caption_ids"],
+                             [(subj_embs, batch["subj_bi"], batch["subj_pos"],
+                               self.static_cfg.num_vectors)],
+                             batch["skip_weights"], self.num_ca_layers, layerwise=True)
+        t, noise, dt = draws["t"], draws["noise"], self.compute_dtype
+        z_t = q_sample(self.sched, z0, t, noise)
+        eps = fp["unet"](z_t.to(dt), t, ctx.to(dt), img_mask=batch.get("aug_mask")).float()
+        loss = calc_recon_loss(eps, noise, batch.get("aug_mask"), batch.get("fg_mask"),
+                               fg_pixel_weight=1.0, bg_pixel_weight=0.1)
+        return loss, {"loss_recon": loss, "loss": loss}

@@ -43,10 +43,21 @@ refuses compositional iterations unless `no_teacher_filter=True`, which
 treats every iteration as teachable and says so in the metrics.
 
 The gradient pipeline is clip_by_global_norm(0.5) -> Prodigy with the
-warm-up + linear-decay schedule, behind MultiSteps(grad_accum)
-(`prodigy.GradientPipeline`). Metrics go to metrics.jsonl, fetched from
-the device every `metrics_flush_every` steps; checkpoints are native .npz
-snapshots of the trainable parameters in the JAX package's layout.
+warm-up + linear-decay schedule, or under `optimizer_type="AdamW"` AdamW at
+`base_lr` times the warm-up + cosine schedule, behind MultiSteps(grad_accum)
+(`prodigy.GradientPipeline`). Under `use_ema` an EMA of every trainable
+tensor (`train/ema.py`, decay `ema_decay`) follows each distillation and
+recon step, not the compositional ones. Metrics go to metrics.jsonl,
+fetched from the device every `metrics_flush_every` steps; checkpoints are
+native .npz snapshots of the trainable parameters (and the EMA's subject
+generator) in the JAX package's layout. `save_full_state` /
+`load_full_state` keep everything a resumed run needs to take the same
+steps: parameters, optimizer and accumulator, the frozen generator copy,
+the EMA, the host and device random streams, the teachable counters, and,
+beyond the JAX package's, `ca_q_bn_stats` and the compositional reuse
+cache. `log_samples` writes a PNG strip generated with the current
+generator through `PromptConditioner` and the frozen models.
+`make_static_recon_step` is the legacy textual-inversion mode's step.
 
 Face ids come from `face_embedder` (ArcFace, `eval/face_eval.py`'s
 `FaceSimilarityEvaluator`, or any object with `embed_image`) over each raw
@@ -54,10 +65,9 @@ image; a faceless image falls back to a random id from the host stream, as
 in the JAX package. Without an embedder, `synthetic_faces=True` opts in to
 random ids for every image.
 
-Not ported (NotImplementedError): EMA (`use_ema`), `distribute`,
-full-state resume and the AdamW optimizer (`optimizer_type="AdamW"`,
-`base_lr`). The config carries every field of the JAX package's, with its
-defaults; the constructor takes the JAX trainer's arguments in its order.
+Not ported (NotImplementedError): `distribute`. The config carries every
+field of the JAX package's, with its defaults; the constructor takes the
+JAX trainer's arguments in its order.
 """
 
 from __future__ import annotations
@@ -82,10 +92,12 @@ from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, UNet
 from adaprompt_tpu_torch.models.vae import SD_SCALE_FACTOR, VAE, _resize_mask_nearest
 from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
 from adaprompt_tpu_torch.train import compos_step as cs
+from adaprompt_tpu_torch.train import ema as ema_mod
 from adaprompt_tpu_torch.train import steps as steps_mod
 from adaprompt_tpu_torch.train.compos import select_teachable_candidate
-from adaprompt_tpu_torch.train.lr_schedules import prodigy_lr_schedule
-from adaprompt_tpu_torch.train.prodigy import GradientPipeline, Prodigy
+from adaprompt_tpu_torch.train.lr_schedules import (lambda_warmup_cosine_schedule,
+                                                    prodigy_lr_schedule)
+from adaprompt_tpu_torch.train.prodigy import AdamW, GradientPipeline, Prodigy
 
 
 @dataclasses.dataclass
@@ -134,14 +146,29 @@ class TrainerConfig:
         return cls(**kw)
 
 
+def make_static_recon_step(frozen: steps_mod.FrozenSD, static_cfg,
+                           **kw) -> steps_mod.StaticReconStep:
+    """The legacy textual-inversion recon step over a StaticLayerwiseEmbedding
+    (`adaface/static_embedder.py`); its state holds {'static_emb': module}
+    under `build_optimizer(cfg, ...)`."""
+    return steps_mod.StaticReconStep(frozen, static_cfg, **kw)
+
+
 def build_optimizer(cfg: TrainerConfig, params: list) -> GradientPipeline:
-    """clip_by_global_norm(grad_clip) -> Prodigy, behind MultiSteps(grad_accum)."""
-    if cfg.optimizer_type != "Prodigy":
-        raise NotImplementedError(f"optimizer {cfg.optimizer_type!r} is not ported yet")
-    inner = Prodigy(params, lr=prodigy_lr_schedule(cfg.max_steps, cfg.warm_up_steps,
-                                                   cfg.scheduler_cycles),
-                    betas=cfg.prodigy_betas, d_coef=cfg.d_coef, use_bias_correction=True,
-                    safeguard_warmup=cfg.scheduler_cycles > 1)
+    """clip_by_global_norm(grad_clip) -> Prodigy (the warm-up + linear-decay
+    schedule) or AdamW (base_lr times the warm-up + cosine schedule, b2
+    0.993, weight decay 1e-4), behind MultiSteps(grad_accum)."""
+    if cfg.optimizer_type == "Prodigy":
+        inner = Prodigy(params, lr=prodigy_lr_schedule(cfg.max_steps, cfg.warm_up_steps,
+                                                       cfg.scheduler_cycles),
+                        betas=cfg.prodigy_betas, d_coef=cfg.d_coef, use_bias_correction=True,
+                        safeguard_warmup=cfg.scheduler_cycles > 1)
+    elif cfg.optimizer_type == "AdamW":
+        sched = lambda_warmup_cosine_schedule(500, 0.01, 1.0, 0.1, cfg.max_steps)
+        inner = AdamW(params, lr=lambda count: np.float32(cfg.base_lr) * sched(count),
+                      betas=(0.9, 0.993))
+    else:
+        raise ValueError(cfg.optimizer_type)
     return GradientPipeline(inner, cfg.grad_clip, max(cfg.grad_accum, 1))
 
 
@@ -229,9 +256,6 @@ class AdaPromptTrainer:
                 "reference's CLIP teacher filter keeps only ~30-40% "
                 "(ddpm.py:3649-3664). Pass a clip_scorer, or opt in "
                 "explicitly with TrainerConfig(no_teacher_filter=True).")
-        if cfg.use_ema:
-            raise NotImplementedError("EMA of the trainable parameters (use_ema) is not "
-                                      "ported yet")
         if face_embedder is None and not synthetic_faces:
             raise ValueError(
                 "no face_embedder: training would distill against random "
@@ -270,6 +294,8 @@ class AdaPromptTrainer:
         # the 0.9 frozen / 0.1 live blend of the subj-single row
         self._frozen_sbg = (copy.deepcopy(sbg).requires_grad_(False)
                             if cfg.composition_regs_iter_gap > 0 else None)
+        # the EMA of the trainable parameters, off in the reference configs
+        self.ema = ema_mod.ema_init(params) if cfg.use_ema else None
         # teachable-fraction counters of the teacher filter
         self._num_filter_iters = self._num_teachable_iters = 0
         self._num_reuse_filter_iters = self._num_reuse_teachable_iters = 0
@@ -599,6 +625,7 @@ class AdaPromptTrainer:
             step_fn = self._get_recon_step(use_bg, self.cfg.fgbg_reg)
             self.state, metrics = step_fn(self.state, self._fp, batch, self.gen)
             metrics["iter_type"] = "recon_bg" if use_bg else "recon"
+            self._update_ema()
             return self._emit_metrics(step_idx, metrics, self._host_stats())
         nd = self._sample_num_denoising_steps()
         if nd > 1:
@@ -611,7 +638,14 @@ class AdaPromptTrainer:
         self.state, metrics = self._distill_step(nd)(self.state, self._fp, batch, self.gen)
         metrics.update(iter_type="arc2face_distill", num_denoising_steps=nd,
                        distill_bs=int(batch["z0"].shape[0]))
+        self._update_ema()
         return self._emit_metrics(step_idx, metrics, self._host_stats())
+
+    def _update_ema(self):
+        """After every distillation and recon step (micro-steps of an
+        accumulation too); the compositional steps leave the EMA alone."""
+        if self.ema is not None:
+            ema_mod.ema_update(self.ema, self.state.params, decay=self.cfg.ema_decay)
 
     def _emit_metrics(self, step_idx: int, metrics: dict, host_stats: dict | None = None) -> dict:
         """Queue a metrics row; device scalars reach the host every
@@ -672,6 +706,10 @@ class AdaPromptTrainer:
         if "bg_basis" in params:
             trees["bg_basis"] = ckpt_mod.module_tree(params["bg_basis"])
         trees["emb_scales"] = {"scores": params["emb_scales"].detach().float().cpu().numpy()}
+        if self.ema is not None:
+            pre = "subj_basis."
+            trees["ema_subj_basis"] = ckpt_mod.named_tree(
+                (n[len(pre):], v) for n, v in self.ema.shadow.items() if n.startswith(pre))
         if self.ca_q_bn_stats:
             trees["ca_q_bns"] = {str(li): {k: v.float().cpu().numpy() for k, v in ent.items()}
                                  for li, ent in self.ca_q_bn_stats.items()}
@@ -682,7 +720,8 @@ class AdaPromptTrainer:
     def load_checkpoint(self, path: str) -> dict:
         """Load the trainable parameters and the q BatchNorm running
         statistics; the frozen blend copy of the generator becomes the loaded
-        weights, and the optimizer starts afresh, as in the JAX package."""
+        weights, and the optimizer starts afresh, as in the JAX package (which
+        also leaves the EMA and a saved `ema_subj_basis` alone)."""
         trees, meta = ckpt_mod.load_checkpoint(path)
         params = self.state.params
         ckpt_mod.load_module_tree(params["subj_basis"], trees["subj_basis"])
@@ -701,8 +740,130 @@ class AdaPromptTrainer:
             params, build_optimizer(self.cfg, steps_mod.trainable_parameters(params)))
         return meta
 
-    def save_full_state(self, step: int):
-        raise NotImplementedError("full-state resume is not ported yet")
+    # -- full-state resume ---------------------------------------------------------
 
-    def load_full_state(self, path: str):
-        raise NotImplementedError("full-state resume is not ported yet")
+    def save_full_state(self, step: int) -> str:
+        """Write trainer_state-{step}.npz to out_dir (the metrics flushed
+        first): the parameters ('params.<name>/...' in the JAX layout,
+        emb_scales bare), the gradient pipeline's accumulator and micro-step
+        and the optimizer's slots and scalars, the frozen generator copy, the
+        EMA, the device generator's state, ca_q_bn_stats and the reuse cache,
+        and a '__meta__' JSON with the step, the numpy stream's state and the
+        teachable counters."""
+        self._flush_metrics()
+        params, flat = self.state.params, {}
+        for name, v in params.items():
+            if isinstance(v, nn.Module):
+                flat.update(ckpt_mod._flatten(ckpt_mod.module_tree(v), f"params.{name}/"))
+            else:
+                flat[f"params.{name}"] = ckpt_mod._numpy(v)
+        names = [n for n, _ in steps_mod.named_trainable(params)]
+        opt_flat, opt_meta = ckpt_mod.optimizer_entries(self.state.optimizer, names)
+        flat.update(opt_flat)
+        if self._frozen_sbg is not None:
+            flat.update(ckpt_mod._flatten(ckpt_mod.module_tree(self._frozen_sbg), "frozen_sbg/"))
+        if self.ema is not None:
+            flat.update(ckpt_mod.tensor_entries("emastate/", self.ema.shadow))
+        flat["gen_state"] = self.gen.get_state().numpy()
+        for li, ent in self.ca_q_bn_stats.items():
+            flat.update(ckpt_mod.tensor_entries(f"ca_q_bns/{li}/", ent))
+        cached = list(self._cached_inits.cache.items())
+        for i, (_, entry) in enumerate(cached):
+            flat.update({f"cached_inits/{i}/{k}": np.asarray(v) for k, v in entry.items()})
+        meta = {"step": step, "global_step": self._global_step,
+                "rng_state": self.rng.bit_generator.state,
+                "counters": [self._num_filter_iters, self._num_teachable_iters,
+                             self._num_reuse_filter_iters, self._num_reuse_teachable_iters],
+                "state_step": self.state.step, "optimizer": opt_meta,
+                "ema_num_updates": None if self.ema is None else self.ema.num_updates,
+                "cached_inits": [name for name, _ in cached],
+                "last_teach_color": getattr(self, "_last_teach_color", None)}
+        flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        path = os.path.join(self.cfg.out_dir, f"trainer_state-{step}.npz")
+        np.savez(path, **flat)
+        return path
+
+    def load_full_state(self, path: str) -> dict:
+        """Restore what save_full_state wrote onto this trainer's device, in
+        place; the trainer must be built as the saving one was (the same
+        models, optimizer type, EMA and generator copy). Returns the meta."""
+        data = np.load(path, allow_pickle=False)
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        flat = {k: data[k] for k in data.files if k != "__meta__"}
+        params = self.state.params
+        # first: it refuses a state of another optimizer before anything moves
+        names = [n for n, _ in steps_mod.named_trainable(params)]
+        ckpt_mod.load_optimizer_entries(self.state.optimizer, names, flat, meta["optimizer"])
+        with torch.no_grad():
+            for name, v in params.items():
+                if isinstance(v, nn.Module):
+                    ckpt_mod.load_module_tree(
+                        v, ckpt_mod._unflatten(ckpt_mod.group(flat, f"params.{name}/")))
+                else:
+                    v.copy_(torch.as_tensor(flat[f"params.{name}"]))
+        self.state.step = int(meta["state_step"])
+        if self._frozen_sbg is not None:
+            ckpt_mod.load_module_tree(self._frozen_sbg,
+                                      ckpt_mod._unflatten(ckpt_mod.group(flat, "frozen_sbg/")))
+        if self.ema is not None:
+            ckpt_mod.load_tensor_entries("emastate/", self.ema.shadow, flat)
+            self.ema.num_updates = int(meta["ema_num_updates"])
+        self.gen.set_state(torch.from_numpy(flat["gen_state"]))
+        self.rng.bit_generator.state = meta["rng_state"]
+        self._global_step = int(meta["global_step"])
+        (self._num_filter_iters, self._num_teachable_iters,
+         self._num_reuse_filter_iters, self._num_reuse_teachable_iters) = meta["counters"]
+        bn = ckpt_mod.group(flat, "ca_q_bns/")
+        self.ca_q_bn_stats = {}
+        for key, a in bn.items():
+            li, k = key.split("/")
+            self.ca_q_bn_stats.setdefault(int(li), {})[k] = torch.as_tensor(a, device=self.device)
+        self._cached_inits.cache = {
+            name: {k: flat[f"cached_inits/{i}/{k}"] for k in ("x_start", "t")}
+            for i, name in enumerate(meta["cached_inits"])}
+        if meta["last_teach_color"] is not None:
+            self._last_teach_color = meta["last_teach_color"]
+        return meta
+
+    # -- the sample grid ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def log_samples(self, step: int, prompt: str = "a photo of a z",
+                    faceid: np.ndarray | None = None, num_steps: int = 20, n: int = 2,
+                    height: int = 512, width: int = 512) -> str:
+        """Generate n images of `prompt` with the current SubjBasisGenerator
+        (DDIM with CFG against the default negative prompt, seed `step`) and
+        write them side by side to samples_gs-{step}.png in out_dir, boxed in
+        the colour of the last teacher-filter decision (green fresh
+        teachable, red not teachable, purple reuse teachable; none before
+        the first). Without `faceid` [1, 512] a random unit id is drawn from
+        the host stream. The pipeline is built once over the trainer's own
+        frozen UNet, VAE and text encoder."""
+        from adaprompt_tpu_torch.pipeline import DEFAULT_NEGATIVE_PROMPT, StableDiffusionPipeline
+        from adaprompt_tpu_torch.utils.png import write_png
+        if faceid is None:
+            faceid = self.rng.standard_normal((1, 512)).astype(np.float32)
+            faceid /= np.linalg.norm(faceid, axis=-1, keepdims=True)
+        if getattr(self, "_sample_pipe", None) is None:
+            self._sample_pipe = StableDiffusionPipeline(self.frozen.unet, self.vae,
+                                                        self.frozen.text, self.tokenizer)
+            self._sample_pc = cond_mod.PromptConditioner(self.frozen.text, self.tokenizer,
+                                                         [self.subject_spec])
+        _, core_id = arc2face.forward_face_embs(
+            self.frozen.arc2face_text, self.tokenizer,
+            torch.as_tensor(np.asarray(faceid, np.float32), device=self.device),
+            input_max_length=21)
+        subj_embs, _ = self.state.params["subj_basis"](self.tokenizer, core_id,
+                                                       is_training=False)
+        cond = self._sample_pc([prompt] * n, {self.subject_spec.string: subj_embs})
+        uncond = self._sample_pc([DEFAULT_NEGATIVE_PROMPT] * n, {})
+        imgs = self._sample_pipe.generate(None, context=cond, context_uncond=uncond,
+                                          num_steps=num_steps, height=height, width=width,
+                                          seed=step).copy()
+        color = {1: (0, 255, 0), 2: (255, 0, 0),
+                 3: (160, 32, 240)}.get(getattr(self, "_last_teach_color", 0))
+        if color is not None:
+            imgs[:, :6], imgs[:, -6:] = color, color
+            imgs[:, :, :6], imgs[:, :, -6:] = color, color
+        return write_png(os.path.join(self.cfg.out_dir, f"samples_gs-{step}.png"),
+                         np.concatenate(list(imgs), axis=1))

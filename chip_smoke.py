@@ -5,7 +5,9 @@ spliced prompt, activation capture, the fg/bg attention regularizers,
 subject conv-attention, and the background "y" token's branch: the CLIP
 ViT-H/14 vision tower's masked zero-shot features through the background
 SubjBasisGenerator), Stage-2 compositional training (the CLIP teacher
-filter, mix-prompt distillation, elastic fg/bg preservation), the composed serving stack (DPM-Solver++ 20 steps
+filter, mix-prompt distillation, elastic fg/bg preservation), the rest of the trainer
+(full-state resume, AdamW with the EMA, the static textual-inversion recon step, the
+sample grid through PromptConditioner), the composed serving stack (DPM-Solver++ 20 steps
 with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
 (AdaFacePipeline: photos -> ArcFace -> 16 subject tokens -> personalized
 DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
@@ -127,7 +129,22 @@ Phases, in order (any failure exits non-zero without the final line):
      of the JAX phase (finite), grad_norm > 0, teacher_filter_disabled,
      that the generator moved, the 12 layers of ca_q_bn_stats and the
      exact launch counts; logs s/step, the filter's time and peak memory;
- 12. print the kernels' JSON line (thirteen rows), the card's name and
+ 12. the rest of the trainer, right after phase 11, over phase 6's trainer
+     and frozen models: (a) save_full_state, 2 steps on captured raw batches,
+     load_full_state and the same 2 steps, load and the same 2 again: equal
+     iteration types, host and device draws and first-step loss bit for bit,
+     the second step (and the parameters) as close as the resumed runs' own
+     spread allows (B4's dq atomics); logs the file's size and the save and
+     load times; (b) a trainer with optimizer_type="AdamW" and use_ema=True
+     over a fresh generator takes an accumulating and an applying step: the
+     parameters move only on the second, the EMA counts 2 updates and equals
+     LitEma's formula on a host copy, the checkpoint holds ema_subj_basis;
+     (c) the static recon step over a StaticLayerwiseEmbedding (K 16, D 768)
+     takes 2 steps with the augmentation mask (B1 and B4 with key bias) and
+     its parameters move; (d) log_samples (DDIM-20, n 2, 512x512) writes a
+     [512, 1024, 3] strip that read_png decodes to the array written; exact
+     launch counts on each of the four paths;
+ 13. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -1886,6 +1903,7 @@ def phase_train():
     tr._flush_metrics()
     by_path.update(phase_recon(tr, tmp.name))
     by_path.update(phase_compos(tr, tmp.name))
+    by_path.update(phase_trainer_state(tr, tmp.name))
     tmp.cleanup()
     return by_path
 
@@ -2398,26 +2416,349 @@ def phase_compos(tr, out_dir):
     return {"compos_filter": launches_filter, "compos": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of the trainer (full-state resume, AdamW with EMA, the
+# static textual-inversion step, the sample grid)
+# ---------------------------------------------------------------------------
+
+RESUME_STEPS = 2        # rerun after the save, after one load and after a second
+SAMPLE_STEPS = 20       # log_samples: DDIM-20, n = 2 (UNet batch 4 with CFG), 512x512
+STATIC_STEPS = 2        # K = 16 vectors at D = 768, one accumulated Prodigy update
+
+
+def read_png(path):
+    """The PNGs that adaprompt_tpu_torch/utils/png.py writes (8-bit RGB,
+    filter 0) decoded on zlib alone, every chunk's CRC checked."""
+    import struct
+    import zlib
+    import numpy as np
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = hdr[:4]
+    if (depth, color) != (8, 2):
+        raise AssertionError(f"{path}: depth {depth} colour type {color}, expected 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a scanline filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _sbg_snapshot(sbg):
+    return {n: p.detach().clone() for n, p in sbg.named_parameters()}
+
+
+def _max_diff(a, b):
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def _resume_run(tr, raws, first_step):
+    """RESUME_STEPS steps of `tr` on the captured raw batches: the metrics
+    (tensors as floats), the numpy stream's and the device generator's state
+    after each step, and the generator's parameters after the last."""
+    import torch
+    tr.batch_iterator = iter(list(raws))
+    rows, states = [], []
+    for i in range(RESUME_STEPS):
+        r, _ = _step_timed(tr, first_step + i)
+        rows.append({k: v for k, v in r.items() if k not in ("step_time_s", "device_mem_gb",
+                                                              "device_peak_mem_gb")})
+        states.append((json.dumps(tr.rng.bit_generator.state), bytes(tr.gen.get_state().numpy())))
+    torch.cuda.synchronize()
+    return rows, states, _sbg_snapshot(tr.state.params["subj_basis"])
+
+
+def phase_resume(tr, step0):
+    """(a) The full state of phase 6's trainer on the card: save, take
+    RESUME_STEPS steps on captured raw batches; load and take them again;
+    load and take them a third time. The iteration types, the host draws,
+    the generator states and the first step's loss must be equal bit for bit
+    in all three (the forward is deterministic from equal parameters and
+    draws); the first step applies an accumulated update, so what follows
+    differs only by B4's dq atomics: the unresumed run must stay as close
+    to the resumed one, in the second step's loss and in every parameter,
+    as 4x the two resumed runs' own spread (with a floor of 1e-7 of the loss
+    and two ulps of the largest parameter).
+    Returns the resumed run's launch counts."""
+    import os
+    import torch
+    step = step0
+    if tr.state.optimizer.mini_step == 0:       # save where the next step applies an update
+        _step_timed(tr, step)
+        step += 1
+    tr._flush_metrics()
+    source = tr.batch_iterator
+    raws = [next(source) for _ in range(RESUME_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr.save_full_state(step)
+    save_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(path) / 2 ** 30
+    n_params = sum(p.numel() for p in tr.state.params["subj_basis"].parameters())
+    torch.cuda.reset_peak_memory_stats()
+    runs, loads, counts = [_resume_run(tr, raws, step)], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = tr.load_full_state(path)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        if meta["step"] != step or tr.state.optimizer.mini_step != 1:
+            raise AssertionError(f"load_full_state: meta step {meta['step']}, mini_step "
+                                 f"{tr.state.optimizer.mini_step}")
+        zero_counts()
+        runs.append(_resume_run(tr, raws, step))
+        counts.append(read_counts())
+    launches = counts[0]                  # the path's counted run: the first resumed one
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr.batch_iterator = source
+    os.remove(path)
+    (rows0, st0, p0), (rows1, st1, p1), (rows2, st2, p2) = runs
+    key = "loss_arc2face_distill"
+    spread_loss = abs(rows1[1][key] - rows2[1][key])
+    spread_params = _max_diff(p1, p2)
+    diff_loss = abs(rows0[1][key] - rows1[1][key])
+    diff_params = _max_diff(p0, p1)
+    # 4x the resumed runs' spread, and a floor: 1e-7 of the loss, two ulps
+    # of the largest parameter (a lost optimizer slot or D moves the update
+    # itself, ~1e-5 here, far above either)
+    bound_loss = 4 * spread_loss + 1e-7 * abs(rows1[1][key])
+    ulp = max(float(torch.finfo(torch.float32).eps * v.abs().max()) for v in p1.values())
+    bound_params = 4 * spread_params + 2 * ulp
+    log(f"phase 12 resume: state of {n_params / 1e6:.1f} M trainable parameters, "
+        f"{size_gb:.3f} GiB, saved in {save_s:.3f} s, loaded in {[round(x, 3) for x in loads]} s; "
+        f"peak memory {peak:.2f} GiB")
+    for name, rows in (("unresumed", rows0), ("resumed", rows1), ("resumed again", rows2)):
+        log(f"phase 12 resume {name}: " + "; ".join(
+            f"step {r['step']} {r['iter_type']} ND={r['num_denoising_steps']} {key}={r[key]!r} "
+            f"grad_norm={r['grad_norm']!r}" for r in rows))
+    log(f"phase 12 resume second step: |unresumed - resumed| loss {diff_loss:.4e}, parameters "
+        f"{diff_params:.4e}; the resumed runs' spread (B4's dq atomics) loss {spread_loss:.4e}, "
+        f"parameters {spread_params:.4e}; bounds: loss {bound_loss:.4e} (4 x spread + 1e-7 x "
+        f"loss), parameters {bound_params:.4e} (4 x spread + 2 ulps of the largest, "
+        f"{ulp:.3e}); launches {nz(launches)}")
+    for rows, st in ((rows1, st1), (rows2, st2)):
+        if [(r["iter_type"], r.get("num_denoising_steps")) for r in rows] != \
+                [(r["iter_type"], r.get("num_denoising_steps")) for r in rows0] or st != st0:
+            raise AssertionError("a resumed run took other iterations or host/device draws")
+        if rows[0][key] != rows0[0][key]:
+            raise AssertionError(f"the first resumed step's loss {rows[0][key]!r} is not the "
+                                 f"unresumed one's {rows0[0][key]!r}")
+    if not (diff_loss <= bound_loss and diff_params <= bound_params):
+        raise AssertionError("the resumed run strays from the unresumed one beyond the runs' "
+                             "own spread")
+    # per step at ND 1: a teacher pass, a student pass and its recompute; one backward
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=30 * RESUME_STEPS,
+                flash_attention_bwd=FLASH_BWD_PER_PASS * RESUME_STEPS, geglu_fwd=30 * RESUME_STEPS)
+    if launches != want:
+        raise AssertionError(f"resume launches {launches}, expected {want}")
+    return launches, step + RESUME_STEPS
+
+
+def phase_adamw_ema(tr, out_dir):
+    """(b) A trainer over phase 6's frozen models and a fresh seeded
+    SubjBasisGenerator with optimizer_type="AdamW" and use_ema=True takes an
+    accumulating and an applying step (ND 1): the parameters move only on the
+    second, the EMA counts 2 updates and its shadow is LitEma's formula on a
+    host copy, and the checkpoint holds ema_subj_basis. Returns the launches."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
+    from adaprompt_tpu_torch.ops.layers import reset_parameters
+    from adaprompt_tpu_torch.train.ema import ema_decay_at
+    from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
+                                                   synthetic_raw_batches)
+    t0 = time.perf_counter()
+    sbg = reset_parameters(SubjBasisGenerator(SUBJ_CONFIG, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(13))
+    cfg = TrainerConfig(seed=6, out_dir=out_dir, optimizer_type="AdamW", use_ema=True,
+                        max_num_denoising_steps=1)
+    at = AdaPromptTrainer(tr.frozen, tr.vae, tr.tokenizer, SUBJ_CONFIG, sbg,
+                          synthetic_raw_batches(6), cfg, synthetic_faces=True)
+    host = lambda t: t.detach().float().cpu().numpy()
+    shadow = {n: host(v) for n, v in at.ema.shadow.items()}
+    params0 = {n: host(p) for n, p in sbg.named_parameters()}
+    watched = ("hidden_state_layer_weights", "prompt2token_proj.layers.11.mlp.fc2.weight",
+               "prompt2token_proj.token_embedding")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows, times, moved = [], [], []
+    for i in range(2):
+        r, sec = _step_timed(at, i)
+        rows.append(r)
+        times.append(sec)
+        now = {n: host(p) for n, p in sbg.named_parameters()}
+        moved.append({n for n in now if not np.array_equal(now[n], params0[n])})
+        # LitEma on the host: the count incremented first, then the decay
+        c = np.float32(1.0) - ema_decay_at(i + 1, cfg.ema_decay)
+        now["emb_scales"] = host(at.state.params["emb_scales"])
+        shadow = {n: s - (s - now[n.split("subj_basis.", 1)[-1]]) * c for n, s in shadow.items()}
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ema_err = max(float(np.abs(host(at.ema.shadow[n]) - s).max()) for n, s in shadow.items())
+    ckpt = np.load(at.save_checkpoint(2))
+    ema_keys = [k for k in ckpt.files if k.startswith("ema_subj_basis/")]
+    log(f"phase 12 adamw_ema: 2 steps (AdamW, b2 0.993, EMA decay {cfg.ema_decay}) in "
+        f"{[round(x, 3) for x in times]} s; losses {[r['loss_arc2face_distill'] for r in rows]}; "
+        f"parameters moved after each step {[len(m) for m in moved]} of {len(params0)}; EMA "
+        f"num_updates {at.ema.num_updates}, max |shadow - host LitEma| {ema_err:.3e}; checkpoint "
+        f"ema_subj_basis entries {len(ema_keys)}; peak memory {peak:.2f} GiB; built and run in "
+        f"{time.perf_counter() - t0:.1f} s; launches {nz(launches)}")
+    if moved[0] or not set(watched) <= moved[1]:
+        raise AssertionError(f"parameters moved {moved}: expected none, then {watched}")
+    if at.ema.num_updates != 2 or ema_err > 1e-6:
+        raise AssertionError(f"EMA count {at.ema.num_updates}, |shadow - LitEma| {ema_err}")
+    if len(ema_keys) != len(params0) or not all(
+            np.isfinite(r["loss_arc2face_distill"]) and r["grad_norm"] > 0 for r in rows):
+        raise AssertionError(f"checkpoint ema_subj_basis {len(ema_keys)} entries, rows {rows}")
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=60, flash_attention_bwd=2 * FLASH_BWD_PER_PASS, geglu_fwd=60)
+    if launches != want:
+        raise AssertionError(f"adamw_ema launches {launches}, expected {want}")
+    at._flush_metrics()
+    return launches
+
+
+def phase_static(tr):
+    """(c) The static textual-inversion step over phase 6's frozen UNet and
+    text encoder: a StaticLayerwiseEmbedding with K = 16 at D = 768 takes
+    STATIC_STEPS steps on a recon batch with its augmentation mask (so B1 and
+    B4 take the key bias); its parameters move. Returns the launches."""
+    import torch
+    from adaprompt_tpu_torch.adaface.static_embedder import (StaticEmbedderConfig,
+                                                             StaticLayerwiseEmbedding)
+    from adaprompt_tpu_torch.train import steps as steps_mod
+    from adaprompt_tpu_torch.train.trainer import TrainerConfig, build_optimizer, \
+        make_static_recon_step
+    scfg = StaticEmbedderConfig(num_vectors=16, out_emb_dim=768)
+    emb = StaticLayerwiseEmbedding(scfg, torch.Generator(device="cuda").manual_seed(14),
+                                   device="cuda")
+    params = {"static_emb": emb}
+    state = steps_mod.TrainState(params, build_optimizer(
+        TrainerConfig(), steps_mod.trainable_parameters(params)))
+    step = make_static_recon_step(tr.frozen, scfg)
+    batch = tr.prepare_recon_batch(next(tr.batch_iterator))
+    if not (batch["aug_mask"] == 0).any():
+        raise AssertionError("the recon batch's augmentation mask masks nothing")
+    before = {n: p.detach().clone() for n, p in emb.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    zero_counts()
+    rows, times = [], []
+    for _ in range(STATIC_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, tr._fp, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        rows.append({k: float(v) for k, v in m.items()})
+    launches = read_counts()
+    moved = {n: not torch.equal(p, before[n]) for n, p in emb.named_parameters()}
+    log(f"phase 12 static_recon: {STATIC_STEPS} steps (StaticLayerwiseEmbedding L 16 K 16 D 768, "
+        f"{sum(p.numel() for p in emb.parameters()) / 1e6:.3f} M parameters, bs 4 512x512 bf16, "
+        f"aug_mask) in {[round(x, 3) for x in times]} s; {rows}; moved {moved}; "
+        f"launches {nz(launches)}")
+    if not all(all(math.isfinite(v) for v in r.values()) and r["grad_norm"] > 0 for r in rows):
+        raise AssertionError(f"bad static recon metrics {rows}")
+    if not all(moved.values()):
+        raise AssertionError(f"the static embedder did not move: {moved}")
+    # a student pass with key bias, its recompute and one backward a step
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=20 * STATIC_STEPS,
+                flash_attention_bwd=FLASH_BWD_PER_PASS * STATIC_STEPS,
+                geglu_fwd=20 * STATIC_STEPS)
+    if launches != want:
+        raise AssertionError(f"static_recon launches {launches}, expected {want}")
+    return launches
+
+
+def phase_log_samples(tr, step):
+    """(d) log_samples on phase 6's trainer: DDIM-20 of 2 images at 512x512
+    through PromptConditioner and the trainer's own frozen models; the strip
+    [512, 1024, 3] read back through read_png equals the array written.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.utils import png
+    written, write = [], png.write_png
+    png.write_png = lambda path, img: (written.append(np.array(img)), write(path, img))[1]
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = tr.log_samples(step, num_steps=SAMPLE_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_counts()
+        t0 = time.perf_counter()
+        tr.log_samples(step + 1, num_steps=SAMPLE_STEPS)   # the pipeline built: timed again
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+    finally:
+        png.write_png = write
+    strip = read_png(path)
+    log(f"phase 12 log_samples: DDIM-{SAMPLE_STEPS} n=2 512x512 bf16 in {sec:.3f} s (again "
+        f"{again:.3f} s); strip {strip.shape}, std {strip.std():.2f}; launches {nz(launches)}")
+    if strip.shape != (512, 1024, 3) or not np.array_equal(strip, written[0]):
+        raise AssertionError(f"the PNG strip {strip.shape} is not the array written")
+    if strip.std() < 1.0:
+        raise AssertionError("the sample strip is flat")
+    # CFG over n = 2: one UNet evaluation of batch 4 a step, 10 layers of each kernel
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=10 * SAMPLE_STEPS, fused_cross_attention=10 * SAMPLE_STEPS,
+                geglu_fwd=10 * SAMPLE_STEPS)
+    if launches != want:
+        raise AssertionError(f"log_samples launches {launches}, expected {want}")
+    return launches
+
+
+def phase_trainer_state(tr, out_dir):
+    """Phase 12, right after phase 11, over phase 6's trainer and frozen
+    models: (a) full-state resume, (b) AdamW with EMA, (c) the static recon
+    step, (d) log_samples. Returns {path: launch counts}."""
+    t0 = time.perf_counter()
+    by_path = {}
+    by_path["resume"], step = phase_resume(tr, 1000)
+    by_path["adamw_ema"] = phase_adamw_ema(tr, out_dir)
+    by_path["static_recon"] = phase_static(tr)
+    by_path["log_samples"] = phase_log_samples(tr, step)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s all told")
+    return by_path
+
+
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
 _TRAIN_TURNS = ("train_default", "train_exp2")
 _RECON = ("recon", "recon_conv", "recon_bg")       # phase 10
 _COMPOS = ("compos_filter", "compos")               # phase 11
+_STATE = ("resume", "adamw_ema", "static_recon")    # phase 12's training paths
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
-                            + _TRAIN_TURNS + _RECON + _COMPOS),
+                            + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
-                            ("train",) + _TRAIN_TURNS + _RECON + ("compos",)),
+                            ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
-                              + _GEN_TURNS),
+                              + _GEN_TURNS + ("log_samples",)),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
-                  + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS),
+                  + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

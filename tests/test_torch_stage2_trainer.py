@@ -313,7 +313,9 @@ def test_teachable_counters_match_jax(env, tmp_path):
 
 def test_stage2_refusals_and_skips(env, tmp_path):
     """Compositional training without a scorer and without the opt-in is
-    refused with JAX's ValueError; EMA and full-state resume still raise;
+    refused with JAX's ValueError; EMA builds under Stage-2, a full state
+    loads back into its trainer and is refused, before anything moves, by a
+    trainer with another optimizer; `distribute` still raises;
     prepare_compos_batch returns None for prompts without the placeholder,
     as JAX's does, and such a step falls through to the coins."""
     cfg = dict(CFG, no_teacher_filter=False)
@@ -326,15 +328,20 @@ def test_stage2_refusals_and_skips(env, tmp_path):
                                   iter(()), jtrainer.TrainerConfig.stage2(out_dir=str(tmp_path),
                                                                           **cfg), **kw)
     assert str(port.value) == str(ref.value) and "no_teacher_filter=True" in str(port.value)
-    with pytest.raises(NotImplementedError, match="use_ema"):
-        ttrainer.AdaPromptTrainer(env["tfrozen"], None, env["ttok"], env["tscfg"], None, iter(()),
-                                  ttrainer.TrainerConfig.stage2(out_dir=str(tmp_path),
-                                                                **dict(CFG, use_ema=True)), **kw)
+    sbg = port_module(tsbg.SubjBasisGenerator(env["tscfg"]), env["jsp"])
+    adamw = ttrainer.AdaPromptTrainer(
+        env["tfrozen"], None, env["ttok"], env["tscfg"], sbg, iter(()),
+        ttrainer.TrainerConfig.stage2(out_dir=str(tmp_path),
+                                      **dict(CFG, use_ema=True, optimizer_type="AdamW")), **kw)
+    assert adamw.ema is not None and adamw._frozen_sbg is not None
     ttr = _port_trainer(env, tmp_path / "t")
-    with pytest.raises(NotImplementedError, match="full-state"):
-        ttr.save_full_state(1)
-    with pytest.raises(NotImplementedError, match="full-state"):
-        ttr.load_full_state("x")
+    assert ttr.load_full_state(ttr.save_full_state(1))["step"] == 1
+    before = {n: p.clone() for n, p in sbg.named_parameters()}
+    with pytest.raises(ValueError, match="Prodigy"):
+        adamw.load_full_state(str(tmp_path / "t" / "trainer_state-1.npz"))
+    assert all(torch.equal(p, before[n]) for n, p in sbg.named_parameters())
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        ttr.distribute()
     jtr = _jax_trainer(env, tmp_path / "j")
     raw = next(ttrainer.synthetic_raw_batches(0, batch_size=2, size=32))
     raw = dict(raw, subj_prompt_comp=["a photo of a person in the park"] * 2)

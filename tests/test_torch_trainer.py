@@ -152,27 +152,37 @@ def test_trainer_config_matches_jax():
 @pytest.mark.parametrize("kw,embedder,error,words", [
     (dict(composition_regs_iter_gap=3), None, ValueError, "no_teacher_filter=True"),
     (dict(), None, ValueError, "no face_embedder"),
-    (dict(composition_regs_iter_gap=3, no_teacher_filter=True, use_ema=True), True,
-     NotImplementedError, "use_ema"),
-    (dict(optimizer_type="AdamW"), True, NotImplementedError, "AdamW"),
-    (dict(use_ema=True), True, NotImplementedError, "use_ema"),
+    (dict(composition_regs_iter_gap=3, no_teacher_filter=True, use_ema=True), True, None, "ema"),
+    (dict(optimizer_type="AdamW"), True, None, "AdamW"),
+    (dict(optimizer_type="SGD"), True, ValueError, "SGD"),
 ])
 def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
     """What the port refuses at construction: the JAX trainer's own
     ValueErrors, with its messages (compositional training without a teacher
-    filter, no face embedder), then each unported path by name (the AdamW
-    optimizer by its config field optimizer_type; EMA, also under the
-    compositional iterations, which are ported)."""
+    filter, no face embedder, an optimizer other than Prodigy and AdamW);
+    and what it builds since the trainer's state is ported (EMA, also under
+    the compositional iterations, and the AdamW optimizer), where only
+    `distribute` still raises."""
     cfg = dict(out_dir=str(tmp_path), **kw)
     face = _StubEmbedder() if embedder else None
+    if error is None:
+        tr = ttrainer.AdaPromptTrainer(env["tfrozen"], None, env["ttok"], env["tscfg"],
+                                       _port_sbg(env), iter(()), ttrainer.TrainerConfig(**cfg),
+                                       face_embedder=face)
+        if words == "ema":
+            assert tr.ema is not None and tr.ema.num_updates == 0
+        else:
+            assert type(tr.state.optimizer.inner).__name__ == words
+        with pytest.raises(NotImplementedError, match="multi-card"):
+            tr.distribute()
+        return
     with pytest.raises(error, match=words) as port:
         ttrainer.AdaPromptTrainer(env["tfrozen"], None, env["ttok"], env["tscfg"], None, iter(()),
                                   ttrainer.TrainerConfig(**cfg), face_embedder=face)
-    if error is ValueError:
-        with pytest.raises(ValueError) as ref:
-            jtrainer.AdaPromptTrainer(env["jfrozen"], None, None, env["jtok"], env["jscfg"], None,
-                                      iter(()), jtrainer.TrainerConfig(**cfg), face_embedder=face)
-        assert str(port.value) == str(ref.value)
+    with pytest.raises(ValueError) as ref:
+        jtrainer.AdaPromptTrainer(env["jfrozen"], None, None, env["jtok"], env["jscfg"], None,
+                                  iter(()), jtrainer.TrainerConfig(**cfg), face_embedder=face)
+    assert str(port.value) == str(ref.value)
 
 
 class _StubEmbedder:
