@@ -5,8 +5,16 @@ arrays stored flat as '<name>/<path>' entries plus a JSON '__meta__' entry,
 so that either package reads what the other wrote. Trees here are nested
 dicts and lists of numpy arrays in the JAX package's layout; `module_tree`
 and `load_module_tree` go between such a tree and a module's parameters
-(the inverse of `convert.from_jax_params`). Loading the reference's
-`.pt` checkpoints is not ported yet.
+(the inverse of `convert.from_jax_params`).
+
+`load_reference_checkpoint` reads the reference's training artifact,
+`embeddings_gs-<step>.pt` (a torch pickle whose
+`string_to_subj_basis_generator_dict` holds the generators as nn.Module
+objects), without the reference's code: the unpickler maps every class of
+the 'adaface.*' and 'ldm.*' modules to a skeleton nn.Module (unpickling
+restores `__dict__` without calling `__init__`), and each generator's
+parameters and buffers are walked into a flat state dict for
+`subj_basis_generator.from_torch`.
 
 The trainer's full state (`AdaPromptTrainer.save_full_state`) is one flat
 .npz too: module trees in the JAX layout through `_flatten`, and tensors
@@ -19,6 +27,7 @@ has no counterpart in optax's leaf order, under the port's own keys
 from __future__ import annotations
 
 import json
+import pickle
 
 import numpy as np
 import torch
@@ -171,3 +180,61 @@ def load_checkpoint(path: str):
             name, rest = k.split("/", 1)
             groups.setdefault(name, {})[rest] = data[k]
     return {name: _unflatten(g) for name, g in groups.items()}, meta
+
+
+def _extract_state_dict(module_obj, prefix: str = "") -> dict:
+    """A skeleton module's parameters and buffers, walked through its
+    `_parameters`, `_buffers` and `_modules`, as float32 numpy arrays."""
+    sd = {}
+    for table in ("_parameters", "_buffers"):
+        for name, t in (getattr(module_obj, table, None) or {}).items():
+            if t is not None:
+                sd[prefix + name] = t.detach().float().cpu().numpy()
+    for name, m in (getattr(module_obj, "_modules", None) or {}).items():
+        if m is not None:
+            sd.update(_extract_state_dict(m, prefix + name + "."))
+    return sd
+
+
+class _SkeletonModule(torch.nn.Module):
+    """Stands in for a class of the reference's code when unpickling."""
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".", 1)[0] in ("adaface", "ldm"):
+            return type(name, (_SkeletonModule,), {"__module__": module})
+        return super().find_class(module, name)
+
+
+class _PickleShim:
+    """A `pickle_module` for torch.load whose Unpickler knows no reference class."""
+    Unpickler = _Unpickler
+
+    @staticmethod
+    def load(f, **kw):
+        return _Unpickler(f, **kw).load()
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """An `embeddings_gs-*.pt` -> {'subj_basis_generators': {placeholder:
+    flat numpy state dict}, 'string_to_token': {placeholder: token id} if
+    present, 'raw': every other entry (tensors as float32 numpy arrays)}."""
+    ckpt = torch.load(path, map_location="cpu", pickle_module=_PickleShim,
+                      weights_only=False)
+    out = {"subj_basis_generators": {}, "raw": {}}
+    sbg_dict = ckpt.get("string_to_subj_basis_generator_dict")
+    if sbg_dict is not None:
+        mods = getattr(sbg_dict, "_modules", None) or dict(sbg_dict)
+        for placeholder, mod in mods.items():
+            out["subj_basis_generators"][placeholder] = _extract_state_dict(mod)
+    for k, v in ckpt.items():
+        if k == "string_to_subj_basis_generator_dict":
+            continue
+        if hasattr(v, "detach"):
+            out["raw"][k] = v.detach().float().cpu().numpy()
+        elif isinstance(v, dict) and k == "string_to_token_dict":
+            out["string_to_token"] = {s: int(t) for s, t in v.items()}
+        else:
+            out["raw"][k] = v
+    return out

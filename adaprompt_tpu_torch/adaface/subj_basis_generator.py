@@ -21,6 +21,12 @@ embeddings too), as in the JAX package. The parameter names are the JAX
 pytree's after `convert.from_jax_params`. The object (DINO) branch's
 projection is held so that the parameter set matches the JAX package's;
 the object branch itself is not ported yet and raises NotImplementedError.
+
+`from_torch` reads the reference's module names (a generator out of an
+`embeddings_gs-*.pt`, `adaface/checkpoint.load_reference_checkpoint`) and
+`from_state` builds the module for such a state dict, `prompt2token_proj`'s
+k/v as wide as the state's; `extend_prompt2token_proj_attention` is the K/V
+multiplier surgery on a built one.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ from torch import nn
 
 from adaprompt_tpu_torch.adaface import arc2face
 from adaprompt_tpu_torch.adaface.gradient import grad_scale
+from adaprompt_tpu_torch.models import clip_text
 from adaprompt_tpu_torch.models.clip_text import SD15_TEXT_CONFIG, CLIPTextConfig, CLIPTextModel
 from adaprompt_tpu_torch.ops.layers import Norm, layer_norm, linear
+from adaprompt_tpu_torch.utils.torch_port import renamed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,3 +188,63 @@ class SubjBasisGenerator(nn.Module):
         k = self.cfg.num_out_embs_per_layer
         pads = pad_embeddings[4:4 + k][None, None]
         return subj_embs * out_id_embs_scale + pads * (1.0 - out_id_embs_scale)
+
+
+def from_torch(state_dict, cfg: SubjBasisConfig) -> dict[str, torch.Tensor]:
+    """A reference SubjBasisGenerator state dict -> a state dict for
+    `SubjBasisGenerator(cfg)` (load through `from_state`). Face branch:
+    `hidden_state_layer_weights`, `prompt2token_proj.*` in the HF CLIP
+    layout (K/V-widened layers keep their width) and, when present,
+    `obj_proj_in.0` / `.2` (Linear, LN). Background branch: `bg_proj_in.0`
+    / `.1`, `prompt_translator.to_{q,k,v}.0` / `.1`, the positional
+    embeddings and latent queries with their LNs."""
+    sd = {k: v.to_dense() if getattr(v, "is_sparse", False) else v
+          for k, v in state_dict.items()}
+    if not cfg.placeholder_is_bg:
+        proj = {k.removeprefix("prompt2token_proj."): v for k, v in sd.items()
+                if k.startswith("prompt2token_proj.")}
+        state = {"prompt2token_proj." + k: v
+                 for k, v in clip_text.from_torch(proj, cfg.text_cfg).items()}
+        names = {"hidden_state_layer_weights": "hidden_state_layer_weights"}
+        if "obj_proj_in.0.weight" in sd:
+            names.update({"obj_proj_in.weight": "obj_proj_in.0.weight",
+                          "obj_proj_in.ln.weight": "obj_proj_in.2.weight",
+                          "obj_proj_in.ln.bias": "obj_proj_in.2.bias"})
+        return {**renamed(sd, names), **state}
+    names = {n: n for n in ("pos_embs", "latent_queries", "pos_embs_ln.weight",
+                            "pos_embs_ln.bias", "latent_queries_ln.weight",
+                            "latent_queries_ln.bias")}
+    for dst, src in [("bg_proj_in", "bg_proj_in")] + [
+            (f"prompt_translator.to_{n}", f"prompt_translator.to_{n}") for n in "qkv"]:
+        names.update({dst + ".weight": src + ".0.weight", dst + ".ln.weight": src + ".1.weight",
+                      dst + ".ln.bias": src + ".1.bias"})
+    return renamed(sd, names)
+
+
+def from_state(state: dict, cfg: SubjBasisConfig, *, device=None,
+               dtype=torch.float32) -> SubjBasisGenerator:
+    """A SubjBasisGenerator holding `state` (this module's parameter names,
+    as `from_torch` or `convert.from_jax_params` make them), its
+    `prompt2token_proj` k/v sized to the state's. A face-branch state
+    without the object projection (the JAX package's trees may lack it)
+    leaves that projection at zero: the object branch is not ported."""
+    sbg = SubjBasisGenerator(cfg, device=device, dtype=dtype)
+    if not cfg.placeholder_is_bg:
+        sbg.prompt2token_proj.match_kv_widths(state, "prompt2token_proj.")
+        if "obj_proj_in.weight" not in state:
+            state = {**state, **{k: torch.zeros_like(v) for k, v in
+                                 sbg.obj_proj_in.state_dict(prefix="obj_proj_in.").items()}}
+    sbg.load_state_dict(state, strict=True)
+    return sbg
+
+
+def extend_prompt2token_proj_attention(sbg: SubjBasisGenerator, multiplier: int = 2,
+                                       noise_std: float = 0.1, begin_layer: int = -1,
+                                       end_layer: int = -1, *,
+                                       generator: torch.Generator | None = None,
+                                       noise=None) -> SubjBasisGenerator:
+    """The K/V multiplier surgery on `prompt2token_proj`, in place
+    (`clip_text.extend_attention_mkv`)."""
+    clip_text.extend_attention_mkv(sbg.prompt2token_proj, multiplier, noise_std, begin_layer,
+                                   end_layer, generator=generator, noise=noise)
+    return sbg

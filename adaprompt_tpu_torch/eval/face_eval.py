@@ -3,21 +3,42 @@
 Port of the embedder part of `adaprompt_tpu/eval/face_eval.py`:
 `FaceSimilarityEvaluator` (face crops through the ArcFace trunk on the
 device, L2-normalized; it is also the face embedder of `AdaFacePipeline`),
-the centre-crop stand-in detector, and `calc_faces_mean_similarity`. Face
-detection is a host-side callable image -> list of crops; the RetinaFace,
-BiSeNet and OpenCV-cascade detectors of the JAX package are not ported yet
-(`make_detector` raises NotImplementedError for them), nor is the
-folder-against-folder comparison.
+the centre-crop stand-in detector, `list_images` and
+`calc_faces_mean_similarity`. Face detection is a host-side callable
+image -> list of crops; the RetinaFace, BiSeNet and OpenCV-cascade
+detectors of the JAX package are not ported yet (`make_detector` raises
+NotImplementedError for them), nor is the folder-against-folder
+comparison. Photos on disk are read by `utils/png.read_image`: PNG and
+`.npy` need no other package, other formats need PIL.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 
 import numpy as np
 import torch
 
 from adaprompt_tpu_torch.models import arcface as af
+from adaprompt_tpu_torch.utils.png import read_image
+
+IMG_EXTENSIONS = ("jpg", "jpeg", "png", "bmp")
+
+
+def list_images(path: str, num_samples: int = -1) -> list[str]:
+    """The photos of a folder (by IMG_EXTENSIONS, either case), sorted; the
+    last `num_samples` when it is positive. A file path is its own list."""
+    if os.path.isfile(path):
+        return [path]
+    paths = []
+    for ext in IMG_EXTENSIONS:
+        paths += glob.glob(os.path.join(path, "*" + ext))
+        paths += glob.glob(os.path.join(path, "*" + ext.upper()))
+    paths = sorted(set(paths))
+    if num_samples > 0:
+        paths = paths[-num_samples:]
+    return paths
 
 
 def center_crop_detector(image_np: np.ndarray, size: int = 112) -> list[np.ndarray]:
@@ -75,8 +96,7 @@ class FaceSimilarityEvaluator:
         return emb / np.linalg.norm(emb, axis=-1, keepdims=True)
 
     def embed_folder(self, paths) -> list[np.ndarray]:
-        from PIL import Image
-        return [self.embed_image(np.asarray(Image.open(p).convert("RGB"))) for p in paths]
+        return [self.embed_image(read_image(p)) for p in paths]
 
     def __call__(self, images_np=None, image_paths=None) -> np.ndarray | None:
         """The face-embedder protocol of AdaFacePipeline: embeddings [N, F]

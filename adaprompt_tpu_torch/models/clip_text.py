@@ -4,6 +4,13 @@ Port of `adaprompt_tpu/models/clip_text.py`: `encode` with an optional
 `inputs_embeds` injection point, the causal mask, and clip-skip weights
 over the last N pre-final-LN hidden states (normalized to sum to 1 over the
 layers). Parameters mirror the JAX pytree (see convert.from_jax_params).
+
+The K/V multiplier ("MKV") attention of AdaFace's `prompt2token_proj`: a
+layer whose k and v projections are m times wider ([D*m, D]) folds the m
+copies into a key sequence of S*m, each key position's mask repeated m
+times. `extend_attention_mkv` widens layers so; `from_torch` reads the HF
+`text_model.*` layout and `match_kv_widths` sizes a model's layers to a
+state dict's.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from torch import nn
 
 from adaprompt_tpu_torch.ops.attention import causal_mask, dot_product_attention
 from adaprompt_tpu_torch.ops.layers import Linear, Norm, layer_norm, quick_gelu
+from adaprompt_tpu_torch.utils.torch_port import layer_names, renamed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +70,28 @@ class CLIPTextModel(nn.Module):
         self.token_embedding.normal_(0.0, 0.02, generator=gen)
         self.position_embedding.normal_(0.0, 0.02, generator=gen)
 
+    def match_kv_widths(self, state: dict, prefix: str = "") -> "CLIPTextModel":
+        """Give each layer k and v projections as wide as `state`'s (a state
+        dict of this model under `prefix`), so that it loads strictly."""
+        for i, lp in enumerate(self.layers):
+            for name in ("k", "v"):
+                old = lp["attn"][name]
+                rows = state[f"{prefix}layers.{i}.attn.{name}.weight"].shape[0]
+                if rows != old.weight.shape[0]:
+                    lp["attn"][name] = _widened(old, rows)
+        return self
+
     def _self_attn(self, p, x, mask):
         b, s, d = x.shape
         nh = self.cfg.num_heads
         q = p["q"](x).reshape(b, s, nh, d // nh)
-        k = p["k"](x).reshape(b, s, nh, d // nh)
-        v = p["v"](x).reshape(b, s, nh, d // nh)
+        k, v = p["k"](x), p["v"](x)
+        # K/V multiplier: [B, S, D*m] holds m copies of each key position
+        m = k.shape[-1] // d
+        k = k.reshape(b, s * m, nh, d // nh)
+        v = v.reshape(b, s * m, nh, d // nh)
+        if m > 1:
+            mask = mask.repeat_interleave(m, dim=-1)
         o = dot_product_attention(q, k, v, mask=mask, use_flash=False)
         return p["out"](o.reshape(b, s, d))
 
@@ -117,3 +141,60 @@ class CLIPTextModel(nn.Module):
                 eos_idx = (input_ids == cfg.eos_token_id).int().argmax(dim=-1)
             return x, x[torch.arange(x.shape[0], device=x.device), eos_idx]
         return x
+
+
+def _widened(old: Linear, rows: int) -> Linear:
+    """A k/v projection of `rows` outputs on `old`'s device and dtype, as
+    trainable as `old` (its values to be loaded or copied in)."""
+    w = old.weight
+    new = Linear(w.shape[1], rows, init_std=0.02, device=w.device, dtype=w.dtype)
+    return new.requires_grad_(w.requires_grad)
+
+
+@torch.no_grad()
+def extend_attention_mkv(model: CLIPTextModel, multiplier: int = 2, noise_std: float = 0.1,
+                         begin_layer: int = -1, end_layer: int = -1, *,
+                         generator: torch.Generator | None = None,
+                         noise=None) -> CLIPTextModel:
+    """Widen the k/v projections of layers [begin_layer, end_layer) (-1: no
+    bound) by `multiplier`, in place: the weight is stacked with
+    multiplier - 1 noised copies, each w + N(0, 1) * noise_std * (the mean
+    over inputs of the standard deviation over outputs of w), and the bias
+    repeated unperturbed. The standard-normal draws come from `generator`,
+    or from `noise(layer, name, copy)` (a tensor of the weight's shape,
+    name "k" or "v") when given."""
+    for i, lp in enumerate(model.layers):
+        if (begin_layer >= 0 and i < begin_layer) or (end_layer >= 0 and i >= end_layer):
+            continue
+        for name in ("k", "v"):
+            old = lp["attn"][name]
+            w = old.weight
+            rel = w.std(dim=0, unbiased=False).mean()
+            reps = [w]
+            for r in range(multiplier - 1):
+                z = (noise(i, name, r) if noise is not None else
+                     torch.randn(w.shape, generator=generator, device=w.device, dtype=w.dtype))
+                reps.append(w + z.to(w) * (noise_std * rel))
+            new = _widened(old, w.shape[0] * multiplier)
+            new.weight.copy_(torch.cat(reps, dim=0))
+            new.bias.copy_(old.bias.repeat(multiplier))
+            lp["attn"][name] = new
+    return model
+
+
+def from_torch(state_dict, cfg: CLIPTextConfig = SD15_TEXT_CONFIG) -> dict[str, torch.Tensor]:
+    """A transformers CLIPTextModel state dict (keys under 'text_model.',
+    or without it) -> a state dict for `CLIPTextModel(cfg)`. The layouts
+    agree, so only the names change; K/V-widened k_proj/v_proj ([D*m, D])
+    keep their width (`match_kv_widths` sizes the model to it). Entries no
+    parameter reads (`position_ids`) are left out."""
+    sd = {k.removeprefix("text_model."): v for k, v in state_dict.items()}
+    names = {"token_embedding": "embeddings.token_embedding.weight",
+             "position_embedding": "embeddings.position_embedding.weight"}
+    pairs = [("final_ln", "final_layer_norm")]
+    for i in range(cfg.num_layers):
+        src, dst = f"encoder.layers.{i}", f"layers.{i}"
+        pairs += [(f"{dst}.ln1", f"{src}.layer_norm1"), (f"{dst}.ln2", f"{src}.layer_norm2"),
+                  (f"{dst}.mlp.fc1", f"{src}.mlp.fc1"), (f"{dst}.mlp.fc2", f"{src}.mlp.fc2")]
+        pairs += [(f"{dst}.attn.{n}", f"{src}.self_attn.{n}_proj") for n in ("q", "k", "v", "out")]
+    return renamed(sd, {**names, **layer_names(pairs, sd)})

@@ -88,6 +88,7 @@ from adaprompt_tpu_torch.ops.attention import (NEG_BIG, FlashVariant, dot_produc
 from adaprompt_tpu_torch.ops.geglu import fused_eligible, fused_int8_eligible, geglu, geglu_int8
 from adaprompt_tpu_torch.ops.layers import Conv2d, Linear, Norm, gelu, group_norm, layer_norm, silu
 from adaprompt_tpu_torch.ops.quant import quantize_weight
+from adaprompt_tpu_torch.utils.torch_port import layer_names, renamed
 
 _FUSED_CROSS_MIN_Q = 512
 # the layers whose cross-attention activations feed the recon and
@@ -193,6 +194,60 @@ def resblock_conv_shapes(cfg: UNetConfig, latent_size: int) -> list:
         if e["up"]:
             h *= 2
     return shapes
+
+
+def from_torch(state_dict, cfg: UNetConfig = SD15_UNET_CONFIG) -> dict[str, torch.Tensor]:
+    """An openaimodel UNetModel state dict (keys under
+    'model.diffusion_model.' as in an SD checkpoint, or without it) -> a
+    state dict for `UNet(cfg)`, the blocks found by `build_plan`. The
+    layouts agree (SD-1.5's proj_in and proj_out are 1x1 convs here too), so
+    only the names change."""
+    sd = {k.removeprefix("model.diffusion_model.").removeprefix("diffusion_model."): v
+          for k, v in state_dict.items()}
+    pairs = [("time_embed.fc1", "time_embed.0"), ("time_embed.fc2", "time_embed.2"),
+             ("out.norm", "out.0"), ("out.conv", "out.2")]
+
+    def res(dst, src):
+        pairs.extend([(dst + ".norm_in", src + ".in_layers.0"),
+                      (dst + ".conv_in", src + ".in_layers.2"),
+                      (dst + ".emb", src + ".emb_layers.1"),
+                      (dst + ".norm_out", src + ".out_layers.0"),
+                      (dst + ".conv_out", src + ".out_layers.3")])
+        if src + ".skip_connection.weight" in sd:
+            pairs.append((dst + ".skip", src + ".skip_connection"))
+
+    def st(dst, src):
+        b, tb = dst + ".block", src + ".transformer_blocks.0"
+        pairs.extend([(dst + ".norm", src + ".norm"), (dst + ".proj_in", src + ".proj_in"),
+                      (dst + ".proj_out", src + ".proj_out"),
+                      (b + ".ff.proj", tb + ".ff.net.0.proj"), (b + ".ff.out", tb + ".ff.net.2")])
+        pairs.extend((f"{b}.norm{n}", f"{tb}.norm{n}") for n in (1, 2, 3))
+        for a in ("attn1", "attn2"):
+            pairs.extend((f"{b}.{a}.to_{n}", f"{tb}.{a}.to_{n}") for n in ("q", "k", "v"))
+            pairs.append((f"{b}.{a}.to_out", f"{tb}.{a}.to_out.0"))
+
+    inp, _, outp = build_plan(cfg)
+    for i, e in enumerate(inp):
+        p = f"input_blocks.{i}"
+        if e["kind"] == "conv":
+            pairs.append((p + ".conv", p + ".0"))
+        elif e["kind"] == "down":
+            pairs.append((p + ".downsample", p + ".0.op"))
+        else:
+            res(p + ".res", p + ".0")
+            if e["attn"]:
+                st(p + ".attn", p + ".1")
+    res("middle_block.res1", "middle_block.0")
+    st("middle_block.attn", "middle_block.1")
+    res("middle_block.res2", "middle_block.2")
+    for i, e in enumerate(outp):
+        p = f"output_blocks.{i}"
+        res(p + ".res", p + ".0")
+        if e["attn"]:
+            st(p + ".attn", p + ".1")
+        if e.get("up"):
+            pairs.append((p + ".upsample", f"{p}.{2 if e['attn'] else 1}.conv"))
+    return renamed(sd, layer_names(pairs, sd))
 
 
 def layer_ca_map(inp_plan, out_plan) -> dict:

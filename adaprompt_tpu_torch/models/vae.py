@@ -4,6 +4,8 @@ Port of `adaprompt_tpu/models/vae.py`: `decode`, `encode` and
 `sample_latent`, with the encoder's optional fg/bg attention mask. The
 mid-block attention is single-head over all positions (4096 at 512x512,
 C=512); the JAX package computes it as a plain einsum and so does the port.
+`from_torch` reads LDM's AutoencoderKL layout, whose mid-attention q, k, v
+and proj_out are 1x1 convs as here.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from adaprompt_tpu_torch.ops.layers import Conv2d, Norm, group_norm
+from adaprompt_tpu_torch.utils.torch_port import renamed
 
 SD_SCALE_FACTOR = 0.18215
 
@@ -54,6 +57,22 @@ def _attn(c, kw):
 def _mid(c, kw):
     return nn.ModuleDict({"block_1": _res(c, c, kw), "attn_1": _attn(c, kw),
                           "block_2": _res(c, c, kw)})
+
+
+def from_torch(state_dict, cfg: VAEConfig = SD15_VAE_CONFIG) -> dict[str, torch.Tensor]:
+    """An LDM AutoencoderKL state dict (keys encoder.*, decoder.*,
+    quant_conv.*, post_quant_conv.*, or under 'first_stage_model.') -> a
+    state dict for `VAE(cfg)`. The layouts agree: only the names of the
+    resampling convs change ('downsample.conv' -> 'downsample',
+    'upsample.conv' -> 'upsample'); other entries (a loss's) are left out."""
+    names = {}
+    for k in state_dict:
+        src = k.removeprefix("first_stage_model.")
+        if src.split(".", 1)[0] in ("encoder", "decoder", "quant_conv", "post_quant_conv"):
+            dst = src.replace(".downsample.conv.", ".downsample.").replace(".upsample.conv.",
+                                                                          ".upsample.")
+            names[dst] = k
+    return renamed(state_dict, names)
 
 
 class VAE(nn.Module):

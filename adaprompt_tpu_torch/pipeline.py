@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from adaprompt_tpu_torch.models import clip_text, unet as unet_mod, vae as vae_mod
 from adaprompt_tpu_torch.models.clip_text import SD15_TEXT_CONFIG, CLIPTextConfig, CLIPTextModel
 from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, UNet, UNetConfig
 from adaprompt_tpu_torch.models.vae import (SD15_VAE_CONFIG, SD_SCALE_FACTOR, VAE, VAEConfig,
@@ -30,6 +31,7 @@ from adaprompt_tpu_torch.models.vae import (SD15_VAE_CONFIG, SD_SCALE_FACTOR, VA
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.sampling import ddim, dpm
 from adaprompt_tpu_torch.sampling.schedule import SD15_SCHEDULE, DiffusionSchedule
+from adaprompt_tpu_torch.utils import torch_port
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 # PuLID-style default negative prompt (AdaFace wrapper default)
@@ -103,6 +105,32 @@ class StableDiffusionPipeline:
         vae = reset_parameters(VAE(vae_cfg, device=device, dtype=dtype), gen)
         text = reset_parameters(CLIPTextModel(text_cfg, device=device), gen)
         return cls(unet, vae, text, tokenizer, quant=quant)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, *, device=None, dtype=torch.bfloat16,
+                        tokenizer: CLIPTokenizer | None = None,
+                        unet_cfg: UNetConfig = SD15_UNET_CONFIG,
+                        vae_cfg: VAEConfig = SD15_VAE_CONFIG,
+                        text_cfg: CLIPTextConfig = SD15_TEXT_CONFIG) -> "StableDiffusionPipeline":
+        """A full SD-1.5 checkpoint (.ckpt / .safetensors / .npz, LDM key
+        layout) on the device: UNet and VAE in `dtype`, CLIP in float32, as
+        `random_init` makes them. Each model is put on the device as it is
+        built, so the host holds the file's arrays and one model's view of
+        them at a time."""
+        device = resolve_device(device)
+        parts = torch_port.split_sd_checkpoint(torch_port.load_state_dict(path))
+
+        def build(module, state):
+            module.load_state_dict(state, strict=True)
+            return module
+
+        unet = build(UNet(unet_cfg, device=device, dtype=dtype),
+                     unet_mod.from_torch(parts.pop("unet"), unet_cfg))
+        vae = build(VAE(vae_cfg, device=device, dtype=dtype),
+                    vae_mod.from_torch(parts.pop("vae"), vae_cfg))
+        text = build(CLIPTextModel(text_cfg, device=device),
+                     clip_text.from_torch(parts.pop("text"), text_cfg))
+        return cls(unet, vae, text, tokenizer)
 
     # -- text encoding ---------------------------------------------------------
 

@@ -131,10 +131,10 @@ Phases, in order (any failure exits non-zero without the final line):
      exact launch counts; logs s/step, the filter's time and peak memory;
  12. the rest of the trainer, right after phase 11, over phase 6's trainer
      and frozen models: (a) save_full_state, 2 steps on captured raw batches,
-     load_full_state and the same 2 steps, load and the same 2 again: equal
+     five times load_full_state and the same 2 steps: equal
      iteration types, host and device draws and first-step loss bit for bit,
      the second step (and the parameters) as close as the resumed runs' own
-     spread allows (B4's dq atomics); logs the file's size and the save and
+     spread, the largest over their ten pairs, allows (B4's dq atomics); logs the file's size and the save and
      load times; (b) a trainer with optimizer_type="AdamW" and use_ema=True
      over a fresh generator takes an accumulating and an applying step: the
      parameters move only on the second, the EMA counts 2 updates and equals
@@ -142,9 +142,27 @@ Phases, in order (any failure exits non-zero without the final line):
      (c) the static recon step over a StaticLayerwiseEmbedding (K 16, D 768)
      takes 2 steps with the augmentation mask (B1 and B4 with key bias) and
      its parameters move; (d) log_samples (DDIM-20, n 2, 512x512) writes a
-     [512, 1024, 3] strip that read_png decodes to the array written; exact
+     [512, 1024, 3] strip that the port's PNG reader decodes to the array
+     written; exact
      launch counts on each of the four paths;
- 13. print the kernels' JSON line (thirteen rows), the card's name and
+ 13. the CLIs over checkpoints on disk, after phase 8: an AdaFacePipeline at
+     full width (random weights, fused_conv off, the generator's
+     prompt2token_proj K/V-widened x2 on its last four layers) written as
+     the reference's files into a temporary directory (an SD-1.5 .ckpt in
+     the LDM layout, float32, with entries no model reads; an AdaFace
+     embeddings_gs-*.pt whose generator is pickled under the reference's
+     class names; an IResNet-100 .pth in the insightface layout; three
+     seeded 512x512 PNG photos) by tools/reference_layouts.py; (a)
+     StableDiffusionPipeline.from_checkpoint holds every parameter bit-equal
+     to the pipeline written and gives a bit-equal UNet forward; (b)
+     txt2img.main over the files (2 images, DDIM-50, scale 4 -> 1) and (c)
+     infer.main over them (2 images, DDIM-50): PNGs that decode to the
+     images generate returned, std > 0, exactly 500 launches each of B1-B3
+     and none of the rest, none while infer personalizes, whose 16 subject
+     vectors equal those of an AdaFacePipeline built in memory from the
+     same modules on the same photos; logs file sizes, load, save and
+     generate times and peak memory beside the card's name and power limit;
+ 14. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -2421,39 +2439,10 @@ def phase_compos(tr, out_dir):
 # static textual-inversion step, the sample grid)
 # ---------------------------------------------------------------------------
 
-RESUME_STEPS = 2        # rerun after the save, after one load and after a second
+RESUME_STEPS = 2        # rerun after the save, then after each of RESUMED_RUNS loads
+RESUMED_RUNS = 5
 SAMPLE_STEPS = 20       # log_samples: DDIM-20, n = 2 (UNet batch 4 with CFG), 512x512
 STATIC_STEPS = 2        # K = 16 vectors at D = 768, one accumulated Prodigy update
-
-
-def read_png(path):
-    """The PNGs that adaprompt_tpu_torch/utils/png.py writes (8-bit RGB,
-    filter 0) decoded on zlib alone, every chunk's CRC checked."""
-    import struct
-    import zlib
-    import numpy as np
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path}: not a PNG")
-    pos, idat, hdr = 8, b"", None
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
-            raise AssertionError(f"{path}: bad CRC in {tag}")
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    w, h, depth, color = hdr[:4]
-    if (depth, color) != (8, 2):
-        raise AssertionError(f"{path}: depth {depth} colour type {color}, expected 8-bit RGB")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: a scanline filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3)
 
 
 def _sbg_snapshot(sbg):
@@ -2482,15 +2471,18 @@ def _resume_run(tr, raws, first_step):
 
 def phase_resume(tr, step0):
     """(a) The full state of phase 6's trainer on the card: save, take
-    RESUME_STEPS steps on captured raw batches; load and take them again;
-    load and take them a third time. The iteration types, the host draws,
-    the generator states and the first step's loss must be equal bit for bit
-    in all three (the forward is deterministic from equal parameters and
-    draws); the first step applies an accumulated update, so what follows
-    differs only by B4's dq atomics: the unresumed run must stay as close
-    to the resumed one, in the second step's loss and in every parameter,
-    as 4x the two resumed runs' own spread (with a floor of 1e-7 of the loss
-    and two ulps of the largest parameter).
+    RESUME_STEPS steps on captured raw batches; then RESUMED_RUNS times,
+    load and take them again. The iteration types, the host draws, the
+    generator states and the first step's loss must be equal bit for bit in
+    all runs (the forward is deterministic from equal parameters and draws);
+    the first step applies an accumulated update, so what follows differs
+    only by B4's dq atomics: the unresumed run must stay as close to the
+    first resumed one, in the second step's loss and in every parameter, as
+    4x the resumed runs' own spread, the largest over their pairs (with a
+    floor of 1e-7 of the loss and two ulps of the largest parameter). Two
+    resumed runs alone can happen to sum alike (a spread of 7e-8 against
+    1e-5 to 7e-5 in other runs) and make the bound a draw: five runs make ten
+    pairs (three still left a run 7 % inside its bound).
     Returns the resumed run's launch counts."""
     import os
     import torch
@@ -2509,7 +2501,7 @@ def phase_resume(tr, step0):
     n_params = sum(p.numel() for p in tr.state.params["subj_basis"].parameters())
     torch.cuda.reset_peak_memory_stats()
     runs, loads, counts = [_resume_run(tr, raws, step)], [], []
-    for _ in range(2):
+    for _ in range(RESUMED_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         meta = tr.load_full_state(path)
@@ -2525,10 +2517,11 @@ def phase_resume(tr, step0):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tr.batch_iterator = source
     os.remove(path)
-    (rows0, st0, p0), (rows1, st1, p1), (rows2, st2, p2) = runs
+    (rows0, st0, p0), (rows1, st1, p1) = runs[:2]
     key = "loss_arc2face_distill"
-    spread_loss = abs(rows1[1][key] - rows2[1][key])
-    spread_params = _max_diff(p1, p2)
+    pairs = [(a, b) for i, a in enumerate(runs[1:]) for b in runs[i + 2:]]
+    spread_loss = max(abs(a[0][1][key] - b[0][1][key]) for a, b in pairs)
+    spread_params = max(_max_diff(a[2], b[2]) for a, b in pairs)
     diff_loss = abs(rows0[1][key] - rows1[1][key])
     diff_params = _max_diff(p0, p1)
     # 4x the resumed runs' spread, and a floor: 1e-7 of the loss, two ulps
@@ -2540,16 +2533,18 @@ def phase_resume(tr, step0):
     log(f"phase 12 resume: state of {n_params / 1e6:.1f} M trainable parameters, "
         f"{size_gb:.3f} GiB, saved in {save_s:.3f} s, loaded in {[round(x, 3) for x in loads]} s; "
         f"peak memory {peak:.2f} GiB")
-    for name, rows in (("unresumed", rows0), ("resumed", rows1), ("resumed again", rows2)):
+    for i, (rows, _, _) in enumerate(runs):
+        name = "unresumed" if i == 0 else f"resumed {i}"
         log(f"phase 12 resume {name}: " + "; ".join(
             f"step {r['step']} {r['iter_type']} ND={r['num_denoising_steps']} {key}={r[key]!r} "
             f"grad_norm={r['grad_norm']!r}" for r in rows))
     log(f"phase 12 resume second step: |unresumed - resumed| loss {diff_loss:.4e}, parameters "
-        f"{diff_params:.4e}; the resumed runs' spread (B4's dq atomics) loss {spread_loss:.4e}, "
+        f"{diff_params:.4e}; the {RESUMED_RUNS} resumed runs' spread (B4's dq atomics) loss "
+        f"{spread_loss:.4e}, "
         f"parameters {spread_params:.4e}; bounds: loss {bound_loss:.4e} (4 x spread + 1e-7 x "
         f"loss), parameters {bound_params:.4e} (4 x spread + 2 ulps of the largest, "
         f"{ulp:.3e}); launches {nz(launches)}")
-    for rows, st in ((rows1, st1), (rows2, st2)):
+    for rows, st, _ in runs[1:]:
         if [(r["iter_type"], r.get("num_denoising_steps")) for r in rows] != \
                 [(r["iter_type"], r.get("num_denoising_steps")) for r in rows0] or st != st0:
             raise AssertionError("a resumed run took other iterations or host/device draws")
@@ -2687,11 +2682,13 @@ def phase_static(tr):
 def phase_log_samples(tr, step):
     """(d) log_samples on phase 6's trainer: DDIM-20 of 2 images at 512x512
     through PromptConditioner and the trainer's own frozen models; the strip
-    [512, 1024, 3] read back through read_png equals the array written.
+    [512, 1024, 3] read back through the port's PNG reader equals the array
+    written.
     Returns the launches."""
     import numpy as np
     import torch
     from adaprompt_tpu_torch.utils import png
+    from adaprompt_tpu_torch.utils.png import read_png
     written, write = [], png.write_png
     png.write_png = lambda path, img: (written.append(np.array(img)), write(path, img))[1]
     try:
@@ -2738,27 +2735,276 @@ def phase_trainer_state(tr, out_dir):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the txt2img and infer CLIs over the reference's checkpoint files
+# ---------------------------------------------------------------------------
+
+CLI_STEPS = 50          # DDIM-50, 2 images: UNet batch 4 with CFG, as phases 5 and 8
+CLI_IMAGES = 2
+CLI_MKV_BEGIN = 8       # prompt2token_proj's k/v widened x2 on layers 8-11
+
+
+class _PatchedCalls:
+    """For the duration of a `with`, `owner.name` goes through a wrapper
+    that synchronizes before and after each call and keeps (seconds,
+    kwargs, result, the launches inside the call)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        import torch
+        self.orig = getattr(self.owner, self.name)
+
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = read_counts(), time.perf_counter()
+            out = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0, k, out, nz(counts_since(before))))
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+    @property
+    def seconds(self):
+        return sum(c[0] for c in self.calls)
+
+
+def _check_cli_images(path, paths, generated):
+    """The CLI's PNGs decode to the images generate returned: uint8 512x512, std > 0."""
+    import numpy as np
+    from adaprompt_tpu_torch.utils.png import read_png
+    images = np.concatenate(generated)
+    if len(paths) != CLI_IMAGES or images.shape != (CLI_IMAGES, 512, 512, 3):
+        raise AssertionError(f"{path}: {len(paths)} PNGs, generate returned {images.shape}")
+    for p, img in zip(paths, images):
+        got = read_png(p)
+        if not np.array_equal(got, img):
+            raise AssertionError(f"{path}: {p} does not decode to the image generate returned")
+        if not got.std() > 0:
+            raise AssertionError(f"{path}: {p} is flat")
+    return images
+
+
+def _check_cli_launches(path, counts):
+    want = {n: 0 for n in counts}
+    want.update(flash_attention_fwd=10 * CLI_STEPS, fused_cross_attention=10 * CLI_STEPS,
+                geglu_fwd=10 * CLI_STEPS)
+    if counts != want:
+        raise AssertionError(f"{path} launches {counts}, expected {want}")
+
+
+def _run_cli(path, main, argv, card):
+    """main(argv) with its loaders (the SD checkpoint, the generator, the
+    ArcFace trunk), generate and, for infer, the personalization timed,
+    and its launches checked; returns (the PNG paths, {name: _PatchedCalls})."""
+    import torch
+    from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.cli import common
+    from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
+    timers = {"load_pipeline": _PatchedCalls(common, "load_pipeline"),
+              "load_subj_basis": _PatchedCalls(common, "load_subj_basis"),
+              "load_arcface": _PatchedCalls(common, "load_arcface"),
+              "generate": _PatchedCalls(StableDiffusionPipeline, "generate"),
+              "personalize": _PatchedCalls(AdaFacePipeline, "generate_adaface_embeddings")}
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for tm in timers.values():
+        tm.__enter__()
+    try:
+        paths = main(argv)
+    finally:
+        for tm in timers.values():
+            tm.__exit__()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    load = sum(timers[k].seconds for k in ("load_pipeline", "load_subj_basis", "load_arcface"))
+    gen = timers["generate"].seconds
+    log(f"phase 13 {path}: main(argv) to its last PNG {seconds:.3f} s = load {load:.3f} s (SD "
+        f"checkpoint {timers['load_pipeline'].seconds:.3f}, generator "
+        f"{timers['load_subj_basis'].seconds:.3f}, ArcFace {timers['load_arcface'].seconds:.3f}) "
+        f"+ generate {gen:.3f} s ({CLI_IMAGES} images 512x512 DDIM-{CLI_STEPS} bf16) + the rest "
+        f"{seconds - load - gen:.3f} s (face embedding, personalization, PNGs); peak memory "
+        f"{peak:.2f} GiB; launches {nz(counts)}; {card}")
+    _check_cli_launches(path, counts)
+    return paths, timers
+
+
+def phase_clis():
+    """Phase 13: the txt2img and infer CLIs over the reference's checkpoint
+    files, written from a full-width AdaFacePipeline with random weights
+    (fused_conv off) into a temporary directory that the phase removes.
+    Returns {path: launch counts}."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import reference_layouts as rl
+    from adaprompt_tpu_torch.adaface.subj_basis_generator import (
+        extend_prompt2token_proj_attention)
+    from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.cli import infer, txt2img
+    from adaprompt_tpu_torch.eval.face_eval import FaceSimilarityEvaluator
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init
+    from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
+    from adaprompt_tpu_torch.utils.png import read_png, write_png
+    from adaprompt_tpu_torch.utils.torch_port import load_state_dict
+    card = card_line()
+    t_phase = t0 = time.perf_counter()
+    ada = AdaFacePipeline.random_init(0)
+    pipe, sbg, arc = ada.pipe, ada.subj_basis, ada.face_embedder.arcface
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    randomize_zero_init(pipe.unet, gen)
+    extend_prompt2token_proj_attention(sbg, 2, begin_layer=CLI_MKV_BEGIN, generator=gen)
+    torch.cuda.synchronize()
+    widths = [lp["attn"]["k"].weight.shape[0] for lp in sbg.prompt2token_proj.layers]
+    log(f"phase 13 random_init: {time.perf_counter() - t0:.1f} s; prompt2token_proj k widths "
+        f"{widths}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        files = {"sd": os.path.join(tmp, "v1-5-random.ckpt"),
+                 "adaface": os.path.join(tmp, "embeddings_gs-0.pt"),
+                 "arcface": os.path.join(tmp, "glint360k_r100-random.pth")}
+        photos = os.path.join(tmp, "photos")
+        os.makedirs(photos)
+        t0 = time.perf_counter()
+        torch.save(rl.sd_checkpoint(pipe), files["sd"])
+        sd_sec = time.perf_counter() - t0
+        rl.write_adaface_pt(files["adaface"], {"z": sbg},
+                            {"z": pipe.tokenizer.encode_raw("z")[0]})
+        torch.save(rl.arcface_insightface(arc), files["arcface"])
+        rng = np.random.default_rng(13)
+        photo_paths = [write_png(os.path.join(photos, f"photo{i}.png"),
+                                 rng.integers(0, 256, (512, 512, 3)).astype(np.uint8))
+                       for i in range(3)]
+        sizes = {k: os.path.getsize(v) / 2 ** 20 for k, v in files.items()}
+        log("phase 13 files: " + ", ".join(f"{os.path.basename(files[k])} {sizes[k]:.1f} MiB"
+                                           for k in files)
+            + f"; the SD checkpoint written in {sd_sec:.3f} s; {card}")
+
+        # (a) from_checkpoint against the pipeline written
+        t0 = time.perf_counter()
+        n_entries = len(load_state_dict(files["sd"]))
+        load_sec = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = StableDiffusionPipeline.from_checkpoint(files["sd"])
+        torch.cuda.synchronize()
+        from_sec = time.perf_counter() - t0
+        vocab = pipe.text.cfg.vocab_size
+        bad = []
+        for name in ("unet", "vae", "text"):
+            want = getattr(pipe, name).state_dict()
+            got = getattr(loaded, name).state_dict()
+            if name == "text":
+                want = dict(want, token_embedding=want["token_embedding"][:vocab])
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"from_checkpoint's {name} has other parameters")
+            bad += [f"{name}.{k}" for k in want if got[k].dtype != want[k].dtype
+                    or not torch.equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"from_checkpoint differs from the pipeline written at {bad[:8]}")
+        g = torch.Generator(device="cuda").manual_seed(4)
+        x = torch.randn((2, 64, 64, 4), generator=g, device="cuda").to(torch.bfloat16)
+        ctx = torch.randn((2, 77, 768), generator=g, device="cuda").to(torch.bfloat16)
+        ts = torch.tensor([981, 501], device="cuda")
+        with torch.inference_mode():
+            eps_mem, eps_loaded = pipe.unet(x, ts, ctx), loaded.unet(x, ts, ctx)
+        if not (torch.equal(eps_mem, eps_loaded) and float(eps_mem.float().abs().max()) > 0):
+            raise AssertionError("the loaded UNet's forward differs from the written one's: max "
+                                 f"{float((eps_mem.float() - eps_loaded.float()).abs().max())}")
+        n_params = sum(p.numel() for m in (loaded.unet, loaded.vae, loaded.text)
+                       for p in m.parameters())
+        log(f"phase 13 from_checkpoint: load_state_dict {load_sec:.3f} s ({n_entries} entries), "
+            f"from_checkpoint {from_sec:.3f} s; {n_params / 1e6:.1f} M parameters bit-equal to "
+            f"the pipeline written, UNet forward bit-equal (max |eps| "
+            f"{float(eps_mem.float().abs().max()):.4f}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+        del loaded, eps_loaded
+        torch.cuda.empty_cache()
+
+        # (b) txt2img
+        out = os.path.join(tmp, "txt2img")
+        paths, timers = _run_cli("cli_txt2img", txt2img.main, [
+            "--ckpt", files["sd"], "--adaface_ckpt", files["adaface"], "--ref_images", photos,
+            "--arcface_ckpt", files["arcface"], "--prompt", "a photo of a z person in the park",
+            "--n_samples", str(CLI_IMAGES), "--ddim_steps", str(CLI_STEPS), "--scale", "4", "1",
+            "--outdir", out], card)
+        launches = {"cli_txt2img": read_counts()}
+        gen_calls = timers["generate"].calls
+        imgs = _check_cli_images("cli_txt2img", paths, [c[2] for c in gen_calls])
+        ctx_shape = tuple(gen_calls[0][1]["context"].shape)
+        if ctx_shape != (16, CLI_IMAGES, 77, 768):
+            raise AssertionError(f"txt2img's context {ctx_shape}, expected layerwise [16, 2, 77, 768]")
+        log(f"phase 13 cli_txt2img: {len(paths)} PNGs decoded equal to generate's images, std "
+            f"{imgs.std():.2f}; context {ctx_shape}")
+
+        # (c) infer, against an AdaFacePipeline built in memory from the same modules
+        out = os.path.join(tmp, "infer")
+        paths, timers = _run_cli("cli_infer", infer.main, [
+            "--ckpt", files["sd"], "--subject", photos, "--adaface_ckpt", files["adaface"],
+            "--arcface_ckpt", files["arcface"], "--prompt", "portrait of a z person",
+            "--out_image_count", str(CLI_IMAGES), "--num_steps", str(CLI_STEPS), "--outdir", out],
+            card)
+        launches["cli_infer"] = read_counts()
+        imgs = _check_cli_images("cli_infer", paths, [c[2] for c in timers["generate"].calls])
+        (pers_sec, _, vecs, during), = timers["personalize"].calls
+        if during:
+            raise AssertionError(f"infer launched {during} while personalizing")
+        mem = AdaFacePipeline(pipe, sbg, sbg.cfg, pipe.text, pipe.text.cfg,
+                              face_embedder=FaceSimilarityEvaluator(arc))
+        mem_vecs = mem.generate_adaface_embeddings(images_np=[read_png(p) for p in photo_paths],
+                                                   seed=42)
+        if tuple(vecs.shape) != (16, 768) or not torch.equal(vecs, mem_vecs):
+            raise AssertionError(f"infer's subject vectors {tuple(vecs.shape)} differ from the "
+                                 "in-memory pipeline's: max "
+                                 f"{float((vecs - mem_vecs).abs().max())}")
+        log(f"phase 13 cli_infer: personalization {pers_sec * 1e3:.1f} ms, no launch; 16 subject "
+            f"vectors equal to the in-memory AdaFacePipeline's (std {float(vecs.std()):.4f}); "
+            f"{len(paths)} PNGs decoded equal to generate's images, std {imgs.std():.2f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
 _TRAIN_TURNS = ("train_default", "train_exp2")
 _RECON = ("recon", "recon_conv", "recon_bg")       # phase 10
 _COMPOS = ("compos_filter", "compos")               # phase 11
 _STATE = ("resume", "adamw_ema", "static_recon")    # phase 12's training paths
+_CLIS = ("cli_txt2img", "cli_infer")                 # phase 13
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
-                            + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)),
+                            + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
+                            + _CLIS),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
                             ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
-                              + _GEN_TURNS + ("log_samples",)),
+                              + _GEN_TURNS + ("log_samples",) + _CLIS),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
-                  + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)),
+                  + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
+                  + _CLIS),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",
@@ -2865,6 +3111,7 @@ def main() -> int:
     launches.update(phase_train())
     launches.update(phase_serve())
     launches.update(phase_personalize())
+    launches.update(phase_clis())
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(results, launches)))
     print(card_line())

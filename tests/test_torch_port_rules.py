@@ -46,6 +46,23 @@ def test_port_imports_no_jax_nor_jax_package():
     assert bad == "[]", bad
 
 
+_OPTIONAL_PACKAGES = ("PIL", "safetensors", "yaml", "cv2", "scipy")
+
+
+def test_port_imports_no_optional_package_at_top_level():
+    """The card's machine lacks PIL, safetensors, yaml, cv2 and scipy: no
+    module of the port imports one when it is imported (the loaders and
+    the image reader import them inside the call that needs that format)."""
+    code = _IMPORT_ALL.replace('("jax", "jaxlib", "adaprompt_tpu", "regex")',
+                               repr(_OPTIONAL_PACKAGES))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    n, bad = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 50 and bad == "[]", (n, bad)
+
+
 def test_random_init_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is usable")
@@ -73,7 +90,12 @@ def _entry_points():
     from adaprompt_tpu_torch.models.clip_vision import CLIPVisionModel
     from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                    synthetic_raw_batches)
+    from adaprompt_tpu_torch.cli import infer, txt2img
     return {"AdaFacePipeline": lambda: AdaFacePipeline.random_init(0),
+            "from_checkpoint": lambda: tpipe.StableDiffusionPipeline.from_checkpoint(
+                os.path.join(ROOT, "no-such-model.ckpt")),
+            "txt2img.main": lambda: txt2img.main(["--prompt", "a z", "--ddim_steps", "1"]),
+            "infer.main": lambda: infer.main(["--subject", ROOT, "--num_steps", "1"]),
             "CLIPVisionModel": lambda: CLIPVisionModel.random_init(0),
             "AdaPromptTrainer": lambda: AdaPromptTrainer.random_init(
                 0, synthetic_raw_batches(0), TrainerConfig(seed=0)),
@@ -83,7 +105,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
-                                  "CLIPVisionModel", "profile_step", "CLIPScorer"])
+                                  "CLIPVisionModel", "profile_step", "CLIPScorer",
+                                  "from_checkpoint", "txt2img.main", "infer.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""

@@ -44,7 +44,9 @@ def one_thread():
 def _module_and_tensor(seed):
     """A small {name: module or tensor} dict of trainable parameters."""
     gen = torch.Generator().manual_seed(seed)
-    lin = torch.nn.Sequential(torch.nn.Linear(5, 3), torch.nn.LayerNorm(3))
+    with torch.random.fork_rng():          # the layers' own init, seeded too: no test order
+        torch.manual_seed(seed)            # or earlier draw changes these parameters
+        lin = torch.nn.Sequential(torch.nn.Linear(5, 3), torch.nn.LayerNorm(3))
     reset_parameters(lin, gen)
     with torch.no_grad():
         for p in lin.parameters():

@@ -1,0 +1,269 @@
+"""Write the port's models as the reference's checkpoint files, for tests
+and `chip_smoke.py` (no real weight file is needed to exercise the loaders):
+
+  * `sd_checkpoint(pipe)`: a full SD-1.5 `.ckpt` state dict in the LDM
+    layout (UNet under 'model.diffusion_model.', VAE under
+    'first_stage_model.', the HF CLIP text model under
+    'cond_stage_model.transformer.'), float32 as the published
+    `v1-5-pruned-emaonly.ckpt` is, with some of its entries that no model
+    reads ('model_ema.decay', 'model_ema.num_updates', 'alphas_cumprod',
+    the text model's 'position_ids');
+  * `write_adaface_pt(path, {placeholder: generator})`: an AdaFace
+    `embeddings_gs-*.pt` whose `string_to_subj_basis_generator_dict` holds
+    each SubjBasisGenerator pickled as a module of the reference's class
+    `adaface.subj_basis_generator.SubjBasisGenerator` (its K/V-widened
+    attention layers as `adaface.arc2face_models.CLIPAttentionMKV`), the
+    classes registered for the save only;
+  * `arcface_insightface(model)`: an IResNet state dict in the insightface
+    `arcface_torch` layout (`.pth`).
+
+The key maps here are written from the reference's module names, apart
+from the loaders of `adaprompt_tpu_torch`, so that the tests hold both
+against the JAX package's `from_torch`.
+
+    import sys; sys.path.insert(0, "tools"); import reference_layouts
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+import sys
+import types
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to(device="cpu", dtype=torch.float32).contiguous()
+
+
+def _layer(out: dict, key: str, m: nn.Module):
+    """weight (and bias, where the layer has one) of a Linear/Conv2d/Norm."""
+    out[key + ".weight"] = _f32(m.weight)
+    if getattr(m, "bias", None) is not None:
+        out[key + ".bias"] = _f32(m.bias)
+
+
+def unet_ldm(unet) -> dict:
+    """The port's UNet -> an openaimodel UNetModel state dict."""
+    out = {}
+
+    def res(key, r):
+        for src, dst in (("norm_in", "in_layers.0"), ("conv_in", "in_layers.2"),
+                         ("emb", "emb_layers.1"), ("norm_out", "out_layers.0"),
+                         ("conv_out", "out_layers.3"), ("skip", "skip_connection")):
+            if src in r:
+                _layer(out, f"{key}.{dst}", r[src])
+
+    def transformer(key, a):
+        for n in ("norm", "proj_in", "proj_out"):
+            _layer(out, f"{key}.{n}", a[n])
+        b, tb = a["block"], key + ".transformer_blocks.0"
+        for n in ("norm1", "norm2", "norm3"):
+            _layer(out, f"{tb}.{n}", b[n])
+        for at in ("attn1", "attn2"):
+            for n in ("to_q", "to_k", "to_v"):
+                _layer(out, f"{tb}.{at}.{n}", b[at][n])
+            _layer(out, f"{tb}.{at}.to_out.0", b[at]["to_out"])
+        _layer(out, tb + ".ff.net.0.proj", b["ff"]["proj"])
+        _layer(out, tb + ".ff.net.2", b["ff"]["out"])
+
+    _layer(out, "time_embed.0", unet.time_embed["fc1"])
+    _layer(out, "time_embed.2", unet.time_embed["fc2"])
+    for i, blk in enumerate(unet.input_blocks):
+        key = f"input_blocks.{i}"
+        if "conv" in blk:
+            _layer(out, key + ".0", blk["conv"])
+        elif "downsample" in blk:
+            _layer(out, key + ".0.op", blk["downsample"])
+        else:
+            res(key + ".0", blk["res"])
+            if "attn" in blk:
+                transformer(key + ".1", blk["attn"])
+    mb = unet.middle_block
+    res("middle_block.0", mb["res1"])
+    transformer("middle_block.1", mb["attn"])
+    res("middle_block.2", mb["res2"])
+    for i, blk in enumerate(unet.output_blocks):
+        key = f"output_blocks.{i}"
+        res(key + ".0", blk["res"])
+        if "attn" in blk:
+            transformer(key + ".1", blk["attn"])
+        if "upsample" in blk:
+            _layer(out, f"{key}.{2 if 'attn' in blk else 1}.conv", blk["upsample"])
+    _layer(out, "out.0", unet.out["norm"])
+    _layer(out, "out.2", unet.out["conv"])
+    return out
+
+
+def vae_ldm(vae) -> dict:
+    """The port's VAE -> an LDM AutoencoderKL state dict (the resampling
+    convs under 'downsample.conv' / 'upsample.conv')."""
+    return {re.sub(r"\.(down|up)sample\.(weight|bias)$", r".\1sample.conv.\2", k): _f32(v)
+            for k, v in vae.named_parameters()}
+
+
+def clip_hf(text, vocab_rows: int | None = None, position_ids: bool = True) -> dict:
+    """The port's CLIPTextModel -> a transformers CLIPTextModel state dict
+    (under 'text_model.'); the token table cut to `vocab_rows` (a table
+    that AdaFacePipeline grew keeps its first cfg.vocab_size rows)."""
+    rows = vocab_rows or text.cfg.vocab_size
+    out = {"text_model.embeddings.token_embedding.weight": _f32(text.token_embedding[:rows]),
+           "text_model.embeddings.position_embedding.weight": _f32(text.position_embedding)}
+    if position_ids:
+        out["text_model.embeddings.position_ids"] = torch.arange(text.cfg.max_positions)[None]
+    for i, lp in enumerate(text.layers):
+        key = f"text_model.encoder.layers.{i}"
+        _layer(out, key + ".layer_norm1", lp["ln1"])
+        _layer(out, key + ".layer_norm2", lp["ln2"])
+        for n in ("q", "k", "v", "out"):
+            _layer(out, f"{key}.self_attn.{n}_proj", lp["attn"][n])
+        _layer(out, key + ".mlp.fc1", lp["mlp"]["fc1"])
+        _layer(out, key + ".mlp.fc2", lp["mlp"]["fc2"])
+    _layer(out, "text_model.final_layer_norm", text.final_ln)
+    return out
+
+
+def sd_alphas_cumprod() -> torch.Tensor:
+    """SD-1.5's scaled-linear schedule (0.00085 .. 0.012 over 1000 steps)."""
+    betas = np.linspace(0.00085 ** 0.5, 0.012 ** 0.5, 1000, dtype=np.float64) ** 2
+    return torch.from_numpy(np.cumprod(1.0 - betas).astype(np.float32))
+
+
+def sd_checkpoint(pipe) -> dict:
+    """A StableDiffusionPipeline -> the contents of an SD-1.5 `.ckpt`
+    ({'state_dict': ..., 'global_step': ...}), every tensor float32."""
+    sd = {"model.diffusion_model." + k: v for k, v in unet_ldm(pipe.unet).items()}
+    sd.update({"first_stage_model." + k: v for k, v in vae_ldm(pipe.vae).items()})
+    sd.update({"cond_stage_model.transformer." + k: v for k, v in clip_hf(pipe.text).items()})
+    sd["model_ema.decay"] = torch.tensor(0.9999)
+    sd["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
+    sd["alphas_cumprod"] = sd_alphas_cumprod()
+    return {"state_dict": sd, "global_step": 840000}
+
+
+def subj_basis_reference(sbg) -> dict:
+    """The port's SubjBasisGenerator -> the reference module's state dict."""
+    out = {}
+    if sbg.cfg.placeholder_is_bg:
+        for n in ("pos_embs", "latent_queries"):
+            out[n] = _f32(getattr(sbg, n))
+        for n in ("pos_embs_ln", "latent_queries_ln"):
+            _layer(out, n, getattr(sbg, n))
+        pairs = [("bg_proj_in", sbg.bg_proj_in)] + [
+            (f"prompt_translator.to_{n}", sbg.prompt_translator[f"to_{n}"]) for n in "qkv"]
+        for key, m in pairs:
+            out[key + ".0.weight"] = _f32(m.weight)
+            _layer(out, key + ".1", m.ln)
+        return out
+    out["hidden_state_layer_weights"] = _f32(sbg.hidden_state_layer_weights)
+    out.update({"prompt2token_proj." + k: v for k, v in clip_hf(sbg.prompt2token_proj).items()})
+    out["obj_proj_in.0.weight"] = _f32(sbg.obj_proj_in.weight)
+    _layer(out, "obj_proj_in.2", sbg.obj_proj_in.ln)
+    return out
+
+
+@contextlib.contextmanager
+def reference_classes():
+    """Register the reference's module paths ('adaface',
+    'adaface.subj_basis_generator', 'adaface.arc2face_models') in
+    sys.modules, each a types.ModuleType holding an nn.Module class of the
+    reference's name, for as long as the context lasts; yields the classes
+    {'SubjBasisGenerator': ..., 'CLIPAttentionMKV': ...}."""
+    names = ("adaface", "adaface.subj_basis_generator", "adaface.arc2face_models")
+    saved = {n: sys.modules.get(n) for n in names}
+    mods = {n: types.ModuleType(n) for n in names}
+    mods["adaface"].__path__ = []
+    classes = {}
+    for mod, cls in (("adaface.subj_basis_generator", "SubjBasisGenerator"),
+                     ("adaface.arc2face_models", "CLIPAttentionMKV")):
+        classes[cls] = type(cls, (nn.Module,), {"__module__": mod})
+        setattr(mods[mod], cls, classes[cls])
+    sys.modules.update(mods)
+    try:
+        yield classes
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def _module_tree(flat: dict, root: nn.Module, classes_by_prefix: dict) -> nn.Module:
+    """Parameters of `flat` placed into nested modules under `root` (each
+    a plain nn.Module unless its prefix is in `classes_by_prefix`);
+    integer entries become buffers."""
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        m = root
+        for j, part in enumerate(path):
+            if part not in m._modules:
+                m.add_module(part, classes_by_prefix.get(".".join(path[:j + 1]), nn.Module)())
+            m = m._modules[part]
+        if t.is_floating_point():
+            m.register_parameter(leaf, nn.Parameter(t.clone()))
+        else:
+            m.register_buffer(leaf, t.clone())
+    return root
+
+
+def write_adaface_pt(path: str, generators: dict, string_to_token: dict | None = None):
+    """An `embeddings_gs-*.pt` holding `generators` ({placeholder: the port's
+    SubjBasisGenerator}) as reference modules; self-attention layers whose
+    k_proj is wider than q_proj are of class CLIPAttentionMKV."""
+    with reference_classes() as classes:
+        mods = nn.ModuleDict()
+        for placeholder, sbg in generators.items():
+            flat = subj_basis_reference(sbg)
+            wide = {k.rsplit(".", 2)[0] for k in flat
+                    if k.endswith("self_attn.k_proj.weight")
+                    and flat[k].shape[0] > flat[k.replace("k_proj", "q_proj")].shape[0]}
+            mods[placeholder] = _module_tree(flat, classes["SubjBasisGenerator"](),
+                                             {w: classes["CLIPAttentionMKV"] for w in wide})
+        ckpt = {"string_to_subj_basis_generator_dict": mods,
+                "string_to_token_dict": dict(string_to_token or {}),
+                "emb_global_scale_scores": torch.zeros(len(generators)),
+                "token2num_vectors": {p: 16 for p in generators}}
+        torch.save(ckpt, path)
+    return path
+
+
+def arcface_insightface(model) -> dict:
+    """The port's ArcFace -> an arcface_torch iresnet state dict: `stages.i.j`
+    as `layer<i+1>.j`, `down_conv`/`down_bn` as `downsample.0/1`, PReLU
+    `alpha` as `weight`, `features_bn` as `features`, every BatchNorm with
+    its `num_batches_tracked`, and the fc weight's input in NCHW order."""
+    out = {}
+
+    def bn(key, m):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{key}.{leaf}"] = _f32(getattr(m, leaf))
+        out[key + ".num_batches_tracked"] = torch.tensor(0)
+
+    out["conv1.weight"] = _f32(model.conv1.weight)
+    bn("bn1", model.bn1)
+    out["prelu.weight"] = _f32(model.prelu.alpha)
+    for si, blocks in enumerate(model.stages, start=1):
+        for bi, b in enumerate(blocks):
+            key = f"layer{si}.{bi}"
+            bn(key + ".bn1", b.bn1)
+            out[key + ".conv1.weight"] = _f32(b.conv1.weight)
+            bn(key + ".bn2", b.bn2)
+            out[key + ".prelu.weight"] = _f32(b.prelu.alpha)
+            out[key + ".conv2.weight"] = _f32(b.conv2.weight)
+            bn(key + ".bn3", b.bn3)
+            if hasattr(b, "down_conv"):
+                out[key + ".downsample.0.weight"] = _f32(b.down_conv.weight)
+                bn(key + ".downsample.1", b.down_bn)
+    bn("bn2", model.bn2)
+    cfg = model.cfg
+    s, c, f = cfg.input_size // 16, cfg.planes[-1], cfg.num_features
+    w = _f32(model.fc.weight).reshape(f, s, s, c).permute(0, 3, 1, 2).reshape(f, c * s * s)
+    out["fc.weight"] = w.contiguous()
+    out["fc.bias"] = _f32(model.fc.bias)
+    bn("features", model.features_bn)
+    return out
