@@ -24,6 +24,7 @@ from adaprompt_tpu_torch.sampling import schedule as tsched
 from adaprompt_tpu_torch.train import losses as tlosses, lr_schedules as tlr, prodigy as tprod
 from adaprompt_tpu_torch.train import trainer as ttrainer
 from torch_port_helpers import HIDDEN, assert_close, named, port_module, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 EMB_ATOL = 5e-5     # fp32 through 2 CLIP layers and a final LN (|emb| ~ 1-3)
 

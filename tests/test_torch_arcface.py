@@ -18,6 +18,7 @@ from adaprompt_tpu_torch.models import arcface as taf
 from adaprompt_tpu_torch.utils.onnx_port import read_onnx_initializers
 from test_onnx_port import _model as onnx_model
 from torch_port_helpers import arcface_pair, assert_close
+from torch_port_helpers import torch_threads  # noqa: F401
 
 SMALL = dict(layers=(2, 2, 2, 2), planes=(8, 16, 32, 64), num_features=64, input_size=32)
 

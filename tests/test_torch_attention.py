@@ -13,6 +13,7 @@ import torch
 from adaprompt_tpu.ops import attention as jattn
 from adaprompt_tpu_torch.ops import attention as tattn
 from torch_port_helpers import assert_close, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 FLASH_ATOL = 2e-5    # fp32 online softmax (Pallas) vs a one-pass softmax
 

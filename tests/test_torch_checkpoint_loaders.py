@@ -39,6 +39,7 @@ from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.utils import png as tpng, torch_port as ttp
 from torch_port_helpers import (ARCFACE_TINY, JAX_TEXT, JAX_UNET, JAX_VAE, TORCH_TEXT,
                                 TORCH_UNET, TORCH_VAE, arcface_pair, assert_close, randomized, t)
+from torch_port_helpers import torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "tools"))
@@ -48,15 +49,6 @@ SBG_FACE = dict(output_dim=64, dino_embedding_dim=32)
 SBG_BG = dict(placeholder_is_bg=True, num_out_embs_per_layer=4, num_id_vecs_bg=10,
               image_embedding_dim=48, output_dim=64, num_heads=4)
 MKV_LAYERS = dict(multiplier=2, begin_layer=1)      # K/V widened on the second layer only
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite's parallel workers share a few cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeded(module, seed):

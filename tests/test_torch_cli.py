@@ -36,6 +36,7 @@ from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.utils.png import read_png, write_png
 from torch_port_helpers import (JAX_VAE, TORCH_VAE, arcface_pair, assert_close, port_module,
                                 randomized, train_env)
+from torch_port_helpers import torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "tools"))
@@ -44,15 +45,6 @@ import reference_layouts as rl  # noqa: E402
 ARCFACE_CLI = dict(layers=(1, 1, 1, 1), planes=(8, 8, 16, 16), num_features=512,
                    input_size=112)   # the CLIs' centre crop is 112 pixels
 CTX_TOL = 2e-4                        # fp32 contexts: ArcFace -> Arc2Face -> generator -> CLIP
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite's parallel workers share a few cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

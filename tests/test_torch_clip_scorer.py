@@ -17,6 +17,7 @@ from adaprompt_tpu_torch.models import clip_text as tclip, clip_vision as tcv
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer as TorchTokenizer
 from adaface_fixtures import build_word_vocab
 from torch_port_helpers import VOCAB, port_module, randomized
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VISION = dict(image_size=32, patch_size=8, hidden_size=64, intermediate_size=128,
               num_layers=2, num_heads=4, projection_dim=32)

@@ -18,6 +18,7 @@ from adaprompt_tpu_torch.adaface import zs_features as tzs
 from adaprompt_tpu_torch.adaface.checkpoint import module_tree
 from adaprompt_tpu_torch.models import clip_vision as tcv
 from torch_port_helpers import named, port_module, randomized, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VISION = dict(image_size=32, patch_size=8, hidden_size=64, intermediate_size=128,
               num_layers=2, num_heads=4, projection_dim=32)

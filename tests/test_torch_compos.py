@@ -21,6 +21,7 @@ from adaprompt_tpu_torch.adaface import cls_delta as tcd
 from adaprompt_tpu_torch.train import compos as tcompos, compos_step as tcs, elastic as tel
 from adaprompt_tpu_torch.train import losses as tlosses
 from torch_port_helpers import assert_close, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VALUE_TOL = 1e-5       # fp32, the same formula in another summation order: of the largest value
 GRAD_TOL = 1e-5        # of the gradient's largest entry

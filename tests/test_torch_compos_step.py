@@ -23,6 +23,13 @@ from adaprompt_tpu_torch.models import vae as tvae
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import compos_step as tcs, trainer as ttrainer
 from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
+
+# torch_threads' count here: at one intra-op thread the CPU's reductions sum in
+# an order that puts one element of these fp32 comparisons just past its
+# bound (as they do without the fixture under OMP_NUM_THREADS=1); from two
+# threads up they pass
+TORCH_THREADS = 2
 
 PHASE_TOL = 1e-4     # fp32 through the UNet and VAE: of the array's largest entry
 LOSS_RTOL = 1e-4     # the phase's loss terms, through two CLIPs and a capturing UNet

@@ -22,6 +22,7 @@ import torch
 from adaprompt_tpu.ops import conv_halo as jch
 from adaprompt_tpu.ops.layers import group_norm as jgroup_norm
 from adaprompt_tpu_torch.ops import conv_halo as tch
+from torch_port_helpers import torch_threads  # noqa: F401
 
 SHAPES = [(8, 32, 32), (12, 64, 48), (8, 64, 32), (12, 32, 48)]     # (H = W, C, O), B = 2
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}                          # of max|reference|

@@ -28,6 +28,7 @@ from adaprompt_tpu_torch.ops import attention as tattn, geglu as tgeglu, tome as
 from adaprompt_tpu_torch.sampling import ddim as tddim, dpm as tdpm, fastloop as tfast
 from torch_port_helpers import (JAX_UNET, TORCH_UNET, assert_close, merge_gaps, port_module, t,
                                 tiny_models)
+from torch_port_helpers import torch_threads  # noqa: F401
 
 LOOPS = [(20, 3, 0.3), (12, 4, 0.35), (8, 1, 0.0), (7, 2, 0.0), (10, 3, 0.5)]
 # tiny UNet at a 16x32 latent: its 512-token level merges (r = 256)

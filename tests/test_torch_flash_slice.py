@@ -26,6 +26,7 @@ from adaprompt_tpu_torch.train import steps as tsteps
 from test_torch_flash_variants import VARIANTS, jax_flash
 from torch_port_helpers import (JAX_UNET, JAX_VAE, TORCH_UNET, assert_close, keeping_grads,
                                 port_module, t, tiny_models, train_env)
+from torch_port_helpers import torch_threads  # noqa: F401
 
 MIN_TOKENS = 16      # the tiny UNet's 64- and 16-token levels take the flash path
 

@@ -24,6 +24,7 @@ from adaprompt_tpu.ops import attention as jattn, geglu as jgeglu, quant as jqua
 from adaprompt_tpu_torch.ops import attention as tattn, quant as tquant
 from adaprompt_tpu_torch.ops.attention import FlashVariant
 from torch_port_helpers import assert_close, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VARIANTS = {"ilv": FlashVariant(ilv=True), "nomax": FlashVariant(nomax=True),
             "exp2": FlashVariant(exp2=True), "ilv+exp2": FlashVariant(ilv=True, exp2=True),

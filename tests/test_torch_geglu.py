@@ -12,6 +12,7 @@ import torch
 from adaprompt_tpu.ops import geglu as jgeglu
 from adaprompt_tpu_torch.ops import geglu as tgeglu
 from torch_port_helpers import assert_close, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 def _weights(rng, c, f):

@@ -17,6 +17,7 @@ from adaprompt_tpu.utils.tokenizer import CLIPTokenizer as JaxTokenizer
 from adaprompt_tpu_torch.ops import layers as tlayers
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer as TorchTokenizer
 from torch_port_helpers import JAX_TEXT, JAX_UNET, JAX_VAE, assert_close, t, tiny_models
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ from adaprompt_tpu_torch import pipeline as tpipe
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer
 from torch_port_helpers import (JAX_TEXT, JAX_UNET, JAX_VAE, TORCH_TEXT, TORCH_UNET, TORCH_VAE,
                                 assert_close, t, tiny_models)
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

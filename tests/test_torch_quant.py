@@ -12,6 +12,7 @@ import torch
 from adaprompt_tpu.ops import attention as jattn, geglu as jgeglu, quant as jquant
 from adaprompt_tpu_torch.ops import attention as tattn, geglu as tgeglu, quant as tquant
 from torch_port_helpers import t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 # One flipped int8 level of g or o moves an output by at most 1/127 of its
 # row's max (through a product that sums it once); the bound leaves room for

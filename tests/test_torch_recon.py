@@ -21,6 +21,7 @@ from adaprompt_tpu_torch.ops import conv_attn as tca
 from adaprompt_tpu_torch.train import fgbg as tfgbg, losses as tlosses
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer as TorchTokenizer
 from torch_port_helpers import JAX_TEXT, TORCH_TEXT, assert_close, port_module, randomized, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VALUE_TOL = 1e-5       # fp32, the same formula in another summation order
 GRAD_TOL = 1e-5        # of the gradient's largest entry

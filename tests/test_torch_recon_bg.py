@@ -27,6 +27,7 @@ from adaprompt_tpu_torch.models import clip_vision as tcv, vae as tvae
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import steps as tsteps, trainer as ttrainer
 from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, randomized, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 LOSS_RTOL = 1e-5    # fp32, different summation orders through 2 CLIPs and a UNet
 REG_ATOL = 1e-9     # the regularizer terms are ~1e-2..1 before their 1e-4 weights

@@ -20,6 +20,13 @@ from adaprompt_tpu_torch.adaface import conditioner as tcond
 from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
 from adaprompt_tpu_torch.train import steps as tsteps, trainer as ttrainer
 from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
+
+# torch_threads' count here: at one intra-op thread the CPU's reductions sum in
+# an order that puts one element of these fp32 comparisons just past its
+# bound (as they do without the fixture under OMP_NUM_THREADS=1); from two
+# threads up they pass
+TORCH_THREADS = 2
 
 LOSS_RTOL = 1e-5    # fp32, different summation orders through 2 CLIPs and a UNet
 REG_ATOL = 1e-9     # the regularizer terms are ~1e-2..1 before their 1e-4 weights

@@ -14,6 +14,7 @@ import torch
 from adaprompt_tpu.models import unet as junet
 from adaprompt_tpu_torch.models import unet as tunet
 from torch_port_helpers import JAX_UNET, assert_close, t, tiny_models
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

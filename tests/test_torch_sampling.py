@@ -10,6 +10,7 @@ import torch
 from adaprompt_tpu.sampling import ddim as jddim, schedule as jsched
 from adaprompt_tpu_torch.sampling import ddim as tddim, schedule as tsched
 from torch_port_helpers import assert_close
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 def test_schedule_matches():

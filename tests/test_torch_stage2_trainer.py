@@ -32,6 +32,7 @@ from adaprompt_tpu_torch.models import clip_text as tclip, clip_vision as tcv, v
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import trainer as ttrainer
 from torch_port_helpers import VOCAB, named, port_module, randomized, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VAE_CFG = dict(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1)
 TOL = 1e-4          # fp32 phases through the UNet: of the array's largest entry

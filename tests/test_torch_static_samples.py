@@ -28,22 +28,11 @@ from adaprompt_tpu_torch.pipeline import DEFAULT_NEGATIVE_PROMPT, StableDiffusio
 from adaprompt_tpu_torch.train import steps as tsteps, trainer as ttrainer
 from adaprompt_tpu_torch.utils.png import encode_png
 from torch_port_helpers import TORCH_VAE, HIDDEN, keeping_grads, port_module, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 LOSS_RTOL = 1e-5    # fp32 through 2 CLIP layers and a UNet, as the zero-shot recon step's test
 GRAD_TOL = 1e-5     # of the leaf's largest gradient, plus 1e-6 of the tree's
 CAPTIONS = ["a photo of a z person", "a z in the park"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module: under the suite's parallel
-    workers on a few cores, torch's default pool oversubscribes the CPU and
-    these small-tensor steps slow down some fiftyfold (six copies of the
-    resume tests: 2250 s with 8 threads each, 54 s with 1)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

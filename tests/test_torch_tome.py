@@ -11,6 +11,7 @@ import torch
 from adaprompt_tpu.ops import tome as jtome
 from adaprompt_tpu_torch.ops import tome as ttome
 from torch_port_helpers import assert_close, merge_gaps, t
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [256, 512, 1024, 4096, 1000])

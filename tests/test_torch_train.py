@@ -16,6 +16,7 @@ from adaprompt_tpu.train import steps as jsteps, trainer as jtrainer
 from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
 from adaprompt_tpu_torch.train import steps as tsteps, trainer as ttrainer
 from torch_port_helpers import keeping_grads, named, port_module, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 LOSS_RTOL = 1e-5   # fp32, different summation orders through 2 CLIP + 2 UNets
 GRAD_TOL = 1e-5    # of the leaf's largest gradient, plus 1e-6 of the tree's (for

@@ -21,6 +21,7 @@ from adaprompt_tpu_torch.models import vae as tvae
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import arc2face_teacher as tteacher, trainer as ttrainer
 from torch_port_helpers import HIDDEN, assert_close, named, port_module, t, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

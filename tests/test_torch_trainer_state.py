@@ -25,20 +25,9 @@ from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import ema as tema, lr_schedules as tsched, trainer as ttrainer
 from adaprompt_tpu_torch.train import steps as tsteps
 from torch_port_helpers import named, port_module, train_env
+from torch_port_helpers import torch_threads  # noqa: F401
 
 VAE_CFG = dict(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module: under the suite's parallel
-    workers on a few cores, torch's default pool oversubscribes the CPU and
-    these small-tensor steps slow down some fiftyfold (six copies of the
-    resume tests: 2250 s with 8 threads each, 54 s with 1)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _module_and_tensor(seed):

@@ -18,6 +18,7 @@ from adaprompt_tpu_torch.adaface import wrapper as twrap
 from adaprompt_tpu_torch.models import clip_text as tclip
 from torch_port_helpers import (HIDDEN, JAX_VAE, TORCH_VAE, assert_close, t, train_env,
                                 wrapper_env)
+from torch_port_helpers import torch_threads  # noqa: F401
 
 PROMPT = "portrait of a z person"
 REL = 1e-4      # of the largest reference value: fp32 through 4 CLIP layers and the ArcFace trunk

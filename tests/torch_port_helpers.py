@@ -6,6 +6,7 @@ zero_module convs above all) makes a parity test pass vacuously."""
 import jax
 import numpy as np
 import optax
+import pytest
 import torch
 
 from adaprompt_tpu.adaface import subj_basis_generator as jsbg
@@ -23,6 +24,25 @@ from adaprompt_tpu_torch.ops.tome import quantize_merge_count as tome_merge_coun
 from adaprompt_tpu_torch.train import steps as tsteps
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer as TorchTokenizer
 from adaface_fixtures import build_word_vocab
+
+# intra-op threads of torch in each port test module (`torch_threads`); a
+# module may set its own count as `TORCH_THREADS`
+TEST_THREADS = 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads(request):
+    """TEST_THREADS intra-op threads (or the module's TORCH_THREADS) for the
+    test module that imports this fixture: under the suite's parallel
+    workers on a few cores, torch's default pool (a thread a core in every
+    worker) oversubscribes the CPU and the small-tensor steps of these tests
+    slow down many-fold (six copies of one resume test: 2,250 s with 8
+    threads each, 54 s with 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(getattr(request.module, "TORCH_THREADS", TEST_THREADS))
+    yield
+    torch.set_num_threads(n)
+
 
 JAX_UNET = junet.UNetConfig(model_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=2,
                             attention_ds=(1, 2, 4), num_heads=4, context_dim=64,
