@@ -67,7 +67,8 @@ def load_subj_basis(args, pipe: StableDiffusionPipeline):
 
 
 def load_arcface(path: str | None, device):
-    """The IResNet-100 trunk from an insightface `.pth` at `path`, or with
+    """The IResNet-100 trunk from an insightface `.pth` at `path` (or an
+    `.onnx` export, its initializers read without an ONNX runtime), or with
     random weights from seed 2 when `path` is None."""
     from adaprompt_tpu_torch.models import arcface
     from adaprompt_tpu_torch.pipeline import resolve_device
@@ -76,7 +77,9 @@ def load_arcface(path: str | None, device):
     if path is None:
         return arcface.ArcFace.random_init(2, cfg, device=device)
     model = arcface.ArcFace(cfg, device=device)
-    model.load_state_dict(arcface.from_torch(load_state_dict(path), cfg), strict=True)
+    state = (arcface.from_onnx(path, cfg) if path.endswith(".onnx")
+             else arcface.from_torch(load_state_dict(path), cfg))
+    model.load_state_dict(state, strict=True)
     return model.eval()
 
 

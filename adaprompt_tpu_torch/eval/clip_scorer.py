@@ -1,8 +1,8 @@
 """CLIP similarity scoring on the device: ViT-B/32 image-image and
 text-image cosine similarities.
 
-Port of `adaprompt_tpu/eval/clip_scorer.py` without `from_torch` (loading
-published ViT-B/32 weights). The text tower is the port's CLIPTextModel at
+Port of `adaprompt_tpu/eval/clip_scorer.py`; `from_torch` loads a
+transformers CLIPModel (ViT-B/32) state dict. The text tower is the port's CLIPTextModel at
 ViT-B/32's text widths with the text projection; images go through the
 port's CLIPVisionModel with its visual projection. Images are [-1, 1] float
 [B, H, W, 3] (generator output), mapped to [0, 1], resized to the tower's
@@ -53,6 +53,32 @@ class CLIPScorer(nn.Module):
         gen = torch.Generator(device=device).manual_seed(seed)
         scorer = cls(tokenizer or CLIPTokenizer.fallback(), text_cfg, vision_cfg, device=device)
         reset_parameters(scorer, gen)
+        return scorer
+
+    @classmethod
+    def from_torch(cls, state_dict, tokenizer: CLIPTokenizer | None = None,
+                   text_cfg: clip_text.CLIPTextConfig = CLIP_B32_TEXT,
+                   vision_cfg: clip_vision.CLIPVisionConfig = clip_vision.CLIP_VIT_B32_VISION,
+                   *, device=None) -> "CLIPScorer":
+        """A scorer from a transformers CLIPModel state dict (ViT-B/32 by
+        default): 'text_model.*' through clip_text.from_torch,
+        'vision_model.*' and 'visual_projection.weight' through
+        clip_vision.from_torch, 'text_projection.weight' [P, D] transposed;
+        entries no parameter reads ('logit_scale', 'position_ids') are left
+        out. On the card by default."""
+        from adaprompt_tpu_torch.pipeline import resolve_device
+        from adaprompt_tpu_torch.utils.torch_port import renamed
+        text_sd = {k: v for k, v in state_dict.items() if k.startswith("text_model.")}
+        vis_sd = {k: v for k, v in state_dict.items()
+                  if k.startswith("vision_model.") or k == "visual_projection.weight"}
+        state = {f"text.{k}": v for k, v in clip_text.from_torch(text_sd, text_cfg).items()}
+        state.update({f"vision.{k}": v
+                      for k, v in clip_vision.from_torch(vis_sd, vision_cfg).items()})
+        state["text_projection"] = renamed(
+            state_dict, {"p": "text_projection.weight"})["p"].t().contiguous()
+        scorer = cls(tokenizer or CLIPTokenizer.load(), text_cfg, vision_cfg,
+                     device=resolve_device(device))
+        scorer.load_state_dict({k: v.float() for k, v in state.items()}, strict=True)
         return scorer
 
     def reset(self, gen: torch.Generator):

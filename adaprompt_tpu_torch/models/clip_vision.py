@@ -10,8 +10,8 @@ raw 0/1 pairwise mask as an additive mask. The attention takes that full
 [B, 1, S, S] mask, so it runs as plain attention, as in the JAX package.
 
 Parameters mirror the JAX pytree (see convert.from_jax_params): the patch
-embedding stays an HWIO leaf named `patch_embedding`. Loading the
-`transformers` checkpoints (`from_torch`) is not ported yet.
+embedding stays an HWIO leaf named `patch_embedding`. `from_torch` maps a
+`transformers` CLIPVisionModel(WithProjection) state dict onto them.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from torch import nn
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
 from adaprompt_tpu_torch.ops.attention import dot_product_attention
 from adaprompt_tpu_torch.ops.layers import Linear, Norm, conv2d, layer_norm, quick_gelu
+from adaprompt_tpu_torch.utils.torch_port import layer_names, renamed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +158,31 @@ class CLIPVisionModel(nn.Module):
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def from_torch(state_dict, cfg: CLIPVisionConfig = CLIP_VIT_H14_VISION) -> dict[str, torch.Tensor]:
+    """A transformers CLIPVisionModel(WithProjection) state dict (keys under
+    'vision_model.', or without it; the projection as
+    'visual_projection.weight') -> a state dict for `CLIPVisionModel(cfg)`:
+    the names change and the patch embedding goes from OIHW to HWIO. Without
+    a visual projection the result has no 'projection.weight' (load it with
+    strict=False, as the JAX package leaves the projection out). Entries no
+    parameter reads (`position_ids`) are left out."""
+    sd = {k.removeprefix("vision_model."): v for k, v in state_dict.items()}
+    names = {"class_embedding": "embeddings.class_embedding",
+             "position_embedding": "embeddings.position_embedding.weight"}
+    pairs = [("pre_ln", "pre_layrnorm"), ("post_ln", "post_layernorm")]
+    if "visual_projection.weight" in sd:
+        pairs.append(("projection", "visual_projection"))
+    for i in range(cfg.num_layers):
+        src, dst = f"encoder.layers.{i}", f"layers.{i}"
+        pairs += [(f"{dst}.ln1", f"{src}.layer_norm1"), (f"{dst}.ln2", f"{src}.layer_norm2"),
+                  (f"{dst}.mlp.fc1", f"{src}.mlp.fc1"), (f"{dst}.mlp.fc2", f"{src}.mlp.fc2")]
+        pairs += [(f"{dst}.attn.{n}", f"{src}.self_attn.{n}_proj") for n in ("q", "k", "v", "out")]
+    out = renamed(sd, {**names, **layer_names(pairs, sd)})
+    patch = renamed(sd, {"p": "embeddings.patch_embedding.weight"})["p"]
+    out["patch_embedding"] = patch.permute(2, 3, 1, 0).contiguous()      # OIHW -> HWIO
+    return out
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

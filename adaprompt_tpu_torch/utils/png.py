@@ -3,12 +3,13 @@ reader for the formats that need no other package.
 
 The writer makes 8-bit RGB, every scanline with filter 0, one IDAT chunk,
 CRCs from zlib.crc32. The decoder reads any non-interlaced 8-bit PNG
-(grey, grey + alpha, RGB, RGBA, palette; scanline filters 0-4), checks
-every chunk's CRC and returns uint8 [H, W, 3]: alpha is dropped, grey is
-repeated over the three channels and a palette is looked up, as PIL's
+(grey, grey + alpha, RGB, RGBA, palette; scanline filters 0-4) and 1-, 2-
+and 4-bit grey and palette ones, checks every chunk's CRC and returns uint8
+[H, W, 3]: alpha is dropped, grey is repeated over the three channels (a
+sub-byte grey level scaled to 0..255) and a palette is looked up, as PIL's
 `convert("RGB")` does. `read_image` takes `.png` through the decoder,
 `.npy` through numpy, and any other format through PIL where PIL is
-installed.
+installed. `to_grey` is PIL's `convert("L")` of such an image.
 """
 
 from __future__ import annotations
@@ -122,13 +123,23 @@ def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
-    if depth != 8 or color not in _CHANNELS:
+    if color not in _CHANNELS or not (depth == 8 or (depth in (1, 2, 4) and color in (0, 3))):
         raise ValueError(f"{name}: bit depth {depth}, colour type {color}; only 8-bit grey, "
-                         "grey + alpha, RGB, RGBA and palette images are read")
+                         "grey + alpha, RGB, RGBA and palette images and 1-, 2- and 4-bit "
+                         "grey and palette ones are read")
     if interlace:
         raise ValueError(f"{name}: interlaced PNGs are not read")
     ch = _CHANNELS[color]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch, name).reshape(h, w, ch)
+    raw = zlib.decompress(b"".join(idat))
+    if depth < 8:
+        # one sample a pixel, packed from the high bits, each row padded to a byte
+        rows = _unfilter(raw, h, (w * depth + 7) // 8, 1, name)
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        px = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w, None]
+        if color == 0:
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    else:
+        px = _unfilter(raw, h, w * ch, ch, name).reshape(h, w, ch)
     if color == 3:
         if palette is None:
             raise ValueError(f"{name}: a palette image without a PLTE chunk")
@@ -162,3 +173,12 @@ def read_image(path: str) -> np.ndarray:
                            "is not installed here; convert the photos to .png or .npy") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] -> uint8 [H, W]: PIL's convert("L") in its integer
+    fixed point, (R*19595 + G*38470 + B*7471 + 0x8000) >> 16 (a grey image
+    read as three equal channels comes back unchanged)."""
+    x = np.asarray(img, np.uint32)
+    return ((x[..., 0] * 19595 + x[..., 1] * 38470 + x[..., 2] * 7471 + 0x8000) >> 16).astype(
+        np.uint8)

@@ -11,7 +11,8 @@ sample grid through PromptConditioner), the composed serving stack (DPM-Solver++
 with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
 (AdaFacePipeline: photos -> ArcFace -> 16 subject tokens -> personalized
 DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
-each UNetConfig.flash_variant (two-chain, no-max, exp2).
+each UNetConfig.flash_variant (two-chain, no-max, exp2); the txt2img, infer
+and training CLIs over checkpoint files on disk.
 
     python3 chip_smoke.py
 
@@ -162,7 +163,20 @@ Phases, in order (any failure exits non-zero without the final line):
      vectors equal those of an AdaFacePipeline built in memory from the
      same modules on the same photos; logs file sizes, load, save and
      generate times and peak memory beside the card's name and power limit;
- 14. print the kernels' JSON line (thirteen rows), the card's name and
+ 14. the training CLI over a folder of photos, right after phase 13 and in
+     its temporary directory, over its .ckpt (as --ckpt and --arc2face_ckpt)
+     and ArcFace .pth: a data root of 3 subjects x 3 seeded 512x512 PNG
+     photos with masks and one 600x560 photo, and a ViT-B/32 CLIPModel
+     state dict (random) written by the phase; train.main for (a) Stage 1,
+     bs 4, 4 steps with --ckpt_every 2 and --sample_every 2, SIGUSR1 sent
+     50 ms into step 1 (held to the step's end: trainer_state-2 written, the
+     run goes on to its last step); (b) --resume_state from that state (its
+     first step the saved one); (c) Stage 2 (bs 3) from (a)'s generator with
+     the CLIP teacher filter and a torch.profiler trace (a device kernel in
+     it); (d) --mode static, 2 steps; each run's files checked, its launches
+     of B1-B4 equal to what its metrics rows imply; logs each run's wall
+     time, loads, step times, saves and peak memory;
+ 15. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -2839,14 +2853,12 @@ def _run_cli(path, main, argv, card):
     return paths, timers
 
 
-def phase_clis():
+def phase_clis(tmp):
     """Phase 13: the txt2img and infer CLIs over the reference's checkpoint
     files, written from a full-width AdaFacePipeline with random weights
-    (fused_conv off) into a temporary directory that the phase removes.
-    Returns {path: launch counts}."""
+    (fused_conv off) into the temporary directory `tmp`. Returns ({path:
+    launch counts}, {name: file path} of the files written)."""
     import os
-    import shutil
-    import tempfile
     import numpy as np
     import torch
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
@@ -2872,113 +2884,397 @@ def phase_clis():
     log(f"phase 13 random_init: {time.perf_counter() - t0:.1f} s; prompt2token_proj k widths "
         f"{widths}")
 
+    files = {"sd": os.path.join(tmp, "v1-5-random.ckpt"),
+             "adaface": os.path.join(tmp, "embeddings_gs-0.pt"),
+             "arcface": os.path.join(tmp, "glint360k_r100-random.pth")}
+    photos = os.path.join(tmp, "photos")
+    os.makedirs(photos)
+    t0 = time.perf_counter()
+    torch.save(rl.sd_checkpoint(pipe), files["sd"])
+    sd_sec = time.perf_counter() - t0
+    rl.write_adaface_pt(files["adaface"], {"z": sbg},
+                        {"z": pipe.tokenizer.encode_raw("z")[0]})
+    torch.save(rl.arcface_insightface(arc), files["arcface"])
+    rng = np.random.default_rng(13)
+    photo_paths = [write_png(os.path.join(photos, f"photo{i}.png"),
+                             rng.integers(0, 256, (512, 512, 3)).astype(np.uint8))
+                   for i in range(3)]
+    sizes = {k: os.path.getsize(v) / 2 ** 20 for k, v in files.items()}
+    log("phase 13 files: " + ", ".join(f"{os.path.basename(files[k])} {sizes[k]:.1f} MiB"
+                                       for k in files)
+        + f"; the SD checkpoint written in {sd_sec:.3f} s; {card}")
+
+    # (a) from_checkpoint against the pipeline written
+    t0 = time.perf_counter()
+    n_entries = len(load_state_dict(files["sd"]))
+    load_sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = StableDiffusionPipeline.from_checkpoint(files["sd"])
+    torch.cuda.synchronize()
+    from_sec = time.perf_counter() - t0
+    vocab = pipe.text.cfg.vocab_size
+    bad = []
+    for name in ("unet", "vae", "text"):
+        want = getattr(pipe, name).state_dict()
+        got = getattr(loaded, name).state_dict()
+        if name == "text":
+            want = dict(want, token_embedding=want["token_embedding"][:vocab])
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"from_checkpoint's {name} has other parameters")
+        bad += [f"{name}.{k}" for k in want if got[k].dtype != want[k].dtype
+                or not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"from_checkpoint differs from the pipeline written at {bad[:8]}")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((2, 64, 64, 4), generator=g, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((2, 77, 768), generator=g, device="cuda").to(torch.bfloat16)
+    ts = torch.tensor([981, 501], device="cuda")
+    with torch.inference_mode():
+        eps_mem, eps_loaded = pipe.unet(x, ts, ctx), loaded.unet(x, ts, ctx)
+    if not (torch.equal(eps_mem, eps_loaded) and float(eps_mem.float().abs().max()) > 0):
+        raise AssertionError("the loaded UNet's forward differs from the written one's: max "
+                             f"{float((eps_mem.float() - eps_loaded.float()).abs().max())}")
+    n_params = sum(p.numel() for m in (loaded.unet, loaded.vae, loaded.text)
+                   for p in m.parameters())
+    log(f"phase 13 from_checkpoint: load_state_dict {load_sec:.3f} s ({n_entries} entries), "
+        f"from_checkpoint {from_sec:.3f} s; {n_params / 1e6:.1f} M parameters bit-equal to "
+        f"the pipeline written, UNet forward bit-equal (max |eps| "
+        f"{float(eps_mem.float().abs().max()):.4f}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+    del loaded, eps_loaded
+    torch.cuda.empty_cache()
+
+    # (b) txt2img
+    out = os.path.join(tmp, "txt2img")
+    paths, timers = _run_cli("cli_txt2img", txt2img.main, [
+        "--ckpt", files["sd"], "--adaface_ckpt", files["adaface"], "--ref_images", photos,
+        "--arcface_ckpt", files["arcface"], "--prompt", "a photo of a z person in the park",
+        "--n_samples", str(CLI_IMAGES), "--ddim_steps", str(CLI_STEPS), "--scale", "4", "1",
+        "--outdir", out], card)
+    launches = {"cli_txt2img": read_counts()}
+    gen_calls = timers["generate"].calls
+    imgs = _check_cli_images("cli_txt2img", paths, [c[2] for c in gen_calls])
+    ctx_shape = tuple(gen_calls[0][1]["context"].shape)
+    if ctx_shape != (16, CLI_IMAGES, 77, 768):
+        raise AssertionError(f"txt2img's context {ctx_shape}, expected layerwise [16, 2, 77, 768]")
+    log(f"phase 13 cli_txt2img: {len(paths)} PNGs decoded equal to generate's images, std "
+        f"{imgs.std():.2f}; context {ctx_shape}")
+
+    # (c) infer, against an AdaFacePipeline built in memory from the same modules
+    out = os.path.join(tmp, "infer")
+    paths, timers = _run_cli("cli_infer", infer.main, [
+        "--ckpt", files["sd"], "--subject", photos, "--adaface_ckpt", files["adaface"],
+        "--arcface_ckpt", files["arcface"], "--prompt", "portrait of a z person",
+        "--out_image_count", str(CLI_IMAGES), "--num_steps", str(CLI_STEPS), "--outdir", out],
+        card)
+    launches["cli_infer"] = read_counts()
+    imgs = _check_cli_images("cli_infer", paths, [c[2] for c in timers["generate"].calls])
+    (pers_sec, _, vecs, during), = timers["personalize"].calls
+    if during:
+        raise AssertionError(f"infer launched {during} while personalizing")
+    mem = AdaFacePipeline(pipe, sbg, sbg.cfg, pipe.text, pipe.text.cfg,
+                          face_embedder=FaceSimilarityEvaluator(arc))
+    mem_vecs = mem.generate_adaface_embeddings(images_np=[read_png(p) for p in photo_paths],
+                                               seed=42)
+    if tuple(vecs.shape) != (16, 768) or not torch.equal(vecs, mem_vecs):
+        raise AssertionError(f"infer's subject vectors {tuple(vecs.shape)} differ from the "
+                             "in-memory pipeline's: max "
+                             f"{float((vecs - mem_vecs).abs().max())}")
+    log(f"phase 13 cli_infer: personalization {pers_sec * 1e3:.1f} ms, no launch; 16 subject "
+        f"vectors equal to the in-memory AdaFacePipeline's (std {float(vecs.std()):.4f}); "
+        f"{len(paths)} PNGs decoded equal to generate's images, std {imgs.std():.2f}")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches, files
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the training CLI over a folder of photos
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_S1_STEPS = 4      # bs 4 (the README's Stage-1 batch), two accumulated updates
+TRAIN_CLI_USR1_STEP = 1     # SIGUSR1 arrives during this step of the Stage-1 run
+TRAIN_CLI_S2_STEPS = 4      # bs 3 (the Stage-2 default), gap 3: step 3 compositional
+TRAIN_CLI_STATIC_STEPS = 2
+TRAIN_CLI_EVERY = 2         # --ckpt_every and --sample_every of the Stage-1 run
+TRAIN_CLI_SUBJECTS = 3
+TRAIN_CLI_PHOTOS = 3        # 512x512 PNGs a subject, each with a _mask PNG
+
+
+def _train_cli_data(tmp):
+    """A data root of TRAIN_CLI_SUBJECTS subjects, each TRAIN_CLI_PHOTOS
+    seeded 512x512 PNG photos with elliptic _mask PNGs, the first subject
+    also a 600x560 photo without a mask (the loader resizes it). Returns the
+    data root."""
+    import os
+    import numpy as np
+    from adaprompt_tpu_torch.utils.png import write_png
+    rng = np.random.default_rng(14)
+    root = os.path.join(tmp, "subjects")
+    yy, xx = np.mgrid[:512, :512]
+    for s in range(TRAIN_CLI_SUBJECTS):
+        d = os.path.join(root, f"subject{s}")
+        os.makedirs(d)
+        for i in range(TRAIN_CLI_PHOTOS):
+            write_png(os.path.join(d, f"{i}.png"), rng.integers(0, 256, (512, 512, 3), np.uint8))
+            cy, cx, ry, rx = rng.uniform(200, 312), rng.uniform(200, 312), 150, 110
+            mask = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1).astype(np.uint8) * 255
+            write_png(os.path.join(d, f"{i}_mask.png"), np.repeat(mask[..., None], 3, axis=2))
+    write_png(os.path.join(root, "subject0", "wide.png"),
+              rng.integers(0, 256, (560, 600, 3), np.uint8))
+    return root
+
+
+def _train_cli_want(rows, samples=0):
+    """The launches a run's metrics rows imply: a distillation step 10
+    forwards of B1 and B3 a teacher pass (ND) and 20 a student pass and its
+    recompute (min(ND, 7 // bs) students), 9 of B4 a student backward; a recon
+    step one student pass (B1 20, B3 20, B4 9); a compositional step the
+    filter's conditional pass (B1 10, B3 10) and, when it keeps a candidate,
+    a student pass (B1 20, B3 20, B4 9); each log_samples B1-B3 200
+    (DDIM-20, UNet batch 4)."""
+    fwd = bwd = 0
+    for r in rows:
+        kind = r["iter_type"]
+        if kind == "arc2face_distill":
+            nd = r["num_denoising_steps"]
+            students = min(nd, max(7 // r["distill_bs"], 1))
+            fwd, bwd = fwd + 10 * (nd + 2 * students), bwd + FLASH_BWD_PER_PASS * students
+        elif kind in ("recon", "static"):
+            fwd, bwd = fwd + 20, bwd + FLASH_BWD_PER_PASS
+        elif kind == "compos_distill_skipped":
+            fwd += 10
+        elif kind == "compos_distill":
+            fwd, bwd = fwd + 30, bwd + FLASH_BWD_PER_PASS
+        else:
+            raise AssertionError(f"unexpected iteration {r}")
+    return dict(flash_attention_fwd=fwd + 10 * SAMPLE_STEPS * samples, flash_attention_bwd=bwd,
+                geglu_fwd=fwd + 10 * SAMPLE_STEPS * samples,
+                fused_cross_attention=10 * SAMPLE_STEPS * samples)
+
+
+def _run_train_cli(path, argv, card, usr1_step=None):
+    """train.main(argv) with its loaders, steps, samples and saves timed and
+    its launches counted; under `usr1_step` a timer sends SIGUSR1 to the
+    process 50 ms into that step. Returns (metrics rows, {name:
+    _PatchedCalls}, seconds, launches)."""
+    import json
+    import os
+    import signal
+    import threading
+    import torch
+    from adaprompt_tpu_torch.cli import common, train
+    from adaprompt_tpu_torch.eval.clip_scorer import CLIPScorer
+    from adaprompt_tpu_torch.train import steps as steps_mod
+    from adaprompt_tpu_torch.train.trainer import AdaPromptTrainer
+    timers = {"load_pipeline": _PatchedCalls(common, "load_pipeline"),
+              "load_teacher": _PatchedCalls(train, "load_teacher"),
+              "load_arcface": _PatchedCalls(common, "load_arcface"),
+              "clip_from_torch": _PatchedCalls(CLIPScorer, "from_torch"),
+              "step": _PatchedCalls(AdaPromptTrainer, "train_step"),
+              "static_step": _PatchedCalls(steps_mod.StaticReconStep, "__call__"),
+              "log_samples": _PatchedCalls(AdaPromptTrainer, "log_samples"),
+              "save_checkpoint": _PatchedCalls(AdaPromptTrainer, "save_checkpoint"),
+              "save_full_state": _PatchedCalls(AdaPromptTrainer, "save_full_state"),
+              "load_full_state": _PatchedCalls(AdaPromptTrainer, "load_full_state"),
+              "load_checkpoint": _PatchedCalls(AdaPromptTrainer, "load_checkpoint")}
+    for tm in timers.values():
+        tm.__enter__()
+    timed_step = AdaPromptTrainer.train_step
+    usr1 = []
+
+    def step(self, i):
+        if i == usr1_step:
+            usr1.append(threading.Timer(0.05, os.kill, (os.getpid(), signal.SIGUSR1)))
+            usr1[-1].start()
+        return timed_step(self, i)
+
+    AdaPromptTrainer.train_step = step
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        AdaPromptTrainer.train_step = timed_step
+        for tm in reversed(list(timers.values())):
+            tm.__exit__()
+        for t in usr1:
+            t.join()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = argv[argv.index("--out_dir") + 1]
+    rows = []       # the static mode writes no metrics
+    if os.path.exists(os.path.join(out, "metrics.jsonl")):
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    loads = {k: round(timers[k].seconds, 3) for k in ("load_pipeline", "load_teacher",
+                                                       "load_arcface", "clip_from_torch",
+                                                       "load_full_state", "load_checkpoint")
+             if timers[k].calls}
+    saves = {k: [round(c[0], 3) for c in timers[k].calls]
+             for k in ("save_checkpoint", "save_full_state", "log_samples") if timers[k].calls}
+    steps = [round(c[0], 3) for c in timers["step"].calls + timers["static_step"].calls]
+    files = sorted(os.listdir(out))
+    log(f"phase 14 {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
+        f"times {steps} s; samples and saves {saves} s; peak memory {peak:.2f} GiB; files "
+        f"{files}; launches {nz(launches)}; {card}")
+    return rows, timers, seconds, launches
+
+
+def _check_train_rows(path, rows, steps):
+    if [r["step"] for r in rows] != list(steps):
+        raise AssertionError(f"{path} took steps {[r['step'] for r in rows]}, expected {steps}")
+    for r in rows:
+        loss = r.get("loss", r.get("loss_arc2face_distill", r.get("loss_compos")))
+        skipped = r["iter_type"] == "compos_distill_skipped"
+        if not skipped and not (math.isfinite(loss) and math.isfinite(r["grad_norm"])
+                                and r["grad_norm"] > 0):
+            raise AssertionError(f"{path}: bad metrics {r}")
+    log(f"phase 14 {path} steps: " + "; ".join(
+        f"{r['step']} {r['iter_type']}"
+        + (f" ND={r['num_denoising_steps']} bs={r['distill_bs']}" if "distill_bs" in r else "")
+        + (f" loss={r.get('loss', r.get('loss_arc2face_distill', r.get('loss_compos'))):.6f}"
+           if "grad_norm" in r else "")
+        for r in rows))
+
+
+def _check_train_launches(path, launches, want):
+    full = {n: 0 for n in launches}
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{path} launches {nz(launches)}, expected {nz(full)}")
+
+
+def phase_train_cli(tmp, files):
+    """Phase 14: cli.train.main over a folder of photos, after phase 13 and
+    in its temporary directory, on its SD-1.5 .ckpt (as --ckpt and as
+    --arc2face_ckpt) and its ArcFace .pth, with a full-width ViT-B/32
+    CLIPModel state dict written here: (a) Stage 1, bs 4, with
+    --ckpt_every and --sample_every, SIGUSR1 during a step (the full state
+    written when that step ends, the run goes on to its last step); (b)
+    --resume_state from that state (its first step is the saved one); (c)
+    Stage 2 (bs 3) from (a)'s generator with the CLIP teacher filter and a
+    torch.profiler trace; (d) --mode static, 2 steps. Each run's launches of
+    B1-B4 equal what its metrics rows imply. Returns {path: launch counts}."""
+    import glob
+    import json
+    import os
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import reference_layouts as rl
+    from adaprompt_tpu_torch.eval.clip_scorer import CLIPScorer
+    from adaprompt_tpu_torch.utils.png import read_png
+    card = card_line()
+    t_phase = t0 = time.perf_counter()
+    root = _train_cli_data(tmp)
+    clip_path = os.path.join(tmp, "clip-vit-b32-random.bin")
+    torch.save(rl.clip_model_hf(CLIPScorer.random_init(15)), clip_path)
+    log(f"phase 14 data: {TRAIN_CLI_SUBJECTS} subjects x {TRAIN_CLI_PHOTOS} 512x512 PNG photos "
+        f"with masks (+1 at 600x560), a ViT-B/32 CLIPModel state dict of "
+        f"{os.path.getsize(clip_path) / 2 ** 20:.1f} MiB, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = ["--ckpt", files["sd"], "--data_roots", root]
+    teacher = ["--arc2face_ckpt", files["sd"], "--arcface_ckpt", files["arcface"]]
+    by_path = {}
+
+    # (a) Stage 1 with samples, checkpoints and a SIGUSR1 save
+    s1 = os.path.join(tmp, "train_s1")
+    s1_args = model + teacher + [
+        "--stage", "1", "--bs", "4", "--num_steps", str(TRAIN_CLI_S1_STEPS),
+        "--ckpt_every", str(TRAIN_CLI_EVERY), "--sample_every", str(TRAIN_CLI_EVERY),
+        "--seed", "14"]
+    rows, timers, _, launches = _run_train_cli("cli_train_s1", s1_args + ["--out_dir", s1], card,
+                                               usr1_step=TRAIN_CLI_USR1_STEP)
+    _check_train_rows("cli_train_s1", rows, range(TRAIN_CLI_S1_STEPS))
+    n_samples = TRAIN_CLI_S1_STEPS // TRAIN_CLI_EVERY
+    _check_train_launches("cli_train_s1", launches, _train_cli_want(rows, n_samples))
+    (state_sec, _, state_path, _), = timers["save_full_state"].calls
+    states = glob.glob(os.path.join(s1, "trainer_state-*.npz"))
+    want_files = {f"embeddings_gs-{k}.npz" for k in range(TRAIN_CLI_EVERY, TRAIN_CLI_S1_STEPS + 1,
+                                                          TRAIN_CLI_EVERY)}
+    want_files |= {f"samples_gs-{k}.png" for k in range(TRAIN_CLI_EVERY, TRAIN_CLI_S1_STEPS + 1,
+                                                        TRAIN_CLI_EVERY)}
+    if states != [state_path] or not want_files <= set(os.listdir(s1)):
+        raise AssertionError(f"cli_train_s1 wrote {sorted(os.listdir(s1))}; expected one "
+                             f"trainer_state and {sorted(want_files)}")
+    saved_at = int(os.path.basename(states[0])[len("trainer_state-"):-len(".npz")])
+    if saved_at != TRAIN_CLI_USR1_STEP + 1:     # held to the end of the step it arrived in
+        raise AssertionError(f"SIGUSR1 during step {TRAIN_CLI_USR1_STEP} saved "
+                             f"{os.path.basename(states[0])}")
+    strip = read_png(os.path.join(s1, f"samples_gs-{TRAIN_CLI_EVERY}.png"))
+    log(f"phase 14 cli_train_s1: SIGUSR1 during step {TRAIN_CLI_USR1_STEP} saved "
+        f"{os.path.basename(states[0])} ({os.path.getsize(states[0]) / 2 ** 30:.3f} GiB in "
+        f"{state_sec:.3f} s) and the run went on to step {rows[-1]['step']}; sample strip "
+        f"{strip.shape} std {strip.std():.2f}")
+    by_path["cli_train_s1"] = launches
+
+    # (b) --resume_state from the SIGUSR1 save
+    s1r = os.path.join(tmp, "train_s1_resumed")
+    rows, timers, _, launches = _run_train_cli(
+        "cli_train_resume", s1_args + ["--out_dir", s1r, "--resume_state", states[0]], card)
+    _check_train_rows("cli_train_resume", rows, range(saved_at, TRAIN_CLI_S1_STEPS))
+    samples = sum(1 for k in range(saved_at + 1, TRAIN_CLI_S1_STEPS + 1) if k % TRAIN_CLI_EVERY == 0)
+    _check_train_launches("cli_train_resume", launches, _train_cli_want(rows, samples))
+    (meta,) = [c[2] for c in timers["load_full_state"].calls]
+    if meta["step"] != saved_at:
+        raise AssertionError(f"the resumed state's step {meta['step']}, saved at {saved_at}")
+    by_path["cli_train_resume"] = launches
+
+    # (c) Stage 2 from (a)'s generator, with the CLIP teacher filter and a trace
+    s2, prof = os.path.join(tmp, "train_s2"), os.path.join(tmp, "train_s2_trace")
+    rows, timers, _, launches = _run_train_cli("cli_train_s2", model + teacher + [
+        "--stage", "2", "--num_steps", str(TRAIN_CLI_S2_STEPS), "--seed", "15",
+        "--adaface_ckpt", os.path.join(s1, f"embeddings_gs-{TRAIN_CLI_S1_STEPS}.npz"),
+        "--clip_ckpt", clip_path, "--profile_dir", prof, "--out_dir", s2], card)
+    _check_train_rows("cli_train_s2", rows, range(TRAIN_CLI_S2_STEPS))
+    _check_train_launches("cli_train_s2", launches, _train_cli_want(rows))
+    compos = [r for r in rows if r["iter_type"].startswith("compos")]
+    if [r["step"] for r in compos] != [3] or len(timers["load_checkpoint"].calls) != 1:
+        raise AssertionError(f"cli_train_s2: compositional steps {compos}, generator loads "
+                             f"{len(timers['load_checkpoint'].calls)}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"phase 14 cli_train_s2: the filter decided {compos[0]['iter_type']} "
+        f"(loss_clip_subj_comp {compos[0].get('loss_clip_subj_comp')}); trace of steps 2-3: "
+        f"{os.path.getsize(os.path.join(prof, 'trace.json')) / 2 ** 20:.1f} MiB, "
+        f"{len(kernels)} device kernels, {sum(e.get('dur', 0) for e in kernels) / 1e3:.1f} ms "
+        f"of kernel time")
+    if not kernels:
+        raise AssertionError("cli_train_s2: the torch.profiler trace holds no device kernel")
+    by_path["cli_train_s2"] = launches
+
+    # (d) the static textual-inversion mode
+    st = os.path.join(tmp, "train_static")
+    _, timers, _, launches = _run_train_cli("cli_train_static", model + [
+        "--mode", "static", "--num_steps", str(TRAIN_CLI_STATIC_STEPS), "--ckpt_every", "1",
+        "--out_dir", st], card)
+    rows = [{"iter_type": "static"}] * len(timers["static_step"].calls)
+    if len(rows) != TRAIN_CLI_STATIC_STEPS or not all(
+            os.path.exists(os.path.join(st, f"static_emb_gs-{k}.npz"))
+            for k in range(1, TRAIN_CLI_STATIC_STEPS + 1)):
+        raise AssertionError(f"cli_train_static: {len(rows)} steps, files {os.listdir(st)}")
+    _check_train_launches("cli_train_static", launches, _train_cli_want(rows))
+    by_path["cli_train_static"] = launches
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return by_path
+
+
+def phase_clis_and_train_cli():
+    """Phases 13 and 14 in one temporary directory, removed at the end."""
+    import shutil
+    import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        files = {"sd": os.path.join(tmp, "v1-5-random.ckpt"),
-                 "adaface": os.path.join(tmp, "embeddings_gs-0.pt"),
-                 "arcface": os.path.join(tmp, "glint360k_r100-random.pth")}
-        photos = os.path.join(tmp, "photos")
-        os.makedirs(photos)
-        t0 = time.perf_counter()
-        torch.save(rl.sd_checkpoint(pipe), files["sd"])
-        sd_sec = time.perf_counter() - t0
-        rl.write_adaface_pt(files["adaface"], {"z": sbg},
-                            {"z": pipe.tokenizer.encode_raw("z")[0]})
-        torch.save(rl.arcface_insightface(arc), files["arcface"])
-        rng = np.random.default_rng(13)
-        photo_paths = [write_png(os.path.join(photos, f"photo{i}.png"),
-                                 rng.integers(0, 256, (512, 512, 3)).astype(np.uint8))
-                       for i in range(3)]
-        sizes = {k: os.path.getsize(v) / 2 ** 20 for k, v in files.items()}
-        log("phase 13 files: " + ", ".join(f"{os.path.basename(files[k])} {sizes[k]:.1f} MiB"
-                                           for k in files)
-            + f"; the SD checkpoint written in {sd_sec:.3f} s; {card}")
-
-        # (a) from_checkpoint against the pipeline written
-        t0 = time.perf_counter()
-        n_entries = len(load_state_dict(files["sd"]))
-        load_sec = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loaded = StableDiffusionPipeline.from_checkpoint(files["sd"])
-        torch.cuda.synchronize()
-        from_sec = time.perf_counter() - t0
-        vocab = pipe.text.cfg.vocab_size
-        bad = []
-        for name in ("unet", "vae", "text"):
-            want = getattr(pipe, name).state_dict()
-            got = getattr(loaded, name).state_dict()
-            if name == "text":
-                want = dict(want, token_embedding=want["token_embedding"][:vocab])
-            if sorted(got) != sorted(want):
-                raise AssertionError(f"from_checkpoint's {name} has other parameters")
-            bad += [f"{name}.{k}" for k in want if got[k].dtype != want[k].dtype
-                    or not torch.equal(got[k], want[k])]
-        if bad:
-            raise AssertionError(f"from_checkpoint differs from the pipeline written at {bad[:8]}")
-        g = torch.Generator(device="cuda").manual_seed(4)
-        x = torch.randn((2, 64, 64, 4), generator=g, device="cuda").to(torch.bfloat16)
-        ctx = torch.randn((2, 77, 768), generator=g, device="cuda").to(torch.bfloat16)
-        ts = torch.tensor([981, 501], device="cuda")
-        with torch.inference_mode():
-            eps_mem, eps_loaded = pipe.unet(x, ts, ctx), loaded.unet(x, ts, ctx)
-        if not (torch.equal(eps_mem, eps_loaded) and float(eps_mem.float().abs().max()) > 0):
-            raise AssertionError("the loaded UNet's forward differs from the written one's: max "
-                                 f"{float((eps_mem.float() - eps_loaded.float()).abs().max())}")
-        n_params = sum(p.numel() for m in (loaded.unet, loaded.vae, loaded.text)
-                       for p in m.parameters())
-        log(f"phase 13 from_checkpoint: load_state_dict {load_sec:.3f} s ({n_entries} entries), "
-            f"from_checkpoint {from_sec:.3f} s; {n_params / 1e6:.1f} M parameters bit-equal to "
-            f"the pipeline written, UNet forward bit-equal (max |eps| "
-            f"{float(eps_mem.float().abs().max()):.4f}); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
-        del loaded, eps_loaded
-        torch.cuda.empty_cache()
-
-        # (b) txt2img
-        out = os.path.join(tmp, "txt2img")
-        paths, timers = _run_cli("cli_txt2img", txt2img.main, [
-            "--ckpt", files["sd"], "--adaface_ckpt", files["adaface"], "--ref_images", photos,
-            "--arcface_ckpt", files["arcface"], "--prompt", "a photo of a z person in the park",
-            "--n_samples", str(CLI_IMAGES), "--ddim_steps", str(CLI_STEPS), "--scale", "4", "1",
-            "--outdir", out], card)
-        launches = {"cli_txt2img": read_counts()}
-        gen_calls = timers["generate"].calls
-        imgs = _check_cli_images("cli_txt2img", paths, [c[2] for c in gen_calls])
-        ctx_shape = tuple(gen_calls[0][1]["context"].shape)
-        if ctx_shape != (16, CLI_IMAGES, 77, 768):
-            raise AssertionError(f"txt2img's context {ctx_shape}, expected layerwise [16, 2, 77, 768]")
-        log(f"phase 13 cli_txt2img: {len(paths)} PNGs decoded equal to generate's images, std "
-            f"{imgs.std():.2f}; context {ctx_shape}")
-
-        # (c) infer, against an AdaFacePipeline built in memory from the same modules
-        out = os.path.join(tmp, "infer")
-        paths, timers = _run_cli("cli_infer", infer.main, [
-            "--ckpt", files["sd"], "--subject", photos, "--adaface_ckpt", files["adaface"],
-            "--arcface_ckpt", files["arcface"], "--prompt", "portrait of a z person",
-            "--out_image_count", str(CLI_IMAGES), "--num_steps", str(CLI_STEPS), "--outdir", out],
-            card)
-        launches["cli_infer"] = read_counts()
-        imgs = _check_cli_images("cli_infer", paths, [c[2] for c in timers["generate"].calls])
-        (pers_sec, _, vecs, during), = timers["personalize"].calls
-        if during:
-            raise AssertionError(f"infer launched {during} while personalizing")
-        mem = AdaFacePipeline(pipe, sbg, sbg.cfg, pipe.text, pipe.text.cfg,
-                              face_embedder=FaceSimilarityEvaluator(arc))
-        mem_vecs = mem.generate_adaface_embeddings(images_np=[read_png(p) for p in photo_paths],
-                                                   seed=42)
-        if tuple(vecs.shape) != (16, 768) or not torch.equal(vecs, mem_vecs):
-            raise AssertionError(f"infer's subject vectors {tuple(vecs.shape)} differ from the "
-                                 "in-memory pipeline's: max "
-                                 f"{float((vecs - mem_vecs).abs().max())}")
-        log(f"phase 13 cli_infer: personalization {pers_sec * 1e3:.1f} ms, no launch; 16 subject "
-            f"vectors equal to the in-memory AdaFacePipeline's (std {float(vecs.std()):.4f}); "
-            f"{len(paths)} PNGs decoded equal to generate's images, std {imgs.std():.2f}")
+        launches, files = phase_clis(tmp)
+        launches.update(phase_train_cli(tmp, files))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return launches
-
 
 
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
@@ -2987,24 +3283,27 @@ _RECON = ("recon", "recon_conv", "recon_bg")       # phase 10
 _COMPOS = ("compos_filter", "compos")               # phase 11
 _STATE = ("resume", "adamw_ema", "static_recon")    # phase 12's training paths
 _CLIS = ("cli_txt2img", "cli_infer")                 # phase 13
+_TRAIN_CLI = ("cli_train_s1", "cli_train_resume", "cli_train_s2", "cli_train_static")  # 14
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
                             + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                            + _CLIS),
+                            + _CLIS + _TRAIN_CLI),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
-                            ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE),
+                            ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE
+                            + _TRAIN_CLI),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
-                              + _GEN_TURNS + ("log_samples",) + _CLIS),
+                              + _GEN_TURNS + ("log_samples",) + _CLIS
+                              + ("cli_train_s1", "cli_train_resume")),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
                   + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                  + _CLIS),
+                  + _CLIS + _TRAIN_CLI),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",
@@ -3111,7 +3410,7 @@ def main() -> int:
     launches.update(phase_train())
     launches.update(phase_serve())
     launches.update(phase_personalize())
-    launches.update(phase_clis())
+    launches.update(phase_clis_and_train_cli())
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(results, launches)))
     print(card_line())

@@ -22,7 +22,7 @@ from adaprompt_tpu_torch.adaface.checkpoint import module_tree
 from adaprompt_tpu_torch.models import vae as tvae
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import compos_step as tcs, trainer as ttrainer
-from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, t, train_env
+from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, t, train_env, within
 from torch_port_helpers import torch_threads  # noqa: F401
 
 # torch_threads' count here: at one intra-op thread the CPU's reductions sum in
@@ -176,10 +176,10 @@ def test_compos_phase_matches_jax(env, tmp_path, normalize_outfeat):
     for name, p in leaves.items():
         g_j = jflat[name]
         g_t = grads.get(name, torch.zeros_like(p)).numpy()
-        assert np.abs(g_t - g_j).max() <= GRAD_TOL * np.abs(g_j).max() + 1e-6 * g_max, name
+        within(np.abs(g_t - g_j).max(), GRAD_TOL * np.abs(g_j).max() + 1e-6 * g_max, name)
         # one Prodigy step moves a leaf by ~1e-6: 1% of that plus 2 ulps of the parameter
         tol = 1e-2 * np.abs(jnew[name] - old[name]).max() + 2 * np.spacing(
             np.abs(old[name]).max())
-        assert np.abs(p.detach().numpy() - jnew[name]).max() <= tol, name
+        within(np.abs(p.detach().numpy() - jnew[name]).max(), tol, name)
         moved += bool(np.abs(jnew[name] - old[name]).max() > 0)
     assert moved >= 4

@@ -90,12 +90,14 @@ def _entry_points():
     from adaprompt_tpu_torch.models.clip_vision import CLIPVisionModel
     from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                    synthetic_raw_batches)
-    from adaprompt_tpu_torch.cli import infer, txt2img
+    from adaprompt_tpu_torch.cli import infer, train, txt2img
     return {"AdaFacePipeline": lambda: AdaFacePipeline.random_init(0),
             "from_checkpoint": lambda: tpipe.StableDiffusionPipeline.from_checkpoint(
                 os.path.join(ROOT, "no-such-model.ckpt")),
             "txt2img.main": lambda: txt2img.main(["--prompt", "a z", "--ddim_steps", "1"]),
             "infer.main": lambda: infer.main(["--subject", ROOT, "--num_steps", "1"]),
+            "train.main": lambda: train.main(["--data_roots", ROOT, "--synthetic_faces",
+                                              "--num_steps", "1"]),
             "CLIPVisionModel": lambda: CLIPVisionModel.random_init(0),
             "AdaPromptTrainer": lambda: AdaPromptTrainer.random_init(
                 0, synthetic_raw_batches(0), TrainerConfig(seed=0)),
@@ -106,7 +108,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
                                   "CLIPVisionModel", "profile_step", "CLIPScorer",
-                                  "from_checkpoint", "txt2img.main", "infer.main"])
+                                  "from_checkpoint", "txt2img.main", "infer.main",
+                                  "train.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""
@@ -158,6 +161,40 @@ def test_stage2_modules_fall_under_the_rules():
         text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
         assert not [w for w in ("scaled_dot_product_attention", "torch.compile", "import jax",
                                 "adaprompt_tpu.") if w in text], m
+
+
+TRAIN_CLI_MODULES = ("adaprompt_tpu_torch.utils.config", "adaprompt_tpu_torch.data.prompts",
+                     "adaprompt_tpu_torch.data.dataset", "adaprompt_tpu_torch.cli.train")
+
+
+def test_train_cli_modules_fall_under_the_rules():
+    """The training CLI's modules and their data and configuration copies:
+    each is found by the package walk; imported together in a fresh
+    interpreter they bring in neither jax, the JAX package, PIL nor yaml;
+    no top-level statement of theirs imports PIL or yaml (they do so only
+    inside the call that needs the format), and none names the JAX package."""
+    import ast
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(TRAIN_CLI_MODULES) <= walked
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in TRAIN_CLI_MODULES)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'adaprompt_tpu', 'PIL', 'yaml')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    for m in TRAIN_CLI_MODULES:
+        text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
+        top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert not [x for x in names if x.split(".")[0] in ("PIL", "yaml", "jax",
+                                                            "adaprompt_tpu")], (m, names)
+        assert "import jax" not in text and "adaprompt_tpu." not in text, m
 
 
 def _int8_cross_args(x, wq, k, v, wo, bo):

@@ -19,7 +19,7 @@ from adaprompt_tpu.train import steps as jsteps, trainer as jtrainer
 from adaprompt_tpu_torch.adaface import conditioner as tcond
 from adaprompt_tpu_torch.adaface import subj_basis_generator as tsbg
 from adaprompt_tpu_torch.train import steps as tsteps, trainer as ttrainer
-from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, t, train_env
+from torch_port_helpers import HIDDEN, keeping_grads, named, port_module, t, train_env, within
 from torch_port_helpers import torch_threads  # noqa: F401
 
 # torch_threads' count here: at one intra-op thread the CPU's reductions sum in
@@ -131,11 +131,11 @@ def test_recon_step_matches_jax(env, fgbg_reg, conv_ks):
     for name, p in leaves.items():
         g_j = jflat[name]
         g_t = grads.get(name, torch.zeros_like(p)).numpy()
-        assert np.abs(g_t - g_j).max() <= GRAD_TOL * np.abs(g_j).max() + 1e-6 * g_max, name
+        within(np.abs(g_t - g_j).max(), GRAD_TOL * np.abs(g_j).max() + 1e-6 * g_max, name)
         # one Prodigy step moves a leaf by ~1e-6: 1% of that plus 2 ulps of the parameter
         tol = 1e-2 * np.abs(jnew[name] - old[name]).max() + 2 * np.spacing(
             np.abs(old[name]).max())
-        assert np.abs(p.detach().numpy() - jnew[name]).max() <= tol, name
+        within(np.abs(p.detach().numpy() - jnew[name]).max(), tol, name)
         moved += bool(np.abs(jnew[name] - old[name]).max() > 0)
     assert moved >= 4
 

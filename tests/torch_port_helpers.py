@@ -30,6 +30,16 @@ from adaface_fixtures import build_word_vocab
 TEST_THREADS = 1
 
 
+# (what, error, bound) of every `within` check, for tools/thread_margins.py
+MARGINS = []
+
+
+def within(err, bound, what):
+    """assert err <= bound, keeping both in MARGINS."""
+    MARGINS.append((what, float(err), float(bound)))
+    assert err <= bound, f"{what}: {err} > {bound}"
+
+
 @pytest.fixture(scope="module", autouse=True)
 def torch_threads(request):
     """TEST_THREADS intra-op threads (or the module's TORCH_THREADS) for the

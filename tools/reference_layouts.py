@@ -15,7 +15,11 @@ and `chip_smoke.py` (no real weight file is needed to exercise the loaders):
     attention layers as `adaface.arc2face_models.CLIPAttentionMKV`), the
     classes registered for the save only;
   * `arcface_insightface(model)`: an IResNet state dict in the insightface
-    `arcface_torch` layout (`.pth`).
+    `arcface_torch` layout (`.pth`);
+  * `clip_vision_hf(vision)`: a transformers CLIPVisionModelWithProjection
+    state dict, and `clip_model_hf(scorer)`: a transformers CLIPModel state
+    dict (text and vision towers, both projections, `logit_scale`), the
+    layout of the ViT-B/32 weights that `--clip_ckpt` takes.
 
 The key maps here are written from the reference's module names, apart
 from the loaders of `adaprompt_tpu_torch`, so that the tests hold both
@@ -266,4 +270,41 @@ def arcface_insightface(model) -> dict:
     out["fc.weight"] = w.contiguous()
     out["fc.bias"] = _f32(model.fc.bias)
     bn("features", model.features_bn)
+    return out
+
+
+def clip_vision_hf(vision, position_ids: bool = True) -> dict:
+    """The port's CLIPVisionModel -> a transformers
+    CLIPVisionModelWithProjection state dict: the tower under
+    'vision_model.' (the patch embedding as an OIHW conv weight, the
+    published 'pre_layrnorm' spelling) and 'visual_projection.weight'."""
+    out = {"vision_model.embeddings.class_embedding": _f32(vision.class_embedding),
+           "vision_model.embeddings.patch_embedding.weight":
+               _f32(vision.patch_embedding).permute(3, 2, 0, 1).contiguous(),
+           "vision_model.embeddings.position_embedding.weight": _f32(vision.position_embedding)}
+    if position_ids:
+        out["vision_model.embeddings.position_ids"] = torch.arange(vision.cfg.seq_len)[None]
+    _layer(out, "vision_model.pre_layrnorm", vision.pre_ln)
+    for i, lp in enumerate(vision.layers):
+        key = f"vision_model.encoder.layers.{i}"
+        _layer(out, key + ".layer_norm1", lp["ln1"])
+        _layer(out, key + ".layer_norm2", lp["ln2"])
+        for n in ("q", "k", "v", "out"):
+            _layer(out, f"{key}.self_attn.{n}_proj", lp["attn"][n])
+        _layer(out, key + ".mlp.fc1", lp["mlp"]["fc1"])
+        _layer(out, key + ".mlp.fc2", lp["mlp"]["fc2"])
+    _layer(out, "vision_model.post_layernorm", vision.post_ln)
+    out["visual_projection.weight"] = _f32(vision.projection.weight)
+    return out
+
+
+def clip_model_hf(scorer) -> dict:
+    """The port's CLIPScorer -> a transformers CLIPModel state dict: the
+    text tower (`clip_hf`), the vision tower with its projection
+    (`clip_vision_hf`), 'text_projection.weight' [P, D] and 'logit_scale'
+    (ln 100, as published)."""
+    out = clip_hf(scorer.text)
+    out.update(clip_vision_hf(scorer.vision))
+    out["text_projection.weight"] = _f32(scorer.text_projection).t().contiguous()
+    out["logit_scale"] = torch.tensor(float(np.log(100.0)))
     return out
