@@ -1,5 +1,5 @@
-"""SubjBasisGenerator, the AdaFace encoder: its face subject branch and its
-background branch.
+"""SubjBasisGenerator, the AdaFace encoder: its face and object subject
+branches and its background branch.
 
 Port of `adaprompt_tpu/adaface/subj_basis_generator.py`. A trainable CLIP
 text model (`prompt2token_proj`) inverts Arc2Face core ID embeddings back
@@ -7,7 +7,9 @@ into SD's prompt space through `arc2face.inverse_face_prompt_embs`, with
 learnable last-3-hidden-layer weights (init [1, 2, 4], gradient scale 5)
 and an output gradient scale of 0.4. The 16 core embeddings are repeated
 over the 16 UNet cross-attention layers, and optionally blended with pad
-embeddings when `out_id_embs_scale` < 1.
+embeddings when `out_id_embs_scale` < 1. The object branch takes DINO CLS
+embeddings [B, 384] instead: Linear(384 -> 16 x 768, no bias), a LayerNorm
+over each 768-vector, repeated over the 16 layers.
 
 Background branch (`placeholder_is_bg`): the zero-shot CLIP image features
 [B, N, 1280] go through Linear(1280 -> 768) + LN, get learned positional
@@ -18,9 +20,7 @@ the 16 layers, scaled by 768**-0.5.
 
 Every leaf of `prompt2token_proj` is trainable (its token and position
 embeddings too), as in the JAX package. The parameter names are the JAX
-pytree's after `convert.from_jax_params`. The object (DINO) branch's
-projection is held so that the parameter set matches the JAX package's;
-the object branch itself is not ported yet and raises NotImplementedError.
+pytree's after `convert.from_jax_params`.
 
 `from_torch` reads the reference's module names (a generator out of an
 `embeddings_gs-*.pt`, `adaface/checkpoint.load_reference_checkpoint`) and
@@ -66,8 +66,8 @@ BG_CONFIG = SubjBasisConfig(placeholder_is_bg=True, num_out_embs_per_layer=4)
 
 class _LinearLN(nn.Module):
     """Linear without bias and a LayerNorm over `d`: the object branch's
-    Linear(384 -> 16*768) + LN over each 768-vector (not ported), and the
-    background branch's projections, whose `forward` is Linear then LN."""
+    Linear(384 -> 16*768) + LN over each 768-vector, and the background
+    branch's projections, whose `forward` is Linear then LN."""
 
     def __init__(self, cin, cout, d, kw):
         super().__init__()
@@ -132,20 +132,32 @@ class SubjBasisGenerator(nn.Module):
         self.hidden_state_layer_weights.copy_(torch.tensor([[1.0], [2.0], [4.0]]))
 
     def forward(self, tokenizer, arc2face_id_embs: torch.Tensor | None = None,
-                clip_features: torch.Tensor | None = None, *,
+                clip_features: torch.Tensor | None = None,
+                raw_id_embs: torch.Tensor | None = None, *,
                 out_id_embs_scale: float = 1.0, is_face: bool = True,
                 is_training: bool = False,
                 adaface_prompt_embs_inf_type: str = "full_half_pad",
                 pad_embeddings: torch.Tensor | None = None):
         """-> (subject embeddings [B, L, K, D], adaface prompt embeddings
-        [B, 77, D]); the background branch reads `clip_features` [B, N, 1280]
-        and gives no prompt embeddings (None)."""
+        [B, 77, D]); the object branch (`is_face` False) reads the DINO
+        embeddings `raw_id_embs` [B, 384], the background branch
+        `clip_features` [B, N, 1280], and neither gives prompt embeddings
+        (None)."""
         cfg = self.cfg
         if cfg.placeholder_is_bg:
             subj_embs = self._background(clip_features)
             return self._blend(subj_embs, out_id_embs_scale, pad_embeddings), None
         if not is_face:
-            raise NotImplementedError("the object (DINO) branch is not ported yet")
+            if raw_id_embs is None:
+                raise ValueError("need arc2face_id_embs (face) or raw_id_embs (object)")
+            p = self.obj_proj_in
+            h = linear(raw_id_embs, p.weight).reshape(raw_id_embs.shape[0], 16, cfg.output_dim)
+            h = layer_norm(h, p.ln.weight, p.ln.bias)
+            subj_embs = h[:, None].expand(-1, cfg.num_out_layers, -1, -1)
+            if out_id_embs_scale != 1.0 and pad_embeddings is None:
+                pad_embeddings = arc2face.generate_pad_embeddings(self.prompt2token_proj,
+                                                                  tokenizer)
+            return self._blend(subj_embs, out_id_embs_scale, pad_embeddings), None
         if pad_embeddings is None:
             pad_embeddings = arc2face.generate_pad_embeddings(self.prompt2token_proj, tokenizer)
         hw = grad_scale(self.hidden_state_layer_weights, cfg.hidden_weights_grad_scale)
@@ -179,7 +191,7 @@ class SubjBasisGenerator(nn.Module):
 
     def _blend(self, subj_embs, out_id_embs_scale, pad_embeddings):
         """Blend with the pad embeddings' first K core positions when
-        out_id_embs_scale < 1 (the background branch must be given them)."""
+        out_id_embs_scale != 1 (the background branch must be given them)."""
         if out_id_embs_scale == 1.0:
             return subj_embs
         if pad_embeddings is None:
@@ -227,7 +239,8 @@ def from_state(state: dict, cfg: SubjBasisConfig, *, device=None,
     as `from_torch` or `convert.from_jax_params` make them), its
     `prompt2token_proj` k/v sized to the state's. A face-branch state
     without the object projection (the JAX package's trees may lack it)
-    leaves that projection at zero: the object branch is not ported."""
+    leaves that projection at zero (the object branch then gives the LN's
+    bias)."""
     sbg = SubjBasisGenerator(cfg, device=device, dtype=dtype)
     if not cfg.placeholder_is_bg:
         sbg.prompt2token_proj.match_kv_widths(state, "prompt2token_proj.")

@@ -4,9 +4,10 @@ Port of `adaprompt_tpu/adaface/zs_features.py`: the masked CLIP vision
 tower's second-to-last hidden states over the fg-masked and the bg-masked
 image, each minus the features of an all-zero image and scaled by the
 flattened patch mask (CLS row 1), concatenated to [B, 2S, D]; the ArcFace
-identity embeddings of faces; and the average over a reference set.
+identity embeddings of faces, or the DINO CLS embeddings of objects; and
+the average over a reference set (the mean identity or DINO embedding
+L2-normalized). The fg masks reach only the CLIP tower.
 
-The object (DINO) features are not ported yet: `is_face=False` raises.
 A faceless image's random identity comes from a `torch.Generator`, where
 the JAX package draws it from a jax.random key: the same distribution, not
 the same values.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adaprompt_tpu_torch.models import dino as dino_mod
 from adaprompt_tpu_torch.models.clip_vision import CLIPVisionModel, preprocess
 from adaprompt_tpu_torch.train.fgbg import bilinear_resize_torch
 
@@ -49,21 +51,24 @@ def extract_zs_clip_features(vision: CLIPVisionModel, pixel_values: torch.Tensor
 
 
 class ZeroShotFeatureExtractor:
-    """The masked CLIP vision tower and the face embedder over uint8 photos."""
+    """The masked CLIP vision tower, the face embedder and the DINO model
+    over uint8 photos."""
 
-    def __init__(self, vision: CLIPVisionModel, face_embedder=None):
+    def __init__(self, vision: CLIPVisionModel, face_embedder=None,
+                 dino: dino_mod.DINO | None = None):
         self.vision = vision
         self.face_embedder = face_embedder
+        self.dino = dino
         self._neg_features = None
 
     def __call__(self, images_uint8, fg_masks=None, is_face: bool = True,
                  calc_avg: bool = False, gen: torch.Generator | None = None):
         """images_uint8: [H, W, 3] uint8 photos; fg_masks: matching [H, W]
         {0, 1} arrays or None. Returns (clip_features [B or 1, 2S, D],
-        id_embs [B or 1, 512] or None, the number of faceless photos)."""
-        if not is_face:
-            raise NotImplementedError("the object branch's DINO image features are not "
-                                      "ported yet")
+        id_embs or None, the number of faceless photos): id_embs are the
+        ArcFace embeddings [B or 1, 512] of faces (with a face embedder), or
+        the DINO CLS embeddings [B or 1, 384] of objects (`is_face` False,
+        with a DINO model)."""
         dev = self.vision.position_embedding.device
         imgs = np.stack([np.asarray(i) for i in images_uint8])
         pixel_values = preprocess(imgs, self.vision.cfg.image_size, device=dev)
@@ -75,7 +80,7 @@ class ZeroShotFeatureExtractor:
             self.vision, pixel_values, masks, self._neg_features)
 
         faceless, id_embs = 0, None
-        if self.face_embedder is not None:
+        if is_face and self.face_embedder is not None:
             embs = []
             for img in imgs:
                 e = self.face_embedder.embed_image(img)
@@ -86,6 +91,10 @@ class ZeroShotFeatureExtractor:
                 else:
                     embs.append(np.asarray(e[0], np.float32))
             id_embs = torch.as_tensor(np.stack(embs), device=dev)
+        elif not is_face and self.dino is not None:
+            x = dino_mod.preprocess(imgs, self.dino.cfg.image_size,
+                                    device=self.dino.position_embedding.device)
+            id_embs = self.dino.encode(x)
         if calc_avg:
             clip_features = clip_features.mean(dim=0, keepdim=True)
             if id_embs is not None:

@@ -1,5 +1,6 @@
 """Shared CLI plumbing: the SD pipeline, the ArcFace trunk and the
-SubjBasisGenerator from checkpoints (or random weights), and PNG output.
+SubjBasisGenerator from checkpoints (or random weights), the evaluation
+CLIs' random-weight scorers, and PNG output.
 
 Port of `adaprompt_tpu/cli/common.py` and of `load_subj_basis` of
 `adaprompt_tpu/cli/txt2img.py`. Every CLI takes `--device` (CUDA by
@@ -81,6 +82,17 @@ def load_arcface(path: str | None, device):
              else arcface.from_torch(load_state_dict(path), cfg))
     model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+def random_scorers(tokenizer, device):
+    """(CLIPScorer, DINOEvaluator) with random weights (ViT-B/32 from seed
+    0, DINO ViT-S/16 from seed 3) on `device`: what gen_eval and txt2img's
+    --compare_with score with, as the JAX CLIs do."""
+    from adaprompt_tpu_torch.eval.clip_scorer import CLIPScorer
+    from adaprompt_tpu_torch.eval.dino_eval import DINOEvaluator
+    from adaprompt_tpu_torch.models.dino import DINO
+    return (CLIPScorer.random_init(0, tokenizer=tokenizer, device=device),
+            DINOEvaluator(DINO.random_init(3, device=device)))
 
 
 def save_images(images, outdir, prefix="sample") -> list[str]:

@@ -7,7 +7,10 @@ scripts/stable_txt2img.py), on the port's pipeline and its zlib PNG codec.
 The photos are read as PNG or `.npy` (other formats need PIL). Unlike the
 JAX CLI, only "no face found" falls back to a random face: any other error
 of the face embedding (a file it cannot read, a fault on the card) raises.
-`--compare_with` waits for the DINO evaluator and the comparison harness.
+`--compare_with` scores the generations against a folder of photos by CLIP
+image and text similarity (against the first prompt) and DINO similarity,
+with the random-weight ViT-B/32 scorer and DINO ViT-S/16 of
+`common.random_scorers`.
 
     python -m adaprompt_tpu_torch.cli.txt2img --prompt "a z riding a bike" \\
         --ckpt v1-5-pruned-emaonly.ckpt --adaface_ckpt embeddings_gs-1000.pt \\
@@ -55,7 +58,7 @@ def parse_args(argv=None):
     p.add_argument("--neg_prompt", type=str, default=DEFAULT_NEGATIVE_PROMPT)
     p.add_argument("--clip_skip_weights", type=float, nargs="+", default=[1.0, 1.0])
     p.add_argument("--compare_with", type=str, default=None,
-                   help="score generations against this folder (CLIP/DINO); not ported yet")
+                   help="score generations against this folder (CLIP/DINO)")
     p.add_argument("--calc_face_sim", action="store_true")
     p.add_argument("--arcface_ckpt", type=str, default=None)
     return p.parse_args(argv)
@@ -82,9 +85,6 @@ def main(argv=None):
         raise SystemExit(f"--ddim_steps must be >= 1, got {args.ddim_steps}")
     if args.n_samples < 1:
         raise SystemExit(f"--n_samples must be >= 1, got {args.n_samples}")
-    if args.compare_with:
-        raise NotImplementedError("--compare_with needs the DINO evaluator and the comparison "
-                                  "harness, which are not ported yet (ROADMAP A7)")
     prompts = [args.prompt]
     if args.from_file:
         if not os.path.isfile(args.from_file):
@@ -135,6 +135,13 @@ def main(argv=None):
                                  sampler=args.sampler)
             all_paths += common.save_images(imgs, args.outdir, prefix=f"p{pi:03d}")
     print(f"saved {len(all_paths)} images to {args.outdir}")
+
+    if args.compare_with:
+        from adaprompt_tpu_torch.eval import harness
+        scorer, dev = common.random_scorers(tok, pipe.device)
+        scores = harness.compare_folders(scorer, dev, args.compare_with, args.outdir, prompts[0])
+        print(f"sim_img={scores.sim_img:.3f} sim_text={scores.sim_text:.3f} "
+              f"sim_dino={scores.sim_dino:.3f}")
     return all_paths
 
 

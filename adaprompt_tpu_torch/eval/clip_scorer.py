@@ -6,8 +6,8 @@ transformers CLIPModel (ViT-B/32) state dict. The text tower is the port's CLIPT
 ViT-B/32's text widths with the text projection; images go through the
 port's CLIPVisionModel with its visual projection. Images are [-1, 1] float
 [B, H, W, 3] (generator output), mapped to [0, 1], resized to the tower's
-size with the antialiased Keys-cubic weights of `jax.image.resize(...,
-"bicubic")` (`clip_vision.bicubic_weights`) and CLIP-normalized. Its
+size with the antialiased bicubic resize of `jax.image.resize(...,
+"bicubic")` (`utils/resize.resize`) and CLIP-normalized. Its
 attentions are plain PyTorch: no kernel of the port runs here.
 """
 
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from adaprompt_tpu_torch.models import clip_text, clip_vision
+from adaprompt_tpu_torch.utils.resize import resize
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 # openai CLIP ViT-B/32 text tower
@@ -107,14 +108,7 @@ class CLIPScorer(nn.Module):
 
     def _preprocess(self, images_pm1) -> torch.Tensor:
         x = (torch.as_tensor(images_pm1, device=self.device).float() + 1.0) / 2.0
-        size = self.vision_cfg.image_size
-        h, w = x.shape[1], x.shape[2]
-        if h != size:
-            wh = torch.as_tensor(clip_vision.bicubic_weights(h, size), device=x.device)
-            x = torch.einsum("bhwc,ho->bowc", x, wh)
-        if w != size:
-            ww = torch.as_tensor(clip_vision.bicubic_weights(w, size), device=x.device)
-            x = torch.einsum("bhwc,wo->bhoc", x, ww)
+        x = resize(x, self.vision_cfg.image_size, self.vision_cfg.image_size)
         mean = torch.as_tensor(clip_vision.CLIP_IMAGE_MEAN, device=x.device)
         std = torch.as_tensor(clip_vision.CLIP_IMAGE_STD, device=x.device)
         return (x - mean) / std

@@ -7,9 +7,9 @@ the centre-crop stand-in detector, `list_images` and
 `calc_faces_mean_similarity`. Face detection is a host-side callable
 image -> list of crops; the RetinaFace, BiSeNet and OpenCV-cascade
 detectors of the JAX package are not ported yet (`make_detector` raises
-NotImplementedError for them), nor is the folder-against-folder
-comparison. Photos on disk are read by `utils/png.read_image`: PNG and
-`.npy` need no other package, other formats need PIL.
+NotImplementedError for them). The folder-against-folder comparison is
+`eval/harness.py`. Photos on disk are read by `utils/png.read_image`: PNG
+and `.npy` need no other package, other formats need PIL.
 """
 
 from __future__ import annotations

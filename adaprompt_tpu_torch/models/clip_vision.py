@@ -26,6 +26,7 @@ from torch import nn
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
 from adaprompt_tpu_torch.ops.attention import dot_product_attention
 from adaprompt_tpu_torch.ops.layers import Linear, Norm, conv2d, layer_norm, quick_gelu
+from adaprompt_tpu_torch.utils.resize import resize
 from adaprompt_tpu_torch.utils.torch_port import layer_names, renamed
 
 
@@ -185,42 +186,12 @@ def from_torch(state_dict, cfg: CLIPVisionConfig = CLIP_VIT_H14_VISION) -> dict[
     return out
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic kernel with a = -0.5 at distances x >= 0."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-def bicubic_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[in_size, out_size] float32 weights of `jax.image.resize(...,
-    "bicubic")` along one axis, in its float32 arithmetic: Keys' cubic
-    kernel, widened by in/out when downsampling (antialiased), each column
-    normalized to sum 1."""
-    f32 = np.float32
-    inv_scale = f32(1.0) / f32(out_size / in_size)
-    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / max(inv_scale, f32(1))
-    w = _keys_cubic(x).astype(f32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
-                 w / np.where(total != 0, total, f32(1)), f32(0))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return np.where(inside[None, :], w, f32(0)).astype(f32)
-
-
 def preprocess(images_uint8, size: int = 224, device=None) -> torch.Tensor:
     """uint8 [B, H, W, 3] -> CLIP-normalized float32 [B, size, size, 3] on
-    `device`: the antialiased bicubic resize of the JAX package as one
-    product per axis, then the CLIP mean and std."""
+    `device`: the antialiased bicubic resize of the JAX package
+    (`utils/resize.resize`), then the CLIP mean and std."""
     x = torch.as_tensor(np.asarray(images_uint8), device=device).float() / 255.0
-    h, w = x.shape[1], x.shape[2]
-    if h != size:
-        wh = torch.as_tensor(bicubic_weights(h, size), dtype=torch.float32, device=x.device)
-        x = torch.einsum("bhwc,ho->bowc", x, wh)
-    if w != size:
-        ww = torch.as_tensor(bicubic_weights(w, size), dtype=torch.float32, device=x.device)
-        x = torch.einsum("bhwc,wo->bhoc", x, ww)
+    x = resize(x, size, size)
     mean = torch.as_tensor(CLIP_IMAGE_MEAN, device=x.device)
     std = torch.as_tensor(CLIP_IMAGE_STD, device=x.device)
     return (x - mean) / std

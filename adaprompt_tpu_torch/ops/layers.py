@@ -150,10 +150,12 @@ class Linear(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Weights of one conv: weight OIHW (channels_last), bias [out]."""
+    """Weights of one conv: weight OIHW (channels_last), bias [out]. Random
+    init as Linear's: uniform(+-1/sqrt(fan_in)), zeros when `zero_init`, or
+    normal(0, init_std) with a zero bias (a ViT's patch embedding)."""
 
     def __init__(self, cin: int, cout: int, k: int, *, zero_init: bool = False,
-                 device=None, dtype=None):
+                 init_std: float | None = None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.weight = nn.Parameter(
@@ -161,10 +163,15 @@ class Conv2d(nn.Module):
             requires_grad=False)
         self.bias = nn.Parameter(torch.empty(cout, **kw), requires_grad=False)
         self.zero_init = zero_init
+        self.init_std = init_std
 
     def reset(self, gen: torch.Generator):
         if self.zero_init:
             self.weight.zero_()
+            self.bias.zero_()
+            return
+        if self.init_std is not None:
+            self.weight.normal_(0.0, self.init_std, generator=gen)
             self.bias.zero_()
             return
         o, i, kh, kw = self.weight.shape

@@ -12,7 +12,8 @@ with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
 (AdaFacePipeline: photos -> ArcFace -> 16 subject tokens -> personalized
 DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
 each UNetConfig.flash_variant (two-chain, no-max, exp2); the txt2img, infer
-and training CLIs over checkpoint files on disk.
+and training CLIs over checkpoint files on disk; the evaluation path (the
+object (DINO) branch, gen_eval and txt2img --compare_with, image metrics).
 
     python3 chip_smoke.py
 
@@ -176,7 +177,23 @@ Phases, in order (any failure exits non-zero without the final line):
      it); (d) --mode static, 2 steps; each run's files checked, its launches
      of B1-B4 equal to what its metrics rows imply; logs each run's wall
      time, loads, step times, saves and peak memory;
- 15. print the kernels' JSON line (thirteen rows), the card's name and
+ 15. the evaluation path, right after phase 14 and in its temporary
+     directory, over phase 13's .ckpt, AdaFace .pt and ArcFace .pth and
+     phase 14's data root: (a) the object branch: one subject's 3 photos
+     with masks through a ZeroShotFeatureExtractor over a seeded full-width
+     CLIP ViT-H/14 and DINO ViT-S/16 (is_face=False, calc_avg off and on),
+     the DINO embeddings through a seeded full-width SubjBasisGenerator's
+     object branch at out_id_embs_scale 1 and 0.8, fp32 card (TF32 off)
+     against the same modules on the CPU, no kernel launched; (b)
+     gen_eval.main over two subjects (2 prompts x 2 images, DDIM-50):
+     scores.csv with 2 rows of finite scores in [-1, 1], 8 PNGs 512x512,
+     exactly 2,000 launches each of B1-B3 and none of the rest, none while
+     scoring; (c) txt2img.main --compare_with one subject's folder (2
+     images, DDIM-50): its scores in [-1, 1], 500 launches each of B1-B3;
+     (d) PSNR, SSIM and the IResNet-100 random-feature cosine of (b)'s
+     images against (c)'s; logs each run's wall time, loads, generates,
+     the scoring of a folder pair (CLIP, DINO, ArcFace) and peak memory;
+ 16. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -2761,10 +2778,11 @@ CLI_MKV_BEGIN = 8       # prompt2token_proj's k/v widened x2 on layers 8-11
 class _PatchedCalls:
     """For the duration of a `with`, `owner.name` goes through a wrapper
     that synchronizes before and after each call and keeps (seconds,
-    kwargs, result, the launches inside the call)."""
+    kwargs, result, the launches inside the call), and in `starts` the
+    host clock at which each call began."""
 
     def __init__(self, owner, name):
-        self.owner, self.name, self.calls = owner, name, []
+        self.owner, self.name, self.calls, self.starts = owner, name, [], []
 
     def __enter__(self):
         import torch
@@ -2773,6 +2791,7 @@ class _PatchedCalls:
         def wrapped(*a, **k):
             torch.cuda.synchronize()
             before, t0 = read_counts(), time.perf_counter()
+            self.starts.append(t0)
             out = self.orig(*a, **k)
             torch.cuda.synchronize()
             self.calls.append((time.perf_counter() - t0, k, out, nz(counts_since(before))))
@@ -3159,7 +3178,8 @@ def phase_train_cli(tmp, files):
     --resume_state from that state (its first step is the saved one); (c)
     Stage 2 (bs 3) from (a)'s generator with the CLIP teacher filter and a
     torch.profiler trace; (d) --mode static, 2 steps. Each run's launches of
-    B1-B4 equal what its metrics rows imply. Returns {path: launch counts}."""
+    B1-B4 equal what its metrics rows imply. Returns ({path: launch counts},
+    the data root)."""
     import glob
     import json
     import os
@@ -3261,17 +3281,284 @@ def phase_train_cli(tmp, files):
     _check_train_launches("cli_train_static", launches, _train_cli_want(rows))
     by_path["cli_train_static"] = launches
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return by_path, root
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the evaluation path (the object branch, gen_eval, txt2img
+# --compare_with, image metrics)
+# ---------------------------------------------------------------------------
+
+EVAL_SUBJECTS = ("subject0", "subject1")    # gen_eval's two of phase 14's three
+EVAL_PROMPTS = 2        # --max_prompts: 2 prompts x 2 images a subject, DDIM-50
+EVAL_IMAGES = 2         # --n_per_prompt
+
+
+def _rel(a, b) -> float:
+    return float((a.detach().float().cpu() - b.detach().float().cpu()).norm() / b.float().norm())
+
+
+def phase_object_branch(root, card):
+    """(a) One subject's photos (with their masks) through a
+    ZeroShotFeatureExtractor over a seeded full-width CLIP ViT-H/14 and DINO
+    ViT-S/16 with is_face=False, calc_avg off and on, then the DINO
+    embeddings through the object branch of a seeded full-width
+    SubjBasisGenerator at out_id_embs_scale 1 and 0.8: fp32 (TF32 off) on
+    the card against the same modules on the CPU within VISION_TOL
+    (relative L2; calc_avg's reference the mean of the CPU's per-image
+    outputs, the DINO mean re-normalized), no kernel launched."""
+    import os
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.adaface.subj_basis_generator import SUBJ_CONFIG, SubjBasisGenerator
+    from adaprompt_tpu_torch.adaface.zs_features import ZeroShotFeatureExtractor
+    from adaprompt_tpu_torch.models.clip_vision import CLIP_VIT_H14_VISION, CLIPVisionModel
+    from adaprompt_tpu_torch.models.dino import DINO
+    from adaprompt_tpu_torch.ops.layers import reset_parameters
+    from adaprompt_tpu_torch.utils.png import read_png, to_grey
+    from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer
+    t0 = time.perf_counter()
+    folder = os.path.join(root, EVAL_SUBJECTS[1])
+    names = sorted(f for f in os.listdir(folder) if not f.endswith("_mask.png"))
+    photos = [read_png(os.path.join(folder, f)) for f in names]
+    masks = [(to_grey(read_png(os.path.join(folder, f[:-4] + "_mask.png"))) > 127)
+             .astype(np.float32) for f in names]
+    vision = CLIPVisionModel.random_init(15, CLIP_VIT_H14_VISION, device="cuda")
+    dino = DINO.random_init(16, device="cuda")
+    sbg = reset_parameters(SubjBasisGenerator(SUBJ_CONFIG, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(17))
+    cpu = {}
+    for name, m in (("vision", vision), ("dino", dino), ("sbg", sbg)):
+        cpu[name] = type(m)(m.cfg, device="cpu")
+        cpu[name].load_state_dict({k: v.cpu() for k, v in m.state_dict().items()}, strict=True)
+    tok = CLIPTokenizer.load(None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    card_x = ZeroShotFeatureExtractor(vision, dino=dino)
+    before = read_counts()
+    times, got = [], {}
+    with torch.no_grad():
+        for calc_avg in (False, True):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got[calc_avg] = card_x(photos, fg_masks=masks, is_face=False, calc_avg=calc_avg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        branch = {}
+        for scale in (1.0, 0.8):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            branch[scale] = sbg(tok, raw_id_embs=got[False][1], out_id_embs_scale=scale,
+                                is_face=False)[0]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    launches = nz(counts_since(before))
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ref_f, ref_ids, _ = ZeroShotFeatureExtractor(cpu["vision"], dino=cpu["dino"])(
+            photos, fg_masks=masks, is_face=False)
+        ref_branch = {s: cpu["sbg"](tok, raw_id_embs=ref_ids, out_id_embs_scale=s,
+                                    is_face=False)[0] for s in branch}
+    cpu_s = time.perf_counter() - t1
+    avg_ids = ref_ids.mean(0, keepdim=True)
+    errs = {"clip_features": _rel(got[False][0], ref_f), "dino_ids": _rel(got[False][1], ref_ids),
+            "clip_features_avg": _rel(got[True][0], ref_f.mean(0, keepdim=True)),
+            "dino_ids_avg": _rel(got[True][1], avg_ids / avg_ids.norm(dim=-1, keepdim=True))}
+    errs.update({f"object_branch@{s}": _rel(branch[s], ref_branch[s]) for s in branch})
+    shapes = (tuple(got[False][0].shape), tuple(got[False][1].shape), tuple(branch[1.0].shape))
+    log(f"phase 15 object branch: {len(photos)} photos 512x512 with masks, is_face=False, "
+        f"features {shapes[0]}, DINO ids {shapes[1]}, subject vectors {shapes[2]}; fp32 card vs "
+        f"fp32 CPU relative L2 {({k: f'{v:.3e}' for k, v in errs.items()})} (bound "
+        f"{VISION_TOL:g}); card extractor {times[0]:.3f} s (calc_avg off, zero image included), "
+        f"{times[1]:.3f} s (on), object branch {times[2] * 1e3:.1f} / {times[3] * 1e3:.1f} ms "
+        f"(scale 1 / 0.8, the pad embeddings computed); CPU {cpu_s:.1f} s, models built in "
+        f"{build_s:.1f} s; launches {launches}; {card}")
+    if shapes != ((len(photos), 2 * CLIP_VIT_H14_VISION.seq_len, 1280), (len(photos), 384),
+                  (len(photos), 16, 16, 768)):
+        raise AssertionError(f"object branch shapes {shapes}")
+    bad = {k: v for k, v in errs.items() if not (math.isfinite(v) and v <= VISION_TOL)}
+    if bad:
+        raise AssertionError(f"the object branch on the card disagrees with the CPU: {bad}")
+    if launches:
+        raise AssertionError(f"the object branch launched kernels: {launches}")
+    if _rel(branch[0.8], branch[1.0]) < 1e-3:
+        raise AssertionError("out_id_embs_scale 0.8 did not blend the pad embeddings in")
+
+
+def _eval_timers():
+    """The loaders, generate, personalization and each score of a CLI run."""
+    from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.cli import common
+    from adaprompt_tpu_torch.eval import harness
+    from adaprompt_tpu_torch.eval.clip_scorer import CLIPScorer
+    from adaprompt_tpu_torch.eval.dino_eval import DINOEvaluator
+    from adaprompt_tpu_torch.eval.face_eval import FaceSimilarityEvaluator
+    from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
+    return {"load_pipeline": _PatchedCalls(common, "load_pipeline"),
+            "load_subj_basis": _PatchedCalls(common, "load_subj_basis"),
+            "load_arcface": _PatchedCalls(common, "load_arcface"),
+            "generate": _PatchedCalls(StableDiffusionPipeline, "generate"),
+            "personalize": _PatchedCalls(AdaFacePipeline, "generate_adaface_embeddings"),
+            "compare_folders": _PatchedCalls(harness, "compare_folders"),
+            "clip": _PatchedCalls(CLIPScorer, "evaluate"),
+            "dino": _PatchedCalls(DINOEvaluator, "image_pairwise_similarity"),
+            "embed_folder": _PatchedCalls(FaceSimilarityEvaluator, "embed_folder")}
+
+
+def _run_eval_cli(path, main, argv, generates, card):
+    """main(argv) timed (its loaders, generates, personalizations and, for
+    each folder pair, compare_folders with its CLIP, DINO and ArcFace
+    parts) with its launches counted: `generates` DDIM-50 generates, 10 * 50
+    launches of B1-B3 each, none of the rest, none inside compare_folders.
+    Returns (main's result, {name: _PatchedCalls}, [per folder pair: its
+    seconds, those of its parts, its FolderScores], the launches)."""
+    import torch
+    timers = _eval_timers()
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for tm in timers.values():
+        tm.__enter__()
+    try:
+        out = main(argv)
+    finally:
+        for tm in reversed(list(timers.values())):
+            tm.__exit__()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loads = {k: round(timers[k].seconds, 3) for k in ("load_pipeline", "load_subj_basis",
+                                                       "load_arcface")}
+    gens = [round(c[0], 3) for c in timers["generate"].calls]
+    pairs = []
+    for start, (sec, _, scores, inside) in zip(timers["compare_folders"].starts,
+                                               timers["compare_folders"].calls):
+        arc = sum(c[0] for t, c in zip(timers["embed_folder"].starts, timers["embed_folder"].calls)
+                  if start <= t <= start + sec)
+        clip = next(c[0] for t, c in zip(timers["clip"].starts, timers["clip"].calls)
+                    if start <= t <= start + sec)
+        dino = next(c[0] for t, c in zip(timers["dino"].starts, timers["dino"].calls)
+                    if start <= t <= start + sec)
+        pairs.append(dict(seconds=sec, clip=clip, dino=dino, arcface=arc, scores=scores,
+                          launches=inside))
+    log(f"phase 15 {path}: main(argv) {seconds:.3f} s; loads {loads} s; "
+        f"{len(gens)} generates ({EVAL_IMAGES} images 512x512 DDIM-50 bf16) {gens} s; "
+        f"personalization {[round(c[0] * 1e3, 1) for c in timers['personalize'].calls]} ms; "
+        f"compare_folders " + "; ".join(
+            f"{p['seconds']:.3f} s (CLIP {p['clip']:.3f}, DINO {p['dino']:.3f}, ArcFace "
+            f"{p['arcface']:.3f}, PNG reads and resizes the rest)" for p in pairs)
+        + f"; peak memory {peak:.2f} GiB; launches {nz(launches)}; {card}")
+    want = {n: 0 for n in launches}
+    per = 10 * 50 * generates
+    want.update(flash_attention_fwd=per, fused_cross_attention=per, geglu_fwd=per)
+    if len(gens) != generates or launches != want:
+        raise AssertionError(f"{path}: {len(gens)} generates, launches {nz(launches)}; "
+                             f"expected {generates}, {nz(want)}")
+    if any(p["launches"] for p in pairs):
+        raise AssertionError(f"{path} launched {[p['launches'] for p in pairs]} while scoring")
+    return out, timers, pairs, launches
+
+
+def _check_scores(path, scores):
+    bad = {k: v for k, v in scores.items() if not (math.isfinite(v) and -1.0 <= v <= 1.0)}
+    if bad:
+        raise AssertionError(f"{path} scores out of [-1, 1]: {bad}")
+
+
+def phase_eval(tmp, files, root):
+    """Phase 15, after phase 14 in its temporary directory: (a) the object
+    branch; (b) gen_eval.main over two of phase 14's subjects (2 prompts x 2
+    images, DDIM-50) with phase 13's .ckpt, AdaFace .pt and ArcFace .pth;
+    (c) txt2img.main --compare_with one subject's folder (2 images,
+    DDIM-50); (d) PSNR, SSIM and the IResNet-100 random-feature cosine of
+    (b)'s images against (c)'s. Returns {path: launch counts}."""
+    import csv
+    import os
+    import numpy as np
+    from adaprompt_tpu_torch.cli import gen_eval, txt2img
+    from adaprompt_tpu_torch.eval import image_metrics
+    from adaprompt_tpu_torch.utils.png import read_png
+    card = card_line()
+    t_phase = time.perf_counter()
+    phase_object_branch(root, card)
+
+    # (b) gen_eval
+    out = os.path.join(tmp, "gen_eval")
+    rows, _, pairs, launches = _run_eval_cli("cli_gen_eval", gen_eval.main, [
+        "--ckpt", files["sd"], "--subjects_root", root, "--subjects", *EVAL_SUBJECTS,
+        "--max_prompts", str(EVAL_PROMPTS), "--n_per_prompt", str(EVAL_IMAGES),
+        "--adaface_ckpt", files["adaface"], "--arcface_ckpt", files["arcface"],
+        "--outdir", out], len(EVAL_SUBJECTS) * EVAL_PROMPTS, card)
+    by_path = {"cli_gen_eval": launches}
+    with open(os.path.join(out, "scores.csv"), newline="") as f:
+        table = list(csv.DictReader(f))
+    if [r["subject"] for r in table] != list(EVAL_SUBJECTS) or len(pairs) != len(EVAL_SUBJECTS):
+        raise AssertionError(f"gen_eval scored {[r['subject'] for r in table]}")
+    for r in table:
+        _check_scores(f"gen_eval {r['subject']}", {k: float(v) for k, v in r.items()
+                                                   if k != "subject"})
+    imgs = {}
+    for s in EVAL_SUBJECTS:
+        names = sorted(os.listdir(os.path.join(out, s)))
+        imgs[s] = np.stack([read_png(os.path.join(out, s, n)) for n in names])
+        if len(names) != EVAL_PROMPTS * EVAL_IMAGES or imgs[s].shape[1:] != (512, 512, 3) or \
+                not all(im.std() > 0 for im in imgs[s]):
+            raise AssertionError(f"gen_eval {s}: {names}, {imgs[s].shape}")
+    log("phase 15 cli_gen_eval: scores.csv " + "; ".join(
+        f"{r['subject']} " + " ".join(f"{k} {float(v):.4f}" for k, v in r.items()
+                                      if k != "subject") for r in table)
+        + f"; {sum(len(v) for v in imgs.values())} PNGs 512x512, std "
+        f"{[round(float(v.std()), 2) for v in imgs.values()]}")
+
+    # (c) txt2img --compare_with
+    folder = os.path.join(root, EVAL_SUBJECTS[1])
+    out = os.path.join(tmp, "txt2img_compare")
+    paths, _, pairs, launches = _run_eval_cli("cli_txt2img_compare", txt2img.main, [
+        "--ckpt", files["sd"], "--adaface_ckpt", files["adaface"], "--ref_images", folder,
+        "--arcface_ckpt", files["arcface"], "--prompt", "a photo of a z person in the park",
+        "--n_samples", str(EVAL_IMAGES), "--compare_with", folder, "--outdir", out], 1, card)
+    by_path["cli_txt2img_compare"] = launches
+    (pair,) = pairs
+    scores = {k: getattr(pair["scores"], k) for k in ("sim_img", "sim_text", "sim_dino")}
+    _check_scores("txt2img --compare_with", scores)
+    if pair["scores"].sim_face is not None or len(paths) != EVAL_IMAGES:
+        raise AssertionError(f"txt2img --compare_with: {paths}, {pair['scores']}")
+    log(f"phase 15 cli_txt2img_compare: " + " ".join(f"{k} {v:.4f}" for k, v in scores.items()))
+
+    # (d) image metrics: (b)'s first subject's first prompt against (c)'s images
+    a = imgs[EVAL_SUBJECTS[0]][:EVAL_IMAGES]
+    b = np.stack([read_png(p) for p in paths])
+    t0 = time.perf_counter()
+    psnr, ssim = image_metrics.psnr(a, b), image_metrics.ssim(a, b)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cos = image_metrics.random_arcface_cosine(a, b)       # IResNet-100, random, on the card
+    cos_s = time.perf_counter() - t0
+    same = image_metrics.random_arcface_cosine(a, a)
+    log(f"phase 15 image_metrics: {EVAL_IMAGES} gen_eval images against {EVAL_IMAGES} txt2img "
+        f"images: PSNR {psnr:.4f} dB, SSIM {ssim:.6f} ({host_s:.3f} s on the host), "
+        f"IResNet-100 random-feature cosine {cos:.6f} ({cos_s:.3f} s, weights made from the "
+        f"seed included), against itself {same:.6f}; {card}")
+    if not (math.isfinite(psnr) or np.array_equal(a, b)) or not -1.0 <= ssim <= 1.0 or \
+            not -1.0 <= cos <= 1.0 or abs(same - 1.0) > 1e-4:
+        raise AssertionError(f"image metrics PSNR {psnr}, SSIM {ssim}, cosine {cos}, {same}")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s; {card}")
     return by_path
 
 
 def phase_clis_and_train_cli():
-    """Phases 13 and 14 in one temporary directory, removed at the end."""
+    """Phases 13, 14 and 15 in one temporary directory, removed at the end."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         launches, files = phase_clis(tmp)
-        launches.update(phase_train_cli(tmp, files))
+        train_launches, root = phase_train_cli(tmp, files)
+        launches.update(train_launches)
+        launches.update(phase_eval(tmp, files, root))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3284,13 +3571,14 @@ _COMPOS = ("compos_filter", "compos")               # phase 11
 _STATE = ("resume", "adamw_ema", "static_recon")    # phase 12's training paths
 _CLIS = ("cli_txt2img", "cli_infer")                 # phase 13
 _TRAIN_CLI = ("cli_train_s1", "cli_train_resume", "cli_train_s2", "cli_train_static")  # 14
+_EVAL_CLIS = ("cli_gen_eval", "cli_txt2img_compare")                                  # 15
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
                             + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                            + _CLIS + _TRAIN_CLI),
+                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
                             ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE
@@ -3299,11 +3587,11 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launc
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
                               + _GEN_TURNS + ("log_samples",) + _CLIS
-                              + ("cli_train_s1", "cli_train_resume")),
+                              + ("cli_train_s1", "cli_train_resume") + _EVAL_CLIS),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
                   + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                  + _CLIS + _TRAIN_CLI),
+                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

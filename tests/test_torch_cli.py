@@ -143,10 +143,18 @@ def test_txt2img_cli_matches_jax(env, clis, tmp_path, adaface, ref_images, compe
     assert [os.path.basename(p) for p in paths_t] == ["p000-00000.png", "p000-00001.png"]
 
 
-def test_txt2img_cli_refuses_compare_with(env, clis, tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttxt2img.main(["--compare_with", str(tmp_path), "--device", "cpu"])
-    assert not clis["port"]
+def test_txt2img_cli_refuses_compare_with(env, clis, tmp_path, capsys):
+    """--compare_with is no longer refused: after generating, the CLI scores
+    the images against the folder with its own random-weight ViT-B/32 CLIP
+    scorer and DINO ViT-S/16 at their full widths (the scores against JAX's:
+    tests/test_torch_gen_eval_cli.py)."""
+    import re
+    paths = ttxt2img.main(["--prompt", "photo of a z", "--n_samples", "1", "--ddim_steps", "1",
+                           "--compare_with", env["photos"], "--outdir", str(tmp_path),
+                           "--device", "cpu"])
+    assert len(paths) == 1 and len(clis["port"]) == 1
+    line = re.search(r"sim_img=(\S+) sim_text=(\S+) sim_dino=(\S+)", capsys.readouterr().out)
+    assert line and all(-1.0 <= float(v) <= 1.0 for v in line.groups())
 
 
 def test_infer_cli_matches_jax(env, clis, tmp_path, monkeypatch):

@@ -17,6 +17,7 @@ from adaprompt_tpu_torch import convert
 from adaprompt_tpu_torch.adaface import zs_features as tzs
 from adaprompt_tpu_torch.adaface.checkpoint import module_tree
 from adaprompt_tpu_torch.models import clip_vision as tcv
+from adaprompt_tpu_torch.utils import resize as tresize
 from torch_port_helpers import named, port_module, randomized, t
 from torch_port_helpers import torch_threads  # noqa: F401
 
@@ -95,7 +96,7 @@ def test_bicubic_weights_match_jax():
     for n_in, n_out in ((48, 32), (512, 224), (56, 32), (32, 32), (16, 40)):
         want = jscale.compute_weight_mat(n_in, n_out, jnp.float32(n_out / n_in), jnp.float32(0),
                                          jscale._fill_keys_cubic_kernel, True)
-        np.testing.assert_allclose(tcv.bicubic_weights(n_in, n_out), np.asarray(want),
+        np.testing.assert_allclose(tresize.bicubic_weights(n_in, n_out), np.asarray(want),
                                    atol=1e-6, err_msg=f"{n_in}->{n_out}")
 
 
@@ -177,7 +178,8 @@ def test_extractor_matches_jax(vision, calc_avg):
 def test_extractor_faceless_and_object_images(vision):
     """A faceless photo gets a random id (drawn from a torch.Generator,
     where the JAX package draws from a jax.random key: only the faced rows
-    equal JAX's); is_face=False raises, naming DINO."""
+    equal JAX's); with is_face=False and no DINO model both give the CLIP
+    features and no ids (the DINO ids: tests/test_torch_dino.py)."""
     jp, jcfg, tm = vision
     rng = np.random.default_rng(9)
     photos = [rng.integers(0, 256, (32, 32, 3), dtype=np.uint8) for _ in range(3)]
@@ -188,8 +190,11 @@ def test_extractor_faceless_and_object_images(vision):
     assert nt == nj == 1
     np.testing.assert_allclose(it.numpy()[[0, 2]], np.asarray(ij)[[0, 2]], rtol=1e-6)
     assert np.isfinite(it.numpy()[1]).all() and it.numpy()[1].std() > 0.5
-    with pytest.raises(NotImplementedError, match="DINO"):
-        tzs.ZeroShotFeatureExtractor(tm)(photos, is_face=False)
+    fj, ij, _ = jzs.ZeroShotFeatureExtractor(jp, jcfg)(photos, is_face=False)
+    with torch.no_grad():
+        ft, it, _ = tzs.ZeroShotFeatureExtractor(tm)(photos, is_face=False)
+    assert ij is None and it is None
+    _close(ft, fj)
 
 
 def test_vision_parameter_trees(vision):

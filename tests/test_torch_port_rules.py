@@ -90,7 +90,10 @@ def _entry_points():
     from adaprompt_tpu_torch.models.clip_vision import CLIPVisionModel
     from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
                                                    synthetic_raw_batches)
-    from adaprompt_tpu_torch.cli import infer, train, txt2img
+    from adaprompt_tpu_torch.cli import gen_eval, infer, train, txt2img
+    from adaprompt_tpu_torch.eval.image_metrics import random_arcface_cosine
+    from adaprompt_tpu_torch.models.dino import DINO
+    img = torch.zeros(1, 8, 8, 3, dtype=torch.uint8).numpy()
     return {"AdaFacePipeline": lambda: AdaFacePipeline.random_init(0),
             "from_checkpoint": lambda: tpipe.StableDiffusionPipeline.from_checkpoint(
                 os.path.join(ROOT, "no-such-model.ckpt")),
@@ -103,13 +106,17 @@ def _entry_points():
                 0, synthetic_raw_batches(0), TrainerConfig(seed=0)),
             "ArcFace": lambda: ArcFace.random_init(0),
             "CLIPScorer": lambda: CLIPScorer.random_init(0),
+            "DINO": lambda: DINO.random_init(0),
+            "random_arcface_cosine": lambda: random_arcface_cosine(img, img, small=True),
+            "gen_eval.main": lambda: gen_eval.main(["--subjects_root", ROOT, "--num_steps", "1"]),
             "profile_step": _profile_step_main}
 
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
                                   "CLIPVisionModel", "profile_step", "CLIPScorer",
                                   "from_checkpoint", "txt2img.main", "infer.main",
-                                  "train.main"])
+                                  "train.main", "DINO", "random_arcface_cosine",
+                                  "gen_eval.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""
@@ -195,6 +202,46 @@ def test_train_cli_modules_fall_under_the_rules():
         assert not [x for x in names if x.split(".")[0] in ("PIL", "yaml", "jax",
                                                             "adaprompt_tpu")], (m, names)
         assert "import jax" not in text and "adaprompt_tpu." not in text, m
+
+
+EVAL_MODULES = ("adaprompt_tpu_torch.utils.resize", "adaprompt_tpu_torch.models.dino",
+                "adaprompt_tpu_torch.eval.dino_eval", "adaprompt_tpu_torch.eval.image_metrics",
+                "adaprompt_tpu_torch.eval.harness", "adaprompt_tpu_torch.eval.prompts",
+                "adaprompt_tpu_torch.eval.subject_info", "adaprompt_tpu_torch.cli.gen_eval",
+                "adaprompt_tpu_torch.adaface.zs_features",
+                "adaprompt_tpu_torch.adaface.subj_basis_generator",
+                "adaprompt_tpu_torch.cli.txt2img")
+
+
+def test_eval_modules_fall_under_the_rules():
+    """The evaluation path's modules: each is found by the package walk;
+    imported together in a fresh interpreter they bring in neither jax, the
+    JAX package, PIL nor transformers; no top-level statement of theirs
+    imports one, none names the JAX package, and none holds code that only
+    CUDA runs (a `.cuda()` call, a `torch.cuda` call, a hard-coded 'cuda'
+    device): their device is the caller's or the pipeline's."""
+    import ast
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(EVAL_MODULES) <= walked
+    banned = ("jax", "jaxlib", "adaprompt_tpu", "PIL", "transformers")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in EVAL_MODULES)
+            + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {banned!r}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    for m in EVAL_MODULES:
+        text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
+        top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert not [x for x in names if x.split(".")[0] in banned], (m, names)
+        assert "import jax" not in text and "adaprompt_tpu." not in text, m
+        assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
 
 
 def _int8_cross_args(x, wq, k, v, wo, bo):

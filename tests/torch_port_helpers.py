@@ -254,3 +254,45 @@ def wrapper_env(d):
     tada = twrap.AdaFacePipeline(tp, sbg, env["tscfg"], tf.arc2face_text, tf.arc2face_text.cfg,
                                  face_embedder=tfe.FaceSimilarityEvaluator(ta))
     return dict(env, jada=jada, tada=tada)
+
+
+# -- the evaluation path -------------------------------------------------------------
+
+EVAL_VIT = dict(image_size=32, patch_size=8, hidden_size=64, intermediate_size=128,
+                num_layers=2, num_heads=4)
+EVAL_CLIP_VISION = dict(EVAL_VIT, projection_dim=32)
+EVAL_CLIP_TEXT = dict(hidden_size=48, intermediate_size=96, num_layers=2, num_heads=4)
+
+
+def dino_pair(seed):
+    """(JAX DINO params, JAX config, the port's DINO on the CPU): the tiny
+    ViT of EVAL_VIT on the same weights, zero biases re-randomized."""
+    from adaprompt_tpu.models import dino as jdino
+    from adaprompt_tpu_torch.models import dino as tdino
+    jcfg = jdino.ViTConfig(**EVAL_VIT)
+    jp = randomized(jdino.init_params(jax.random.PRNGKey(seed), jcfg), seed + 1)
+    tm = port_module(tdino.DINO(tdino.ViTConfig(**EVAL_VIT), device="cpu"), jp)
+    return jax.tree.map(jax.numpy.asarray, jp), jcfg, tm
+
+
+def scorer_pair(jtok, ttok, seed):
+    """Both packages' CLIPScorer over tiny text and vision towers
+    (EVAL_CLIP_TEXT, EVAL_CLIP_VISION) on the same weights, each with its
+    own tokenizer of one vocabulary."""
+    from adaprompt_tpu.eval import clip_scorer as jscorer
+    from adaprompt_tpu.models import clip_vision as jcv
+    from adaprompt_tpu_torch.eval import clip_scorer as tscorer
+    from adaprompt_tpu_torch.models import clip_vision as tcv
+    jtcfg = jclip.CLIPTextConfig(vocab_size=VOCAB, **EVAL_CLIP_TEXT, eos_token_id=jtok.eos_id)
+    jvcfg = jcv.CLIPVisionConfig(**EVAL_CLIP_VISION)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    tree = {"text": randomized(jclip.init_params(k1, jtcfg), seed + 1),
+            "text_projection": np.asarray(jax.random.normal(k3, (48, 32)) * 0.02, np.float32),
+            "vision": randomized(jcv.init_params(k2, jvcfg), seed + 2)}
+    jp = jscorer.CLIPScorerParams(text=jax.tree.map(jax.numpy.asarray, tree["text"]),
+                                  text_projection=jax.numpy.asarray(tree["text_projection"]),
+                                  vision=jax.tree.map(jax.numpy.asarray, tree["vision"]))
+    ts = port_module(tscorer.CLIPScorer(
+        ttok, tclip.CLIPTextConfig(vocab_size=VOCAB, **EVAL_CLIP_TEXT, eos_token_id=ttok.eos_id),
+        tcv.CLIPVisionConfig(**EVAL_CLIP_VISION), device="cpu"), tree)
+    return jscorer.CLIPScorer(jp, jtok, jtcfg, jvcfg), ts

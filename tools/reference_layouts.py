@@ -19,7 +19,9 @@ and `chip_smoke.py` (no real weight file is needed to exercise the loaders):
   * `clip_vision_hf(vision)`: a transformers CLIPVisionModelWithProjection
     state dict, and `clip_model_hf(scorer)`: a transformers CLIPModel state
     dict (text and vision towers, both projections, `logit_scale`), the
-    layout of the ViT-B/32 weights that `--clip_ckpt` takes.
+    layout of the ViT-B/32 weights that `--clip_ckpt` takes;
+  * `vit_hf(dino)`: a transformers ViTModel state dict (under 'vit.', as
+    facebook/dino-vits16 is published), the DINO model's layout.
 
 The key maps here are written from the reference's module names, apart
 from the loaders of `adaprompt_tpu_torch`, so that the tests hold both
@@ -307,4 +309,27 @@ def clip_model_hf(scorer) -> dict:
     out.update(clip_vision_hf(scorer.vision))
     out["text_projection.weight"] = _f32(scorer.text_projection).t().contiguous()
     out["logit_scale"] = torch.tensor(float(np.log(100.0)))
+    return out
+
+
+def vit_hf(dino, prefix: str = "vit.") -> dict:
+    """The port's DINO -> a transformers ViTModel state dict: the patch conv
+    under 'embeddings.patch_embeddings.projection' (OIHW), the position
+    embeddings with a batch axis [1, S, D], each layer's
+    'layernorm_before' / 'attention.attention.{query,key,value}' /
+    'attention.output.dense' / 'layernorm_after' / 'intermediate.dense' /
+    'output.dense', the final 'layernorm'."""
+    out = {prefix + "embeddings.cls_token": _f32(dino.cls_token),
+           prefix + "embeddings.position_embeddings": _f32(dino.position_embedding)[None]}
+    _layer(out, prefix + "embeddings.patch_embeddings.projection", dino.patch_embedding)
+    for i, lp in enumerate(dino.layers):
+        key = f"{prefix}encoder.layer.{i}"
+        _layer(out, key + ".layernorm_before", lp["ln1"])
+        for n, full in (("q", "query"), ("k", "key"), ("v", "value")):
+            _layer(out, f"{key}.attention.attention.{full}", lp["attn"][n])
+        _layer(out, key + ".attention.output.dense", lp["attn"]["out"])
+        _layer(out, key + ".layernorm_after", lp["ln2"])
+        _layer(out, key + ".intermediate.dense", lp["mlp"]["fc1"])
+        _layer(out, key + ".output.dense", lp["mlp"]["fc2"])
+    _layer(out, prefix + "layernorm", dino.final_ln)
     return out
