@@ -66,9 +66,13 @@ def parse_args(argv=None):
     p.add_argument("--synthetic_faces", action="store_true",
                    help="train on random face ids (smoke runs only)")
     p.add_argument("--detector", type=str, default=None,
-                   help="face detector: 'center_crop' (the default here); the "
-                        "'retinaface:<path>', 'bisenet:<path>' and 'cascade:<path>' "
-                        "detectors are not ported yet and raise")
+                   help="face detector: 'retinaface:<Resnet50_Final.pth|.onnx>' "
+                        "(the reference's RetinaFace; the default when "
+                        "$ADAPROMPT_RETINAFACE_CKPT is set), 'bisenet:<79999_iter.pth>' "
+                        "(parsing detection + alignment; the default when "
+                        "$ADAPROMPT_BISENET_CKPT is set), 'cascade:<opencv_xml_path>' "
+                        "(needs cv2), or 'center_crop' (the default otherwise); the "
+                        "RetinaFace and BiSeNet models run on --device")
     p.add_argument("--clip_ckpt", type=str, default=None,
                    help="CLIP ViT-B/32 weights (a transformers CLIPModel state dict) "
                         "for compositional teacher filtering")
@@ -260,7 +264,7 @@ def main(argv=None):
         from adaprompt_tpu_torch.eval.face_eval import FaceSimilarityEvaluator, make_detector
         face_embedder = FaceSimilarityEvaluator(
             common.load_arcface(args.arcface_ckpt, pipe.device),
-            detector=make_detector(args.detector))
+            detector=make_detector(args.detector, device=pipe.device))
     elif not args.synthetic_faces:
         raise SystemExit(
             "--arcface_ckpt is required: without it every iteration distills "

@@ -1,13 +1,15 @@
 """PNG files on zlib alone (the card's machine has no PIL), and an image
 reader for the formats that need no other package.
 
-The writer makes 8-bit RGB, every scanline with filter 0, one IDAT chunk,
-CRCs from zlib.crc32. The decoder reads any non-interlaced 8-bit PNG
-(grey, grey + alpha, RGB, RGBA, palette; scanline filters 0-4) and 1-, 2-
-and 4-bit grey and palette ones, checks every chunk's CRC and returns uint8
-[H, W, 3]: alpha is dropped, grey is repeated over the three channels (a
-sub-byte grey level scaled to 0..255) and a palette is looked up, as PIL's
-`convert("RGB")` does. `read_image` takes `.png` through the decoder,
+The writer makes 8-bit RGB or grey, every scanline with filter 0, one
+IDAT chunk, CRCs from zlib.crc32. The decoder reads any non-interlaced
+8-bit PNG (grey, grey + alpha, RGB, RGBA, palette; scanline filters 0-4)
+and 1-, 2- and 4-bit grey and palette ones and checks every chunk's CRC.
+`decode_png_mode` returns the pixels in the mode PIL opens the file in
+('1', 'L', 'LA', 'RGB', 'RGBA', 'P' with its palette; a sub-byte grey level
+scaled to 0..255); `decode_png` returns uint8 [H, W, 3]: alpha is dropped,
+grey is repeated over the three channels and a palette is looked up, as
+PIL's `convert("RGB")` does. `read_image` takes `.png` through the decoder,
 `.npy` through numpy, and any other format through PIL where PIL is
 installed. `to_grey` is PIL's `convert("L")` of such an image.
 """
@@ -31,13 +33,16 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> the bytes of a PNG file."""
+    """uint8 [H, W, 3] (RGB) or [H, W] (grey, PIL's mode 'L') -> the bytes
+    of a PNG file."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected uint8 [H, W, 3], got {img.dtype} {img.shape}")
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)    # 8-bit RGB, no interlace
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"expected uint8 [H, W, 3] or [H, W], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1)
+    color = 0 if ch == 1 else 2
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)    # 8-bit, no interlace
     return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
 
@@ -110,8 +115,11 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, name: str) -> np.ndarra
     return out
 
 
-def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
-    """The bytes of an 8-bit, non-interlaced PNG -> uint8 [H, W, 3]."""
+def decode_png_mode(data: bytes, name: str = "PNG"):
+    """The bytes of a PNG -> (PIL's mode of it, uint8 pixels, palette):
+    '1' and 'L' [H, W] (0/255 and grey levels), 'LA' [H, W, 2], 'RGB'
+    [H, W, 3], 'RGBA' [H, W, 4], or 'P' [H, W] indices into the palette
+    [n, 3] (None for every other mode)."""
     hdr, palette, idat = None, None, []
     for tag, body in _chunks(data, name):
         if tag == b"IHDR":
@@ -143,15 +151,35 @@ def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
     if color == 3:
         if palette is None:
             raise ValueError(f"{name}: a palette image without a PLTE chunk")
-        return palette[px[..., 0]]
-    if ch <= 2:                                 # grey, grey + alpha
-        return np.repeat(px[..., :1], 3, axis=2)
+        return "P", px[..., 0], palette
+    mode = {0: "1" if depth == 1 else "L", 2: "RGB", 4: "LA", 6: "RGBA"}[color]
+    return mode, (px[..., 0] if ch == 1 else px), None
+
+
+def to_rgb(mode: str, px: np.ndarray, palette=None) -> np.ndarray:
+    """Pixels of `mode` (as `decode_png_mode` gives them) -> uint8
+    [H, W, 3], as PIL's convert("RGB")."""
+    if mode == "P":
+        return palette[px]
+    if mode in ("1", "L", "LA"):
+        grey = px if px.ndim == 2 else px[..., 0]
+        return np.repeat(grey[..., None], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
+    """The bytes of an 8-bit, non-interlaced PNG -> uint8 [H, W, 3]."""
+    return to_rgb(*decode_png_mode(data, name))
 
 
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
+
+
+def read_png_mode(path: str):
+    with open(path, "rb") as f:
+        return decode_png_mode(f.read(), path)
 
 
 def read_image(path: str) -> np.ndarray:
@@ -173,6 +201,26 @@ def read_image(path: str) -> np.ndarray:
                            "is not installed here; convert the photos to .png or .npy") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def read_image_mode(path: str):
+    """A photo in the mode PIL opens it in, as `decode_png_mode` returns it:
+    `.png` through the decoder, any other format through PIL (imported
+    only here; without PIL such a file raises ModuleNotFoundError). Modes
+    other than '1', 'L', 'LA', 'RGB', 'RGBA' and 'P' (a CMYK JPEG, 16-bit
+    or float images) come back converted to 'RGB'."""
+    if os.path.splitext(path)[1].lower() == ".png":
+        return read_png_mode(path)
+    from PIL import Image
+    with Image.open(path) as im:
+        if im.mode not in ("1", "L", "LA", "RGB", "RGBA", "P"):
+            im = im.convert("RGB")
+        px = np.asarray(im)
+        if im.mode == "1":
+            return "1", px.astype(np.uint8) * np.uint8(255), None
+        if im.mode == "P":
+            return "P", px, np.asarray(im.getpalette("RGB"), np.uint8).reshape(-1, 3)
+        return im.mode, px, None
 
 
 def to_grey(img: np.ndarray) -> np.ndarray:

@@ -13,7 +13,9 @@ with ToMe, DeepCache and the CFG tail, quant="int8"), and the product path
 DDIM-50, with UNetConfig.fused_conv); txt2img and distillation also under
 each UNetConfig.flash_variant (two-chain, no-max, exp2); the txt2img, infer
 and training CLIs over checkpoint files on disk; the evaluation path (the
-object (DINO) branch, gen_eval and txt2img --compare_with, image metrics).
+object (DINO) branch, gen_eval and txt2img --compare_with, image metrics);
+face detection (RetinaFace R50 and BiSeNet parsing, their alignment, the
+detectors of every CLI, gen_face_masks and face_tools).
 
     python3 chip_smoke.py
 
@@ -193,7 +195,31 @@ Phases, in order (any failure exits non-zero without the final line):
      (d) PSNR, SSIM and the IResNet-100 random-feature cosine of (b)'s
      images against (c)'s; logs each run's wall time, loads, generates,
      the scoring of a folder pair (CLIP, DINO, ArcFace) and peak memory;
- 16. print the kernels' JSON line (thirteen rows), the card's name and
+ 16. face detection, right after phase 15 and in its temporary directory,
+     over phase 13's files and phase 14's subjects: (a) a seeded RetinaFace
+     R50 (its heads scaled so that ~1 % of a noise canvas's anchors pass the
+     0.5 threshold) and a seeded BiSeNet written as Resnet50_Final.pth and
+     79999_iter.pth with random BatchNorm statistics; (b) their full-width
+     forwards in fp32 on the card (TF32 off, then on) against the CPU on the
+     same inputs: RetinaFace's heads at the 640 canvas and BiSeNet's logits
+     at batch 8 x 512x512 within 1e-4 relative L2, labels equal where the
+     CPU's top-two logits differ by more than the measured error; (c)
+     detect_faces' decoding and NMS on the card's and on the CPU's head
+     outputs of five photos: equal detections wherever no score lies within
+     the measured error of the threshold and no IoU within it of 0.4 (the
+     near-ties counted); (d) make_retinaface_detector and
+     make_bisenet_detector behind FaceSimilarityEvaluator over 3 photos,
+     timed against the centre crop, detect_faces split into canvas,
+     forward, decoding and warp; (e) infer.main with
+     $ADAPROMPT_RETINAFACE_CKPT set (path "cli_infer_retinaface": B1-B3 500
+     each); (f) gen_face_masks over phase 14's subjects (--batch_size 8):
+     its files, masks in {0, 255} equal to an in-memory parse_faces, the
+     curation each photo's part count implies; (g) face_tools compare, knn
+     and filter; (h) train.main, one Stage-1 step with --detector
+     retinaface:<pth> (path "cli_train_detector", B1/B3/B4 as its row
+     implies); no detection or parsing call launches a kernel; logs whether
+     scipy, cv2 and PIL import here;
+ 17. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -2773,6 +2799,7 @@ def phase_trainer_state(tr, out_dir):
 CLI_STEPS = 50          # DDIM-50, 2 images: UNet batch 4 with CFG, as phases 5 and 8
 CLI_IMAGES = 2
 CLI_MKV_BEGIN = 8       # prompt2token_proj's k/v widened x2 on layers 8-11
+CLI_SECONDS = {}        # path -> (main(argv) wall seconds, personalization seconds)
 
 
 class _PatchedCalls:
@@ -2862,7 +2889,8 @@ def _run_cli(path, main, argv, card):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     load = sum(timers[k].seconds for k in ("load_pipeline", "load_subj_basis", "load_arcface"))
     gen = timers["generate"].seconds
-    log(f"phase 13 {path}: main(argv) to its last PNG {seconds:.3f} s = load {load:.3f} s (SD "
+    CLI_SECONDS[path] = (seconds, timers["personalize"].seconds)
+    log(f"phase {13 if path in _CLIS else 16} {path}: main(argv) to its last PNG {seconds:.3f} s = load {load:.3f} s (SD "
         f"checkpoint {timers['load_pipeline'].seconds:.3f}, generator "
         f"{timers['load_subj_basis'].seconds:.3f}, ArcFace {timers['load_arcface'].seconds:.3f}) "
         f"+ generate {gen:.3f} s ({CLI_IMAGES} images 512x512 DDIM-{CLI_STEPS} bf16) + the rest "
@@ -3138,7 +3166,7 @@ def _run_train_cli(path, argv, card, usr1_step=None):
              for k in ("save_checkpoint", "save_full_state", "log_samples") if timers[k].calls}
     steps = [round(c[0], 3) for c in timers["step"].calls + timers["static_step"].calls]
     files = sorted(os.listdir(out))
-    log(f"phase 14 {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
+    log(f"phase {16 if path in _DETECT else 14} {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
         f"times {steps} s; samples and saves {saves} s; peak memory {peak:.2f} GiB; files "
         f"{files}; launches {nz(launches)}; {card}")
     return rows, timers, seconds, launches
@@ -3153,7 +3181,7 @@ def _check_train_rows(path, rows, steps):
         if not skipped and not (math.isfinite(loss) and math.isfinite(r["grad_norm"])
                                 and r["grad_norm"] > 0):
             raise AssertionError(f"{path}: bad metrics {r}")
-    log(f"phase 14 {path} steps: " + "; ".join(
+    log(f"phase {16 if path in _DETECT else 14} {path} steps: " + "; ".join(
         f"{r['step']} {r['iter_type']}"
         + (f" ND={r['num_denoising_steps']} bs={r['distill_bs']}" if "distill_bs" in r else "")
         + (f" loss={r.get('loss', r.get('loss_arc2face_distill', r.get('loss_compos'))):.6f}"
@@ -3549,8 +3577,461 @@ def phase_eval(tmp, files, root):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: face detection (RetinaFace R50, BiSeNet parsing, the alignment),
+# the detectors of the CLIs, gen_face_masks and face_tools
+# ---------------------------------------------------------------------------
+
+DETECT_TOL = 1e-4       # fp32 card (TF32 off) vs fp32 CPU, relative L2
+DETECT_PASS = 0.01      # the share of a noise canvas's anchors the seeded RetinaFace scores > 0.5
+PARSE_BATCH = 8         # BiSeNet's batch at 512x512 (gen_face_masks' default)
+
+
+def _seeded_retinaface(seed):
+    """A RetinaFace with random weights from `seed` on the card, its heads
+    scaled on the canvas of a seeded 512x512 noise photo so that the
+    face-logit margin has std 2
+    and the boxes and landmarks std 1, the face channels' bias set so that
+    DETECT_PASS of the anchors score above 0.5 (random ResNet weights leave
+    the heads at std ~80, and half the anchors above it)."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.models.retinaface import RetinaFace, canvas
+    model = RetinaFace.random_init(seed, device="cuda")
+    noise = np.random.default_rng(seed).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    x = torch.from_numpy(canvas(noise)[0][None]).cuda()
+    with torch.no_grad():
+        logits, loc, ldm = model(x)
+        margin = logits[0, :, 1] - logits[0, :, 0]
+        for name, scale in (("ClassHead", 2.0 / margin.std()), ("BboxHead", 1.0 / loc.std()),
+                            ("LandmarkHead", 1.0 / ldm.std())):
+            for conv in model.heads[name]:
+                conv.weight.mul_(scale)
+        logits = model(x)[0]
+        cut = torch.quantile(logits[0, :, 1] - logits[0, :, 0], 1.0 - DETECT_PASS)
+        for conv in model.heads["ClassHead"]:
+            conv.bias[1::2] -= cut              # channel 2a + 1: anchor a's face logit
+    return model
+
+
+def _pair_ious(boxes, i, j):
+    """IoU of boxes i and j (index arrays), as `retinaface.nms` computes it."""
+    import numpy as np
+    x0, y0, x1, y1 = boxes.T
+    areas = np.maximum(x1 - x0, 0) * np.maximum(y1 - y0, 0)
+    inter = (np.maximum(np.minimum(x1[i], x1[j]) - np.maximum(x0[i], x0[j]), 0)
+             * np.maximum(np.minimum(y1[i], y1[j]) - np.maximum(y0[i], y0[j]), 0))
+    return inter / (areas[i] + areas[j] - inter + 1e-12)
+
+
+def _nms_pairs(boxes, scores, iou_thresh=0.4):
+    """The comparisons the host NMS (`retinaface.nms`) makes: (kept box i,
+    each remaining box j, their IoU), as arrays."""
+    import numpy as np
+    order = np.argsort(scores)[::-1]
+    out = []
+    while order.size:
+        i, rest = np.full(order.size - 1, order[0]), order[1:]
+        iou = _pair_ious(boxes, i, rest)
+        out.append((i, rest, iou))
+        order = rest[iou <= iou_thresh]
+    if not out:
+        return np.zeros(0, int), np.zeros(0, int), np.zeros(0)
+    return tuple(np.concatenate(a) for a in zip(*out))
+
+
+def _compare_detections(cpu, card, hw, scale):
+    """detect_faces' host decoding and NMS of one photo's head outputs from
+    the CPU and from the card: equal detections unless a near-tie (a score
+    within 4x the measured probability error of 0.5, two candidates' scores
+    within it of each other, or an IoU the NMS compares within 4x the
+    measured IoU error of 0.4) could flip one. Returns (detections, near-tie
+    counts, probability error, IoU error, equal)."""
+    import numpy as np
+    from adaprompt_tpu_torch.models import retinaface as trf
+    (pc, lc, dc), (pg, lg, dg) = cpu, card
+    p_err = float(np.abs(pg - pc).max())
+    tol = 4 * p_err + 1e-7
+    keep = pc > 0.5
+    near = {"threshold": int((np.abs(pc - 0.5) <= tol).sum()), "order": 0, "iou": 0}
+    pri = trf.priors(640, 640)
+    iou_err = 0.0
+    if near["threshold"] == 0:
+        bc = trf.decode_boxes(lc[keep], pri[keep])
+        bg = trf.decode_boxes(lg[keep], pri[keep])
+        i, j, iou = _nms_pairs(bc, pc[keep])
+        if len(i):
+            iou_err = float(np.abs(_pair_ious(bg, i, j) - iou).max())
+            iou_tol = 4 * iou_err + 1e-7
+            near["iou"] = int((np.abs(iou - 0.4) <= iou_tol).sum())
+            # two overlapping candidates whose order could swap (the first kept suppresses)
+            near["order"] = int(((np.abs(pc[keep][i] - pc[keep][j]) <= tol)
+                                 & (iou > 0.4 - iou_tol)).sum())
+    det_c = trf.decode_detections(pc, lc, dc, hw, scale)
+    det_g = trf.decode_detections(pg, lg, dg, hw, scale)
+    equal = len(det_c[1]) == len(det_g[1]) and all(
+        np.allclose(a, b, atol=tol_abs, rtol=0) for a, b, tol_abs in
+        zip(det_g, det_c, (1e-2, tol, 1e-2)))
+    return det_g, near, p_err, iou_err, equal
+
+
+def _detector_files(tmp):
+    """(a) The seeded RetinaFace and BiSeNet written in the public layouts
+    (random BatchNorm statistics); their paths and the models loaded back
+    from them on the card and on the CPU."""
+    import os
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import reference_layouts as rl
+    from adaprompt_tpu_torch.models import bisenet, retinaface
+    paths = {"retinaface": os.path.join(tmp, "Resnet50_Final-random.pth"),
+             "bisenet": os.path.join(tmp, "79999_iter-random.pth")}
+    torch.save(rl.retinaface_pytorch(_seeded_retinaface(16), seed=16), paths["retinaface"])
+    torch.save(rl.bisenet_face_parsing(bisenet.BiSeNet.random_init(17, device="cuda"), seed=17),
+               paths["bisenet"])
+    models = {(name, dev): mod.load(paths[name], device=dev)
+              for name, mod in (("retinaface", retinaface), ("bisenet", bisenet))
+              for dev in ("cuda", "cpu")}
+    return paths, models
+
+
+def _detection_forwards(models, photos, parse_photos, card):
+    """(b) RetinaFace's heads on the photos' 640 canvases and BiSeNet's
+    logits at PARSE_BATCH x 512x512, fp32 card (TF32 off, then on) against
+    the CPU; returns (the canvases and scales, the head outputs {device:
+    (probs, loc, ldm)})."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.models import bisenet as tbis, retinaface as trf
+    from adaprompt_tpu_torch.utils.resize import pil_bilinear
+    canv = [trf.canvas(p) for p in photos]
+    x = np.stack([c for c, _ in canv])
+    errs, heads = {}, {}
+    with torch.no_grad():
+        raw = {dev: models["retinaface", dev](torch.from_numpy(x).to(dev)) for dev in ("cpu", "cuda")}
+        for name, c, g in zip(("class", "boxes", "landmarks"), raw["cpu"], raw["cuda"]):
+            errs["retinaface_" + name] = _rel(g, c)
+        for dev, (logits, loc, ldm) in raw.items():     # head_outputs' softmax, on each device
+            heads[dev] = (torch.softmax(logits, dim=-1)[..., 1].cpu().numpy(),
+                          loc.cpu().numpy(), ldm.cpu().numpy())
+        parse_in = np.stack([pil_bilinear(p, 512, 512) for p in parse_photos[:PARSE_BATCH]])
+        xb = torch.from_numpy(tbis.preprocess(parse_in))
+        lc = models["bisenet", "cpu"](xb)
+        lg = models["bisenet", "cuda"](xb.cuda())
+        errs["bisenet_logits"] = _rel(lg, lc)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = {"retinaface_class": _rel(models["retinaface", "cuda"](
+                        torch.from_numpy(x).cuda())[0], raw["cpu"][0]),
+                    "bisenet_logits": _rel(models["bisenet", "cuda"](xb.cuda()), lc)}
+            lab_tf32 = models["bisenet", "cuda"](xb.cuda()).argmax(-1).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    lc, lg = lc.numpy(), lg.cpu().numpy()
+    err = float(np.abs(lg - lc).max())
+    top2 = np.sort(lc, axis=-1)
+    gap = top2[..., -1] - top2[..., -2]
+    clear = gap > err
+    lab_c, lab_g = lc.argmax(-1), lg.argmax(-1)
+    flips = int((lab_c != lab_g)[clear].sum())
+    log(f"phase 16 forwards: RetinaFace R50 {len(photos)} canvases 640x640, BiSeNet "
+        f"{PARSE_BATCH}x512x512, fp32 card vs fp32 CPU relative L2 "
+        f"{({k: f'{v:.3e}' for k, v in errs.items()})} (bound {DETECT_TOL:g}); with TF32 "
+        f"convolutions (PyTorch's default, cudnn.allow_tf32=True) "
+        f"{({k: f'{v:.3e}' for k, v in tf32.items()})}, BiSeNet labels differing from the "
+        f"CPU's {int((lab_tf32.numpy() != lab_c).sum())} of {lab_c.size}; BiSeNet max |logit "
+        f"error| {err:.3e}, near-ties (top-two gap <= it) {int((~clear).sum())} of {clear.size}, "
+        f"labels differing elsewhere {flips}; {card}")
+    bad = {k: v for k, v in errs.items() if not (math.isfinite(v) and v <= DETECT_TOL)}
+    if bad or flips:
+        raise AssertionError(f"the detectors on the card disagree with the CPU: {bad}, {flips} "
+                             "labels flipped away from near-ties")
+    return canv, heads
+
+
+def _detect_timings(models, photos, card):
+    """(d) detect_faces split per photo (canvas, forward + softmax, decoding
+    and NMS, similarity and warp), the forward's device time at 640 and
+    BiSeNet's at PARSE_BATCH x 512, and FaceSimilarityEvaluator over 3
+    photos with each detector against the centre crop."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.cli import common
+    from adaprompt_tpu_torch.eval import face_detect as tfd
+    from adaprompt_tpu_torch.eval.face_eval import FaceSimilarityEvaluator, make_detector
+    from adaprompt_tpu_torch.models import retinaface as trf
+    rf = models["retinaface", "cuda"]
+    split = {"canvas": [], "forward": [], "decode_nms": [], "warp": []}
+    faces = []
+    for img in photos:
+        for _ in range(2):                  # the second pass timed
+            t0 = time.perf_counter()
+            x, scale = trf.canvas(img)
+            t1 = time.perf_counter()
+            probs, loc, ldm = trf.head_outputs(rf, x[None])
+            t2 = time.perf_counter()
+            boxes, scores, landms = trf.decode_detections(probs[0], loc[0], ldm[0],
+                                                          img.shape[:2], scale)
+            t3 = time.perf_counter()
+            crops = [tfd.warp_affine(img, tfd.umeyama_similarity(l, tfd.ARCFACE_TEMPLATE), 112)
+                     for l in landms[:4]]
+            t4 = time.perf_counter()
+        for k, a, b in (("canvas", t0, t1), ("forward", t1, t2), ("decode_nms", t2, t3),
+                        ("warp", t3, t4)):
+            split[k].append((b - a) * 1e3)
+        faces.append(len(crops))
+    xb = torch.from_numpy(np.random.default_rng(18).normal(0, 60, (1, 640, 640, 3))
+                          .astype(np.float32)).cuda()
+    xp = torch.from_numpy(np.random.default_rng(19).normal(0, 1, (PARSE_BATCH, 512, 512, 3))
+                          .astype(np.float32)).cuda()
+    with torch.no_grad():
+        rf_ms = time_ms(lambda: rf(xb), 5)
+        bis_ms = time_ms(lambda: models["bisenet", "cuda"](xp), 5)
+    arc = common.load_arcface(None, "cuda")
+    dets = {"retinaface": tfd.make_retinaface_detector(rf),
+            "bisenet": tfd.make_bisenet_detector(models["bisenet", "cuda"]),
+            "center_crop": make_detector("center_crop")}
+    three, ev_s, found = photos[:3], {}, {}
+    for name, det in dets.items():
+        ev = FaceSimilarityEvaluator(arc, detector=det)
+        ev(images_np=three)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs = ev(images_np=three)
+        torch.cuda.synchronize()
+        ev_s[name] = time.perf_counter() - t0
+        found[name] = 0 if embs is None else len(embs)
+    log(f"phase 16 detect_faces a photo (ms, photos 512x512 to 600x560): " + ", ".join(
+        f"{k} {[round(v, 2) for v in vs]}" for k, vs in split.items())
+        + f"; faces kept {faces}; RetinaFace forward at 640 {rf_ms:.3f} ms on the device, "
+        f"BiSeNet {PARSE_BATCH}x512x512 {bis_ms:.3f} ms; FaceSimilarityEvaluator over 3 photos "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms ({found[k]} embeddings)" for k, v in ev_s.items())
+        + f"; {card}")
+    if found["center_crop"] != 3:
+        raise AssertionError(f"the centre crop embedded {found['center_crop']} photos")
+    return dict(split=split, rf_ms=rf_ms, bis_ms=bis_ms, evaluator_s=ev_s)
+
+
+def _parse_subjects(root, model):
+    """Each photo of the subject folders under `root` resized to 512x512 as
+    gen_face_masks resizes it, and its labels from parse_faces in the same
+    batches: {(subject, name): (image, labels)}."""
+    import os
+    from adaprompt_tpu_torch.cli.gen_face_masks import _list_images
+    from adaprompt_tpu_torch.models import bisenet as tbis
+    from adaprompt_tpu_torch.utils.png import read_image_mode
+    from adaprompt_tpu_torch.utils.resize import pil_bilinear_rgb
+    out = {}
+    for subj in sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))):
+        names = _list_images(os.path.join(root, subj))
+        for i in range(0, len(names), PARSE_BATCH):
+            chunk = names[i:i + PARSE_BATCH]
+            imgs = []
+            for n in chunk:
+                mode, px, palette = read_image_mode(os.path.join(root, subj, n))
+                imgs.append(pil_bilinear_rgb(mode, px, 512, 512, palette))
+            for name, img, lab in zip(chunk, imgs, tbis.parse_faces(model, imgs)):
+                out[subj, name] = (img, lab)
+    return out
+
+
+def _check_face_masks(root, out, result, parsed, trash, inspect):
+    """(f) gen_face_masks' files against `_parse_subjects`: each photo
+    written as its resized image and a mask (mode L, values in {0, 255})
+    equal to (labels != 0) * 255, or copied where its part count sends it
+    (<= trash, >= inspect). Returns the photos written, trashed, inspected."""
+    import os
+    import numpy as np
+    from adaprompt_tpu_torch.utils.png import read_png, read_png_mode
+    parts, where = {}, {"out": 0, "trash": 0, "inspect": 0}
+    for (subj, name), (img, lab) in parsed.items():
+        n = len(np.unique(lab))
+        parts[n] = parts.get(n, 0) + 1
+        kind = "trash" if n <= trash else "inspect" if n >= inspect else "out"
+        where[kind] += 1
+        if kind != "out":
+            if not os.path.exists(os.path.join(f"{root}_{kind}", subj, name)):
+                raise AssertionError(f"gen_face_masks: {subj}/{name} ({n} parts) not in {kind}")
+            continue
+        mode, mask, _ = read_png_mode(os.path.join(out, subj, name[:-4] + "_mask.png"))
+        if mode != "L" or not set(np.unique(mask)) <= {0, 255} or \
+                not np.array_equal(mask, (lab != 0).astype(np.uint8) * 255) or \
+                not np.array_equal(read_png(os.path.join(out, subj, name)), img):
+            raise AssertionError(f"gen_face_masks: {subj}/{name}'s files differ from the "
+                                 "in-memory parse")
+    if parts != result["parts"] or where["out"] != result["written"]:
+        raise AssertionError(f"gen_face_masks: {result} against the in-memory parse {parts}")
+    return where
+
+
+def phase_detect(tmp, files, root):
+    """Phase 16, after phase 15 in its temporary directory: face detection
+    over phase 13's files and phase 14's subjects (see the module's phase
+    list, (a)-(h)). Returns {path: launch counts}."""
+    import importlib.util
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.cli import face_tools, gen_face_masks, infer
+    from adaprompt_tpu_torch.cli.gen_face_masks import _list_images
+    from adaprompt_tpu_torch.models import bisenet as tbis, retinaface as trf
+    from adaprompt_tpu_torch.utils.png import read_png
+    card = card_line()
+    t_phase = time.perf_counter()
+    optional = {m: importlib.util.find_spec(m) is not None
+                for m in ("scipy", "cv2", "PIL", "yaml", "safetensors", "regex", "onnx")}
+    log(f"phase 16 packages importable here (the port needs none of them): {optional}")
+
+    # (a) the weight files
+    t0 = time.perf_counter()
+    paths, models = _detector_files(tmp)
+    n_params = {name: sum(p.numel() for p in models[name, "cuda"].parameters()) / 1e6
+                for name in paths}
+    log(f"phase 16 files: " + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 2 ** 20:.1f} "
+                                        f"MiB" for p in paths.values())
+        + f"; written and loaded (card and CPU) in {time.perf_counter() - t0:.1f} s; parameters "
+        f"(M, running statistics aside) {({k: round(v, 2) for k, v in n_params.items()})}")
+    detect_calls = _PatchedCalls(trf, "detect_faces")
+    parse_calls = _PatchedCalls(tbis, "parse_faces")
+    detect_calls.__enter__()
+    parse_calls.__enter__()
+    try:
+        # (b) the forwards, card against CPU
+        subject_photos = [read_png(os.path.join(root, s, n))
+                          for s in sorted(os.listdir(root)) if os.path.isdir(os.path.join(root, s))
+                          for n in _list_images(os.path.join(root, s))]
+        photos = [read_png(os.path.join(root, "subject0", "0.png")),
+                  read_png(os.path.join(root, "subject0", "wide.png")),
+                  read_png(os.path.join(root, "subject1", "1.png")),
+                  np.random.default_rng(16).integers(0, 256, (333, 517, 3), dtype=np.uint8)]
+        canv, heads = _detection_forwards(models, photos, subject_photos, card)
+
+        # (c) the host decoding and NMS of both devices' outputs
+        summary = []
+        for k, (img, (_, scale)) in enumerate(zip(photos, canv)):
+            cpu = tuple(a[k] for a in heads["cpu"])
+            dev = tuple(a[k] for a in heads["cuda"])
+            det, near, p_err, iou_err, equal = _compare_detections(cpu, dev, img.shape[:2], scale)
+            summary.append(f"{img.shape[1]}x{img.shape[0]}: {len(det[1])} faces, "
+                           f"{int((cpu[0] > 0.5).sum())} candidates, |dp| {p_err:.2e}, |dIoU| "
+                           f"{iou_err:.2e}, near-ties {near}, equal {equal}")
+            if not equal and not any(near.values()):
+                raise AssertionError(f"detections on the card differ from the CPU's with no "
+                                     f"near-tie: {summary[-1]}")
+            if not len(det[1]):
+                raise AssertionError(f"the seeded RetinaFace found no face: {summary[-1]}")
+        log("phase 16 detections, card vs CPU head outputs: " + "; ".join(summary))
+
+        # (d) the detectors behind the evaluator, timed
+        timings = _detect_timings(models, photos, card)
+
+        # (e) infer with $ADAPROMPT_RETINAFACE_CKPT
+        by_path = {}
+        os.environ["ADAPROMPT_RETINAFACE_CKPT"] = paths["retinaface"]
+        try:
+            n_before = len(detect_calls.calls)
+            out_dir = os.path.join(tmp, "infer_retinaface")
+            cli_paths, timers = _run_cli("cli_infer_retinaface", infer.main, [
+                "--ckpt", files["sd"], "--subject", os.path.join(tmp, "photos"),
+                "--adaface_ckpt", files["adaface"], "--arcface_ckpt", files["arcface"],
+                "--prompt", "portrait of a z person", "--out_image_count", str(CLI_IMAGES),
+                "--num_steps", str(CLI_STEPS), "--outdir", out_dir], card)
+            by_path["cli_infer_retinaface"] = read_counts()
+            _check_cli_images("cli_infer_retinaface", cli_paths,
+                              [c[2] for c in timers["generate"].calls])
+            n_det = len(detect_calls.calls) - n_before
+            (_, _, vecs, during), = timers["personalize"].calls
+            if n_det != 3 or during or tuple(vecs.shape) != (16, 768):
+                raise AssertionError(f"infer with RetinaFace: {n_det} detect_faces calls, "
+                                     f"launches {during} while personalizing, {vecs.shape}")
+            (w13, p13), (w16, p16) = CLI_SECONDS["cli_infer"], CLI_SECONDS["cli_infer_retinaface"]
+            log(f"phase 16 cli_infer_retinaface: {n_det} photos through RetinaFace; main(argv) "
+                f"{w16:.3f} s against phase 13's centre crop {w13:.3f} s; personalization "
+                f"{p16 * 1e3:.1f} ms against {p13 * 1e3:.1f} ms; {card}")
+
+            # (g) face_tools over phase 14's subjects, RetinaFace from the environment
+            zero_counts()
+            arc = ["--arcface_ckpt", files["arcface"]]
+            t0 = time.perf_counter()
+            avg, n_ok, n_nf = face_tools.main(arc + ["compare", os.path.join(root, "subject0"),
+                                                     os.path.join(root, "subject1")])
+            nearest = face_tools.main(arc + ["knn", os.path.join(root, "subject0", "0.png"),
+                                             os.path.join(root, "subject1"), "--k", "2"])
+            src = shutil.copytree(os.path.join(root, "subject2"), os.path.join(tmp, "filter_src"))
+            n_src = len(os.listdir(src))
+            rejected = face_tools.main(arc + ["filter", src, "--threshold", "0.5", "--reject_dir",
+                                              os.path.join(tmp, "rejected")])
+            tools_s = time.perf_counter() - t0
+            moved = os.listdir(os.path.join(tmp, "rejected"))
+            if not (-1 <= avg <= 1 and n_ok + n_nf == 6 and len(nearest) <= 2
+                    and len(moved) == len(rejected) and len(moved) + len(os.listdir(src)) == n_src
+                    and not nz(read_counts())):
+                raise AssertionError(f"face_tools: compare {avg, n_ok, n_nf}, knn {nearest}, "
+                                     f"filter {rejected}, launches {nz(read_counts())}")
+            log(f"phase 16 face_tools: compare {avg:.4f} ({n_ok} scored, {n_nf} faceless), knn "
+                f"{[(round(s, 4), os.path.basename(p)) for s, p in nearest]}, filter rejected "
+                f"{len(rejected)} of {n_src} files at 0.5; {tools_s:.3f} s with 3 model loads; "
+                "no launch")
+        finally:
+            del os.environ["ADAPROMPT_RETINAFACE_CKPT"]
+
+        # (f) gen_face_masks over phase 14's subjects, its thresholds at the ends of the
+        # photos' part counts (so that it trashes, inspects and writes as the counts allow)
+        parsed = _parse_subjects(root, models["bisenet", "cuda"])
+        counts = sorted({len(np.unique(lab)) for _, lab in parsed.values()})
+        trash = counts[0] if len(counts) >= 2 else -1
+        inspect = counts[-1] if len(counts) >= 3 else 10000
+        zero_counts()
+        out = os.path.join(tmp, "face_masks")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = gen_face_masks.main([
+            "--bisenet_ckpt", paths["bisenet"], "--src", root, "--out", out, "--batch_size",
+            str(PARSE_BATCH), "--trash_min_parts", str(trash), "--inspect_max_parts",
+            str(inspect)])
+        torch.cuda.synchronize()
+        masks_s = time.perf_counter() - t0
+        if nz(read_counts()):
+            raise AssertionError(f"gen_face_masks launched {nz(read_counts())}")
+        where = _check_face_masks(root, out, result, parsed, trash, inspect)
+        log(f"phase 16 gen_face_masks: {len(parsed)} photos (batches of up to {PARSE_BATCH}, "
+            f"cut at each subject folder) in {masks_s:.3f} s with the model load, "
+            f"{len(parsed) / masks_s:.2f} images/s; parts {result['parts']}, thresholds "
+            f"{trash} / {inspect}; {where} as an in-memory parse_faces of the same batches "
+            "implies; masks in {0, 255} equal to its labels")
+        if not where["out"]:
+            raise AssertionError("gen_face_masks wrote no mask")
+
+        # (h) one Stage-1 step of the training CLI with --detector retinaface:<pth>
+        n_before = len(detect_calls.calls)
+        rows, _, _, launches = _run_train_cli("cli_train_detector", [
+            "--ckpt", files["sd"], "--data_roots", root, "--arc2face_ckpt", files["sd"],
+            "--arcface_ckpt", files["arcface"], "--detector", "retinaface:" + paths["retinaface"],
+            "--stage", "1", "--bs", "4", "--num_steps", "1", "--seed", "16",
+            "--out_dir", os.path.join(tmp, "train_detector")], card)
+        _check_train_rows("cli_train_detector", rows, range(1))
+        _check_train_launches("cli_train_detector", launches, _train_cli_want(rows))
+        n_det = len(detect_calls.calls) - n_before
+        if n_det < 4:
+            raise AssertionError(f"cli_train_detector ran detect_faces {n_det} times")
+        by_path["cli_train_detector"] = launches
+        log(f"phase 16 cli_train_detector: {n_det} photos through RetinaFace in one step")
+    finally:
+        parse_calls.__exit__()
+        detect_calls.__exit__()
+    inside = [c[3] for c in detect_calls.calls + parse_calls.calls if c[3]]
+    if inside:
+        raise AssertionError(f"detection or parsing launched kernels: {inside[:4]}")
+    log(f"phase 16: {len(detect_calls.calls)} detect_faces and {len(parse_calls.calls)} "
+        f"parse_faces calls, no kernel launched inside any; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return by_path
+
+
 def phase_clis_and_train_cli():
-    """Phases 13, 14 and 15 in one temporary directory, removed at the end."""
+    """Phases 13, 14, 15 and 16 in one temporary directory, removed at the end."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -3559,6 +4040,7 @@ def phase_clis_and_train_cli():
         train_launches, root = phase_train_cli(tmp, files)
         launches.update(train_launches)
         launches.update(phase_eval(tmp, files, root))
+        launches.update(phase_detect(tmp, files, root))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3572,26 +4054,28 @@ _STATE = ("resume", "adamw_ema", "static_recon")    # phase 12's training paths
 _CLIS = ("cli_txt2img", "cli_infer")                 # phase 13
 _TRAIN_CLI = ("cli_train_s1", "cli_train_resume", "cli_train_s2", "cli_train_static")  # 14
 _EVAL_CLIS = ("cli_gen_eval", "cli_txt2img_compare")                                  # 15
+_DETECT = ("cli_infer_retinaface", "cli_train_detector")                                # 16
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
                             + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS),
+                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
                             ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE
-                            + _TRAIN_CLI),
+                            + _TRAIN_CLI + ("cli_train_detector",)),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
                               + _GEN_TURNS + ("log_samples",) + _CLIS
-                              + ("cli_train_s1", "cli_train_resume") + _EVAL_CLIS),
+                              + ("cli_train_s1", "cli_train_resume") + _EVAL_CLIS
+                              + ("cli_infer_retinaface",)),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
                   + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS),
+                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

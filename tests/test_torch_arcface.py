@@ -4,6 +4,8 @@ checkpoint key maps (arcface_torch state dicts and .onnx initializers),
 preprocessing and cosine similarity, `FaceSimilarityEvaluator` with the
 centre-crop detector, and `calc_faces_mean_similarity`."""
 
+import importlib.util
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from adaprompt_tpu.models import arcface as jaf
 from adaprompt_tpu_torch import convert
 from adaprompt_tpu_torch.eval import face_eval as tfe
 from adaprompt_tpu_torch.models import arcface as taf
+from adaprompt_tpu_torch.models import bisenet as tbisenet
 from adaprompt_tpu_torch.utils.onnx_port import read_onnx_initializers
 from test_onnx_port import _model as onnx_model
 from torch_port_helpers import arcface_pair, assert_close
@@ -172,16 +175,29 @@ def test_make_detector(monkeypatch, tmp_path):
     for spec in (None, "center_crop"):
         np.testing.assert_array_equal(tfe.make_detector(spec)(im)[0],
                                       jfe.center_crop_detector(im)[0])
-    for spec in ("retinaface:x.pth", "bisenet:y.pth", "cascade:z.xml"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tfe.make_detector(spec)
+    # the RetinaFace and BiSeNet specs load their model onto CUDA unless told
+    # otherwise, and read the file named; a cascade file cv2 cannot load raises
+    for spec in ("retinaface:x.pth", "bisenet:y.pth"):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                tfe.make_detector(spec)
+        with pytest.raises(FileNotFoundError):
+            tfe.make_detector(spec, device="cpu")
+    if importlib.util.find_spec("cv2") is not None:
+        import cv2
+        with pytest.raises(ValueError if hasattr(cv2, "CascadeClassifier") else RuntimeError,
+                           match="could not load cascade|no CascadeClassifier"):
+            tfe.make_detector("cascade:z.xml")
     with pytest.raises(ValueError, match="unknown detector"):
         tfe.make_detector("mtcnn")
     ckpt = tmp_path / "79999_iter.pth"
     ckpt.write_bytes(b"")
     monkeypatch.setenv("ADAPROMPT_BISENET_CKPT", str(ckpt))
-    with pytest.raises(NotImplementedError, match="bisenet"):
-        tfe.make_detector(None)
+    loads = []
+    monkeypatch.setattr(tbisenet, "load", lambda path, **kw: loads.append((path, kw)) or 1 / 0)
+    with pytest.raises(ZeroDivisionError):
+        tfe.make_detector(None, device="cpu")
+    assert loads == [(str(ckpt), {"device": "cpu"})]
 
 
 def test_calc_faces_mean_similarity_matches_jax():

@@ -10,6 +10,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -93,6 +94,10 @@ def _entry_points():
     from adaprompt_tpu_torch.cli import gen_eval, infer, train, txt2img
     from adaprompt_tpu_torch.eval.image_metrics import random_arcface_cosine
     from adaprompt_tpu_torch.models.dino import DINO
+    from adaprompt_tpu_torch.cli import face_tools, gen_face_masks
+    from adaprompt_tpu_torch.eval.face_eval import make_detector
+    from adaprompt_tpu_torch.models.bisenet import BiSeNet
+    from adaprompt_tpu_torch.models.retinaface import RetinaFace
     img = torch.zeros(1, 8, 8, 3, dtype=torch.uint8).numpy()
     return {"AdaFacePipeline": lambda: AdaFacePipeline.random_init(0),
             "from_checkpoint": lambda: tpipe.StableDiffusionPipeline.from_checkpoint(
@@ -109,14 +114,23 @@ def _entry_points():
             "DINO": lambda: DINO.random_init(0),
             "random_arcface_cosine": lambda: random_arcface_cosine(img, img, small=True),
             "gen_eval.main": lambda: gen_eval.main(["--subjects_root", ROOT, "--num_steps", "1"]),
-            "profile_step": _profile_step_main}
+            "profile_step": _profile_step_main,
+            "RetinaFace": lambda: RetinaFace.random_init(0),
+            "BiSeNet": lambda: BiSeNet.random_init(0),
+            "make_detector_retinaface": lambda: make_detector("retinaface:no-such.pth"),
+            "make_detector_bisenet": lambda: make_detector("bisenet:no-such.pth"),
+            "gen_face_masks.main": lambda: gen_face_masks.main(
+                ["--bisenet_ckpt", "no-such.pth", "--src", ROOT, "--out", ROOT]),
+            "face_tools.main": lambda: face_tools.main(["compare", ROOT, ROOT])}
 
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
                                   "CLIPVisionModel", "profile_step", "CLIPScorer",
                                   "from_checkpoint", "txt2img.main", "infer.main",
                                   "train.main", "DINO", "random_arcface_cosine",
-                                  "gen_eval.main"])
+                                  "gen_eval.main", "RetinaFace", "BiSeNet",
+                                  "make_detector_retinaface", "make_detector_bisenet",
+                                  "gen_face_masks.main", "face_tools.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""
@@ -242,6 +256,44 @@ def test_eval_modules_fall_under_the_rules():
         assert not [x for x in names if x.split(".")[0] in banned], (m, names)
         assert "import jax" not in text and "adaprompt_tpu." not in text, m
         assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
+
+
+DETECTION_MODULES = ("adaprompt_tpu_torch.eval.face_detect", "adaprompt_tpu_torch.models.bisenet",
+                     "adaprompt_tpu_torch.models.retinaface", "adaprompt_tpu_torch.eval.face_eval",
+                     "adaprompt_tpu_torch.utils.png", "adaprompt_tpu_torch.utils.resize",
+                     "adaprompt_tpu_torch.cli.face_tools", "adaprompt_tpu_torch.cli.gen_face_masks")
+
+
+def test_detection_modules_fall_under_the_rules():
+    """The detection slice's modules: each is found by the package walk;
+    imported together in a fresh interpreter they bring in neither jax, the
+    JAX package, PIL, cv2 nor scipy; no top-level statement of theirs
+    imports one (cv2 and PIL are imported inside the calls that need them),
+    none names the JAX package, and the library modules (not the CLIs, whose
+    --device defaults to 'cuda') hold no code that only CUDA runs."""
+    import ast
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(DETECTION_MODULES) <= walked
+    banned = ("jax", "jaxlib", "adaprompt_tpu", "PIL", "cv2", "scipy")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in DETECTION_MODULES)
+            + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {banned!r}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    for m in DETECTION_MODULES:
+        text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
+        top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert not [x for x in names if x.split(".")[0] in banned], (m, names)
+        assert "import jax" not in text and "adaprompt_tpu." not in text, m
+        if ".cli." not in m:
+            assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
 
 
 def _int8_cross_args(x, wq, k, v, wo, bo):
@@ -1871,3 +1923,93 @@ def test_compos_phase_on_the_card():
     assert planted["q_grad"] > 2.5e-2, planted
     assert launched["flash_attention_fwd"] > 0 and launched["flash_attention_bwd"] > 0
     assert launched["fused_cross_attention"] == 0
+
+
+def _card_pair(cls, seed):
+    cpu = cls.random_init(seed, device="cpu")
+    card = cls(device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.eval()
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.cuda
+def test_retinaface_on_the_card_ragged_photo():
+    """A 333x517 photo into the 640 canvas: the card's fp32 heads (TF32
+    off) within 1e-4 relative L2 of the CPU's; where no score lies within
+    4x the measured error of the threshold or of another candidate's score
+    (either could change what NMS keeps), the same detections. The class
+    head is scaled down so that scores spread below 1 (random weights
+    saturate them at exactly 1, where the order of ties decides NMS)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the fp32 card run against the CPU)")
+    from adaprompt_tpu_torch.models import retinaface as trf
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = trf.RetinaFace.random_init(11, device="cpu")
+    img = np.random.default_rng(11).integers(0, 256, (333, 517, 3), dtype=np.uint8)
+    x, scale = trf.canvas(img)
+    with torch.no_grad():
+        logits = cpu(torch.from_numpy(x[None]))[0][0]
+        margin = logits[:, 1] - logits[:, 0]
+        for conv in cpu.heads["ClassHead"]:        # margin std 2, ~1 % of anchors above 0.5
+            conv.weight.mul_(2.0 / margin.std())
+            conv.bias.mul_(2.0 / margin.std())
+            conv.bias[1::2] -= torch.quantile(margin, 0.99) * 2.0 / margin.std()
+    card = trf.RetinaFace(device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    with torch.no_grad():
+        for g, c in zip(card(torch.from_numpy(x[None]).cuda()), cpu(torch.from_numpy(x[None]))):
+            assert _rel(g.cpu().numpy(), c.numpy()) <= 1e-4
+    a, b = trf.head_outputs(cpu, x[None]), trf.head_outputs(card, x[None])
+    tol = 4 * np.abs(a[0] - b[0]).max() + 1e-7
+    scores = a[0][0]
+    keep = scores > 0.5
+    assert 0 < keep.sum() < len(scores) // 2
+    # a near-tie: a score at the threshold, or two candidates whose order could
+    # swap while they overlap enough for the first kept to suppress the other
+    boxes = trf.decode_boxes(a[1][0][keep], trf.priors(640, 640)[keep])
+    order = np.argsort(scores[keep])
+    close = np.flatnonzero(np.diff(scores[keep][order]) <= tol)
+    x0, y0, x1, y1 = boxes.T
+    i, j = order[close], order[close + 1]
+    inter = (np.clip(np.minimum(x1[i], x1[j]) - np.maximum(x0[i], x0[j]), 0, None)
+             * np.clip(np.minimum(y1[i], y1[j]) - np.maximum(y0[i], y0[j]), 0, None))
+    area = (x1 - x0) * (y1 - y0)
+    near = (np.abs(scores - 0.5) <= tol).any() or (inter / (area[i] + area[j] - inter)
+                                                   > 0.3).any()
+    da = trf.decode_detections(a[0][0], a[1][0], a[2][0], img.shape[:2], scale)
+    db = trf.decode_detections(b[0][0], b[1][0], b[2][0], img.shape[:2], scale)
+    if not near:                       # the same boxes; two of close scores may swap places
+        assert len(da[1]) == len(db[1]) > 0
+        np.testing.assert_allclose(db[0][np.lexsort(db[0].T)], da[0][np.lexsort(da[0].T)],
+                                   atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_bisenet_on_the_card_ragged_batch():
+    """A batch of three 300x300 photos resized into the 512 parse: the
+    card's fp32 logits (TF32 off) within 1e-4 relative L2 of the CPU's,
+    labels equal where the CPU's top-two logits differ by more than twice
+    the measured error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the fp32 card run against the CPU)")
+    from adaprompt_tpu_torch.models import bisenet as tbis
+    from adaprompt_tpu_torch.utils.resize import pil_bilinear
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, card = _card_pair(tbis.BiSeNet, 12)
+    rng = np.random.default_rng(12)
+    imgs = np.stack([pil_bilinear(rng.integers(0, 256, (300, 300, 3), dtype=np.uint8), 512, 512)
+                     for _ in range(3)])
+    x = torch.from_numpy(tbis.preprocess(imgs))
+    with torch.no_grad():
+        lc, lg = cpu(x).numpy(), card(x.cuda()).cpu().numpy()
+    assert _rel(lg, lc) <= 1e-4
+    top2 = np.sort(lc, axis=-1)
+    clear = top2[..., -1] - top2[..., -2] > 2 * np.abs(lg - lc).max()
+    np.testing.assert_array_equal(tbis.parse_faces(card, imgs)[clear],
+                                  tbis.parse_faces(cpu, imgs)[clear])

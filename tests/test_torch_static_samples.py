@@ -307,10 +307,13 @@ def test_log_samples_teachability_boxes(sampler):
 
 
 def test_png_writer():
-    """8-bit RGB through zlib: PIL reads back the array; other arrays are
-    refused."""
+    """8-bit RGB and grey through zlib: PIL reads back the array (a grey
+    one in mode 'L'); other arrays are refused."""
     img = np.random.default_rng(0).integers(0, 256, (5, 7, 3), dtype=np.uint8)
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(encode_png(img)))), img)
-    for bad in (img.astype(np.float32), img[..., 0]):
+    grey = Image.open(io.BytesIO(encode_png(img[..., 0])))
+    assert grey.mode == "L"
+    np.testing.assert_array_equal(np.asarray(grey), img[..., 0])
+    for bad in (img.astype(np.float32), img[..., :2], np.dstack([img, img[..., :1]])):
         with pytest.raises(ValueError):
             encode_png(bad)

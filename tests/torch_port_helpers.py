@@ -3,6 +3,8 @@ configurations for both packages, and JAX parameter trees with every
 zero-initialized leaf re-randomized, so that no layer (the UNet's
 zero_module convs above all) makes a parity test pass vacuously."""
 
+import contextlib
+
 import jax
 import numpy as np
 import optax
@@ -32,6 +34,19 @@ TEST_THREADS = 1
 
 # (what, error, bound) of every `within` check, for tools/thread_margins.py
 MARGINS = []
+
+
+@contextlib.contextmanager
+def numpy_random_normal(seed=0):
+    """`jax.random.normal` drawing from a seeded numpy generator for as long
+    as the context lasts: a JAX `init_params` then builds its very tree
+    without compiling a random kernel for each of its parameter shapes
+    (~15 s for a BiSeNet, a RetinaFace or a small IResNet on the CPU)."""
+    rng = np.random.default_rng(seed)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "normal", lambda key, shape, dtype=np.float32:
+                   rng.standard_normal(shape).astype(dtype))
+        yield
 
 
 def within(err, bound, what):

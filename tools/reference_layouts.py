@@ -21,7 +21,15 @@ and `chip_smoke.py` (no real weight file is needed to exercise the loaders):
     dict (text and vision towers, both projections, `logit_scale`), the
     layout of the ViT-B/32 weights that `--clip_ckpt` takes;
   * `vit_hf(dino)`: a transformers ViTModel state dict (under 'vit.', as
-    facebook/dino-vits16 is published), the DINO model's layout.
+    facebook/dino-vits16 is published), the DINO model's layout;
+  * `retinaface_pytorch(model)`: a Pytorch_Retinaface `Resnet50_Final.pth`
+    state dict (under 'module.', as the published file is), and
+    `bisenet_face_parsing(model)`: a face-parsing.PyTorch `79999_iter.pth`
+    state dict (with its auxiliary heads `conv_out16` / `conv_out32`, which
+    no loader reads). Each BatchNorm gets random running statistics from
+    `seed`, its affine adjusted so that the layer computes what the port's
+    model computes: folding or applying them is then no identity, so that
+    tests of the loaders cannot pass vacuously.
 
 The key maps here are written from the reference's module names, apart
 from the loaders of `adaprompt_tpu_torch`, so that the tests hold both
@@ -332,4 +340,112 @@ def vit_hf(dino, prefix: str = "vit.") -> dict:
         _layer(out, key + ".intermediate.dense", lp["mlp"]["fc1"])
         _layer(out, key + ".output.dense", lp["mlp"]["fc2"])
     _layer(out, prefix + "layernorm", dino.final_ln)
+    return out
+
+
+_BN_EPS = 1e-5
+
+
+def _bn_as_stats(out: dict, key: str, scale, shift, rng: np.random.Generator):
+    """A BatchNorm computing x * scale + shift, with random running
+    statistics: weight = scale * sqrt(var + eps), bias = shift + mean * scale."""
+    scale = np.asarray(scale, np.float64)
+    shift = np.asarray(shift, np.float64)
+    mean = rng.normal(0.0, 0.1, scale.shape)
+    var = rng.uniform(0.5, 1.5, scale.shape)
+    for leaf, v in (("weight", scale * np.sqrt(var + _BN_EPS)), ("bias", shift + mean * scale),
+                    ("running_mean", mean), ("running_var", var)):
+        out[f"{key}.{leaf}"] = torch.from_numpy(v.astype(np.float32))
+    out[key + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def retinaface_pytorch(model, seed: int = 0, prefix: str = "module.") -> dict:
+    """The port's RetinaFace -> a Pytorch_Retinaface `Resnet50_Final.pth`
+    state dict: `stem` as body.conv1/bn1, `stages.s.i.convJ` as
+    body.layer<s+1>.i.convJ/bnJ, `down` as downsample.0/1, the FPN and SSH
+    convs as `<name>.0` with their BatchNorm as `<name>.1`, the heads as
+    `<Head>.<level>.conv1x1`; each folded scale and shift as a BatchNorm
+    with random statistics (`_bn_as_stats`)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def conv_bn(conv_key, bn_key, m):
+        out[conv_key + ".weight"] = _f32(m.weight)
+        _bn_as_stats(out, bn_key, _f32(m.scale).numpy(), _f32(m.shift).numpy(), rng)
+
+    conv_bn("body.conv1", "body.bn1", model.stem)
+    for s, blocks in enumerate(model.stages, start=1):
+        for i, b in enumerate(blocks):
+            key = f"body.layer{s}.{i}"
+            for j in (1, 2, 3):
+                conv_bn(f"{key}.conv{j}", f"{key}.bn{j}", getattr(b, f"conv{j}"))
+            if hasattr(b, "down"):
+                conv_bn(key + ".downsample.0", key + ".downsample.1", b.down)
+    for name, m in model.fpn.items():
+        conv_bn(f"fpn.{name}.0", f"fpn.{name}.1", m)
+    for n, ssh in enumerate(model.ssh, start=1):
+        for name in ("conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2", "conv7x7_3"):
+            conv_bn(f"ssh{n}.{name}.0", f"ssh{n}.{name}.1", getattr(ssh, name))
+    for name, heads in model.heads.items():
+        for i, h in enumerate(heads):
+            _layer(out, f"{name}.{i}.conv1x1", h)
+    return {prefix + k: v for k, v in out.items()}
+
+
+def bisenet_face_parsing(model, seed: int = 0) -> dict:
+    """The port's BiSeNet -> a face-parsing.PyTorch `79999_iter.pth` state
+    dict: the context path under 'cp.' (`resnet.layers.i.j` as
+    cp.resnet.layer<i+1>.j, `down_conv`/`down_bn` as downsample.0/1), `ffm.*`
+    and `conv_out.*` as they are (the 1x1 convs' biases only where they are
+    not zero: the published file has none), every BatchNorm with random
+    statistics (`_bn_as_stats`), and random auxiliary heads `conv_out16` /
+    `conv_out32` (128 -> 64 -> classes) that no loader reads."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def bn(key, m):
+        inv = _f32(m.weight).numpy() / np.sqrt(_f32(m.running_var).numpy() + m.eps)
+        _bn_as_stats(out, key, inv, _f32(m.bias).numpy() - _f32(m.running_mean).numpy() * inv,
+                     rng)
+
+    def conv(key, m):
+        out[key + ".weight"] = _f32(m.weight)
+        if getattr(m, "bias", None) is not None and bool(m.bias.any()):
+            out[key + ".bias"] = _f32(m.bias)
+
+    def cbr(key, m):
+        conv(key + ".conv", m.conv)
+        bn(key + ".bn", m.bn)
+
+    r = model.resnet
+    conv("cp.resnet.conv1", r.conv1)
+    bn("cp.resnet.bn1", r.bn1)
+    for si, blocks in enumerate(r.layers, start=1):
+        for bi, b in enumerate(blocks):
+            key = f"cp.resnet.layer{si}.{bi}"
+            for j in (1, 2):
+                conv(f"{key}.conv{j}", getattr(b, f"conv{j}"))
+                bn(f"{key}.bn{j}", getattr(b, f"bn{j}"))
+            if hasattr(b, "down_conv"):
+                conv(key + ".downsample.0", b.down_conv)
+                bn(key + ".downsample.1", b.down_bn)
+    for arm in ("arm16", "arm32"):
+        a = getattr(model, arm)
+        cbr(f"cp.{arm}.conv", a.conv)
+        conv(f"cp.{arm}.conv_atten", a.conv_atten)
+        bn(f"cp.{arm}.bn_atten", a.bn_atten)
+    for name in ("conv_avg", "conv_head32", "conv_head16"):
+        cbr("cp." + name, getattr(model, name))
+    cbr("ffm.convblk", model.ffm.convblk)
+    conv("ffm.conv1", model.ffm.conv1)
+    conv("ffm.conv2", model.ffm.conv2)
+    cbr("conv_out.conv", model.conv_out.conv)
+    conv("conv_out.conv_out", model.conv_out.conv_out)
+    n_classes = model.cfg.n_classes
+    for aux in ("conv_out16", "conv_out32"):
+        out[aux + ".conv.conv.weight"] = torch.from_numpy(
+            rng.normal(0.0, 0.03, (64, 128, 3, 3)).astype(np.float32))
+        _bn_as_stats(out, aux + ".conv.bn", np.ones(64), np.zeros(64), rng)
+        out[aux + ".conv_out.weight"] = torch.from_numpy(
+            rng.normal(0.0, 0.1, (n_classes, 64, 1, 1)).astype(np.float32))
     return out
