@@ -220,16 +220,12 @@ def _decode(vae: VAE, z, return_latents, dt):
     return _to_uint8(vae.decode((z / SD_SCALE_FACTOR).to(dt)))
 
 
-@torch.inference_mode()
-def _generate(unet: UNet, vae: VAE, cond, uncond, x_T, num_steps, guidance,
-              return_latents, sched, dt, sampler="ddim", unet_cfg: UNetConfig | None = None):
-    """The main path after text encoding: hoist the cross-attention K/V
-    (and, under quant="int8", the int8 weights; under fused_conv, the
-    fused convs' repacked weights) out of the loop, run the
-    sampler over the (cond, uncond) batch, decode to uint8.
-    cond/uncond [L, B, 77, D]; x_T [B, h, w, 4] float32."""
-    cfg = unet.cfg if unet_cfg is None else unet_cfg
-    ctx = torch.cat([cond, uncond], dim=1).to(dt)              # [L, 2B, 77, D]
+def eps_model(unet: UNet, ctx: torch.Tensor, dt, cfg: UNetConfig) -> ddim.EpsModel:
+    """The eps model of one sampling run over the context ctx [L, 2B, S, D]
+    (cond first) in dtype dt: the cross-attention K/V hoisted out of the
+    loop (and, under quant="int8", the int8 weights; under fused_conv, the
+    fused convs' repacked weights), then (x, t) -> float32 eps, x cast to
+    dt. What `_generate` and the translate CLI sample with."""
     cross_kv = unet.precompute_cross_kv(ctx)
     int8_weights = unet.quantize_int8() if cfg.quant == "int8" else None
     conv_weights = unet.pack_fused_conv_weights() if cfg.fused_conv else None
@@ -237,7 +233,18 @@ def _generate(unet: UNet, vae: VAE, cond, uncond, x_T, num_steps, guidance,
     def model_fn(x, t):
         return unet(x.to(dt), t, ctx, cross_kv=cross_kv, int8_weights=int8_weights,
                     fused_conv_weights=conv_weights, cfg=cfg).float()
+    return model_fn
 
+
+@torch.inference_mode()
+def _generate(unet: UNet, vae: VAE, cond, uncond, x_T, num_steps, guidance,
+              return_latents, sched, dt, sampler="ddim", unet_cfg: UNetConfig | None = None):
+    """The main path after text encoding: the hoisted eps model
+    (`eps_model`), the sampler over the (cond, uncond) batch, the decode
+    to uint8.
+    cond/uncond [L, B, 77, D]; x_T [B, h, w, 4] float32."""
+    ctx = torch.cat([cond, uncond], dim=1).to(dt)              # [L, 2B, 77, D]
+    model_fn = eps_model(unet, ctx, dt, unet.cfg if unet_cfg is None else unet_cfg)
     sample = dpm.dpmpp_sample if sampler == "dpmpp" else ddim.ddim_sample
     z = sample(model_fn, x_T, num_steps=num_steps, guidance_scale=guidance, sched=sched)
     return _decode(vae, z, return_latents, dt)

@@ -15,7 +15,9 @@ each UNetConfig.flash_variant (two-chain, no-max, exp2); the txt2img, infer
 and training CLIs over checkpoint files on disk; the evaluation path (the
 object (DINO) branch, gen_eval and txt2img --compare_with, image metrics);
 face detection (RetinaFace R50 and BiSeNet parsing, their alignment, the
-detectors of every CLI, gen_face_masks and face_tools).
+detectors of every CLI, gen_face_masks and face_tools); img2img sampling
+(DDIM's eta, mask, stochastic_encode / ddim_decode) under the translate CLI,
+the diffusers-format loaders under arc2face_gen, and the demo's REPL.
 
     python3 chip_smoke.py
 
@@ -219,7 +221,26 @@ Phases, in order (any failure exits non-zero without the final line):
      retinaface:<pth> (path "cli_train_detector", B1/B3/B4 as its row
      implies); no detection or parsing call launches a kernel; logs whether
      scipy, cv2 and PIL import here;
- 17. print the kernels' JSON line (thirteen rows), the card's name and
+ 17. img2img and the last three CLIs, right after phase 16 and in its
+     temporary directory, over phase 13's files and photos: (c)
+     translate.main at its defaults (DDIM-50, strength 0.8: 40 steps a
+     photo) over the 3 photos (path "cli_translate": B1-B3 1,200 each and
+     none of the rest), each PNG decoding to the image decoded; on that
+     run's loaded pipeline (a) ddim_decode from the top equal to
+     ddim_sample and (b) eta=0.0 given and an all-zero mask equal to the
+     default, all bit for bit, eta 0.5 with a half mask twice from one seed
+     bit-equal and finite (DDIM-10, 2 images); (d) its UNet and VAE written
+     in the diffusers layout in both forms and read back by
+     unet_from_diffusers / vae_from_diffusers: parameters, a UNet forward
+     and a VAE decode bit-equal; (e) arc2face_gen.main (2 images, DDIM-20)
+     with the LDM .ckpt and with (d)'s diffusers UNet saved in bf16 (paths
+     "cli_arc2face_gen_ldm", "cli_arc2face_gen_diffusers": 200 each):
+     equal images; (f) demo.main (its ArcFace random, as in JAX), warmup
+     on, its REPL fed `subject`, `gen` and `quit` with gradio kept from
+     importing ("cli_demo": 600 each):
+     the fallback line, the saved PNG equal to its image; logs each run's
+     wall time, loads, steps and peak memory;
+ 18. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -2851,10 +2872,11 @@ def _check_cli_images(path, paths, generated):
     return images
 
 
-def _check_cli_launches(path, counts):
+def _check_cli_launches(path, counts, passes=CLI_STEPS):
+    """B1, B2 and B3 launched 10 times a UNet pass, no other kernel."""
     want = {n: 0 for n in counts}
-    want.update(flash_attention_fwd=10 * CLI_STEPS, fused_cross_attention=10 * CLI_STEPS,
-                geglu_fwd=10 * CLI_STEPS)
+    want.update(flash_attention_fwd=10 * passes, fused_cross_attention=10 * passes,
+                geglu_fwd=10 * passes)
     if counts != want:
         raise AssertionError(f"{path} launches {counts}, expected {want}")
 
@@ -4030,8 +4052,288 @@ def phase_detect(tmp, files, root):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: img2img sampling, the translate, arc2face_gen and demo CLIs, and
+# the diffusers-format loaders
+# ---------------------------------------------------------------------------
+
+IMG2IMG_STEPS = 10          # (a) and (b): DDIM-10 on phase 13's UNet, 2 images (UNet batch 4)
+TRANSLATE_STEPS, TRANSLATE_STRENGTH = 50, 0.8       # translate's defaults: t_start 40
+ARC2FACE_STEPS, ARC2FACE_IMAGES = 20, 2
+DEMO_STEPS = 20
+
+
+def _run_counted(path, main, argv, patched, card, passes):
+    """main(argv) from zeroed counts, under the _PatchedCalls `patched`
+    ({name: (owner, attribute)}); its launches checked. Returns (main's
+    result, {name: _PatchedCalls}, seconds, launch counts)."""
+    import torch
+    timers = {k: _PatchedCalls(*v) for k, v in patched.items()}
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for tm in timers.values():
+        tm.__enter__()
+    try:
+        out = main(argv)
+    finally:
+        for tm in timers.values():
+            tm.__exit__()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"phase 17 {path}: main(argv) {seconds:.3f} s; "
+        + ", ".join(f"{k} {v.seconds:.3f} s ({len(v.calls)} calls)" for k, v in timers.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{nz(counts)}; {card}")
+    _check_cli_launches(path, counts, passes)
+    return out, timers, seconds, counts
+
+
+def _img2img_options(pipe, photo, card):
+    """(a) ddim_decode from the top equals ddim_sample; (b) eta=0.0 given
+    equals the default, an all-zero mask equals no mask (all bit for bit),
+    and eta 0.5 with a half mask is repeatable from one generator seed."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.pipeline import DEFAULT_NEGATIVE_PROMPT, eps_model
+    from adaprompt_tpu_torch.sampling import ddim
+    dt = pipe.compute_dtype
+    with torch.inference_mode():
+        cond = pipe.encode_prompt(["a photo of a person"] * 2)
+        uncond = pipe.encode_prompt([DEFAULT_NEGATIVE_PROMPT] * 2)
+        model_fn = eps_model(pipe.unet, torch.cat([cond, uncond])[None].to(dt), dt,
+                             pipe.unet_cfg)
+        g = torch.Generator(device="cuda").manual_seed(17)
+        x_T = torch.randn((2, 64, 64, 4), generator=g, device="cuda")
+        x0 = pipe.encode_image(np.stack([photo] * 2).astype(np.float32) / np.float32(127.5)
+                               - 1.0)
+        half = torch.zeros_like(x_T)
+        half[:, :, :32] = 1.0
+        kw = dict(num_steps=IMG2IMG_STEPS, guidance_scale=4.0, sched=pipe.sched)
+        runs, secs = {}, {}
+        for name, fn in (
+                ("sample", lambda: ddim.ddim_sample(model_fn, x_T, **kw)),
+                ("decode", lambda: ddim.ddim_decode(model_fn, x_T, IMG2IMG_STEPS, **kw)),
+                ("eta_0", lambda: ddim.ddim_sample(model_fn, x_T, eta=0.0, **kw)),
+                ("mask_0", lambda: ddim.ddim_sample(model_fn, x_T, mask=torch.zeros_like(x_T),
+                                                    x0=x0, **kw)),
+                ("eta_0.5_mask", lambda: ddim.ddim_sample(
+                    model_fn, x_T, eta=0.5, mask=half, x0=x0,
+                    generator=torch.Generator(device="cuda").manual_seed(5), **kw)),
+                ("eta_0.5_mask_again", lambda: ddim.ddim_sample(
+                    model_fn, x_T, eta=0.5, mask=half, x0=x0,
+                    generator=torch.Generator(device="cuda").manual_seed(5), **kw))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+    ref = runs["sample"]
+    for name in ("decode", "eta_0", "mask_0"):
+        if not torch.equal(runs[name], ref):
+            raise AssertionError(f"phase 17 {name} differs from ddim_sample: max "
+                                 f"{float((runs[name] - ref).abs().max())}")
+    a, b = runs["eta_0.5_mask"], runs["eta_0.5_mask_again"]
+    if not (torch.equal(a, b) and bool(torch.isfinite(a).all())):
+        raise AssertionError("phase 17 eta 0.5 with a mask: two runs from one seed differ or "
+                             "are not finite")
+    moved = float((a - ref).abs().max())
+    if not moved > 0:
+        raise AssertionError("phase 17 eta 0.5 with a mask left ddim_sample's result as it was")
+    log(f"phase 17 (a) ddim_decode(t_start={IMG2IMG_STEPS}) equals ddim_sample bit for bit; "
+        f"(b) eta=0.0 given and an all-zero mask equal the default bit for bit, eta 0.5 with a "
+        f"half mask twice from seed 5 bit-equal and finite (max |diff| from eta 0: "
+        f"{moved:.4f}); DDIM-{IMG2IMG_STEPS}, 2 images 512x512, seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + f"; {card}")
+
+
+def _diffusers_loaders(pipe, out_path, card):
+    """(d) The loaded pipeline's UNet and VAE written in the diffusers
+    layout, in both forms, read back through the port's loaders: parameters
+    and a forward bit-equal. The conv-form UNet is saved to `out_path` in
+    the weights' own dtype, for arc2face_gen."""
+    import os
+    import torch
+    import reference_layouts as rl
+    from adaprompt_tpu_torch.models.unet import UNet
+    from adaprompt_tpu_torch.models.vae import VAE
+    from adaprompt_tpu_torch.utils.diffusers_port import unet_from_diffusers, vae_from_diffusers
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((2, 64, 64, 4), generator=g, device="cuda").to(pipe.compute_dtype)
+    ctx = torch.randn((2, 77, 768), generator=g, device="cuda").to(pipe.compute_dtype)
+    ts = torch.tensor([981, 501], device="cuda")
+    z = torch.randn((1, 64, 64, 4), generator=g, device="cuda").to(pipe.compute_dtype)
+    with torch.inference_mode():
+        eps_want, img_want = pipe.unet(x, ts, ctx), pipe.vae.decode(z)
+    secs = {}
+    for kind, forms in (("unet", ({}, {"linear_proj": True})),
+                        ("vae", ({}, {"legacy_attn_names": True}))):
+        module = getattr(pipe, kind)
+        want = module.state_dict()
+        for form in forms:
+            tag = f"{kind}{'_' + next(iter(form)) if form else ''}"
+            t0 = time.perf_counter()
+            sd = (rl.unet_diffusers if kind == "unet" else rl.vae_diffusers)(module, **form)
+            t1 = time.perf_counter()
+            cls, load = (UNet, unet_from_diffusers) if kind == "unet" else (VAE, vae_from_diffusers)
+            got = cls(module.cfg, device="cuda", dtype=pipe.compute_dtype)
+            got.load_state_dict(load(sd, module.cfg), strict=True)
+            torch.cuda.synchronize()
+            secs[tag] = (t1 - t0, time.perf_counter() - t1)
+            bad = [k for k, v in got.state_dict().items() if not torch.equal(v, want[k])]
+            with torch.inference_mode():
+                same = torch.equal(got(x, ts, ctx), eps_want) if kind == "unet" else \
+                    torch.equal(got.decode(z), img_want)
+            if bad or not same:
+                raise AssertionError(f"phase 17 {tag}: parameters {bad[:6]} or the forward "
+                                     "differ from the module written")
+            if kind == "unet" and not form:
+                t0 = time.perf_counter()
+                torch.save({k: v.to(pipe.compute_dtype) for k, v in sd.items()}, out_path)
+                secs["save"] = (time.perf_counter() - t0, 0.0)
+            del sd, got
+    n = sum(p.numel() for p in pipe.unet.parameters()) + sum(
+        p.numel() for p in pipe.vae.parameters())
+    log(f"phase 17 (d) diffusers loaders: UNet and VAE ({n / 1e6:.1f} M parameters) in both "
+        f"forms bit-equal to the modules written, the UNet forward and VAE decode bit-equal; "
+        f"seconds (write, read and load) " + ", ".join(
+            f"{k} {w:.3f}+{r:.3f}" for k, (w, r) in secs.items() if k != "save")
+        + f"; the conv-form UNet saved as {os.path.getsize(out_path) / 2 ** 30:.2f} GiB "
+        f"({pipe.compute_dtype}) in {secs['save'][0]:.3f} s; {card}")
+
+
+def phase_img2img(tmp, files):
+    """Phase 17, after phase 16 in its temporary directory, over phase 13's
+    files (the SD .ckpt, the AdaFace .pt, the ArcFace .pth, the 3 photos):
+    (c) translate.main at its defaults over the photos (DDIM-50, strength
+    0.8: 40 steps a photo), first, for its loaded pipeline; (a) and (b) the
+    img2img options on that pipeline's UNet; (d) the diffusers loaders at
+    full width; (e) arc2face_gen.main with the LDM .ckpt and with (d)'s
+    diffusers UNet file (the same weights: equal images); (f) the demo's
+    main, warmup on, the REPL fed `subject`, `gen` and `quit` (gradio is
+    kept from being imported, so that no server starts). Returns {path:
+    launch counts}."""
+    import builtins
+    import contextlib
+    import io
+    import os
+    import numpy as np
+    from adaprompt_tpu_torch.adaface.wrapper import AdaFacePipeline
+    from adaprompt_tpu_torch.cli import arc2face_gen, common, demo, translate
+    from adaprompt_tpu_torch.eval.face_eval import list_images
+    from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
+    from adaprompt_tpu_torch.sampling import ddim
+    from adaprompt_tpu_torch.utils.png import read_png
+    card = card_line()
+    t_phase = time.perf_counter()
+    photos = os.path.join(tmp, "photos")
+    photo_paths = list_images(photos)
+    by_path = {}
+
+    # (c) translate
+    t_start = int(TRANSLATE_STEPS * TRANSLATE_STRENGTH)
+    out = os.path.join(tmp, "translate")
+    paths, timers, seconds, by_path["cli_translate"] = _run_counted(
+        "cli_translate", translate.main,
+        ["--ckpt", files["sd"], "--adaface_ckpt", files["adaface"], "--arcface_ckpt",
+         files["arcface"], "--in_folder", photos, "--outdir", out],
+        {"load_pipeline": (common, "load_pipeline"),
+         "personalize": (AdaFacePipeline, "generate_adaface_embeddings"),
+         "encode_image": (StableDiffusionPipeline, "encode_image"),
+         "ddim_decode": (ddim, "ddim_decode"),
+         "decode_latents": (StableDiffusionPipeline, "decode_latents")},
+        card, len(photo_paths) * t_start)
+    decoded = [c[2] for c in timers["decode_latents"].calls]
+    dec = timers["ddim_decode"]
+    if [os.path.basename(p) for p in paths] != [os.path.basename(p) for p in photo_paths]:
+        raise AssertionError(f"translate wrote {paths}")
+    for p, img in zip(paths, decoded):
+        got = read_png(p)
+        if got.shape != (512, 512, 3) or not np.array_equal(got, img[0]) or not got.std() > 0:
+            raise AssertionError(f"translate's {p} is not the image decoded")
+    log(f"phase 17 (c) cli_translate: {len(paths)} photos 512x512, {t_start} DDIM steps each "
+        f"(UNet batch 2, {1e3 * dec.seconds / (len(paths) * t_start):.1f} ms a step): "
+        f"{seconds / len(paths):.3f} s a photo all told, ddim_decode "
+        f"{[round(c[0], 3) for c in dec.calls]} s, encode_image "
+        f"{[round(c[0], 3) for c in timers['encode_image'].calls]} s; PNGs decoded equal to "
+        f"decode_latents' images, std {[round(float(im.std()), 2) for im in decoded]}; {card}")
+    pipe = timers["load_pipeline"].calls[0][2]
+
+    # (a), (b), (d) on translate's loaded pipeline
+    _img2img_options(pipe, read_png(photo_paths[0]), card)
+    unet_file = os.path.join(tmp, "arc2face_unet_diffusers.bin")
+    _diffusers_loaders(pipe, unet_file, card)
+    del pipe, timers
+
+    # (e) arc2face_gen from the LDM checkpoint, then from the diffusers UNet
+    images = {}
+    for path, teacher in (("cli_arc2face_gen_ldm", files["sd"]),
+                          ("cli_arc2face_gen_diffusers", unet_file)):
+        paths, timers, seconds, by_path[path] = _run_counted(
+            path, arc2face_gen.main,
+            ["--ckpt", files["sd"], "--arc2face_ckpt", teacher, "--ref_images", photos,
+             "--arcface_ckpt", files["arcface"], "--n_samples", str(ARC2FACE_IMAGES),
+             "--ddim_steps", str(ARC2FACE_STEPS), "--outdir", os.path.join(tmp, path)],
+            {"load_pipeline": (common, "load_pipeline"),
+             "load_teacher": (arc2face_gen, "load_teacher"),
+             "generate": (StableDiffusionPipeline, "generate")}, card, ARC2FACE_STEPS)
+        (_, kw, imgs, _), = timers["generate"].calls
+        if tuple(kw["context"].shape) != (1, ARC2FACE_IMAGES, 21, 768) or len(paths) != 2 or \
+                not all(np.array_equal(read_png(p), im) for p, im in zip(paths, imgs)):
+            raise AssertionError(f"{path}: context {tuple(kw['context'].shape)}, {paths}")
+        images[path] = imgs
+    os.remove(unet_file)
+    a, b = images.values()
+    if not np.array_equal(a, b) or not a.std() > 0:
+        raise AssertionError("arc2face_gen's images differ between the LDM and the diffusers "
+                             f"loader: max {int(np.abs(a.astype(int) - b.astype(int)).max())}")
+    log(f"phase 17 (e) arc2face_gen: the LDM checkpoint and the diffusers UNet give equal images "
+        f"({ARC2FACE_IMAGES} 512x512, DDIM-{ARC2FACE_STEPS}, 21-key contexts), std "
+        f"{a.std():.2f}; {card}")
+
+    # (f) demo: warmup (1 and 4 images), then subject, gen, quit
+    script = iter([f"subject {photos}", "gen portrait of a z", "quit"])
+    stdout, saved_input, saved_gradio = io.StringIO(), builtins.input, sys.modules.get("gradio")
+    builtins.input = lambda prompt="": next(script)
+    sys.modules["gradio"] = None
+
+    def demo_main(argv):
+        with contextlib.redirect_stdout(stdout):
+            return demo.main(argv)
+    try:
+        _, timers, seconds, by_path["cli_demo"] = _run_counted(
+            "cli_demo", demo_main,
+            ["--ckpt", files["sd"], "--adaface_ckpt", files["adaface"], "--num_steps",
+             str(DEMO_STEPS), "--outdir", os.path.join(tmp, "demo")],
+            {"load_pipeline": (common, "load_pipeline"),
+             "warmup": (AdaFacePipeline, "warmup"),
+             "generate": (StableDiffusionPipeline, "generate")}, card, 3 * DEMO_STEPS)
+    finally:
+        builtins.input = saved_input
+        if saved_gradio is None:
+            sys.modules.pop("gradio", None)
+        else:
+            sys.modules["gradio"] = saved_gradio
+    text = stdout.getvalue()
+    saved = [ln.split("saved: ", 1)[1] for ln in text.splitlines() if "saved: " in ln]
+    gens = timers["generate"].calls
+    if "gradio not installed — falling back to the REPL demo" not in text or \
+            "subject loaded" not in text or len(saved) != 1 or len(gens) != 3 or \
+            [c[2].shape[0] for c in gens] != [1, 4, 1] or \
+            not np.array_equal(read_png(saved[0]), gens[-1][2][0]):
+        raise AssertionError(f"demo: {text[-600:]!r}, generates {[c[2].shape for c in gens]}")
+    log(f"phase 17 (f) cli_demo: main(argv) {seconds:.3f} s, warmup {timers['warmup'].seconds:.3f} s "
+        f"(generates of 1 and 4 images, DDIM-{DEMO_STEPS}), the REPL's gen {gens[-1][0]:.3f} s, "
+        f"printed the REPL fallback line, saved {os.path.basename(saved[0])} equal to its image; "
+        f"{card}")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return by_path
+
+
 def phase_clis_and_train_cli():
-    """Phases 13, 14, 15 and 16 in one temporary directory, removed at the end."""
+    """Phases 13 to 17 in one temporary directory, removed at the end."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -4041,6 +4343,7 @@ def phase_clis_and_train_cli():
         launches.update(train_launches)
         launches.update(phase_eval(tmp, files, root))
         launches.update(phase_detect(tmp, files, root))
+        launches.update(phase_img2img(tmp, files))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -4055,13 +4358,15 @@ _CLIS = ("cli_txt2img", "cli_infer")                 # phase 13
 _TRAIN_CLI = ("cli_train_s1", "cli_train_resume", "cli_train_s2", "cli_train_static")  # 14
 _EVAL_CLIS = ("cli_gen_eval", "cli_txt2img_compare")                                  # 15
 _DETECT = ("cli_infer_retinaface", "cli_train_detector")                                # 16
+_IMG2IMG = ("cli_translate", "cli_arc2face_gen_ldm", "cli_arc2face_gen_diffusers",
+            "cli_demo")                                                                  # 17
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
                             + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT),
+                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
                             ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE
@@ -4071,11 +4376,11 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launc
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
                               + _GEN_TURNS + ("log_samples",) + _CLIS
                               + ("cli_train_s1", "cli_train_resume") + _EVAL_CLIS
-                              + ("cli_infer_retinaface",)),
+                              + ("cli_infer_retinaface",) + _IMG2IMG),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
                   + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT),
+                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

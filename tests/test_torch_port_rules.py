@@ -95,6 +95,7 @@ def _entry_points():
     from adaprompt_tpu_torch.eval.image_metrics import random_arcface_cosine
     from adaprompt_tpu_torch.models.dino import DINO
     from adaprompt_tpu_torch.cli import face_tools, gen_face_masks
+    from adaprompt_tpu_torch.cli import arc2face_gen, demo, translate
     from adaprompt_tpu_torch.eval.face_eval import make_detector
     from adaprompt_tpu_torch.models.bisenet import BiSeNet
     from adaprompt_tpu_torch.models.retinaface import RetinaFace
@@ -121,7 +122,10 @@ def _entry_points():
             "make_detector_bisenet": lambda: make_detector("bisenet:no-such.pth"),
             "gen_face_masks.main": lambda: gen_face_masks.main(
                 ["--bisenet_ckpt", "no-such.pth", "--src", ROOT, "--out", ROOT]),
-            "face_tools.main": lambda: face_tools.main(["compare", ROOT, ROOT])}
+            "face_tools.main": lambda: face_tools.main(["compare", ROOT, ROOT]),
+            "translate.main": lambda: translate.main(["--in_folder", ROOT, "--num_steps", "2"]),
+            "arc2face_gen.main": lambda: arc2face_gen.main(["--ddim_steps", "1"]),
+            "demo.build_pipeline": lambda: demo.build_pipeline(demo.parse_args([]))}
 
 
 @pytest.mark.parametrize("name", ["AdaFacePipeline", "AdaPromptTrainer", "ArcFace",
@@ -130,7 +134,9 @@ def _entry_points():
                                   "train.main", "DINO", "random_arcface_cosine",
                                   "gen_eval.main", "RetinaFace", "BiSeNet",
                                   "make_detector_retinaface", "make_detector_bisenet",
-                                  "gen_face_masks.main", "face_tools.main"])
+                                  "gen_face_masks.main", "face_tools.main",
+                                  "translate.main", "arc2face_gen.main",
+                                  "demo.build_pipeline"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     """Every entry point of the port, called without a device, asks for CUDA
     and raises where there is none: none falls back to the CPU."""
@@ -286,6 +292,44 @@ def test_detection_modules_fall_under_the_rules():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]", res.stdout
     for m in DETECTION_MODULES:
+        text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
+        top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert not [x for x in names if x.split(".")[0] in banned], (m, names)
+        assert "import jax" not in text and "adaprompt_tpu." not in text, m
+        if ".cli." not in m:
+            assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
+
+
+IMG2IMG_MODULES = ("adaprompt_tpu_torch.sampling.ddim", "adaprompt_tpu_torch.utils.diffusers_port",
+                   "adaprompt_tpu_torch.cli.translate", "adaprompt_tpu_torch.cli.arc2face_gen",
+                   "adaprompt_tpu_torch.cli.demo")
+
+
+def test_img2img_and_cli_modules_fall_under_the_rules():
+    """The img2img sampler, the diffusers loaders and the translate,
+    arc2face_gen and demo CLIs: each is found by the package walk; imported
+    together in a fresh interpreter they bring in neither jax, the JAX
+    package, PIL nor gradio; no top-level statement of theirs imports one
+    (PIL is imported by translate only to write a photo that is not a PNG,
+    gradio by the demo's UI only); none names the JAX package, and the
+    library modules (not the CLIs) hold no code that only CUDA runs."""
+    import ast
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(IMG2IMG_MODULES) <= walked
+    banned = ("jax", "jaxlib", "adaprompt_tpu", "PIL", "gradio")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in IMG2IMG_MODULES)
+            + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {banned!r}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    for m in IMG2IMG_MODULES:
         text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
         top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
         names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]

@@ -14,6 +14,10 @@ and `chip_smoke.py` (no real weight file is needed to exercise the loaders):
     `adaface.subj_basis_generator.SubjBasisGenerator` (its K/V-widened
     attention layers as `adaface.arc2face_models.CLIPAttentionMKV`), the
     classes registered for the save only;
+  * `unet_diffusers(unet)` / `vae_diffusers(vae)`: diffusers
+    UNet2DConditionModel / AutoencoderKL state dicts, float32, each in
+    either form of the namings that differ between diffusers versions
+    (`linear_proj`, `legacy_attn_names`), as the Arc2Face UNet is published;
   * `arcface_insightface(model)`: an IResNet state dict in the insightface
     `arcface_torch` layout (`.pth`);
   * `clip_vision_hf(vision)`: a transformers CLIPVisionModelWithProjection
@@ -118,6 +122,107 @@ def vae_ldm(vae) -> dict:
     convs under 'downsample.conv' / 'upsample.conv')."""
     return {re.sub(r"\.(down|up)sample\.(weight|bias)$", r".\1sample.conv.\2", k): _f32(v)
             for k, v in vae.named_parameters()}
+
+
+# a ResnetBlock2D's layers: (the port's UNet's name, the VAE's name, diffusers' name)
+_RESNET = (("norm_in", "norm1", "norm1"), ("conv_in", "conv1", "conv1"),
+           ("emb", None, "time_emb_proj"), ("norm_out", "norm2", "norm2"),
+           ("conv_out", "conv2", "conv2"), ("skip", "nin_shortcut", "conv_shortcut"))
+
+
+def _diffusers_resnet(out: dict, key: str, r, vae: bool = False):
+    for unet_name, vae_name, dst in _RESNET:
+        src = vae_name if vae else unet_name
+        if src in r:
+            _layer(out, f"{key}.{dst}", r[src])
+
+
+def unet_diffusers(unet, linear_proj: bool = False) -> dict:
+    """The port's UNet -> a diffusers UNet2DConditionModel state dict
+    (down_blocks / mid_block / up_blocks, up_blocks.0 the deepest level);
+    `linear_proj`: the transformers' proj_in / proj_out as Linear [O, I]
+    weights (diffusers' use_linear_projection) instead of 1x1 convs."""
+    out = {}
+    nr = unet.cfg.num_res_blocks
+
+    def transformer(key, a):
+        _layer(out, key + ".norm", a["norm"])
+        for n in ("proj_in", "proj_out"):
+            _layer(out, f"{key}.{n}", a[n])
+            if linear_proj:
+                out[f"{key}.{n}.weight"] = out[f"{key}.{n}.weight"][:, :, 0, 0].contiguous()
+        b, tb = a["block"], key + ".transformer_blocks.0"
+        for n in ("norm1", "norm2", "norm3"):
+            _layer(out, f"{tb}.{n}", b[n])
+        for at in ("attn1", "attn2"):
+            for n in ("to_q", "to_k", "to_v"):
+                _layer(out, f"{tb}.{at}.{n}", b[at][n])
+            _layer(out, f"{tb}.{at}.to_out.0", b[at]["to_out"])
+        _layer(out, tb + ".ff.net.0.proj", b["ff"]["proj"])
+        _layer(out, tb + ".ff.net.2", b["ff"]["out"])
+
+    _layer(out, "time_embedding.linear_1", unet.time_embed["fc1"])
+    _layer(out, "time_embedding.linear_2", unet.time_embed["fc2"])
+    _layer(out, "conv_in", unet.input_blocks[0]["conv"])
+    level, j = 0, 0
+    for blk in list(unet.input_blocks)[1:]:
+        if "downsample" in blk:         # closes the level just written
+            _layer(out, f"down_blocks.{level - 1}.downsamplers.0.conv", blk["downsample"])
+            continue
+        _diffusers_resnet(out, f"down_blocks.{level}.resnets.{j}", blk["res"])
+        if "attn" in blk:
+            transformer(f"down_blocks.{level}.attentions.{j}", blk["attn"])
+        level, j = (level + 1, 0) if j + 1 == nr else (level, j + 1)
+    mb = unet.middle_block
+    _diffusers_resnet(out, "mid_block.resnets.0", mb["res1"])
+    transformer("mid_block.attentions.0", mb["attn"])
+    _diffusers_resnet(out, "mid_block.resnets.1", mb["res2"])
+    for i, blk in enumerate(unet.output_blocks):
+        key = f"up_blocks.{i // (nr + 1)}"
+        _diffusers_resnet(out, f"{key}.resnets.{i % (nr + 1)}", blk["res"])
+        if "attn" in blk:
+            transformer(f"{key}.attentions.{i % (nr + 1)}", blk["attn"])
+        if "upsample" in blk:
+            _layer(out, key + ".upsamplers.0.conv", blk["upsample"])
+    _layer(out, "conv_norm_out", unet.out["norm"])
+    _layer(out, "conv_out", unet.out["conv"])
+    return out
+
+
+def vae_diffusers(vae, legacy_attn_names: bool = False) -> dict:
+    """The port's VAE -> a diffusers AutoencoderKL state dict (the decoder's
+    up_blocks.0 the deepest level). The mid-block attention as diffusers
+    writes it now (`group_norm`, Linear `to_q` / `to_k` / `to_v` /
+    `to_out.0`) or, with `legacy_attn_names`, under the older names
+    (`norm`, `query` / `key` / `value` / `proj_attn`) with 1x1 Conv2d
+    weights: between them the two forms of each naming a loader meets."""
+    out = {}
+    attn = (("norm", "q", "k", "v", "proj_out"),
+            ("norm", "query", "key", "value", "proj_attn") if legacy_attn_names
+            else ("group_norm", "to_q", "to_k", "to_v", "to_out.0"))
+    n_levels = vae.cfg.num_resolutions
+    for tower, kind in (("encoder", "down"), ("decoder", "up")):
+        t = getattr(vae, tower)
+        for n in ("conv_in", "conv_out"):
+            _layer(out, f"{tower}.{n}", t[n])
+        _layer(out, f"{tower}.conv_norm_out", t["norm_out"])
+        for i, lvl in enumerate(t[kind]):
+            key = f"{tower}.{kind}_blocks.{i if kind == 'down' else n_levels - 1 - i}"
+            for j, r in enumerate(lvl["block"]):
+                _diffusers_resnet(out, f"{key}.resnets.{j}", r, vae=True)
+            if f"{kind}sample" in lvl:
+                _layer(out, f"{key}.{kind}samplers.0.conv", lvl[f"{kind}sample"])
+        mid = t["mid"]
+        _diffusers_resnet(out, f"{tower}.mid_block.resnets.0", mid["block_1"], vae=True)
+        _diffusers_resnet(out, f"{tower}.mid_block.resnets.1", mid["block_2"], vae=True)
+        for src, dst in zip(*attn):
+            key = f"{tower}.mid_block.attentions.0.{dst}"
+            _layer(out, key, mid["attn_1"][src])
+            if src != "norm" and not legacy_attn_names:
+                out[key + ".weight"] = out[key + ".weight"][:, :, 0, 0].contiguous()
+    _layer(out, "quant_conv", vae.quant_conv)
+    _layer(out, "post_quant_conv", vae.post_quant_conv)
+    return out
 
 
 def clip_hf(text, vocab_rows: int | None = None, position_ids: bool = True) -> dict:
