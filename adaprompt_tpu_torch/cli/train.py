@@ -23,8 +23,10 @@ raised between steps saves the full state of the last step and is raised
 again; one raised part-way through a step is raised again with nothing
 saved, since the trainer then holds no step's state. `--resume_state` takes
 a saved state up at its step. `--profile_dir` writes a torch.profiler trace
-of steps start+2 to start+4. Background overlays (`--overlay_source`) are
-not ported and raise.
+of steps start+2 to start+4. `--overlay_source` (a folder of backgrounds
+with .txt captions, or a .tar of them) composites examples over backgrounds
+with probability `--overlay_prob` (`data/overlays.py`), as JAX's CLI does; no
+trainer of either package reads the composites' `wds_*` fields.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 from adaprompt_tpu_torch.adaface import subj_basis_generator as sbg_mod
 from adaprompt_tpu_torch.cli import common
 from adaprompt_tpu_torch.data import dataset as ds
+from adaprompt_tpu_torch.data.overlays import BackgroundOverlayProvider
 from adaprompt_tpu_torch.models import clip_text, unet as unet_mod
 from adaprompt_tpu_torch.ops.layers import reset_parameters
 from adaprompt_tpu_torch.train import steps as steps_mod
@@ -100,7 +103,7 @@ def parse_args(argv=None):
     p.add_argument("--out_dir", type=str, default="runs/adaprompt")
     p.add_argument("--ckpt_every", type=int, default=500)
     p.add_argument("--overlay_source", type=str, default=None,
-                   help="background-overlay dir or .tar (wds role); not ported: raises")
+                   help="background-overlay dir or .tar (wds role)")
     p.add_argument("--overlay_prob", type=float, default=0.0)
     p.add_argument("--fsdp", type=int, default=1,
                    help="fsdp axis size (multi-card training is not ported yet: > 1 raises)")
@@ -220,10 +223,6 @@ def train_static(args, pipe, frozen):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.overlay_source:
-        # no trainer reads the composites' wds_* fields yet
-        raise NotImplementedError("--overlay_source: background overlays are not ported "
-                                  "(ROADMAP A8, with the trainer change that reads them)")
     pipe = common.load_pipeline(args)
     tok = pipe.tokenizer
 
@@ -303,8 +302,12 @@ def main(argv=None):
 
     subjects = ds.scan_subject_folders(args.data_roots)
     print(f"{len(subjects)} subjects, {sum(len(s.image_paths) for s in subjects)} images")
+    overlay = None
+    if args.overlay_source:
+        overlay = BackgroundOverlayProvider(args.overlay_source, size=args.size, seed=args.seed)
     dset = ds.PersonalizedDataset(subjects, size=args.size, seed=args.seed,
-                                  num_vectors_per_subj_token=scfg.num_out_embs_per_layer)
+                                  num_vectors_per_subj_token=scfg.num_out_embs_per_layer,
+                                  overlay_provider=overlay, overlay_prob=args.overlay_prob)
     bs = args.bs or (4 if args.stage == 1 else 3)
     it = ds.make_batch_iterator(dset, ds.SubjectSampler(subjects, seed=args.seed),
                                 batch_size=bs, num_workers=args.num_workers)

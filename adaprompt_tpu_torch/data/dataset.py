@@ -10,7 +10,19 @@ Port of `adaprompt_tpu/data/dataset.py` on numpy, with no PIL:
     shift within the empty margins (margin 12 px);
   * the 4-type prompt set (`data/prompts.py`);
   * `SubjectSampler`: every batch is drawn from ONE subject, subjects sampled
-    in proportion to their image counts, non-face subjects skippable.
+    in proportion to their image counts, non-face subjects skippable;
+  * background overlays: with an `overlay_provider` (`data/overlays.py`),
+    an example is composited over a background with probability
+    `overlay_prob` (its `wds_*` fields); the coin is drawn only when a
+    provider is set, as in JAX.
+
+The collate stacks each key that every example has as JAX's does; a key
+that only some examples have (the composites' under 0 < overlay_prob < 1)
+becomes a list with None where an example lacks it (`has_wds_comp` says
+which), where JAX's collate, which reads the first example's keys, drops it
+or raises a KeyError. With `num_workers > 0` the provider's draws interleave
+across the loader's threads, in JAX as here; batches equal JAX's bit for bit
+at `num_workers=0`.
 
 Photos are read through `utils/png.read_image` (PNG and `.npy` on numpy and
 zlib; other formats through PIL, where it is installed). The batches are
@@ -28,6 +40,7 @@ import random
 
 import numpy as np
 
+from adaprompt_tpu_torch.data.overlays import composite_wds_example
 from adaprompt_tpu_torch.data.prompts import generate_prompt_set
 from adaprompt_tpu_torch.utils.png import read_image, to_grey
 
@@ -142,8 +155,11 @@ class PersonalizedDataset:
                  num_vectors_per_subj_token: int = 16,
                  num_vectors_per_bg_token: int = 4,
                  num_compositions_per_image: int = 1,
-                 seed: int | None = None):
+                 seed: int | None = None,
+                 overlay_provider=None, overlay_prob: float = 0.0):
         assert subjects, "no subjects found"
+        self.overlay_provider = overlay_provider
+        self.overlay_prob = overlay_prob
         self.subjects = subjects
         self.size = size
         self.flip_p = flip_p
@@ -196,12 +212,16 @@ class PersonalizedDataset:
             num_compositions_per_image=self.num_compositions_per_image,
             rng=rng))
 
-        # the background-overlay fields of JAX's examples, always the plain
-        # ones: overlays are not ported (ROADMAP A8)
+        # the background-overlay fields, composited with overlay_prob
         ex["has_wds_comp"] = False
         ex["wds_caption"] = ex["caption"]
         ex["wds_caption_bg"] = ex["caption_bg"]
         ex["wds_comp_extra"] = ""
+        if (self.overlay_provider is not None
+                and rng.random() < self.overlay_prob):
+            bg = self.overlay_provider.sample()
+            if bg is not None:
+                ex = composite_wds_example(ex, bg[0], bg[1], subj.cls_delta_string)
         return ex
 
 
@@ -225,8 +245,14 @@ class SubjectSampler:
 
 
 def _collate(examples: list, subj_idx: int) -> dict:
+    """Every example's keys, in the order they first appear: stacked (strings
+    and flags as lists) where all examples have the key, else a list with
+    None for the examples without it."""
     batch = {}
-    for k in examples[0]:
+    for k in dict.fromkeys(k for e in examples for k in e):
+        if not all(k in e for e in examples):
+            batch[k] = [e.get(k) for e in examples]
+            continue
         vals = [e[k] for e in examples]
         batch[k] = vals if isinstance(vals[0], (str, bool)) else np.stack(vals)
     batch["subject_idx"] = subj_idx

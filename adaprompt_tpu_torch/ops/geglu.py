@@ -8,8 +8,9 @@ CUDA tensors launching its kernel or raising:
     g and g.W2^T -> out, with g [M, F] bf16 in a scratch that the wrapper
     allocates; it counts one launch. `geglu` is the differentiable op: an
     autograd Function whose forward is `geglu_fwd` and whose backward
-    recomputes through `geglu_reference` under autograd, as the JAX
-    package's `_geglu_bwd` does (its backward is XLA, not a kernel);
+    recomputes through `geglu_reference` under autograd on the weights as
+    given (float32 weights get float32 gradients), as the JAX package's
+    `_geglu_bwd` does (its backward is XLA, not a kernel);
   * `geglu_int8` (CUDA: csrc/geglu_int8.cu; replaces `_geglu_i8_kernel`),
     the w8a8 variant of the `quant="int8"` serving path, forward only,
     plain version `geglu_int8_reference`. One C call runs four kernels, x
@@ -53,7 +54,8 @@ def fused_eligible(x, w1) -> bool:
 
 
 def geglu_fwd(x, w1, b1, w2, b2):
-    """Fused GEGLU forward: x [..., C]; w1 [2F, C]; b1 [2F]; w2 [C, F]; b2 [C]."""
+    """Fused GEGLU forward: x [..., C]; w1 [2F, C]; b1 [2F]; w2 [C, F]; b2 [C].
+    On the card x is bfloat16 and the weights bfloat16 or float32."""
     if x.device.type == "cpu":
         return geglu_reference(x, w1, b1, w2, b2)
     shape = x.shape
@@ -66,7 +68,10 @@ def geglu_fwd(x, w1, b1, w2, b2):
     if c % 16 or f % 64:
         raise ValueError(f"geglu kernel: needs C % 16 == 0 and F % 64 == 0 (C={c}, F={f})")
     m = x.numel() // c
-    x2, w1, w2 = cuda_build.kernel_operands("geglu kernel", x.reshape(m, c), w1, w2)
+    # float32 weights (a trained UNet's, under bf16 activations) are rounded
+    # to the kernel's bf16 operands, as the linear layers round theirs
+    x2, w1, w2 = cuda_build.kernel_operands("geglu kernel", x.reshape(m, c),
+                                            w1.to(x.dtype), w2.to(x.dtype))
     b1 = b1.to(device=x.device, dtype=torch.float32).contiguous()
     b2 = b2.to(device=x.device, dtype=torch.float32).contiguous()
     g = torch.empty((m, f), dtype=x2.dtype, device=x2.device)   # the kernels' scratch

@@ -114,6 +114,14 @@ class Prodigy(torch.optim.Optimizer):
         self.count = k + 1
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as XLA and numpy take it: through
+    float64 (torch's vectorized float32 sqrt on the CPU is up to an ulp off
+    it, which Adam's first step, ~lr * sign(g), turns into a visible move
+    where a weight is near lr)."""
+    return x.double().sqrt().to(x.dtype)
+
+
 class AdamW(torch.optim.Optimizer):
     """optax.adamw's update; `lr` is a float or a schedule (update count ->
     learning rate). Moments in the parameters' dtype, scalars in float32."""
@@ -144,7 +152,7 @@ class AdamW(torch.optim.Optimizer):
             st = self.state[p]
             m = st["exp_avg"].mul_(b1).add_(g * (1 - b1))
             v = st["exp_avg_sq"].mul_(b2).add_(g * g * (1 - b2))
-            upd = (m / float(bc1)) / ((v / float(bc2)).sqrt() + eps) + wd * p
+            upd = (m / float(bc1)) / (_sqrt(v / float(bc2)) + eps) + wd * p
             p.add_(upd * float(-lr))
         self.count = k + 1
 

@@ -1,9 +1,17 @@
 """Training steps: the Arc2Face distillation step, the zero-shot
 reconstruction step and the static (textual-inversion) one.
 
-Port of `adaprompt_tpu/train/steps.py` (`TrainState`, `FrozenSD`,
-`frozen_params`, `make_arc2face_distill_step`) and of the JAX trainer's
-`apply_emb_scale`, `make_zs_recon_step` and `make_static_recon_step`.
+Port of `adaprompt_tpu/train/steps.py` (`TrainState`, `create_train_state`,
+`masked_recon_loss`, `make_recon_step`, `FrozenSD`, `frozen_params`,
+`make_arc2face_distill_step`) and of the JAX trainer's `apply_emb_scale`,
+`make_zs_recon_step` and `make_static_recon_step`.
+
+Full-UNet reconstruction (`UNetReconStep`, `make_recon_step`). The masked
+reconstruction loss of the noised latents under a given context. By default
+the state's params are {"unet": UNet}: the UNet's own float32 weights are
+trained, with the activations in the compute dtype. With `context_fn`
+(params, batch) -> [L, B, S, D], the step trains whatever makes the context
+against the frozen UNet in batch["unet"].
 
 Distillation (`DistillStep`). The frozen Arc2Face
 teacher denoises a chain of ND steps; the student, the frozen SD UNet
@@ -78,6 +86,86 @@ class TrainState:
     params: dict          # {"subj_basis": SubjBasisGenerator, "emb_scales": Parameter}
     optimizer: object     # prodigy.GradientPipeline over those parameters
     step: int = 0
+
+
+def _train_step(state: TrainState, loss_fn):
+    """One update of the state's parameters: loss_fn() -> (loss, {metric:
+    scalar tensor}), its backward and the pipeline's step. Returns (state,
+    the metrics detached, with the gradients' norm before clipping)."""
+    params = trainable_parameters(state.params)
+    state.optimizer.zero_grad()
+    loss, metrics = loss_fn()
+    loss.backward()
+    grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+    state.optimizer.step()
+    state.step += 1
+    metrics = {name: v.detach() for name, v in metrics.items()}
+    metrics["grad_norm"] = grad_norm
+    return state, metrics
+
+
+def create_train_state(params: dict, optimizer) -> TrainState:
+    """A state that trains every parameter of `params` {name: module or
+    parameter}: each is set to require gradients. `optimizer` builds the
+    GradientPipeline from their list (`functools.partial(
+    trainer.build_optimizer, cfg)`), as optax's `init` does from the tree."""
+    leaves = trainable_parameters(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return TrainState(params, optimizer(leaves))
+
+
+def masked_recon_loss(eps_pred: torch.Tensor, eps: torch.Tensor, fg_mask: torch.Tensor | None,
+                      aug_mask: torch.Tensor | None, bg_weight: float = 0.1) -> torch.Tensor:
+    """calc_recon_loss with the recon iterations' weights: fg 1, bg
+    `bg_weight`, aug_mask as the image mask."""
+    return calc_recon_loss(eps_pred, eps, aug_mask, fg_mask, fg_pixel_weight=1.0,
+                           bg_pixel_weight=bg_weight)
+
+
+class UNetReconStep:
+    """The full-UNet reconstruction step.
+
+    step(state, batch, gen) -> (state, metrics {"loss_recon", "grad_norm"})
+    with batch {'z0' [B,h,w,4] scaled latents, 'context' [L,B,S,D] (without
+    context_fn), 'unet' the frozen UNet (with context_fn), 'fg_mask' and
+    'aug_mask' [B,h,w,1] | None}. The augmentation mask is also the
+    self-attention key mask."""
+
+    def __init__(self, unet_cfg=None, sched: DiffusionSchedule = SD15_SCHEDULE,
+                 context_fn=None, compute_dtype=torch.bfloat16):
+        self.unet_cfg, self.sched = unet_cfg, sched
+        self.context_fn, self.compute_dtype = context_fn, compute_dtype
+
+    def draw(self, gen: torch.Generator, z0: torch.Tensor) -> dict:
+        """The timesteps and the noise, from `gen` (on z0's device)."""
+        b, dev = z0.shape[0], z0.device
+        return {"t": torch.randint(0, self.sched.num_timesteps, (b,), generator=gen, device=dev),
+                "noise": torch.randn(z0.shape, generator=gen, device=dev)}
+
+    def loss(self, params: dict, batch: dict, draws: dict):
+        if self.context_fn is None:
+            unet, ctx = params["unet"], batch["context"]
+        else:
+            unet, ctx = batch["unet"], self.context_fn(params, batch)
+        t, noise, dt = draws["t"], draws["noise"], self.compute_dtype
+        z_t = q_sample(self.sched, batch["z0"], t, noise)
+        eps = unet(z_t.to(dt), t, ctx.to(dt), img_mask=batch.get("aug_mask"), cfg=self.unet_cfg)
+        loss = masked_recon_loss(eps.float(), noise, batch.get("fg_mask"), batch.get("aug_mask"))
+        return loss, {"loss_recon": loss}
+
+    def __call__(self, state: TrainState, batch: dict, gen: torch.Generator,
+                 draws: dict | None = None):
+        draws = self.draw(gen, batch["z0"]) if draws is None else draws
+        return _train_step(state, lambda: self.loss(state.params, batch, draws))
+
+
+def make_recon_step(unet_cfg=None, sched: DiffusionSchedule = SD15_SCHEDULE,
+                    context_fn=None, compute_dtype=torch.bfloat16) -> UNetReconStep:
+    """The JAX package's make_recon_step; the optimizer lives in the state
+    (`create_train_state`). `unet_cfg` overrides the UNet's options for the
+    step's forward (None: the model's own)."""
+    return UNetReconStep(unet_cfg, sched, context_fn, compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -299,17 +387,7 @@ class ReconStep:
     def __call__(self, state: TrainState, fp: dict, batch: dict, gen: torch.Generator,
                  draws: dict | None = None):
         draws = self.draw(gen, batch["z0"]) if draws is None else draws
-        params = trainable_parameters(state.params)
-        state.optimizer.zero_grad()
-        loss, metrics = self.loss(state.params, fp, batch, draws)
-        loss.backward()
-        # the gradients' norm before clipping
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
-        state.optimizer.step()
-        state.step += 1
-        metrics = {name: v.detach() for name, v in metrics.items()}
-        metrics["grad_norm"] = grad_norm
-        return state, metrics
+        return _train_step(state, lambda: self.loss(state.params, fp, batch, draws))
 
 
 def make_zs_recon_step(frozen: FrozenSD, tokenizer, subj_basis_cfg, **kw) -> ReconStep:

@@ -17,7 +17,10 @@ object (DINO) branch, gen_eval and txt2img --compare_with, image metrics);
 face detection (RetinaFace R50 and BiSeNet parsing, their alignment, the
 detectors of every CLI, gen_face_masks and face_tools); img2img sampling
 (DDIM's eta, mask, stochastic_encode / ddim_decode) under the translate CLI,
-the diffusers-format loaders under arc2face_gen, and the demo's REPL.
+the diffusers-format loaders under arc2face_gen, and the demo's REPL; the
+full-UNet reconstruction step (the UNet's own weights trained, or a context
+against the frozen UNet), the legacy Ada embedder, the class-delta functions
+and the training CLI's background overlays.
 
     python3 chip_smoke.py
 
@@ -240,7 +243,27 @@ Phases, in order (any failure exits non-zero without the final line):
      importing ("cli_demo": 600 each):
      the fallback line, the saved PNG equal to its image; logs each run's
      wall time, loads, steps and peak memory;
- 18. print the kernels' JSON line (thirteen rows), the card's name and
+ 18. the rest of the personalization chain and the background overlays,
+     right after phase 17 and in its temporary directory, over phase 14's
+     subjects: (a) make_recon_step over a seeded full-width SD-1.5 UNet in
+     fp32 with bf16 activations, its own weights trained under AdamW, 3
+     steps at batch 4, 512x512, the aug mask as key mask (path
+     "unet_recon": B1 20, B3 20, B4 10 a step, B2 none): step 1's loss and
+     gradient norm against the same draws with the kernels' plain versions
+     in fp32 (relative 1e-2 and 5e-2), every weight moved, step times and
+     peak memory; (b) one context_fn step, a trainable table making the
+     context of that UNet frozen ("unet_recon_ctx": B1 20, B3 20, B4 9);
+     (c) ada_forward over the 16 CA layers at the 512x512 shapes, batch 4,
+     the UNet's to_k, a seeded AdaEmbedder read by ada_from_torch from the
+     reference's layout: fp32 card (TF32 off) against the CPU within 1e-4
+     relative L2, no launch, its time; (d) merge_cls_token_embeddings and
+     distribute_embedding_to_M_tokens on the card bit-equal to the CPU; (e)
+     train.main with --overlay_source over a folder of PNG and JPEG
+     backgrounds and over a .tar of them ("cli_train_overlay_dir",
+     "cli_train_overlay_tar"), --overlay_prob 0.5, 2 recon steps: every
+     composite equal to PIL's decode, BICUBIC resize and crop of its source
+     pasted in numpy, launches as the rows imply;
+ 19. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -3188,7 +3211,7 @@ def _run_train_cli(path, argv, card, usr1_step=None):
              for k in ("save_checkpoint", "save_full_state", "log_samples") if timers[k].calls}
     steps = [round(c[0], 3) for c in timers["step"].calls + timers["static_step"].calls]
     files = sorted(os.listdir(out))
-    log(f"phase {16 if path in _DETECT else 14} {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
+    log(f"phase {16 if path in _DETECT else 18 if path in _PERSONAL else 14} {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
         f"times {steps} s; samples and saves {saves} s; peak memory {peak:.2f} GiB; files "
         f"{files}; launches {nz(launches)}; {card}")
     return rows, timers, seconds, launches
@@ -3203,7 +3226,7 @@ def _check_train_rows(path, rows, steps):
         if not skipped and not (math.isfinite(loss) and math.isfinite(r["grad_norm"])
                                 and r["grad_norm"] > 0):
             raise AssertionError(f"{path}: bad metrics {r}")
-    log(f"phase {16 if path in _DETECT else 14} {path} steps: " + "; ".join(
+    log(f"phase {16 if path in _DETECT else 18 if path in _PERSONAL else 14} {path} steps: " + "; ".join(
         f"{r['step']} {r['iter_type']}"
         + (f" ND={r['num_denoising_steps']} bs={r['distill_bs']}" if "distill_bs" in r else "")
         + (f" loss={r.get('loss', r.get('loss_arc2face_distill', r.get('loss_compos'))):.6f}"
@@ -4332,8 +4355,404 @@ def phase_img2img(tmp, files):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the full-UNet recon step, the legacy Ada embedder, the class-delta
+# functions and the train CLI's background overlays
+# ---------------------------------------------------------------------------
+
+RECON_UNET_STEPS = 3        # make_recon_step at batch 4, 512x512 (64x64 latents), AdamW
+RECON_UNET_BATCH = 4
+# step 1, bf16 kernels against the same step with every kernel's plain version
+# in fp32 (TF32 off), on the same draws: relative error of the loss and of the
+# gradient norm
+RECON_UNET_LOSS_TOL = 1e-2
+RECON_UNET_GNORM_TOL = 5e-2
+ADA_TOL = 1e-4              # ada_forward fp32 card (TF32 off) vs fp32 CPU, relative L2
+ADA_CFG = dict(num_vectors=9, fg_emb_count=4, bg_emb_count=4, rank=12, num_init_vecs=2)
+OVERLAY_STEPS = 2
+OVERLAY_BACKGROUNDS = (     # name, (h, w), caption: each accepted at --size 512
+    ("lake.png", (560, 600), "a mountain lake at sunset"),
+    ("street.jpg", (512, 640), "an empty city street at night"),
+    ("beach.png", (640, 560), "a quiet beach with palm trees"),
+    ("forest.jpg", (420, 440), "a foggy forest road in autumn"),
+)
+# a training forward with remat: B1 and B3 at each of the 10 fused-eligible
+# layers (64x64 and 32x32 maps) twice (forward and recompute); B4 at each of
+# them when the UNet's weights train, at 9 when only the context does (the
+# first self-attention then needs no gradient)
+UNET_STEP_LAUNCHES = dict(flash_attention_fwd=20, geglu_fwd=20, flash_attention_bwd=10)
+CTX_STEP_LAUNCHES = dict(flash_attention_fwd=20, geglu_fwd=20,
+                         flash_attention_bwd=FLASH_BWD_PER_PASS)
+
+
+class _PlainKernels:
+    """For the duration of a `with`, the UNet's flash attention and fused
+    GEGLU go through their plain versions on any device (the reference
+    computation of phase 18 (a), in fp32)."""
+
+    def __enter__(self):
+        from adaprompt_tpu_torch.models import unet as unet_mod
+        from adaprompt_tpu_torch.ops import attention, geglu
+        self.saved = ((attention, "flash_attention", attention.flash_attention),
+                      (unet_mod, "geglu", unet_mod.geglu))
+        attention.flash_attention = lambda q, k, v, key_bias, scale, variant=None: \
+            attention.attention_reference(q, k, v, key_bias, scale)[0]
+        unet_mod.geglu = geglu.geglu_reference
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def _recon_batch(gen, b):
+    """Scaled latents, a [1, B, 77, 768] context, a box fg mask and an aug
+    mask that pads ~29 % of the width, at 64x64 latents."""
+    import torch
+    z0 = torch.randn(b, 64, 64, 4, device="cuda", generator=gen)
+    ctx = torch.randn(1, b, 77, 768, device="cuda", generator=gen)
+    fg = torch.zeros(b, 64, 64, 1, device="cuda")
+    fg[:, 16:48, 20:44] = 1.0
+    aug = torch.ones(b, 64, 64, 1, device="cuda")
+    aug[:, :, :19] = 0.0
+    return {"z0": z0, "context": ctx, "fg_mask": fg, "aug_mask": aug}
+
+
+def phase_unet_recon(card):
+    """Phase 18 (a) and (b): make_recon_step over a seeded full-width SD-1.5
+    UNet in fp32 on the card, bf16 activations. (a) the UNet's own weights
+    under AdamW (clip 0.5, the trainer's schedule), RECON_UNET_STEPS steps
+    at batch 4: before step 1, the same loss and gradient on the same draws
+    with the kernels' plain versions in fp32 (no launch); each step's loss
+    and gradient norm finite, every weight moved, exact launches a step;
+    (b) one context_fn step: a trainable [1, 1, 77, 768] table makes the
+    context of the same UNet, frozen. Returns ({path: launches}, the UNet)."""
+    import functools
+    import torch
+    from adaprompt_tpu_torch.models.unet import UNet
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
+    from adaprompt_tpu_torch.train import steps as steps_mod
+    from adaprompt_tpu_torch.train.trainer import TrainerConfig, build_optimizer
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    t0 = time.perf_counter()
+    unet = randomize_zero_init(reset_parameters(UNet(device="cuda", dtype=torch.float32), gen),
+                               gen)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in unet.parameters())
+    batch = _recon_batch(gen, RECON_UNET_BATCH)
+    opt = functools.partial(build_optimizer, TrainerConfig(optimizer_type="AdamW", grad_accum=1,
+                                                           max_steps=1000))
+    state = steps_mod.create_train_state({"unet": unet}, opt)
+    step = steps_mod.make_recon_step(compute_dtype=torch.bfloat16)
+    draws = step.draw(gen, batch["z0"])
+
+    # the reference: plain versions in fp32 on the same weights and draws
+    plain = steps_mod.make_recon_step(compute_dtype=torch.float32)
+    before = read_counts()
+    with _PlainKernels():
+        ref_loss, _ = plain.loss(state.params, batch, draws)
+        ref_loss.backward()
+    ref_gnorm = steps_mod.global_norm([p.grad for p in unet.parameters()]).item()
+    ref_loss = ref_loss.item()
+    state.optimizer.zero_grad()
+    if nz(counts_since(before)):
+        raise AssertionError(f"the plain reference launched {nz(counts_since(before))}")
+
+    snapshot = [p.detach().clone() for p in unet.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    rows, per_step = [], []
+    for i in range(RECON_UNET_STEPS):
+        before = read_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen, draws=draws if i == 0 else None)
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, m["loss_recon"].item(), m["grad_norm"].item()))
+        per_step.append(counts_since(before))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(p, q) for p, q in zip(unet.parameters(), snapshot))
+    del snapshot
+    want = {n: 0 for n in launches}
+    want.update(UNET_STEP_LAUNCHES)
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"unet_recon step {i} launches {nz(c)}, expected {nz(want)}")
+    loss_err = abs(rows[0][1] - ref_loss) / abs(ref_loss)
+    gnorm_err = abs(rows[0][2] - ref_gnorm) / ref_gnorm
+    log(f"phase 18 (a) unet_recon: make_recon_step, SD-1.5 UNet {n_params / 1e6:.1f} M fp32 "
+        f"weights (init {init_s:.1f} s) under AdamW, batch {RECON_UNET_BATCH} at 512x512, bf16 "
+        f"activations: step s {[round(r[0], 4) for r in rows]}, loss_recon "
+        f"{[round(r[1], 6) for r in rows]}, grad_norm {[round(r[2], 6) for r in rows]}; step 1 "
+        f"against the plain versions in fp32 on the same draws (loss {ref_loss:.6f}, grad_norm "
+        f"{ref_gnorm:.6f}): relative errors {loss_err:.4e} (bound {RECON_UNET_LOSS_TOL:g}), "
+        f"{gnorm_err:.4e} (bound {RECON_UNET_GNORM_TOL:g}); {moved} of "
+        f"{len(list(unet.parameters()))} weight tensors moved; peak memory {peak:.2f} GiB; "
+        f"launches a step {nz(want)}; {card}")
+    if not all(math.isfinite(r[1]) and math.isfinite(r[2]) and r[2] > 0 for r in rows):
+        raise AssertionError(f"unet_recon: bad metrics {rows}")
+    if not (loss_err <= RECON_UNET_LOSS_TOL and gnorm_err <= RECON_UNET_GNORM_TOL):
+        raise AssertionError(f"unet_recon step 1 disagrees with the plain versions: loss "
+                             f"{loss_err}, grad_norm {gnorm_err}")
+    if moved != len(list(unet.parameters())):
+        raise AssertionError(f"unet_recon: only {moved} weight tensors moved")
+    by_path = {"unet_recon": launches}
+    del state
+    unet.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+    # (b) context_fn: a trainable table makes the context of the frozen UNet
+    table = torch.nn.Parameter(0.5 * torch.randn(1, 1, 77, 768, device="cuda", generator=gen))
+    table0 = table.detach().clone()
+    sums = [p.double().sum().item() for p in unet.parameters()]
+    state = steps_mod.create_train_state({"ctx": table}, opt)
+    ctx_step = steps_mod.make_recon_step(
+        compute_dtype=torch.bfloat16,
+        context_fn=lambda p, b: p["ctx"].expand(-1, b["z0"].shape[0], -1, -1))
+    ctx_batch = {k: v for k, v in batch.items() if k != "context"}
+    zero_counts()
+    t0 = time.perf_counter()
+    state, m = ctx_step(state, dict(ctx_batch, unet=unet), gen)
+    torch.cuda.synchronize()
+    ctx_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = {n: 0 for n in launches}
+    want.update(CTX_STEP_LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"unet_recon_ctx launches {nz(launches)}, expected {nz(want)}")
+    loss, gnorm = m["loss_recon"].item(), m["grad_norm"].item()
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+            and not torch.equal(table.detach(), table0)
+            and sums == [p.double().sum().item() for p in unet.parameters()]):
+        raise AssertionError(f"unet_recon_ctx: loss {loss}, grad_norm {gnorm}, the table or "
+                             "the frozen UNet")
+    log(f"phase 18 (b) unet_recon_ctx: one context_fn step (a trainable 77x768 table, the UNet "
+        f"frozen): {ctx_s:.4f} s (first call), loss_recon {loss:.6f}, grad_norm {gnorm:.6e}; the "
+        f"table moved, the UNet did not; launches {nz(want)}; {card}")
+    by_path["unet_recon_ctx"] = launches
+    del state, table
+    return by_path, unet
+
+
+def phase_ada(unet, tmp, card):
+    """Phase 18 (c): ada_forward over the 16 CA layers at the 512x512 shapes,
+    batch 4: a seeded AdaEmbedder (K 9: 4 fg, 4 bg, 1 both; r 12 with 2
+    init vectors) written in the reference's layout, read by ada_from_torch
+    on the card and on the CPU, the CA layers' to_k (and to_q, which makes
+    the queries) from the phase's UNet, seeded features, time embedding,
+    probes and a 512x512 fg mask; fp32 card (TF32 off) against the CPU
+    within ADA_TOL relative L2 per layer, no kernel launched; times the 16
+    layers on the card."""
+    import os
+    import sys
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import reference_layouts as rl
+    from adaprompt_tpu_torch.adaface import ada_embedder as ae
+    if unet.l2ca != ae.LAYER_IDX2CA:
+        raise AssertionError(f"the UNet's CA layers {unet.l2ca} are not the embedder's")
+    cfg = ae.AdaEmbedderConfig(**ADA_CFG)
+    gen = torch.Generator().manual_seed(19)
+    init = torch.randn(ADA_CFG["num_init_vecs"], 768, generator=gen)
+    path = os.path.join(tmp, "ada_embedding.pt")
+    torch.save(rl.ada_embedding_reference(ae.ada_init(gen, cfg, init)), path)
+    sd = torch.load(path)
+    ada = {dev: ae.ada_from_torch(sd, cfg, device=dev) for dev in ("cuda", "cpu")}
+    b = RECON_UNET_BATCH
+    common = {"time": torch.randn(b, 1280, generator=gen), "probe": torch.randn(768, generator=gen),
+              "extra": torch.randn(b, 768, generator=gen)}
+    mask = torch.zeros(b, 1, 512, 512)
+    mask[:, :, 128:384, 160:352] = 1.0
+    layers = {}
+    for layer_idx, ca in ae.LAYER_IDX2CA.items():
+        c = cfg.ca_infeat_dims[ca]
+        hw = 8 if ca == 6 else {320: 64, 640: 32, 1280: 16}[c]
+        attn2 = unet._block(layer_idx)["attn2"]
+        x = torch.randn(b, hw * hw, c, generator=gen)
+        layers[layer_idx] = {"x": x, "q": x @ attn2["to_q"].weight.detach().cpu().t(),
+                             "to_k_w": attn2["to_k"].weight.detach().cpu(), "infeat_size": (hw, hw)}
+    on = {dev: ({li: {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in la.items()}
+                 for li, la in layers.items()},
+                {k: v.to(dev) for k, v in common.items()}, mask.to(dev))
+          for dev in ("cuda", "cpu")}
+
+    def run(dev):
+        la, com, m = on[dev]
+        return {li: ada[dev](li, la[li], com["time"], com["probe"], com["extra"], m) for li in la}
+
+    zero_counts()
+    with torch.no_grad():
+        card_out = run("cuda")
+        torch.cuda.synchronize()
+        launches = nz(read_counts())
+        t0 = time.perf_counter()
+        cpu_out = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        ms = time_ms(lambda: run("cuda"), 5)
+    errs = {}
+    for li, (out, pooled) in cpu_out.items():
+        got, got_pooled = card_out[li]
+        errs[li] = max(((got.cpu() - out).norm() / out.norm()).item(),
+                       ((got_pooled["bg_out"].cpu() - pooled["bg_out"]).norm()
+                        / pooled["bg_out"].norm()).item())
+        if tuple(got.shape) != (b, cfg.num_vectors, 768) or not torch.isfinite(got).all():
+            raise AssertionError(f"ada layer {li}: {tuple(got.shape)}")
+    log(f"phase 18 (c) ada_forward: 16 CA layers, batch {b}, K {cfg.num_vectors} x r {cfg.rank} "
+        f"at 512x512 shapes (features 64x64x320 .. 8x8x1280, a 512x512 mask), the UNet's "
+        f"to_k, from the reference layout ({os.path.getsize(path) / 2 ** 20:.1f} MiB); fp32 "
+        f"card vs CPU relative L2 max {max(errs.values()):.3e} (bound {ADA_TOL:g}); card "
+        f"{ms:.3f} ms for the 16 layers, CPU {1e3 * cpu_s:.1f} ms; launches {launches}; {card}")
+    if launches or not max(errs.values()) <= ADA_TOL:
+        raise AssertionError(f"ada_forward: errors {errs}, launches {launches}")
+
+
+def phase_cls_delta(card):
+    """Phase 18 (d): merge_cls_token_embeddings (two deltas in one row, M 2
+    and 3) and distribute_embedding_to_M_tokens (M 16, each divisor) on the
+    card, bit-equal to the CPU."""
+    import torch
+    from adaprompt_tpu_torch.adaface import cls_delta
+    gen = torch.Generator().manual_seed(20)
+    emb = torch.randn(8, 77, 768, generator=gen)
+    indices = [(4, 5, 2, "a"), (4, 12, 3, "b"), (6, 7, 3, "b")]
+    weights = {"a": [0.25, 0.75], "b": [0.2, 0.3, 0.5]}
+    zero_counts()
+    pairs = [(cls_delta.merge_cls_token_embeddings(emb.cuda(), indices, weights),
+              cls_delta.merge_cls_token_embeddings(emb, indices, weights))]
+    pos = list(range(5, 21))
+    for scheme in ("sqrt_M", "M", "none"):
+        pairs.append((cls_delta.distribute_embedding_to_M_tokens(emb.cuda(), pos, scheme),
+                      cls_delta.distribute_embedding_to_M_tokens(emb, pos, scheme)))
+    launches = nz(read_counts())
+    equal = [torch.equal(a.cpu(), b) for a, b in pairs]
+    log(f"phase 18 (d) cls_delta: merge (3 deltas, 2 in one row) and distribute (M 16, 3 "
+        f"divisors) on [8, 77, 768] fp32, card bit-equal to the CPU: {equal}; launches "
+        f"{launches}; {card}")
+    if not all(equal) or launches or torch.equal(pairs[0][1], emb):
+        raise AssertionError(f"cls_delta on the card: {equal}, launches {launches}")
+
+
+def _overlay_sources(tmp):
+    """OVERLAY_BACKGROUNDS as a folder (PNG through the port's writer, JPEG
+    through PIL) with .txt captions, and a .tar of the folder."""
+    import os
+    import tarfile
+    import numpy as np
+    from PIL import Image
+    from adaprompt_tpu_torch.utils.png import write_png
+    rng = np.random.default_rng(18)
+    folder = os.path.join(tmp, "backgrounds")
+    os.makedirs(folder)
+    for name, (h, w), cap in OVERLAY_BACKGROUNDS:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if name.endswith(".png"):
+            write_png(os.path.join(folder, name), img)
+        else:
+            Image.fromarray(img).save(os.path.join(folder, name), quality=90)
+        with open(os.path.join(folder, os.path.splitext(name)[0] + ".txt"), "w") as f:
+            f.write(cap)
+    tar = os.path.join(tmp, "backgrounds.tar")
+    with tarfile.open(tar, "w") as tf:
+        for f in sorted(os.listdir(folder)):
+            tf.add(os.path.join(folder, f), arcname=f)
+    return folder, tar
+
+
+def _check_composites(path, composites, folder):
+    """Each composite against a numpy recompute: the background against
+    PIL's decode, BICUBIC resize and centre crop of its source, the pasted
+    image and the captions. Returns how many were checked."""
+    import os
+    import numpy as np
+    from PIL import Image
+    srcs = {cap: name for name, _, cap in OVERLAY_BACKGROUNDS}
+    for ex, bg, cap, cls, out in composites:
+        with Image.open(os.path.join(folder, srcs[cap])) as im:
+            im = im.convert("RGB")
+            w, h = im.size
+            scale = 512 / min(w, h)
+            im = im.resize((int(round(w * scale)), int(round(h * scale))), Image.BICUBIC)
+            left, top = (im.size[0] - 512) // 2, (im.size[1] - 512) // 2
+            want_bg = np.asarray(im.crop((left, top, left + 512, top + 512)))
+        pasted = np.where(ex["fg_mask"][:, :, None] > 0, ex["image_unnorm"], want_bg)
+        extra = ", in front of " + cap.lower()
+        ok = (np.array_equal(bg, want_bg)
+              and np.array_equal(out["wds_image"], (pasted / 127.5 - 1.0).astype(np.float32))
+              and np.array_equal(out["wds_image_bgonly"], (want_bg / 127.5 - 1.0).astype(np.float32))
+              and out["wds_caption"] == ex["caption"] + extra
+              and out["wds_cls_caption"] == ex["caption"] + " " + cls + extra
+              and out["wds_caption_bg"] == ex["caption_bg"] + extra
+              and np.array_equal(out["wds_aug_mask"], ex["aug_mask"]) and out["has_wds_comp"])
+        if not ok:
+            raise AssertionError(f"{path}: the composite over {srcs[cap]} differs from the recompute")
+    return len(composites)
+
+
+def phase_overlay_cli(tmp, root, card):
+    """Phase 18 (e): train.main with --overlay_source over a folder of 2 PNG
+    and 2 JPEG backgrounds and over a .tar of them, --overlay_prob 0.5,
+    OVERLAY_STEPS recon steps at bs 4 on phase 14's subjects (random face
+    ids, the student's own UNet as teacher): every composite checked by
+    _check_composites, the trained batches' flags counted, launches as the
+    rows imply. Returns {path: launches}."""
+    import os
+    from adaprompt_tpu_torch.data import dataset as tds
+    folder, tar = _overlay_sources(tmp)
+    by_path = {}
+    for path, source in (("cli_train_overlay_dir", folder), ("cli_train_overlay_tar", tar)):
+        composites, flags = [], []
+        orig_composite, orig_collate = tds.composite_wds_example, tds._collate
+
+        def composite(ex, bg, cap, cls):
+            out = orig_composite(ex, bg, cap, cls)
+            composites.append((ex, bg, cap, cls, out))
+            return out
+
+        def collate(examples, subj_idx):
+            batch = orig_collate(examples, subj_idx)
+            flags.append(batch["has_wds_comp"])
+            return batch
+        tds.composite_wds_example, tds._collate = composite, collate
+        try:
+            rows, _, seconds, launches = _run_train_cli(path, [
+                "--data_roots", root, "--synthetic_faces", "--stage", "1", "--bs", "4",
+                "--num_steps", str(OVERLAY_STEPS), "--arc2face_distill_iter_prob", "0",
+                "--num_workers", "0", "--seed", "18", "--overlay_source", source,
+                "--overlay_prob", "0.5", "--out_dir", os.path.join(tmp, path)], card)
+        finally:
+            tds.composite_wds_example, tds._collate = orig_composite, orig_collate
+        _check_train_rows(path, rows, range(OVERLAY_STEPS))
+        _check_train_launches(path, launches, _train_cli_want(rows))
+        n = _check_composites(path, composites, folder)
+        n_flags = sum(sum(f) for f in flags[:OVERLAY_STEPS])
+        log(f"phase 18 (e) {path}: {seconds:.3f} s for {OVERLAY_STEPS} recon steps; composited "
+            f"examples per trained batch {[sum(f) for f in flags[:OVERLAY_STEPS]]} of 4, "
+            f"{n} composites bit-equal to the recompute (PIL's decode, BICUBIC and crop of the "
+            f"source; the paste and captions in numpy); {card}")
+        if n_flags == 0 or n < n_flags:
+            raise AssertionError(f"{path}: {n_flags} composited examples trained, {n} checked")
+        by_path[path] = launches
+    return by_path
+
+
+def phase_personalization(tmp, root):
+    """Phase 18, after phase 17 in its temporary directory: (a)-(e)."""
+    import torch
+    card = card_line()
+    t_phase = time.perf_counter()
+    by_path, unet = phase_unet_recon(card)
+    phase_ada(unet, tmp, card)
+    del unet
+    torch.cuda.empty_cache()
+    phase_cls_delta(card)
+    by_path.update(phase_overlay_cli(tmp, root, card))
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return by_path
+
+
 def phase_clis_and_train_cli():
-    """Phases 13 to 17 in one temporary directory, removed at the end."""
+    """Phases 13 to 18 in one temporary directory, removed at the end."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -4344,6 +4763,7 @@ def phase_clis_and_train_cli():
         launches.update(phase_eval(tmp, files, root))
         launches.update(phase_detect(tmp, files, root))
         launches.update(phase_img2img(tmp, files))
+        launches.update(phase_personalization(tmp, root))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -4360,17 +4780,19 @@ _EVAL_CLIS = ("cli_gen_eval", "cli_txt2img_compare")                            
 _DETECT = ("cli_infer_retinaface", "cli_train_detector")                                # 16
 _IMG2IMG = ("cli_translate", "cli_arc2face_gen_ldm", "cli_arc2face_gen_diffusers",
             "cli_demo")                                                                  # 17
+_PERSONAL = ("unet_recon", "unet_recon_ctx", "cli_train_overlay_dir",
+             "cli_train_overlay_tar")                                                   # 18
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
                             + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG),
+                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG + _PERSONAL),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
                             ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE
-                            + _TRAIN_CLI + ("cli_train_detector",)),
+                            + _TRAIN_CLI + ("cli_train_detector",) + _PERSONAL),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
@@ -4380,7 +4802,7 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launc
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
                   + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG),
+                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG + _PERSONAL),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",

@@ -340,6 +340,46 @@ def test_img2img_and_cli_modules_fall_under_the_rules():
             assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
 
 
+PERSONALIZATION_MODULES = ("adaprompt_tpu_torch.adaface.ada_embedder",
+                           "adaprompt_tpu_torch.adaface.cls_delta",
+                           "adaprompt_tpu_torch.data.overlays", "adaprompt_tpu_torch.data.dataset",
+                           "adaprompt_tpu_torch.train.steps", "adaprompt_tpu_torch.cli.train")
+
+
+def test_personalization_and_overlay_modules_fall_under_the_rules():
+    """The legacy Ada embedders, the class-delta functions, the background
+    overlays with the dataset and the train CLI that use them, and the steps
+    with the full-UNet recon step: each is found by the package walk;
+    imported together in a fresh interpreter they bring in neither jax, the
+    JAX package nor PIL (the overlays import PIL only to decode a
+    background that is not a PNG); no top-level statement of theirs imports
+    one; none names the JAX package, and the library modules hold no code
+    that only CUDA runs."""
+    import ast
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(PERSONALIZATION_MODULES) <= walked
+    banned = ("jax", "jaxlib", "adaprompt_tpu", "PIL")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in PERSONALIZATION_MODULES)
+            + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {banned!r}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    for m in PERSONALIZATION_MODULES:
+        text = open(os.path.join(ROOT, *m.split(".")) + ".py").read()
+        top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert not [x for x in names if x.split(".")[0] in banned], (m, names)
+        assert "import jax" not in text and "adaprompt_tpu." not in text, m
+        if ".cli." not in m:
+            assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
+
+
 def _int8_cross_args(x, wq, k, v, wo, bo):
     """The fused cross-attention's arguments with int8 weights and scales."""
     return (x, *quantize_weight(wq), k, v, *quantize_weight(wo), bo)

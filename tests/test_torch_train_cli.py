@@ -2,7 +2,8 @@
 JAX package's, on tiny models (`--device cpu`, `load_pipeline`
 monkeypatched as in tests/test_torch_cli.py): the parsed namespace with
 `--base` and `--set`, `build_trainer_config` field for field, every
-refusal under JAX's conditions, the CLIP key maps (`CLIPScorer.from_torch`,
+refusal under JAX's conditions, `--overlay_source` compositing the batches
+as JAX's dataset and provider do, the CLIP key maps (`CLIPScorer.from_torch`,
 `clip_vision.from_torch`) against JAX's on the transformers layout that
 `tools/reference_layouts.py` writes; then the port's CLI end to end in
 fp32: its losses equal to the port's trainer driven directly over the same
@@ -29,6 +30,7 @@ from adaprompt_tpu import pipeline as jpipe
 from adaprompt_tpu.adaface import checkpoint as jckpt, static_embedder as jse
 from adaprompt_tpu.adaface import subj_basis_generator as jsbg
 from adaprompt_tpu.cli import common as jcommon, train as jtrain
+from adaprompt_tpu.data import dataset as jds, overlays as jov
 from adaprompt_tpu.eval import clip_scorer as jscorer
 from adaprompt_tpu.models import clip_text as jclip, clip_vision as jcv
 from adaprompt_tpu_torch import pipeline as tpipe
@@ -192,11 +194,56 @@ def test_multi_card_raises(env, clis, tmp_path):
                               "--synthetic_faces", "--fsdp", "2", "--num_steps", "1"])
 
 
-def test_overlay_source_raises(env, clis, tmp_path):
-    """Background overlays are not ported (no trainer reads them yet)."""
-    with pytest.raises(NotImplementedError, match="overlays are not ported"):
-        ttrain.main(COMMON + ["--data_roots", env["root"], "--out_dir", str(tmp_path),
-                              "--synthetic_faces", "--overlay_source", str(tmp_path)])
+def test_overlay_source_composites_as_jax(env, clis, tmp_path, monkeypatch):
+    """--overlay_source over a folder of PNG backgrounds at --overlay_prob
+    0.5: the CLI takes its two recon steps, and the batches it trains on
+    hold, example by example, what the JAX CLI's dataset and
+    BackgroundOverlayProvider (size and seed from the same arguments) make,
+    composited ones and plain ones both."""
+    bg = tmp_path / "backgrounds"
+    bg.mkdir()
+    rng = np.random.default_rng(1)
+    for i, cap in enumerate(("a mountain lake at sunset", "an empty city street at night")):
+        write_png(str(bg / f"{i}.png"), rng.integers(0, 256, (70 + 4 * i, 80, 3), np.uint8))
+        (bg / f"{i}.txt").write_text(cap)
+    batches = []
+
+    def recording(*a, **kw):
+        for batch in tds_make_batch_iterator(*a, **kw):
+            batches.append(copy.deepcopy(batch))
+            yield batch
+    tds_make_batch_iterator = tds.make_batch_iterator
+    monkeypatch.setattr(tds, "make_batch_iterator", recording)
+    tr = ttrain.main(COMMON + [
+        "--data_roots", env["root"], "--out_dir", str(tmp_path / "out"), "--synthetic_faces",
+        "--num_steps", "2", "--arc2face_distill_iter_prob", "0", "--num_workers", "0",
+        "--seed", "6", "--overlay_source", str(bg), "--overlay_prob", "0.5"])
+    rows = _rows(tmp_path / "out")
+    assert [r["iter_type"] for r in rows] == ["recon", "recon"]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+
+    subjects = jds.scan_subject_folders(env["root"])
+    dset = jds.PersonalizedDataset(
+        subjects, size=SIZE, seed=6,
+        num_vectors_per_subj_token=tr.subj_basis_cfg.num_out_embs_per_layer,
+        overlay_provider=jov.BackgroundOverlayProvider(str(bg), size=SIZE, seed=6),
+        overlay_prob=0.5)
+    sampler = jds.SubjectSampler(subjects, seed=6)
+    flags = []
+    for got in batches:
+        subj = sampler.next_subject()
+        want = [dset.sample(subj) for _ in range(2)]
+        assert got["subject_idx"] == subj
+        for k in dict.fromkeys(k for e in want for k in e):
+            for i, e in enumerate(want):
+                if k not in e:
+                    assert got[k][i] is None, k
+                elif isinstance(e[k], np.ndarray):
+                    np.testing.assert_array_equal(got[k][i], e[k], err_msg=k)
+                else:
+                    assert got[k][i] == e[k], k
+        flags += got["has_wds_comp"]
+    assert len(batches) >= 2 and True in flags and False in flags
 
 
 # -- the CLIP key maps ------------------------------------------------------------------

@@ -24,6 +24,9 @@ and `chip_smoke.py` (no real weight file is needed to exercise the loaders):
     state dict, and `clip_model_hf(scorer)`: a transformers CLIPModel state
     dict (text and vision towers, both projections, `logit_scale`), the
     layout of the ViT-B/32 weights that `--clip_ckpt` takes;
+  * `ada_embedding_reference(ada)`: the reference AdaEmbedding's state dict
+    (the poolers' Conv1d kernels [o, c, 1], `layer_coeff_maps`), the
+    layout that `ada_embedder.ada_from_torch` reads;
   * `vit_hf(dino)`: a transformers ViTModel state dict (under 'vit.', as
     facebook/dino-vits16 is published), the DINO model's layout;
   * `retinaface_pytorch(model)`: a Pytorch_Retinaface `Resnet50_Final.pth`
@@ -282,6 +285,25 @@ def subj_basis_reference(sbg) -> dict:
     out.update({"prompt2token_proj." + k: v for k, v in clip_hf(sbg.prompt2token_proj).items()})
     out["obj_proj_in.0.weight"] = _f32(sbg.obj_proj_in.weight)
     _layer(out, "obj_proj_in.2", sbg.obj_proj_in.ln)
+    return out
+
+
+def ada_embedding_reference(ada) -> dict:
+    """The port's AdaEmbedder -> the reference AdaEmbedding's state dict:
+    each pooler's LoRA weights as Conv1d kernels [o, c, 1]
+    (`poolers.i.lora_to_*.weight`), the coefficient maps as
+    `layer_coeff_maps.i.weight` / `.bias`, and the `basis_vecs`,
+    `pre_vecs`, `bias` and `cached_bg_weight` the module holds."""
+    out = {}
+    for i, pooler in enumerate(ada.poolers):
+        for n, w in pooler.params().items():
+            out[f"poolers.{i}.{n}.weight"] = _f32(w)[..., None]
+    for i, (w, b) in enumerate(zip(ada.coeff_w, ada.coeff_b)):
+        out[f"layer_coeff_maps.{i}.weight"] = _f32(w)
+        out[f"layer_coeff_maps.{i}.bias"] = _f32(b)
+    for n in ("basis_vecs", "pre_vecs", "bias", "cached_bg_weight"):
+        if hasattr(ada, n):
+            out[n] = _f32(getattr(ada, n))
     return out
 
 
