@@ -76,33 +76,39 @@ def load_tensor_entries(prefix: str, tensors: dict, flat: dict):
         t.copy_(torch.as_tensor(flat[prefix + name]))
 
 
-def optimizer_entries(pipe, names: list) -> tuple[dict, dict]:
+def optimizer_entries(pipe, names: list, whole=None) -> tuple[dict, dict]:
     """A `prodigy.GradientPipeline`'s state: its accumulator and its inner
     optimizer's per-parameter slots by the parameters' qualified `names`
     (in the pipeline's order), the inner optimizer's scalar tensors, and
-    (meta) its type, update count and the pipeline's micro-step."""
+    (meta) its type, update count and the pipeline's micro-step. `whole`
+    (tensor, parameter) -> the whole tensor of a sharded parameter's slot
+    (`parallel/mesh.py`'s unshard)."""
     inner = pipe.inner
-    flat = tensor_entries("optstate/acc/", dict(zip(names, pipe.acc)))
+    whole = whole or (lambda t, p: t)
+    flat = {f"optstate/acc/{name}": _numpy(whole(a, p))
+            for name, a, p in zip(names, pipe.acc, pipe.params)}
     for name, p in zip(names, pipe.params):
         for slot, t in inner.state[p].items():
-            flat[f"optstate/{slot}/{name}"] = _numpy(t)
+            flat[f"optstate/{slot}/{name}"] = _numpy(whole(t, p))
     flat.update(tensor_entries("optstate/", {a: getattr(inner, a) for a in inner.SCALARS}))
     meta = {"type": type(inner).__name__, "count": inner.count, "mini_step": pipe.mini_step}
     return flat, meta
 
 
 @torch.no_grad()
-def load_optimizer_entries(pipe, names: list, flat: dict, meta: dict):
+def load_optimizer_entries(pipe, names: list, flat: dict, meta: dict, local=None):
     """Restore what `optimizer_entries` saved, in place, onto a pipeline of
-    the same type over parameters of the same names."""
+    the same type over parameters of the same names. `local` (whole
+    tensor, parameter) -> a sharded parameter's rows of it
+    (`parallel/mesh.py`'s local_rows)."""
     inner = pipe.inner
     if meta["type"] != type(inner).__name__:
         raise ValueError(f"the state holds a {meta['type']} optimizer, the trainer builds "
                          f"a {type(inner).__name__}")
-    load_tensor_entries("optstate/acc/", dict(zip(names, pipe.acc)), flat)
-    for name, p in zip(names, pipe.params):
-        load_tensor_entries("optstate/", {f"{slot}/{name}": t
-                                          for slot, t in inner.state[p].items()}, flat)
+    local = local or (lambda t, p: t)
+    for name, p, acc in zip(names, pipe.params, pipe.acc):
+        for slot, t in {"acc": acc, **inner.state[p]}.items():
+            t.copy_(local(torch.as_tensor(flat[f"optstate/{slot}/{name}"]), p))
     for a in inner.SCALARS:
         setattr(inner, a, torch.as_tensor(flat["optstate/" + a]).to(getattr(inner, a).device))
     inner.count, pipe.mini_step = int(meta["count"]), int(meta["mini_step"])

@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 
@@ -161,10 +162,11 @@ def _gaussian(shape, like: torch.Tensor, gen: torch.Generator | None) -> torch.T
 def add_noise_to_tensor(ts: torch.Tensor, noise_std, *, noise: torch.Tensor | None = None,
                         gen: torch.Generator | None = None) -> torch.Tensor:
     """Gaussian noise of std `noise_std` relative to the mean std of ts's
-    last axis, the relative std taken without gradient; `noise_std` 0
+    last axis (over the global batch when it is split over ranks), the
+    relative std taken without gradient; `noise_std` 0
     disables. The standard-normal draw is `noise` when given, else drawn
     from `gen`."""
-    rel = ts.detach().std(dim=-1, correction=0).mean()
+    rel = mesh_mod.global_mean(ts.detach().std(dim=-1, correction=0))
     noise = _gaussian(ts.shape, ts, gen) if noise is None else noise.to(ts.dtype)
     return ts + noise * (torch.as_tensor(noise_std, dtype=ts.dtype, device=ts.device) * rel)
 

@@ -14,11 +14,20 @@ Stage-2 (compositional distillation):
       --data_roots ... --adaface_ckpt runs/s1/embeddings_gs-120000.npz \\
       --clip_ckpt clip-vit-b32.bin --max_steps 60000 --bs 3
 
+Over several cards (one rank a card, `--fsdp F` shards the weights over F
+of them; parallel/mesh.py):
+  torchrun --nproc_per_node 8 -m adaprompt_tpu_torch.cli.train --stage 1 ... --fsdp 2
+A process launched by torchrun, or given --fsdp > 1, joins the process group,
+takes the card of its LOCAL_RANK and distributes the trainer over a (dp,
+fsdp) mesh of all the ranks; a single process trains on one card.
+
 Each subject is a folder of photos, with `<stem>_mask.png` foreground masks
 beside them (`data/dataset.py`). Signals wait for the step they arrive in
 to end, since a step updates its leaves one by one in Python: then SIGUSR1
 saves the full trainer state and training goes on, and SIGINT raises
-KeyboardInterrupt (a second SIGINT at once). An exception or interrupt
+KeyboardInterrupt (a second SIGINT at once). Over a mesh the held signals
+are OR-ed over the ranks at the end of every step, so that a signal to one
+rank makes every rank join the save. An exception or interrupt
 raised between steps saves the full state of the last step and is raised
 again; one raised part-way through a step is raised again with nothing
 saved, since the trainer then holds no step's state. `--resume_state` takes
@@ -40,6 +49,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adaprompt_tpu_torch.adaface import subj_basis_generator as sbg_mod
 from adaprompt_tpu_torch.cli import common
@@ -47,6 +57,7 @@ from adaprompt_tpu_torch.data import dataset as ds
 from adaprompt_tpu_torch.data.overlays import BackgroundOverlayProvider
 from adaprompt_tpu_torch.models import clip_text, unet as unet_mod
 from adaprompt_tpu_torch.ops.layers import reset_parameters
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.train import steps as steps_mod
 from adaprompt_tpu_torch.train import trainer as trainer_mod
 from adaprompt_tpu_torch.utils import torch_port
@@ -106,7 +117,8 @@ def parse_args(argv=None):
                    help="background-overlay dir or .tar (wds role)")
     p.add_argument("--overlay_prob", type=float, default=0.0)
     p.add_argument("--fsdp", type=int, default=1,
-                   help="fsdp axis size (multi-card training is not ported yet: > 1 raises)")
+                   help="fsdp size of the (dp, fsdp) mesh: the weights are sharded over "
+                        "groups of this many ranks (launch the ranks with torchrun)")
     p.add_argument("--sample_every", type=int, default=0,
                    help="save a sample strip every N steps")
     p.add_argument("--num_steps", type=int, default=None,
@@ -221,8 +233,25 @@ def train_static(args, pipe, frozen):
     return state
 
 
+def _held_over_ranks(held: list, mesh, device) -> tuple[bool, bool]:
+    """(SIGUSR1 held, SIGINT held), each OR-ed over the ranks of the mesh."""
+    flags = [signal.SIGUSR1 in held, signal.SIGINT in held]
+    if mesh is not None:
+        t = torch.tensor(flags, dtype=torch.float32, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        flags = [bool(v) for v in t.tolist()]
+    return flags[0], flags[1]
+
+
 def main(argv=None):
     args = parse_args(argv)
+    distributed = "WORLD_SIZE" in os.environ or args.fsdp > 1
+    if distributed:
+        # one rank a card: the models go on the card of this rank's LOCAL_RANK
+        args.device = str(mesh_mod.init_distributed(args.device))
+    elif args.device.startswith("cuda") and torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} cards are visible; this process trains on one. "
+              "Launch with torchrun --nproc_per_node N to train on N.")
     pipe = common.load_pipeline(args)
     tok = pipe.tokenizer
 
@@ -323,9 +352,9 @@ def main(argv=None):
     elif args.adaface_ckpt:
         tr.load_checkpoint(args.adaface_ckpt)
 
-    num_devices = torch.cuda.device_count() if pipe.device.type == "cuda" else 1
-    if num_devices > 1 or args.fsdp > 1:
-        tr.distribute(fsdp=args.fsdp)
+    mesh = tr.distribute(fsdp=args.fsdp) if distributed else None
+    if mesh is not None and dist.get_rank() == 0:
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over {dist.get_backend()}")
 
     # Signals wait for the end of the step they arrive in: the step updates
     # its leaves one by one, so a state written, or an interrupt raised,
@@ -367,10 +396,12 @@ def main(argv=None):
                 tr.log_samples(i + 1)
             if (i + 1) % cfg.ckpt_every == 0 or i == n - 1:
                 tr.save_checkpoint(i + 1)
-            if signal.SIGUSR1 in held:
-                held.remove(signal.SIGUSR1)
+            usr1, intr = _held_over_ranks(held, mesh, pipe.device)
+            if usr1:
+                if signal.SIGUSR1 in held:
+                    held.remove(signal.SIGUSR1)
                 print(f"SIGUSR1: saved {tr.save_full_state(done)}")
-            if signal.SIGINT in held:
+            if intr:
                 raise KeyboardInterrupt
     except BaseException:
         if in_step:
@@ -389,4 +420,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -45,6 +45,10 @@ class CLIPTextModel(nn.Module):
     ln2, mlp{fc1, fc2}}, final_ln. Random init: normal(0, 0.02) weights,
     zero biases, unit norms."""
 
+    # read outside the model's methods (a splice embeds its tokens itself):
+    # parallel/mesh.py's shard_params keeps them whole
+    whole_leaves = ("token_embedding", "position_embedding")
+
     def __init__(self, cfg: CLIPTextConfig = SD15_TEXT_CONFIG, *, device=None,
                  dtype=torch.float32):
         super().__init__()

@@ -51,6 +51,8 @@ JAX package's default policy (`dots_saveable`) keeps the matmul outputs
 instead; both give the same numbers. Full-block recompute is the simpler of
 the two in PyTorch (no per-op save policy over the kernels' ctypes calls)
 and holds the least memory; it costs one more forward of each block.
+Over a device mesh the recompute gathers the block's sharded weights
+(`parallel/mesh.py`), as the forward gathered the model's.
 
 Training semantics of the recon iterations, as in the JAX package:
   * `capture_ca=True` returns, beside eps, the cross-attention activations
@@ -73,6 +75,7 @@ training); self-attention keeps the flash kernels with the key bias.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -88,6 +91,7 @@ from adaprompt_tpu_torch.ops.attention import (NEG_BIG, FlashVariant, dot_produc
 from adaprompt_tpu_torch.ops.geglu import fused_eligible, fused_int8_eligible, geglu, geglu_int8
 from adaprompt_tpu_torch.ops.layers import Conv2d, Linear, Norm, gelu, group_norm, layer_norm, silu
 from adaprompt_tpu_torch.ops.quant import quantize_weight
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.utils.torch_port import layer_names, renamed
 
 _FUSED_CROSS_MIN_Q = 512
@@ -643,8 +647,9 @@ class UNet(nn.Module):
 
         def call(fn, bp, h, layer_idx):
             if remat:
-                h, cached = torch.utils.checkpoint.checkpoint(fn, bp, h, layer_idx,
-                                                              use_reentrant=False)
+                h, cached = torch.utils.checkpoint.checkpoint(
+                    fn, bp, h, layer_idx, use_reentrant=False,
+                    context_fn=functools.partial(mesh_mod.recompute_context, bp))
             else:
                 h, cached = fn(bp, h, layer_idx)
             if cached is not None:

@@ -11,7 +11,10 @@ JAX package's: latents [B, h, w, 4], images [B, H, W, 3] uint8, contexts
 [L, B, 77, 768].
 
 Entry points run on CUDA unless the caller passes device="cpu"; on a host
-without CUDA they raise rather than fall back to the CPU. The CLIP text
+without CUDA they raise rather than fall back to the CPU. `distribute(mesh)`
+serves one prompt batch over the ranks of a device mesh (`parallel/mesh.py`):
+each rank holds all three models and denoises its block of the rows, and
+every rank returns the whole batch. The CLIP text
 encoder keeps float32 weights (as the JAX pipeline's parameters are
 float32); the UNet and the VAE hold their weights in the compute dtype.
 """
@@ -29,6 +32,7 @@ from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, UNet, UNetConfig
 from adaprompt_tpu_torch.models.vae import (SD15_VAE_CONFIG, SD_SCALE_FACTOR, VAE, VAEConfig,
                                             sample_latent)
 from adaprompt_tpu_torch.ops.layers import reset_parameters
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.sampling import ddim, dpm
 from adaprompt_tpu_torch.sampling.schedule import SD15_SCHEDULE, DiffusionSchedule
 from adaprompt_tpu_torch.utils import torch_port
@@ -89,6 +93,7 @@ class StableDiffusionPipeline:
         self.sched = sched
         self.device = unet.out["conv"].weight.device
         self.compute_dtype = unet.out["conv"].weight.dtype
+        self.mesh = None
 
     @classmethod
     def random_init(cls, seed: int = 0, *, device=None, dtype=torch.bfloat16,
@@ -131,6 +136,31 @@ class StableDiffusionPipeline:
         text = build(CLIPTextModel(text_cfg, device=device),
                      clip_text.from_torch(parts.pop("text"), text_cfg))
         return cls(unet, vae, text, tokenizer)
+
+    # -- multi-card serving ------------------------------------------------------
+
+    def distribute(self, mesh=None) -> "StableDiffusionPipeline":
+        """Serve over a device mesh (by default all the ranks of the
+        initialised process group, pure dp): the weights replicated, each
+        rank holding the three models whole (serving keeps no optimizer state,
+        and whole weights keep the denoising loop free of gathers); generate()
+        splits its batch over dp and gathers the images, so a batch must be
+        divisible by the dp size."""
+        self.mesh = mesh or mesh_mod.make_mesh()
+        for m in (self.unet, self.vae, self.text):
+            mesh_mod.replicate(m, self.mesh)
+        return self
+
+    def _shard_batch(self, cond, uncond, x_T):
+        """This rank's rows of the contexts [L, B, 77, D] and of x_T [B, h, w, 4]."""
+        dp = self.mesh["dp"].size()
+        b = x_T.shape[0]
+        if b % dp:
+            raise ValueError(
+                f"batch {b} not divisible by the mesh dp size {dp}; pad the "
+                "prompt list or use a smaller mesh")
+        return (mesh_mod.take_rows(cond, self.mesh, 1), mesh_mod.take_rows(uncond, self.mesh, 1),
+                mesh_mod.take_rows(x_T, self.mesh))
 
     # -- text encoding ---------------------------------------------------------
 
@@ -179,13 +209,19 @@ class StableDiffusionPipeline:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         x_T = torch.randn((b, height // 8, width // 8, 4), generator=gen,
                           device=self.device, dtype=torch.float32)
-        args = (self.unet, self.vae, cond.to(self.device), uncond.to(self.device), x_T,
+        cond, uncond = cond.to(self.device), uncond.to(self.device)
+        if self.mesh is not None:
+            # x_T is drawn whole from the seed; each rank takes its rows
+            cond, uncond, x_T = self._shard_batch(cond, uncond, x_T)
+        args = (self.unet, self.vae, cond, uncond, x_T,
                 num_steps, _as_pair(guidance_scale), return_latents)
         if fast is not None:
             out = _generate_fast(*args, fast, self.unet_cfg, self.sched, self.compute_dtype,
                                  sampler)
         else:
             out = _generate(*args, self.sched, self.compute_dtype, sampler, self.unet_cfg)
+        if self.mesh is not None:
+            out = mesh_mod.gather_rows(out, self.mesh)
         return out.cpu().numpy()
 
     @torch.inference_mode()

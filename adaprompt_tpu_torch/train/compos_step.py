@@ -33,7 +33,7 @@ from adaprompt_tpu_torch.sampling.schedule import (SD15_SCHEDULE, DiffusionSched
 from adaprompt_tpu_torch.train import compos as compos_mod, fgbg
 from adaprompt_tpu_torch.train.elastic import calc_comp_fg_bg_preserve_loss
 from adaprompt_tpu_torch.train.losses import calc_prompt_emb_delta_loss
-from adaprompt_tpu_torch.train.steps import TrainState, global_norm, trainable_parameters
+from adaprompt_tpu_torch.train.steps import TrainState, grad_norm
 
 
 def scale_into_canvas(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -196,16 +196,15 @@ class ComposStep:
                  draws: dict | None = None):
         """-> (state, metrics with 'grad_norm' and 'q_bn_stats', x_recon)."""
         draws = self.draw(gen, batch["x_start"].device) if draws is None else draws
-        params = trainable_parameters(state.params)
         state.optimizer.zero_grad()
         loss, metrics, x_recon, q_bn_stats = self.loss(state.params, mp, batch, draws)
         loss.backward()
         # the gradients' norm before clipping
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+        norm = grad_norm(state)
         state.optimizer.step()
         state.step += 1
         metrics = {name: v.detach() for name, v in metrics.items()}
-        metrics.update(grad_norm=grad_norm, q_bn_stats=q_bn_stats)
+        metrics.update(grad_norm=norm, q_bn_stats=q_bn_stats)
         return state, metrics, x_recon
 
 

@@ -22,6 +22,7 @@ import torch
 
 from adaprompt_tpu_torch.adaface.gradient import grad_scale
 from adaprompt_tpu_torch.models.vae import _resize_mask_nearest
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.train.losses import calc_ref_cosine_loss
 
 ATTN_ALIGN_LAYER_WEIGHTS = {7: 0.5, 8: 0.5, 12: 1., 16: 1., 17: 1., 18: 1.,
@@ -97,8 +98,10 @@ def _select_score(attnscore: torch.Tensor, pos) -> torch.Tensor:
 
 
 def _margin_excess_mean(score, margin, avg_ref):
+    """The mean positive excess over the batch (this rank's share on a split batch)."""
     excess = score + margin - avg_ref
-    return masked_mean(excess, excess > 0)
+    mask = (excess > 0).to(excess.dtype)
+    return (excess * mask).sum() / torch.clamp(mesh_mod.global_sum(mask.sum()), min=1e-6)
 
 
 def _fg_bg_masks(subj_score: torch.Tensor, fg_mask: torch.Tensor, block_size: int):
@@ -108,7 +111,8 @@ def _fg_bg_masks(subj_score: torch.Tensor, fg_mask: torch.Tensor, block_size: in
     m = resize_mask_for_attn(fg_mask, hw).reshape(block_size, 1, hw * hw).expand(subj_score.shape)
     fg3 = (m > 1e-6).float()
     bg3 = 1.0 - fg3
-    valid = ((fg3.sum(dim=(1, 2)) > 0).all() & (bg3.sum(dim=(1, 2)) > 0).all()).float()
+    valid = mesh_mod.global_all(
+        ((fg3.sum(dim=(1, 2)) > 0).all() & (bg3.sum(dim=(1, 2)) > 0).all()).float())
     return fg3, bg3, valid
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from adaprompt_tpu_torch.adaface.gradient import grad_scale
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 
 
 def ortho_subtract(a: torch.Tensor, b: torch.Tensor, on_last_n_dims: int = 1) -> torch.Tensor:
@@ -75,9 +76,10 @@ def calc_ref_cosine_loss(delta: torch.Tensor, ref_delta: torch.Tensor, *,
     if margin > 0:
         per = torch.maximum(per - margin, torch.zeros_like(per))
     if batch_mask is None:
-        return per.mean()
+        return mesh_mod.share_of_mean(per)
     batch_mask = batch_mask.to(per.dtype)
-    return (per * batch_mask).sum() / torch.maximum(batch_mask.sum(), per.new_tensor(1e-8))
+    return (per * batch_mask).sum() / torch.maximum(mesh_mod.global_sum(batch_mask.sum()),
+                                                    per.new_tensor(1e-8))
 
 
 def calc_prompt_emb_delta_loss(static_embeddings: torch.Tensor,
@@ -100,7 +102,9 @@ def calc_prompt_emb_delta_loss(static_embeddings: torch.Tensor,
 def calc_recon_loss(model_output: torch.Tensor, target: torch.Tensor,
                     img_mask: torch.Tensor | None, fg_mask: torch.Tensor | None,
                     fg_pixel_weight: float = 1.0, bg_pixel_weight: float = 1.0) -> torch.Tensor:
-    """img/fg-weighted MSE over NHWC latents, in float32. Masks: [B, H, W, 1]."""
+    """img/fg-weighted MSE over NHWC latents, in float32. Masks: [B, H, W, 1].
+    On a batch split over ranks, this rank's share: its weighted sum over
+    the global weight."""
     ones = lambda: torch.ones_like(model_output[..., :1], dtype=torch.float32)
     img_mask = ones() if img_mask is None else img_mask.float()
     fg_mask = ones() if fg_mask is None else fg_mask.float()
@@ -109,4 +113,5 @@ def calc_recon_loss(model_output: torch.Tensor, target: torch.Tensor,
     se = (mo - tg) ** 2
     wfg = (fg_mask * img_mask * fg_pixel_weight).expand(se.shape)
     wbg = ((1.0 - fg_mask) * img_mask * bg_pixel_weight).expand(se.shape)
-    return ((se * wfg).sum() + (se * wbg).sum()) / (wfg.sum() + wbg.sum() + 1e-6)
+    return ((se * wfg).sum() + (se * wbg).sum()) / (mesh_mod.global_sum(wfg.sum() + wbg.sum())
+                                                    + 1e-6)

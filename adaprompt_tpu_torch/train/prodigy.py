@@ -26,6 +26,11 @@ one; the decay applies to every parameter.
 Prodigy or AdamW, behind `MultiSteps(every_k)`, which averages k
 micro-batch gradients (optax's running mean, acc + (g - acc)/(n + 1)) and
 steps the inner optimizer on every k-th call.
+
+The sums over all parameters (Prodigy's <g, p0 - p> and sum |s|, the clip's
+norm) go through the inner optimizer's `param_sum(params, values)`: a plain
+sum, or over a device mesh `parallel/mesh.py`'s, which adds up the shards of
+the sharded parameters.
 """
 
 from __future__ import annotations
@@ -35,6 +40,11 @@ from typing import Callable, Union
 
 import numpy as np
 import torch
+
+
+def plain_sum(params, values):
+    """The sum of one value a parameter."""
+    return sum(values)
 
 
 class Prodigy(torch.optim.Optimizer):
@@ -51,6 +61,7 @@ class Prodigy(torch.optim.Optimizer):
         self.use_bias_correction = use_bias_correction
         self.safeguard_warmup = safeguard_warmup
         self.d0, self.d_coef, self.growth_rate = d0, d_coef, growth_rate
+        self.param_sum = plain_sum
         params = self.params()
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=params[0].device)
         self.d, self.d_max, self.d_numerator = f32(d0), f32(d0), f32(0.0)
@@ -82,17 +93,19 @@ class Prodigy(torch.optim.Optimizer):
         params = self.params()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
 
-        dot_sum = sum(torch.vdot(g.float().flatten(), (self.state[p]["p0"] - p).float().flatten())
-                      for p, g in zip(params, grads))
+        dot_sum = self.param_sum(params, [
+            torch.vdot(g.float().flatten(), (self.state[p]["p0"] - p).float().flatten())
+            for p, g in zip(params, grads)])
         d_numerator = self.d_numerator * beta3 + (d / d0) * dlr * dot_sum
         s_coef = (d / d0) * (d if self.safeguard_warmup else dlr)
-        d_denom = 0.0
+        s_sums = []
         for p, g in zip(params, grads):
             st = self.state[p]
             st["exp_avg"].mul_(beta1).add_(g * (d * (1 - beta1)))
             st["exp_avg_sq"].mul_(beta2).add_(g * g * (d * d * (1 - beta2)))
             st["s"].mul_(beta3).add_(g * s_coef)
-            d_denom = d_denom + st["s"].float().abs().sum()
+            s_sums.append(st["s"].float().abs().sum())
+        d_denom = self.param_sum(params, s_sums)
 
         d_hat = self.d_coef * d_numerator / torch.where(d_denom > 0, d_denom, 1.0)
         d_new = torch.where(d == d0, torch.maximum(d, d_hat), d)
@@ -132,6 +145,7 @@ class AdamW(torch.optim.Optimizer):
         super().__init__(params, dict(betas=betas, eps=eps, weight_decay=weight_decay))
         self.lr = lr
         self.count = 0
+        self.param_sum = plain_sum
         for p in self.params():
             self.state[p] = {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
 
@@ -180,7 +194,7 @@ class GradientPipeline:
         if n < self.every_k - 1:
             self.mini_step = n + 1
             return False
-        g_norm = torch.sqrt(sum((a.float() ** 2).sum() for a in self.acc))
+        g_norm = torch.sqrt(self.param_sum(self.params, [(a.float() ** 2).sum() for a in self.acc]))
         keep = g_norm < self.max_norm
         for acc, p in zip(self.acc, self.params):
             p.grad = torch.where(keep, acc, (acc / g_norm.to(acc.dtype)) * self.max_norm)
@@ -190,6 +204,10 @@ class GradientPipeline:
             p.grad = None
         self.mini_step = 0
         return True
+
+    @property
+    def param_sum(self):
+        return self.inner.param_sum
 
     def zero_grad(self):
         for p in self.params:

@@ -44,6 +44,13 @@ A step draws all its randomness in its `draw`, from a `torch.Generator`:
 the timesteps, the first noise, the distillation chain's uniform and
 normal draws or the recon step's embedding noise. Its `loss` takes those
 draws as inputs.
+
+Over a device mesh (`rows`, the trainer's `distribute`), the batch a step
+is given holds this rank's rows of the global batch. The step draws for
+the global batch and takes its rows of each draw (`DRAW_AXES`), computes
+its share of every loss (`parallel/mesh.py`: each reduction over rows is
+global), and sums the gradients and the metrics over the dp ranks; the
+optimizer's sums run over the shards of the sharded parameters.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from adaprompt_tpu_torch.adaface import arc2face
 from adaprompt_tpu_torch.adaface.conditioner import add_noise_to_tensor, encode_spliced
 from adaprompt_tpu_torch.models.clip_text import CLIPTextModel
 from adaprompt_tpu_torch.models.unet import UNet
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.sampling.schedule import SD15_SCHEDULE, DiffusionSchedule, q_sample
 from adaprompt_tpu_torch.train import fgbg
 from adaprompt_tpu_torch.train.arc2face_teacher import teacher_denoise_chain
@@ -88,20 +96,38 @@ class TrainState:
     step: int = 0
 
 
-def _train_step(state: TrainState, loss_fn):
+def _train_step(state: TrainState, loss_fn, rows=None):
     """One update of the state's parameters: loss_fn() -> (loss, {metric:
     scalar tensor}), its backward and the pipeline's step. Returns (state,
-    the metrics detached, with the gradients' norm before clipping)."""
+    the metrics detached, with the gradients' norm before clipping). With
+    `rows` (a mesh whose dp splits the batch) the loss is this rank's share:
+    the gradients and metrics are summed over dp."""
     params = trainable_parameters(state.params)
     state.optimizer.zero_grad()
-    loss, metrics = loss_fn()
+    with mesh_mod.split_rows(rows):
+        loss, metrics = loss_fn()
     loss.backward()
-    grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+    if rows is not None:
+        mesh_mod.sync_grads(params, rows)
+    norm = grad_norm(state)
     state.optimizer.step()
     state.step += 1
-    metrics = {name: v.detach() for name, v in metrics.items()}
-    metrics["grad_norm"] = grad_norm
+    metrics = mesh_mod.sum_over_rows({name: v.detach() for name, v in metrics.items()}, rows)
+    metrics["grad_norm"] = norm
     return state, metrics
+
+
+def _draws(step, gen, batch: dict, draws: dict | None, rows) -> dict:
+    """The step's draws for the global batch (made from `gen` unless
+    given), cut to this rank's rows along each draw's batch axis."""
+    if draws is None:
+        z0 = batch["z0"]
+        if rows is not None:
+            z0 = z0.new_empty((z0.shape[0] * rows["dp"].size(),) + tuple(z0.shape[1:]))
+        draws = step.draw(gen, z0)
+    if rows is None:
+        return draws
+    return {k: mesh_mod.take_rows(v, rows, step.DRAW_AXES.get(k, 0)) for k, v in draws.items()}
 
 
 def create_train_state(params: dict, optimizer) -> TrainState:
@@ -191,12 +217,20 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def grad_norm(state: TrainState) -> torch.Tensor:
+    """The norm of the state's gradients, a sharded parameter's over all its shards."""
+    params = [p for p in trainable_parameters(state.params) if p.grad is not None]
+    return torch.sqrt(state.optimizer.param_sum(params, [(p.grad.float() ** 2).sum()
+                                                         for p in params]))
+
+
 class DistillStep:
     """One compiled-variant's worth of the JAX step: a fixed ND.
 
     step(state, fp, batch, gen) -> (state, metrics) with batch
     {'z0' [B,h,w,4] scaled latents, 'faceid' [B,512] normalized,
      'fg_mask' [B,h,w,1] | None, 'aug_mask' [B,h,w,1] | None}."""
+    DRAW_AXES = {"rels": 1, "next_noises": 1}
 
     def __init__(self, frozen: FrozenSD, tokenizer, subj_basis_cfg, *,
                  num_denoising_steps: int = 1, sched: DiffusionSchedule = SD15_SCHEDULE,
@@ -244,7 +278,8 @@ class DistillStep:
                                   hidden_state_layer_weights=torch.as_tensor(
                                       self.skip_weights, device=z0.device))
 
-        loss_start = max(0, nd - max(7 // b if b > 0 else 1, 1))
+        gb = mesh_mod.global_rows(b)
+        loss_start = max(0, nd - max(7 // gb if gb > 0 else 1, 1))
         fg_mask, img_mask = batch.get("fg_mask"), batch.get("aug_mask")
         losses = []
         for s in range(loss_start, nd):
@@ -259,16 +294,13 @@ class DistillStep:
         return sum(losses) / np.sqrt(nd)
 
     def __call__(self, state: TrainState, fp: dict, batch: dict, gen: torch.Generator,
-                 draws: dict | None = None):
-        draws = self.draw(gen, batch["z0"]) if draws is None else draws
-        params = trainable_parameters(state.params)
-        state.optimizer.zero_grad()
-        loss = self.loss(state.params["subj_basis"], fp, batch, draws)
-        loss.backward()
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss_arc2face_distill": loss.detach(), "grad_norm": grad_norm}
+                 draws: dict | None = None, rows=None):
+        draws = _draws(self, gen, batch, draws, rows)
+
+        def loss_fn():
+            loss = self.loss(state.params["subj_basis"], fp, batch, draws)
+            return loss, {"loss_arc2face_distill": loss}
+        return _train_step(state, loss_fn, rows)
 
 
 def make_arc2face_distill_step(frozen: FrozenSD, tokenizer, subj_basis_cfg, **kw) -> DistillStep:
@@ -298,6 +330,7 @@ class ReconStep:
      scalar (0 = off), 'emb_scale_perturb' [2] | None, and under use_bg
      'clip_features' [B,2S,1280], 'bg_bi' [B], 'bg_pos' [B]}; the state's
      params hold 'bg_basis' under use_bg."""
+    DRAW_AXES = {}
 
     def __init__(self, frozen: FrozenSD, tokenizer, subj_basis_cfg, *, bg_basis_cfg=None,
                  use_bg: bool = False, fgbg_reg: bool = False,
@@ -385,9 +418,9 @@ class ReconStep:
         return loss, metrics
 
     def __call__(self, state: TrainState, fp: dict, batch: dict, gen: torch.Generator,
-                 draws: dict | None = None):
-        draws = self.draw(gen, batch["z0"]) if draws is None else draws
-        return _train_step(state, lambda: self.loss(state.params, fp, batch, draws))
+                 draws: dict | None = None, rows=None):
+        draws = _draws(self, gen, batch, draws, rows)
+        return _train_step(state, lambda: self.loss(state.params, fp, batch, draws), rows)
 
 
 def make_zs_recon_step(frozen: FrozenSD, tokenizer, subj_basis_cfg, **kw) -> ReconStep:

@@ -65,9 +65,19 @@ image; a faceless image falls back to a random id from the host stream, as
 in the JAX package. Without an embedder, `synthetic_faces=True` opts in to
 random ids for every image.
 
-Not ported (NotImplementedError): `distribute`. The config carries every
-field of the JAX package's, with its defaults; the constructor takes the
-JAX trainer's arguments in its order.
+`distribute(mesh, fsdp)` spreads training over the ranks of a (dp, fsdp)
+device mesh (`parallel/mesh.py`, one rank a card under torchrun): the
+frozen models, the VAE, the generator copy and the trainable parameters
+sharded by the FSDP rule, the optimizer's slots and the EMA with them.
+Every rank reads the same global host batch and makes the same host and
+device draws; recon and distillation steps then compute this rank's rows
+(HALF_BS rounded up to a multiple of dp), their losses' shares and
+gradients summed over dp, while compositional iterations and the teacher
+filter run whole on every rank. Saves gather the shards and rank 0 alone
+writes files (metrics, checkpoints, sample grids).
+
+The config carries every field of the JAX package's, with its defaults;
+the constructor takes the JAX trainer's arguments in its order.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from adaprompt_tpu_torch.adaface import arc2face
@@ -91,6 +102,7 @@ from adaprompt_tpu_torch.models.clip_text import CLIPTextModel
 from adaprompt_tpu_torch.models.unet import SD15_UNET_CONFIG, UNet
 from adaprompt_tpu_torch.models.vae import SD_SCALE_FACTOR, VAE, _resize_mask_nearest
 from adaprompt_tpu_torch.ops.layers import randomize_zero_init, reset_parameters
+from adaprompt_tpu_torch.parallel import mesh as mesh_mod
 from adaprompt_tpu_torch.train import compos_step as cs
 from adaprompt_tpu_torch.train import ema as ema_mod
 from adaprompt_tpu_torch.train import steps as steps_mod
@@ -306,12 +318,70 @@ class AdaPromptTrainer:
         self._recon_steps = {}     # keyed by (use_bg, fgbg_reg)
         self._distill_steps = {}
         self._fp = steps_mod.frozen_params(frozen)
+        self.mesh, self._writer = None, True      # the rank that writes files
         os.makedirs(cfg.out_dir, exist_ok=True)
         self._metrics_file = open(os.path.join(cfg.out_dir, "metrics.jsonl"), "a")
         self._pending_metrics = []
 
-    def distribute(self, *args, **kwargs):
-        raise NotImplementedError("multi-card training is not ported yet")
+    # -- multi-card --------------------------------------------------------------
+
+    def distribute(self, mesh=None, fsdp: int = 1):
+        """Shard the trainer over a (dp, fsdp) mesh (by default all the
+        ranks of the initialised process group): the frozen models, the VAE,
+        the generator copy and the trainable modules under the FSDP rule,
+        bare trainable tensors replicated, the optimizer's slots and
+        accumulator and the EMA's shadows cut to their parameters' shards;
+        the cached steps are dropped. Returns the mesh."""
+        if self.mesh is not None:
+            raise RuntimeError("the trainer is distributed already")
+        self.mesh = mesh or mesh_mod.make_mesh(fsdp=fsdp)
+        f = self.frozen
+        for m in (f.unet, f.text, f.arc2face_text, f.teacher_unet, self.vae, self._frozen_sbg):
+            if m is not None:
+                mesh_mod.shard_params(m, self.mesh)
+        for v in self.state.params.values():
+            (mesh_mod.shard_params if isinstance(v, nn.Module) else mesh_mod.replicate)(v, self.mesh)
+        opt = self.state.optimizer
+        for i, p in enumerate(opt.params):
+            opt.acc[i] = mesh_mod.local_rows(mesh_mod.replicate(opt.acc[i], self.mesh), p)
+            st = opt.inner.state[p]
+            for k in st:
+                st[k] = mesh_mod.local_rows(mesh_mod.replicate(st[k], self.mesh), p)
+        opt.inner.param_sum = mesh_mod.param_sum(self.mesh)
+        if self.ema is not None:
+            for n, p in steps_mod.named_trainable(self.state.params):
+                self.ema.shadow[n] = mesh_mod.local_rows(self.ema.shadow[n], p)
+        self._writer = dist.get_rank() == 0
+        self._recon_steps, self._distill_steps = {}, {}
+        self._compos_phase = self._filter_phase = None
+        return self.mesh
+
+    def _split(self, batch: dict):
+        """(this rank's rows of a recon or distillation batch, the step's
+        keyword {'rows': the mesh that splits them}); (batch, {}) when the
+        batch stays whole (no mesh, one row or rows that dp does not
+        divide). The placeholder rows (`subj_bi`, `bg_bi`, one a row in
+        order) become local row indices."""
+        b = batch["z0"].shape[0]
+        if not mesh_mod.splits_rows(b, self.mesh):
+            return batch, {}
+        out = mesh_mod.shard_batch(batch, self.mesh)
+        offset = self.mesh.get_local_rank("dp") * (b // self.mesh["dp"].size())
+        for k in ("subj_bi", "bg_bi"):
+            if k in out:
+                out[k] = out[k] - offset
+        return out, {"rows": self.mesh}
+
+    def _build_optimizer(self) -> GradientPipeline:
+        opt = build_optimizer(self.cfg, steps_mod.trainable_parameters(self.state.params))
+        if self.mesh is not None:
+            opt.inner.param_sum = mesh_mod.param_sum(self.mesh)
+        return opt
+
+    def _trainables(self) -> list:
+        """The trainable modules and the generator copy (what a save gathers)."""
+        mods = [v for v in self.state.params.values() if isinstance(v, nn.Module)]
+        return mods + ([self._frozen_sbg] if self._frozen_sbg is not None else [])
 
     # -- batch prep ---------------------------------------------------------
 
@@ -623,23 +693,36 @@ class AdaPromptTrainer:
         if not do_distill:
             # the fg/bg attention regularizers run on recon iterations
             step_fn = self._get_recon_step(use_bg, self.cfg.fgbg_reg)
-            self.state, metrics = step_fn(self.state, self._fp, batch, self.gen)
+            batch, rows = self._split(batch)
+            self.state, metrics = step_fn(self.state, self._fp, batch, self.gen, **rows)
             metrics["iter_type"] = "recon_bg" if use_bg else "recon"
             self._update_ema()
             return self._emit_metrics(step_idx, metrics, self._host_stats())
         nd = self._sample_num_denoising_steps()
-        if nd > 1:
-            # HALF_BS: multi-step distillation keeps the first ceil(B / ND) rows
-            b = batch["z0"].shape[0]
-            half_bs = -(-b // nd)
-            if half_bs < b:
-                batch = {k: (v[:half_bs] if isinstance(v, torch.Tensor) and v.ndim >= 1
-                             and v.shape[0] == b else v) for k, v in batch.items()}
-        self.state, metrics = self._distill_step(nd)(self.state, self._fp, batch, self.gen)
+        batch = self._half_batch(batch, nd)
+        distill_bs = int(batch["z0"].shape[0])
+        batch, rows = self._split(batch)
+        self.state, metrics = self._distill_step(nd)(self.state, self._fp, batch, self.gen, **rows)
         metrics.update(iter_type="arc2face_distill", num_denoising_steps=nd,
-                       distill_bs=int(batch["z0"].shape[0]))
+                       distill_bs=distill_bs)
         self._update_ema()
         return self._emit_metrics(step_idx, metrics, self._host_stats())
+
+    def _half_batch(self, batch: dict, nd: int) -> dict:
+        """HALF_BS: multi-step distillation (ND > 1) keeps the first
+        ceil(B / ND) rows, rounded up to a multiple of dp over a mesh so that
+        every rank keeps a row."""
+        b = batch["z0"].shape[0]
+        if nd == 1:
+            return batch
+        half_bs = -(-b // nd)
+        if self.mesh is not None:
+            dp = self.mesh["dp"].size()
+            half_bs = max(dp, -(-half_bs // dp) * dp)
+        if half_bs >= b:
+            return batch
+        return {k: (v[:half_bs] if isinstance(v, torch.Tensor) and v.ndim >= 1
+                    and v.shape[0] == b else v) for k, v in batch.items()}
 
     def _update_ema(self):
         """After every distillation and recon step (micro-steps of an
@@ -670,7 +753,8 @@ class AdaPromptTrainer:
         for (_, host), ks in zip(rows, keys):
             out = {k: next(values) for k in ks}
             out.update(host)
-            self._metrics_file.write(json.dumps(out) + "\n")
+            if self._writer:
+                self._metrics_file.write(json.dumps(out) + "\n")
         self._metrics_file.flush()
         return out
 
@@ -699,23 +783,42 @@ class AdaPromptTrainer:
     # -- checkpoints ---------------------------------------------------------------
 
     def save_checkpoint(self, step: int) -> str:
+        """The trainable parameters (whole, gathered over a mesh), the EMA's
+        subject generator and ca_q_bn_stats to embeddings_gs-{step}.npz; over
+        a mesh every rank gathers and rank 0 alone writes."""
         self._flush_metrics()
         path = os.path.join(self.cfg.out_dir, f"embeddings_gs-{step}.npz")
         params = self.state.params
-        trees = {"subj_basis": ckpt_mod.module_tree(params["subj_basis"])}
-        if "bg_basis" in params:
-            trees["bg_basis"] = ckpt_mod.module_tree(params["bg_basis"])
+        shadows = self._whole_ema()
+        with mesh_mod.gathered(*self._trainables()):
+            trees = {"subj_basis": ckpt_mod.module_tree(params["subj_basis"])}
+            if "bg_basis" in params:
+                trees["bg_basis"] = ckpt_mod.module_tree(params["bg_basis"])
         trees["emb_scales"] = {"scores": params["emb_scales"].detach().float().cpu().numpy()}
         if self.ema is not None:
             pre = "subj_basis."
             trees["ema_subj_basis"] = ckpt_mod.named_tree(
-                (n[len(pre):], v) for n, v in self.ema.shadow.items() if n.startswith(pre))
+                (n[len(pre):], v) for n, v in shadows.items() if n.startswith(pre))
         if self.ca_q_bn_stats:
             trees["ca_q_bns"] = {str(li): {k: v.float().cpu().numpy() for k, v in ent.items()}
                                  for li, ent in self.ca_q_bn_stats.items()}
-        ckpt_mod.save_checkpoint(path, trees,
-                                 meta={"step": step, "placeholder": self.subject_spec.string})
+        if self._writer:
+            ckpt_mod.save_checkpoint(path, trees,
+                                     meta={"step": step, "placeholder": self.subject_spec.string})
+        self._barrier()
         return path
+
+    def _whole_ema(self) -> dict:
+        """The EMA's shadows, each whole (gathered over a mesh)."""
+        if self.ema is None:
+            return {}
+        return {n: mesh_mod.unshard(self.ema.shadow[n], p)
+                for n, p in steps_mod.named_trainable(self.state.params)}
+
+    def _barrier(self):
+        """Over a mesh, wait for rank 0's file."""
+        if self.mesh is not None:
+            dist.barrier()
 
     def load_checkpoint(self, path: str) -> dict:
         """Load the trainable parameters and the q BatchNorm running
@@ -724,20 +827,20 @@ class AdaPromptTrainer:
         also leaves the EMA and a saved `ema_subj_basis` alone)."""
         trees, meta = ckpt_mod.load_checkpoint(path)
         params = self.state.params
-        ckpt_mod.load_module_tree(params["subj_basis"], trees["subj_basis"])
-        if self._frozen_sbg is not None:
-            ckpt_mod.load_module_tree(self._frozen_sbg, trees["subj_basis"])
+        with mesh_mod.gathered(*self._trainables(), writeback=True):
+            ckpt_mod.load_module_tree(params["subj_basis"], trees["subj_basis"])
+            if self._frozen_sbg is not None:
+                ckpt_mod.load_module_tree(self._frozen_sbg, trees["subj_basis"])
+            if "bg_basis" in trees and "bg_basis" in params:
+                ckpt_mod.load_module_tree(params["bg_basis"], trees["bg_basis"])
         if "ca_q_bns" in trees:
             self.ca_q_bn_stats = {int(li): {k: torch.as_tensor(a, device=self.device)
                                             for k, a in ent.items()}
                                   for li, ent in trees["ca_q_bns"].items()}
-        if "bg_basis" in trees and "bg_basis" in params:
-            ckpt_mod.load_module_tree(params["bg_basis"], trees["bg_basis"])
         if "emb_scales" in trees:
             with torch.no_grad():
                 params["emb_scales"].copy_(torch.as_tensor(trees["emb_scales"]["scores"]))
-        self.state = steps_mod.TrainState(
-            params, build_optimizer(self.cfg, steps_mod.trainable_parameters(params)))
+        self.state = steps_mod.TrainState(params, self._build_optimizer())
         return meta
 
     # -- full-state resume ---------------------------------------------------------
@@ -752,18 +855,22 @@ class AdaPromptTrainer:
         teachable counters."""
         self._flush_metrics()
         params, flat = self.state.params, {}
-        for name, v in params.items():
-            if isinstance(v, nn.Module):
-                flat.update(ckpt_mod._flatten(ckpt_mod.module_tree(v), f"params.{name}/"))
-            else:
-                flat[f"params.{name}"] = ckpt_mod._numpy(v)
+        shadows = self._whole_ema()
+        with mesh_mod.gathered(*self._trainables()):
+            for name, v in params.items():
+                if isinstance(v, nn.Module):
+                    flat.update(ckpt_mod._flatten(ckpt_mod.module_tree(v), f"params.{name}/"))
+                else:
+                    flat[f"params.{name}"] = ckpt_mod._numpy(v)
+            if self._frozen_sbg is not None:
+                flat.update(ckpt_mod._flatten(ckpt_mod.module_tree(self._frozen_sbg),
+                                              "frozen_sbg/"))
         names = [n for n, _ in steps_mod.named_trainable(params)]
-        opt_flat, opt_meta = ckpt_mod.optimizer_entries(self.state.optimizer, names)
+        opt_flat, opt_meta = ckpt_mod.optimizer_entries(self.state.optimizer, names,
+                                                        whole=mesh_mod.unshard)
         flat.update(opt_flat)
-        if self._frozen_sbg is not None:
-            flat.update(ckpt_mod._flatten(ckpt_mod.module_tree(self._frozen_sbg), "frozen_sbg/"))
         if self.ema is not None:
-            flat.update(ckpt_mod.tensor_entries("emastate/", self.ema.shadow))
+            flat.update(ckpt_mod.tensor_entries("emastate/", shadows))
         flat["gen_state"] = self.gen.get_state().numpy()
         for li, ent in self.ca_q_bn_stats.items():
             flat.update(ckpt_mod.tensor_entries(f"ca_q_bns/{li}/", ent))
@@ -780,33 +887,40 @@ class AdaPromptTrainer:
                 "last_teach_color": getattr(self, "_last_teach_color", None)}
         flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
         path = os.path.join(self.cfg.out_dir, f"trainer_state-{step}.npz")
-        np.savez(path, **flat)
+        if self._writer:
+            np.savez(path, **flat)
+        self._barrier()
         return path
 
     def load_full_state(self, path: str) -> dict:
         """Restore what save_full_state wrote onto this trainer's device, in
         place; the trainer must be built as the saving one was (the same
-        models, optimizer type, EMA and generator copy). Returns the meta."""
+        models, optimizer type, EMA and generator copy). Over a mesh each
+        rank reads the file and keeps its shards. Returns the meta."""
         data = np.load(path, allow_pickle=False)
         meta = json.loads(bytes(data["__meta__"]).decode())
         flat = {k: data[k] for k in data.files if k != "__meta__"}
         params = self.state.params
         # first: it refuses a state of another optimizer before anything moves
-        names = [n for n, _ in steps_mod.named_trainable(params)]
-        ckpt_mod.load_optimizer_entries(self.state.optimizer, names, flat, meta["optimizer"])
-        with torch.no_grad():
+        named = steps_mod.named_trainable(params)
+        ckpt_mod.load_optimizer_entries(self.state.optimizer, [n for n, _ in named], flat,
+                                        meta["optimizer"], local=mesh_mod.local_rows)
+        with torch.no_grad(), mesh_mod.gathered(*self._trainables(), writeback=True):
             for name, v in params.items():
                 if isinstance(v, nn.Module):
                     ckpt_mod.load_module_tree(
                         v, ckpt_mod._unflatten(ckpt_mod.group(flat, f"params.{name}/")))
                 else:
                     v.copy_(torch.as_tensor(flat[f"params.{name}"]))
+            if self._frozen_sbg is not None:
+                ckpt_mod.load_module_tree(
+                    self._frozen_sbg, ckpt_mod._unflatten(ckpt_mod.group(flat, "frozen_sbg/")))
         self.state.step = int(meta["state_step"])
-        if self._frozen_sbg is not None:
-            ckpt_mod.load_module_tree(self._frozen_sbg,
-                                      ckpt_mod._unflatten(ckpt_mod.group(flat, "frozen_sbg/")))
         if self.ema is not None:
-            ckpt_mod.load_tensor_entries("emastate/", self.ema.shadow, flat)
+            with torch.no_grad():
+                for n, p in named:
+                    self.ema.shadow[n].copy_(
+                        mesh_mod.local_rows(torch.as_tensor(flat["emastate/" + n]), p))
             self.ema.num_updates = int(meta["ema_num_updates"])
         self.gen.set_state(torch.from_numpy(flat["gen_state"]))
         self.rng.bit_generator.state = meta["rng_state"]
@@ -837,7 +951,7 @@ class AdaPromptTrainer:
         the colour of the last teacher-filter decision (green fresh
         teachable, red not teachable, purple reuse teachable; none before
         the first). Without `faceid` [1, 512] a random unit id is drawn from
-        the host stream. The pipeline is built once over the trainer's own
+        the host stream. Over a mesh every rank generates and rank 0 writes. The pipeline is built once over the trainer's own
         frozen UNet, VAE and text encoder."""
         from adaprompt_tpu_torch.pipeline import DEFAULT_NEGATIVE_PROMPT, StableDiffusionPipeline
         from adaprompt_tpu_torch.utils.png import write_png
@@ -865,5 +979,7 @@ class AdaPromptTrainer:
         if color is not None:
             imgs[:, :6], imgs[:, -6:] = color, color
             imgs[:, :, :6], imgs[:, :, -6:] = color, color
-        return write_png(os.path.join(self.cfg.out_dir, f"samples_gs-{step}.png"),
-                         np.concatenate(list(imgs), axis=1))
+        path = os.path.join(self.cfg.out_dir, f"samples_gs-{step}.png")
+        if self._writer:
+            write_png(path, np.concatenate(list(imgs), axis=1))
+        return path

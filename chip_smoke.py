@@ -20,7 +20,9 @@ detectors of every CLI, gen_face_masks and face_tools); img2img sampling
 the diffusers-format loaders under arc2face_gen, and the demo's REPL; the
 full-UNet reconstruction step (the UNet's own weights trained, or a context
 against the frozen UNet), the legacy Ada embedder, the class-delta functions
-and the training CLI's background overlays.
+and the training CLI's background overlays; multi-rank training and serving
+(parallel/mesh.py: the pipeline's and the trainer's distribute, the train
+CLI under torch.distributed.run, two gloo ranks sharing the card).
 
     python3 chip_smoke.py
 
@@ -263,7 +265,26 @@ Phases, in order (any failure exits non-zero without the final line):
      "cli_train_overlay_tar"), --overlay_prob 0.5, 2 recon steps: every
      composite equal to PIL's decode, BICUBIC resize and crop of its source
      pasted in numpy, launches as the rows imply;
- 19. print the kernels' JSON line (thirteen rows), the card's name and
+ 19. multi-rank training and serving, right after phase 18 and in its
+     temporary directory: (c) train.main under `torch.distributed.run
+     --nproc_per_node 1` (this script's `--rank-worker`, NCCL, --fsdp 1) over
+     phase 13's .ckpt and phase 14's subjects, Stage 1, bs 4, 2 steps,
+     --synthetic_faces, SIGUSR1 during step 0 ("dist_cli": as its rows imply)
+     and (d) two gloo ranks on the card (gloo over CUDA tensors): phase 5's
+     pipeline under distribute() for a DDIM-10 generate of the 2 prompts, one
+     a rank ("dist_gloo_generate": B1-B3 100 a rank), each rank's row
+     bit-equal to that row generated alone, then a trainer built as phase
+     6's under distribute(fsdp=2), its first train_step ("dist_gloo_train":
+     B1 30, B3 30, B4 9; the loss bit-equal to phase 6's, the gradient norm
+     within 4x phase 12's spread) start as workers of their own; meanwhile, in a world of
+     one NCCL rank in this process: (a) phase 5's pipeline under
+     distribute(), DDIM-50 within one level of phase 5's images
+     ("dist_generate": B1-B3 500); (b) phase 12's saved state in a trainer
+     built as phase 6's under distribute(fsdp=1), the step phase 12's runs
+     took first ("dist_train": the loss bit-equal, the gradient norm within
+     4x their spread), a save under the mesh reloaded bit-equal. A rank that
+     fails fails the phase; the process group is destroyed at its end;
+ 20. print the kernels' JSON line (thirteen rows), the card's name and
      power limit, and the final {"ok": true, "device": ...} line.
 
 Needs a CUDA card; imports nothing of JAX or of the JAX package.
@@ -274,8 +295,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BF16_FLOPS = 989e12     # dense, data sheet (SXM, 700 W)
@@ -312,6 +335,12 @@ CONV_TOL = 2e-2         # the three 3x3 conv kernels: max|kernel - plain| / max|
 PERSONAL_PROMPT = "portrait of a z person"
 PERSONAL_IMAGES = 2     # UNet batch 4 with CFG, as the txt2img phase
 PERSONAL_SUBJECTS = 5   # timed personalizations (3 photos each) after one warm-up
+
+
+# what phase 19 takes up of earlier phases: phase 5's DDIM-50 images, phase
+# 6's first step, and phase 12's saved full state with its raw batches and
+# its resumed runs' first steps (the file kept in KEEP["dir"])
+KEEP = {}
 
 
 def log(msg):
@@ -1892,6 +1921,7 @@ def phase_generate():
         f"image std {imgs.std():.2f}; launches {nz(launches)}")
     if imgs.shape != (len(PROMPTS), 512, 512, 3) or imgs.dtype != np.uint8 or not imgs.std() > 0:
         raise AssertionError(f"bad images: {imgs.shape} {imgs.dtype} std {imgs.std()}")
+    KEEP["generate_images"] = imgs
     want = {n: 0 for n in launches}            # no gradient, no int8, no fused_conv
     want.update(flash_attention_fwd=10 * steps, fused_cross_attention=10 * steps,
                 geglu_fwd=10 * steps)
@@ -2001,6 +2031,7 @@ def phase_train():
     log(f"phase 6 train: {TRAIN_STEPS} steps bs 4 512x512 bf16 in {sum(times):.3f} s "
         f"(step times {[round(s, 3) for s in times]}); peak memory {peak:.2f} GiB; "
         f"SBG moved after the first update: {moved}; launches {nz(launches)}")
+    KEEP["train_step0"] = rows[0]
     nds = set(teachers)
     if not (1 in nds and max(nds) > 1):
         raise AssertionError(f"the steps drew ND {teachers}; need ND=1 and ND>1")
@@ -2617,7 +2648,8 @@ def phase_resume(tr, step0):
     launches = counts[0]                  # the path's counted run: the first resumed one
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tr.batch_iterator = source
-    os.remove(path)
+    KEEP["resume"] = {"path": shutil.move(path, KEEP["dir"]), "raws": raws, "step": step,
+                      "cfg": tr.cfg, "first": [rows[0] for rows, _, _ in runs[1:]]}
     (rows0, st0, p0), (rows1, st1, p1) = runs[:2]
     key = "loss_arc2face_distill"
     pairs = [(a, b) for i, a in enumerate(runs[1:]) for b in runs[i + 2:]]
@@ -3169,7 +3201,8 @@ def _run_train_cli(path, argv, card, usr1_step=None):
               "save_checkpoint": _PatchedCalls(AdaPromptTrainer, "save_checkpoint"),
               "save_full_state": _PatchedCalls(AdaPromptTrainer, "save_full_state"),
               "load_full_state": _PatchedCalls(AdaPromptTrainer, "load_full_state"),
-              "load_checkpoint": _PatchedCalls(AdaPromptTrainer, "load_checkpoint")}
+              "load_checkpoint": _PatchedCalls(AdaPromptTrainer, "load_checkpoint"),
+              "distribute": _PatchedCalls(AdaPromptTrainer, "distribute")}
     for tm in timers.values():
         tm.__enter__()
     timed_step = AdaPromptTrainer.train_step
@@ -3211,10 +3244,14 @@ def _run_train_cli(path, argv, card, usr1_step=None):
              for k in ("save_checkpoint", "save_full_state", "log_samples") if timers[k].calls}
     steps = [round(c[0], 3) for c in timers["step"].calls + timers["static_step"].calls]
     files = sorted(os.listdir(out))
-    log(f"phase {16 if path in _DETECT else 18 if path in _PERSONAL else 14} {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
+    log(f"phase {_cli_phase(path)} {path}: main(argv) to its last file {seconds:.3f} s; loads {loads} s; step "
         f"times {steps} s; samples and saves {saves} s; peak memory {peak:.2f} GiB; files "
         f"{files}; launches {nz(launches)}; {card}")
     return rows, timers, seconds, launches
+
+
+def _cli_phase(path):
+    return 16 if path in _DETECT else 18 if path in _PERSONAL else 19 if path in _DIST else 14
 
 
 def _check_train_rows(path, rows, steps):
@@ -3226,7 +3263,7 @@ def _check_train_rows(path, rows, steps):
         if not skipped and not (math.isfinite(loss) and math.isfinite(r["grad_norm"])
                                 and r["grad_norm"] > 0):
             raise AssertionError(f"{path}: bad metrics {r}")
-    log(f"phase {16 if path in _DETECT else 18 if path in _PERSONAL else 14} {path} steps: " + "; ".join(
+    log(f"phase {_cli_phase(path)} {path} steps: " + "; ".join(
         f"{r['step']} {r['iter_type']}"
         + (f" ND={r['num_denoising_steps']} bs={r['distill_bs']}" if "distill_bs" in r else "")
         + (f" loss={r.get('loss', r.get('loss_arc2face_distill', r.get('loss_compos'))):.6f}"
@@ -4752,7 +4789,7 @@ def phase_personalization(tmp, root):
 
 
 def phase_clis_and_train_cli():
-    """Phases 13 to 18 in one temporary directory, removed at the end."""
+    """Phases 13 to 19 in one temporary directory, removed at the end."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -4764,9 +4801,390 @@ def phase_clis_and_train_cli():
         launches.update(phase_detect(tmp, files, root))
         launches.update(phase_img2img(tmp, files))
         launches.update(phase_personalization(tmp, root))
+        launches.update(phase_distributed(tmp, files, root))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: multi-rank training and serving (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+DIST_GLOO_STEPS = 10       # the gloo pair's generate: DDIM-10, its two ranks on one card
+DIST_CLI_STEPS = 2         # the train CLI under torchrun: bs 4, SIGUSR1 during step 0
+DIST_WAIT_S = 600          # the rank workers' limit, from their start
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun(nproc, out, *args):
+    """This script's rank worker (`--rank-worker`) in nproc ranks under
+    torch.distributed.run, its rendezvous on localhost, its output in
+    out.log; in a session of its own, so that every process it starts can
+    be stopped together."""
+    import os
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--rank-worker", out, *args]
+    return subprocess.Popen(cmd, stdout=open(out + ".log", "w"), stderr=subprocess.STDOUT,
+                            start_new_session=True)
+
+
+def _stop(proc):
+    """End a worker still running: SIGTERM to torch.distributed.run, which
+    ends its ranks (each in a session of its own), then SIGKILL to its
+    session if it has not ended in 30 s."""
+    import os
+    import signal
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _wait_ranks(procs, t_start):
+    """Wait for the workers; a rank that failed (or a worker past
+    DIST_WAIT_S) fails the phase with the tail of its log."""
+    for name, (proc, out) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DIST_WAIT_S - (time.perf_counter() - t_start)))
+        except subprocess.TimeoutExpired:
+            _stop(proc)
+            rc = "timeout"
+        if rc != 0:
+            with open(out + ".log") as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"phase 19 {name}: the rank worker exited with {rc}:\n{tail}")
+
+
+def _dist_generate(card):
+    """(a) Phase 5's pipeline (the same seeds) under distribute() on the
+    NCCL world of one: DDIM-50 of the 2 prompts within one level of phase
+    5's images. Returns its launches and what the gloo pair's
+    DDIM-DIST_GLOO_STEPS generate is held against: the whole batch's images
+    and each rank's row generated alone (the pair's shapes: UNet batch 2)."""
+    import numpy as np
+    import torch
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init
+    from adaprompt_tpu_torch.pipeline import (DEFAULT_NEGATIVE_PROMPT, StableDiffusionPipeline,
+                                              _generate)
+    pipe = StableDiffusionPipeline.random_init(0, device="cuda", dtype=torch.bfloat16)
+    randomize_zero_init(pipe.unet, torch.Generator(device="cuda").manual_seed(2))
+    pipe.distribute()
+    mesh = dict(zip(pipe.mesh.mesh_dim_names, pipe.mesh.shape))
+    zero_counts()
+    t0 = time.perf_counter()
+    imgs = pipe.generate(PROMPTS, num_steps=50, height=512, width=512, seed=0)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    ref = KEEP["generate_images"]
+    diff = int(np.abs(imgs.astype(np.int32) - ref.astype(np.int32)).max())
+    log(f"phase 19 dist_generate: mesh {mesh} over NCCL; {len(PROMPTS)} prompts 512x512 DDIM-50 "
+        f"in {seconds:.3f} s; max |distributed - phase 5| {diff} level(s) "
+        f"({'bit-equal' if diff == 0 else 'not bit-equal'}); launches {nz(launches)}; {card}")
+    if imgs.shape != ref.shape or diff > 1:
+        raise AssertionError(f"distributed generate {imgs.shape} off phase 5's by {diff} levels")
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=500, fused_cross_attention=500, geglu_fwd=500)
+    if launches != want:
+        raise AssertionError(f"dist_generate launches {nz(launches)}, expected {nz(want)}")
+    small = pipe.generate(PROMPTS, num_steps=DIST_GLOO_STEPS, height=512, width=512, seed=0)
+    # generate()'s inputs, each row through the sampler alone
+    cond = pipe.encode_prompt(PROMPTS)[None]
+    uncond = pipe.encode_prompt([DEFAULT_NEGATIVE_PROMPT] * len(PROMPTS))[None]
+    x_T = torch.randn((len(PROMPTS), 64, 64, 4), generator=torch.Generator(device="cuda")
+                      .manual_seed(0), device="cuda")
+    rows = np.concatenate([_generate(pipe.unet, pipe.vae, cond[:, i:i + 1], uncond[:, i:i + 1],
+                                     x_T[i:i + 1], DIST_GLOO_STEPS, (4.0, 1.0), False, pipe.sched,
+                                     pipe.compute_dtype, "ddim", pipe.unet_cfg).cpu().numpy()
+                           for i in range(len(PROMPTS))])
+    del pipe
+    torch.cuda.empty_cache()
+    return {"dist_generate": launches}, (small, rows)
+
+
+def _trainer_snapshot(tr):
+    """The generator's parameters and the optimizer's slots, accumulator and scalars."""
+    opt = tr.state.optimizer
+    snap = {f"param/{n}": p.detach().clone()
+            for n, p in tr.state.params["subj_basis"].named_parameters()}
+    for i, p in enumerate(opt.params):
+        snap[f"acc/{i}"] = opt.acc[i].clone()
+        snap.update({f"slot/{i}/{k}": t.clone() for k, t in opt.inner.state[p].items()})
+    snap.update({f"scalar/{a}": getattr(opt.inner, a).clone() for a in opt.inner.SCALARS})
+    return snap
+
+
+def _dist_train(tmp, card):
+    """(b) Phase 12's full state in a Stage-1 trainer built as phase 6's,
+    distribute(fsdp=1) on the NCCL world of one, the step phase 12's runs
+    took first (ND=1) on the same raw batch: its loss bit-equal to theirs,
+    its gradient norm within 4x their spread (B4's dq atomics) plus 1e-6
+    of it; a save under the mesh reloads bit-equal."""
+    import os
+    import torch
+    from adaprompt_tpu_torch.train.trainer import AdaPromptTrainer, synthetic_raw_batches
+    keep = KEEP["resume"]
+    # phase 12's config (phase 9 set ND = 1 in it), out_dir aside
+    cfg = dataclasses.replace(keep["cfg"], out_dir=os.path.join(tmp, "dist_train"))
+    tr = AdaPromptTrainer.random_init(4, synthetic_raw_batches(0), cfg, device="cuda")
+    t0 = time.perf_counter()
+    tr.load_full_state(keep["path"])
+    load_s = time.perf_counter() - t0
+    mesh = tr.distribute(fsdp=1)
+    tr.batch_iterator = iter(list(keep["raws"]))
+    zero_counts()
+    t0 = time.perf_counter()
+    m = tr.train_step(keep["step"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_counts()
+    key, first = "loss_arc2face_distill", keep["first"]
+    loss, gn = float(m[key]), float(m["grad_norm"])
+    bound = (4 * _atomics_spread(first) + 1e-6) * first[0]["grad_norm"]
+    log(f"phase 19 dist_train: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}; phase 12's "
+        f"state loaded in {load_s:.3f} s; step {keep['step']} {m['iter_type']} "
+        f"ND={m.get('num_denoising_steps')} in {step_s:.3f} s: {key} {loss!r} (phase 12's "
+        f"{first[0][key]!r}), grad_norm {gn!r} (phase 12's {first[0]['grad_norm']!r}, "
+        f"|difference| {abs(gn - first[0]['grad_norm']):.4e}, bound {bound:.4e} = 4 x the "
+        f"{len(first)} resumed runs' spread + 1e-6 of it); launches {nz(launches)}; {card}")
+    if (m["iter_type"], m.get("num_denoising_steps")) != (first[0]["iter_type"],
+                                                         first[0].get("num_denoising_steps")):
+        raise AssertionError(f"dist_train took {m['iter_type']}, phase 12 {first[0]['iter_type']}")
+    if loss != first[0][key] or abs(gn - first[0]["grad_norm"]) > bound:
+        raise AssertionError("the distributed step strays from phase 12's resumed steps")
+    want = {n: 0 for n in launches}
+    want.update(flash_attention_fwd=30, flash_attention_bwd=FLASH_BWD_PER_PASS, geglu_fwd=30)
+    if launches != want:
+        raise AssertionError(f"dist_train launches {nz(launches)}, expected {nz(want)}")
+    before = _trainer_snapshot(tr)
+    t0 = time.perf_counter()
+    path = tr.save_full_state(keep["step"] + 1)
+    save_s = time.perf_counter() - t0
+    tr.load_full_state(path)
+    after = _trainer_snapshot(tr)
+    unequal = [k for k in before if not torch.equal(before[k], after[k])]
+    log(f"phase 19 dist_train save under the mesh: {os.path.getsize(path) / 2 ** 30:.3f} GiB in "
+        f"{save_s:.3f} s; reloaded: {len(before)} tensors, {len(unequal)} not bit-equal")
+    if unequal:
+        raise AssertionError(f"reloaded state differs in {unequal[:5]}")
+    os.remove(path)
+    del tr
+    torch.cuda.empty_cache()
+    return {"dist_train": launches}
+
+
+def _dist_cli_check(out, d, card):
+    """(c) The train CLI's rows, files and launches in the world of one."""
+    import os
+    res = _read_json(out + "-0.json")
+    rows, launches = res["rows"], res["launches"]
+    _check_train_rows("dist_cli", rows, range(DIST_CLI_STEPS))
+    _check_train_launches("dist_cli", launches, _train_cli_want(rows))
+    files = set(os.listdir(d))
+    want = {"trainer_state-1.npz", f"embeddings_gs-{DIST_CLI_STEPS}.npz", "metrics.jsonl"}
+    log(f"phase 19 dist_cli: torchrun --nproc_per_node 1, {res['backend']} world of "
+        f"{res['world']}, mesh {res['mesh']}; main(argv) {res['seconds']:.3f} s; files {sorted(files)}; "
+        f"launches {nz(launches)}; {card}")
+    if not want <= files or res["mesh"] != {"dp": 1, "fsdp": 1} or res["backend"] != "nccl":
+        raise AssertionError(f"dist_cli wrote {sorted(files)} under {res['mesh']}")
+    return {"dist_cli": launches}
+
+
+def _atomics_spread(rows):
+    """The largest difference of two gradient norms among rows of one step
+    (phase 12's resumed runs: B4's dq atomics), relative to the first."""
+    gn = [r["grad_norm"] for r in rows]
+    return max(abs(a - b) for i, a in enumerate(gn) for b in gn[i + 1:]) / gn[0]
+
+
+def _dist_gloo_check(out, refs, card):
+    """(d) The gloo pair: each rank's half of the DDIM-DIST_GLOO_STEPS
+    generate, gathered whole on both, within one level of (a)'s rows
+    generated alone (the same shapes; the whole batch's images, UNet batch 4,
+    are logged beside), and the fsdp=2 step equal to phase 6's first step:
+    the loss bit for bit, the gradient norm within 4x phase 12's relative
+    spread (B4's atomics) plus 1e-6 of it."""
+    import numpy as np
+    small, rows = refs
+    ranks = [_read_json(f"{out}-{r}.json") for r in range(2)]
+    imgs = [np.load(f"{out}-{r}-images.npy") for r in range(2)]
+    diff = int(np.abs(imgs[0].astype(np.int32) - rows.astype(np.int32)).max())
+    diff_batch = int(np.abs(imgs[0].astype(np.int32) - small.astype(np.int32)).max())
+    step0 = KEEP["train_step0"]
+    bound = (4 * _atomics_spread(KEEP["resume"]["first"]) + 1e-6) * step0["grad_norm"]
+    key = "loss_arc2face_distill"
+    log(f"phase 19 dist_gloo: 2 ranks on one card over gloo (CUDA tensors); generate mesh "
+        f"{ranks[0]['gen_mesh']}, DDIM-{DIST_GLOO_STEPS} of {len(PROMPTS)} prompts (one a rank) "
+        f"in {[r['gen_s'] for r in ranks]} s, max |gathered - each row alone| {diff} level(s) "
+        f"({'bit-equal' if diff == 0 else 'not bit-equal'}), against the world of one's batch of "
+        f"{len(PROMPTS)} {diff_batch} level(s); "
+        f"fsdp=2 step mesh {ranks[0]['train_mesh']}, {ranks[0]['sharded']} sharded leaves of "
+        f"the generator, distribute {[r['distribute_s'] for r in ranks]} s, step "
+        f"{[r['step_s'] for r in ranks]} s: {key} {ranks[0]['row'][key]!r} (phase 6's "
+        f"{step0[key]!r}), grad_norm {ranks[0]['row']['grad_norm']!r} (phase 6's "
+        f"{step0['grad_norm']!r}, |difference| "
+        f"{abs(ranks[0]['row']['grad_norm'] - step0['grad_norm']):.4e}, bound {bound:.4e}); "
+        f"launches a rank: generate {nz(ranks[0]['gen_launches'])}, "
+        f"step {nz(ranks[0]['train_launches'])}; {card}")
+    if not np.array_equal(imgs[0], imgs[1]) or diff > 1:
+        raise AssertionError(f"the gloo pair's images: ranks equal {np.array_equal(*imgs)}, "
+                             f"{diff} levels off the rows generated alone")
+    want_gen = {n: 0 for n in ranks[0]["gen_launches"]}
+    want_gen.update(flash_attention_fwd=10 * DIST_GLOO_STEPS,
+                    fused_cross_attention=10 * DIST_GLOO_STEPS, geglu_fwd=10 * DIST_GLOO_STEPS)
+    want_train = {n: 0 for n in ranks[0]["train_launches"]}
+    want_train.update(flash_attention_fwd=30, flash_attention_bwd=FLASH_BWD_PER_PASS,
+                      geglu_fwd=30)
+    for r in ranks:
+        row = r["row"]
+        if r["gen_launches"] != want_gen or r["train_launches"] != want_train:
+            raise AssertionError(f"gloo rank launches {nz(r['gen_launches'])} / "
+                                 f"{nz(r['train_launches'])}")
+        if (row[key] != step0[key] or row["num_denoising_steps"] != step0["num_denoising_steps"]
+                or abs(row["grad_norm"] - step0["grad_norm"]) > bound):
+            raise AssertionError(f"the fsdp=2 step {row} is not phase 6's first {step0}")
+        if not r["sharded"]:
+            raise AssertionError("fsdp=2 sharded none of the generator's leaves")
+    return {"dist_gloo_generate": ranks[0]["gen_launches"],
+            "dist_gloo_train": ranks[0]["train_launches"]}
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_distributed(tmp, files, root):
+    """Phase 19, after phase 18 in its temporary directory: (c) the train
+    CLI under torchrun (one NCCL rank) and (d) two gloo ranks sharing the
+    card start as workers of their own; meanwhile (a) and (b) run here in a
+    world of one NCCL rank, which the phase destroys at its end. Returns
+    {path: launch counts}."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from adaprompt_tpu_torch.parallel import mesh as mesh_mod
+    card = card_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "dist")
+    os.makedirs(out)
+    cli_dir = os.path.join(out, "cli_run")
+    # one 4 GB load, not phase 14's three files: the SD UNet as its own teacher and
+    # random face ids (the smoke-run opt-in), so that the run ends beside (a) and (b)
+    cli_argv = ["--ckpt", files["sd"], "--data_roots", root, "--synthetic_faces",
+                "--stage", "1", "--bs", "4", "--num_steps", str(DIST_CLI_STEPS),
+                "--ckpt_every", str(DIST_CLI_STEPS), "--seed", "19", "--fsdp", "1",
+                "--out_dir", cli_dir]
+    procs = {"cli": (_torchrun(1, os.path.join(out, "cli"), "cli", *cli_argv),
+                     os.path.join(out, "cli")),
+             "gloo": (_torchrun(2, os.path.join(out, "gloo"), "gloo"), os.path.join(out, "gloo"))}
+    by_path = {}
+    try:
+        mesh_mod.init_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}",
+                                  rank=0, world_size=1)
+        launches, refs = _dist_generate(card)
+        by_path.update(launches)
+        by_path.update(_dist_train(tmp, card))
+        _wait_ranks(procs, t_phase)
+        by_path.update(_dist_cli_check(os.path.join(out, "cli"), cli_dir, card))
+        by_path.update(_dist_gloo_check(os.path.join(out, "gloo"), refs, card))
+    finally:
+        for proc, _ in procs.values():
+            _stop(proc)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return by_path
+
+
+def _worker_cli(argv):
+    """(c)'s rank: cli.train.main(argv) (SIGUSR1 50 ms into step 0), its
+    metrics rows and launches."""
+    import torch.distributed as dist
+    rows, timers, seconds, launches = _run_train_cli("dist_cli", argv, card_line(), usr1_step=0)
+    (_, _, mesh, _), = timers["distribute"].calls
+    return {"rows": rows, "launches": launches, "seconds": seconds,
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+
+def _worker_gloo(out, rank):
+    """(d)'s rank, on cuda:0 beside the other over gloo: the pipeline of
+    phase 5 (the same seeds) under distribute(), a DDIM-DIST_GLOO_STEPS
+    generate of the 2 prompts (one a rank, the images gathered); then a
+    Stage-1 trainer built as phase 6's under distribute(fsdp=2), its first
+    train_step."""
+    import numpy as np
+    import tempfile
+    import torch
+    from adaprompt_tpu_torch.ops.layers import randomize_zero_init
+    from adaprompt_tpu_torch.parallel import mesh as mesh_mod
+    from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline
+    from adaprompt_tpu_torch.train.trainer import (AdaPromptTrainer, TrainerConfig,
+                                                   synthetic_raw_batches)
+    dev = mesh_mod.init_distributed("cuda:0", backend="gloo")
+    res = {}
+    pipe = StableDiffusionPipeline.random_init(0, device=dev, dtype=torch.bfloat16)
+    randomize_zero_init(pipe.unet, torch.Generator(device=dev).manual_seed(2))
+    pipe.distribute(mesh_mod.make_mesh(device_type="cuda"))
+    res["gen_mesh"] = dict(zip(pipe.mesh.mesh_dim_names, pipe.mesh.shape))
+    zero_counts()
+    t0 = time.perf_counter()
+    imgs = pipe.generate(PROMPTS, num_steps=DIST_GLOO_STEPS, height=512, width=512, seed=0)
+    res["gen_s"] = round(time.perf_counter() - t0, 3)
+    res["gen_launches"] = read_counts()
+    np.save(f"{out}-{rank}-images.npy", imgs)
+    del pipe
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        tr = AdaPromptTrainer.random_init(4, synthetic_raw_batches(0),
+                                          TrainerConfig(seed=0, out_dir=d), device=dev)
+        t0 = time.perf_counter()
+        mesh = tr.distribute(mesh_mod.make_mesh(fsdp=2, device_type="cuda"))
+        res["distribute_s"] = round(time.perf_counter() - t0, 3)
+        res["train_mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        res["sharded"] = sum(mesh_mod.is_sharded(p)
+                             for p in tr.state.params["subj_basis"].parameters())
+        zero_counts()
+        t0 = time.perf_counter()
+        m = tr.train_step(0)
+        torch.cuda.synchronize()
+        res["step_s"] = round(time.perf_counter() - t0, 3)
+        res["train_launches"] = read_counts()
+        res["row"] = {k: (float(v) if isinstance(v, torch.Tensor) else v) for k, v in m.items()}
+        tr._metrics_file.close()
+    return res
+
+
+def rank_worker(argv) -> int:
+    """`chip_smoke.py --rank-worker <out> cli <train argv...>` or `... <out>
+    gloo`: one rank of phase 19's workers, started by torch.distributed.run;
+    writes <out>-<rank>.json."""
+    import os
+    import torch
+    import torch.distributed as dist
+    out, kind, rest = argv[0], argv[1], argv[2:]
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = _worker_cli(rest) if kind == "cli" else _worker_gloo(out, rank)
+        with open(f"{out}-{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
 
 
 _GEN_TURNS = ("generate_default", "generate_ilv", "generate_nomax", "generate_exp2")
@@ -4782,27 +5200,31 @@ _IMG2IMG = ("cli_translate", "cli_arc2face_gen_ldm", "cli_arc2face_gen_diffusers
             "cli_demo")                                                                  # 17
 _PERSONAL = ("unet_recon", "unet_recon_ctx", "cli_train_overlay_dir",
              "cli_train_overlay_tar")                                                   # 18
+_DIST_TRAIN = ("dist_train", "dist_cli", "dist_gloo_train")                             # 19
+_DIST_GENERATE = ("dist_generate", "dist_gloo_generate")
+_DIST = _DIST_GENERATE + _DIST_TRAIN
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces, the paths that launch it)
     "flash_attention_fwd": ("adaprompt_tpu_torch/csrc/flash_attention.cu",
                             "adaprompt_tpu/ops/attention.py:176",
                             ("generate", "train", "serve_int8", "serve_bf16", "personalize",
                              "personalize_unfused", "generate_default", "generate_exp2")
                             + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG + _PERSONAL),
+                            + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG + _PERSONAL
+                            + _DIST),
     "flash_attention_bwd": ("adaprompt_tpu_torch/csrc/flash_attention_bwd.cu",
                             "adaprompt_tpu/ops/attention.py:314",
                             ("train",) + _TRAIN_TURNS + _RECON + ("compos",) + _STATE
-                            + _TRAIN_CLI + ("cli_train_detector",) + _PERSONAL),
+                            + _TRAIN_CLI + ("cli_train_detector",) + _PERSONAL + _DIST_TRAIN),
     "fused_cross_attention": ("adaprompt_tpu_torch/csrc/fused_cross_attention.cu",
                               "adaprompt_tpu/ops/attention.py:610",
                               ("generate", "serve_bf16", "personalize", "personalize_unfused")
                               + _GEN_TURNS + ("log_samples",) + _CLIS
                               + ("cli_train_s1", "cli_train_resume") + _EVAL_CLIS
-                              + ("cli_infer_retinaface",) + _IMG2IMG),
+                              + ("cli_infer_retinaface",) + _IMG2IMG + _DIST_GENERATE),
     "geglu_fwd": ("adaprompt_tpu_torch/csrc/geglu.cu", "adaprompt_tpu/ops/geglu.py:55",
                   ("generate", "train", "serve_bf16", "personalize", "personalize_unfused")
                   + _GEN_TURNS + _TRAIN_TURNS + _RECON + _COMPOS + _STATE + ("log_samples",)
-                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG + _PERSONAL),
+                  + _CLIS + _TRAIN_CLI + _EVAL_CLIS + _DETECT + _IMG2IMG + _PERSONAL + _DIST),
     "fused_cross_attention_int8": ("adaprompt_tpu_torch/csrc/fused_cross_attention_int8.cu",
                                    "adaprompt_tpu/ops/attention.py:664", ("serve_int8",)),
     "geglu_int8": ("adaprompt_tpu_torch/csrc/geglu_int8.cu", "adaprompt_tpu/ops/geglu.py:139",
@@ -4900,16 +5322,20 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    phase_build()
-    results = phase_kernels()
-    phase_unet_check()
-    phase_unet_grad()
-    phase_vision_check()
-    launches = phase_generate()
-    launches.update(phase_train())
-    launches.update(phase_serve())
-    launches.update(phase_personalize())
-    launches.update(phase_clis_and_train_cli())
+    KEEP["dir"] = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    try:
+        phase_build()
+        results = phase_kernels()
+        phase_unet_check()
+        phase_unet_grad()
+        phase_vision_check()
+        launches = phase_generate()
+        launches.update(phase_train())
+        launches.update(phase_serve())
+        launches.update(phase_personalize())
+        launches.update(phase_clis_and_train_cli())
+    finally:
+        shutil.rmtree(KEEP["dir"], ignore_errors=True)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_line(results, launches)))
     print(card_line())
@@ -4920,4 +5346,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

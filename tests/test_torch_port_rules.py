@@ -380,6 +380,63 @@ def test_personalization_and_overlay_modules_fall_under_the_rules():
             assert not re.search(r"\.cuda\(|torch\.cuda\.|[\"']cuda[\"']", text), m
 
 
+PARALLEL_MODULES = ("adaprompt_tpu_torch.parallel", "adaprompt_tpu_torch.parallel.mesh")
+
+
+def test_parallel_modules_fall_under_the_rules():
+    """parallel/: each module is found by the package walk; imported in a
+    fresh interpreter it brings in neither jax nor the JAX package, and its
+    top-level imports are torch, numpy and the standard library only.
+    Without an initialised process group make_mesh raises, and so do the
+    trainer's and the pipeline's distribute, rather than make a world of
+    one; init_distributed on a host without CUDA raises rather than fall
+    back to gloo on the CPU."""
+    import ast
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(adaprompt_tpu_torch.__path__,
+                                                     "adaprompt_tpu_torch.")}
+    assert set(PARALLEL_MODULES) <= walked
+    banned = ("jax", "jaxlib", "adaprompt_tpu")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    code = ("import importlib, sys\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in PARALLEL_MODULES)
+            + "import torch.distributed as dist\n"
+            "from adaprompt_tpu_torch.parallel import mesh\n"
+            "from adaprompt_tpu_torch.pipeline import StableDiffusionPipeline\n"
+            "for fn in (mesh.make_mesh, lambda: StableDiffusionPipeline.distribute(None)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'initialised process group' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit('no error')\n"
+            "assert not dist.is_initialized()\n"
+            "import torch\n"
+            "if not torch.cuda.is_available():\n"
+            "    try:\n"
+            "        mesh.init_distributed(rank=0, world_size=1)\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'CUDA is not available' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit('no error')\n"
+            "    assert not dist.is_initialized()\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {banned!r}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    stdlib = set(sys.stdlib_module_names) | {"__future__"}
+    for m in PARALLEL_MODULES:
+        path = os.path.join(ROOT, *m.split("."))
+        text = open(path + ("/__init__.py" if os.path.isdir(path) else ".py")).read()
+        top = [n for n in ast.parse(text).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert {x.split(".")[0] for x in names} <= stdlib | {"torch", "numpy"}, (m, names)
+        assert "import jax" not in text and "adaprompt_tpu." not in text, m
+
+
 def _int8_cross_args(x, wq, k, v, wo, bo):
     """The fused cross-attention's arguments with int8 weights and scales."""
     return (x, *quantize_weight(wq), k, v, *quantize_weight(wo), bo)

@@ -316,7 +316,8 @@ def test_stage2_refusals_and_skips(env, tmp_path):
     """Compositional training without a scorer and without the opt-in is
     refused with JAX's ValueError; EMA builds under Stage-2, a full state
     loads back into its trainer and is refused, before anything moves, by a
-    trainer with another optimizer; `distribute` still raises;
+    trainer with another optimizer; `distribute` raises without an
+    initialised process group;
     prepare_compos_batch returns None for prompts without the placeholder,
     as JAX's does, and such a step falls through to the coins."""
     cfg = dict(CFG, no_teacher_filter=False)
@@ -341,7 +342,7 @@ def test_stage2_refusals_and_skips(env, tmp_path):
     with pytest.raises(ValueError, match="Prodigy"):
         adamw.load_full_state(str(tmp_path / "t" / "trainer_state-1.npz"))
     assert all(torch.equal(p, before[n]) for n, p in sbg.named_parameters())
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(RuntimeError, match="initialised process group"):
         ttr.distribute()
     jtr = _jax_trainer(env, tmp_path / "j")
     raw = next(ttrainer.synthetic_raw_batches(0, batch_size=2, size=32))

@@ -188,8 +188,13 @@ def test_refusals_match_jax(env, clis, tmp_path, monkeypatch, case):
         ttrain.main(COMMON + argv)
 
 
-def test_multi_card_raises(env, clis, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-card"):
+def test_multi_card_raises(env, clis, tmp_path, monkeypatch):
+    """--fsdp 2 in a process that torchrun did not start: the CLI refuses
+    rather than train undistributed (tests/test_torch_distributed_train_cli.py
+    runs it under two ranks)."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="launch the ranks with torchrun"):
         ttrain.main(COMMON + ["--data_roots", env["root"], "--out_dir", str(tmp_path),
                               "--synthetic_faces", "--fsdp", "2", "--num_steps", "1"])
 

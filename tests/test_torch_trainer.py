@@ -162,8 +162,8 @@ def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
     ValueErrors, with its messages (compositional training without a teacher
     filter, no face embedder, an optimizer other than Prodigy and AdamW);
     and what it builds since the trainer's state is ported (EMA, also under
-    the compositional iterations, and the AdamW optimizer), where only
-    `distribute` still raises."""
+    the compositional iterations, and the AdamW optimizer), whose
+    `distribute` refuses to run without an initialised process group."""
     cfg = dict(out_dir=str(tmp_path), **kw)
     face = _StubEmbedder() if embedder else None
     if error is None:
@@ -174,7 +174,7 @@ def test_trainer_refusals(env, tmp_path, kw, embedder, error, words):
             assert tr.ema is not None and tr.ema.num_updates == 0
         else:
             assert type(tr.state.optimizer.inner).__name__ == words
-        with pytest.raises(NotImplementedError, match="multi-card"):
+        with pytest.raises(RuntimeError, match="initialised process group"):
             tr.distribute()
         return
     with pytest.raises(error, match=words) as port:
